@@ -1,0 +1,138 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+``library()`` compiles every ``phaneron_tpu_torch/csrc/*.cu`` with nvcc
+into one shared library with a plain C interface, under ``build/kernels/``
+at the repository root, and loads it.  The file name carries a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads the existing library.  Nothing but the package's own sources goes
+into the build.  A failed build raises with nvcc's output.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: nvcc would
+otherwise contract ``a*b + c`` into one fused multiply-add, which rounds
+differently from the plain PyTorch versions and the JAX reference.
+Division and ``powf`` stay IEEE / full precision (no fast-math).
+
+Importing this module builds nothing, so the package imports cleanly on
+a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from functools import lru_cache
+from pathlib import Path
+
+__all__ = ["library", "build_dir", "sources", "NVCC_FLAGS", "BuildInfo", "build_info"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every exported function: pointers and the stream as
+# c_void_p (a plain int would be cut to 32 bits), sizes as c_int
+_SIGNATURES = {
+    "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
+    "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "phn_warp": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+class BuildInfo:
+    """What the last ``library()`` call did: the library path, whether it
+    compiled (False: an existing build was loaded), the seconds it took
+    and nvcc's output (ptxas register and spill counts)."""
+
+    def __init__(self, path: Path, compiled: bool, seconds: float, log: str):
+        self.path, self.compiled, self.seconds, self.log = path, compiled, seconds, log
+
+
+def build_dir() -> Path:
+    """build/kernels/ at the root of the checkout holding the package."""
+    return _PKG.parent / "build" / "kernels"
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path, srcs: list[Path]) -> str:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(p) for p in srcs if p.suffix == ".cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    log = proc.stdout + proc.stderr
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+@lru_cache(maxsize=1)
+def _load() -> tuple[ctypes.CDLL, BuildInfo]:
+    t0 = time.perf_counter()
+    srcs = sources()
+    out = build_dir() / f"libphaneron_kernels-{_digest(srcs)}.so"
+    compiled = not out.exists()
+    if compiled:
+        log = _compile(out, srcs)
+    else:
+        log_path = out.with_suffix(".log")
+        log = log_path.read_text() if log_path.exists() else ""
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib, BuildInfo(out, compiled, time.perf_counter() - t0, log)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on the first call of the process."""
+    return _load()[0]
+
+
+def build_info() -> BuildInfo:
+    return _load()[1]

@@ -1,0 +1,170 @@
+"""Geometric transforms: the 2-D DVE (anchor/fill/rotate/flip).
+
+Counterpart of phaneron_tpu/ops/geometry.py.  The reference samples with
+normalized coordinates, bilinear filtering and transparent-black borders
+(transform.ts:26-59):
+
+- the 3x3 homogeneous matrix is built on the host exactly as the
+  reference does (transform.ts:119-175);
+- output pixel (x, y) samples the input at texel coordinates
+  ``(m @ (x/W - 0.5, y/H - 0.5, 1) + 0.5) * size - 0.5``, from the taps
+  floor and floor+1 with weight frac; a tap outside the frame reads 0.
+
+These are the plain tensor versions.  ``warp_axis_aligned`` is the
+plain version of the CUDA warp kernel in ops/warp.py.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+__all__ = [
+    "transform_matrix",
+    "is_axis_aligned",
+    "warp_affine",
+    "warp_axis_aligned",
+]
+
+
+# ----------------------------------------------------------- host-side
+
+
+def transform_matrix(
+    width: int,
+    height: int,
+    flip_h: bool = False,
+    flip_v: bool = False,
+    anchor_x: float = 0.0,
+    anchor_y: float = 0.0,
+    scale_x: float = 1.0,
+    scale_y: float = 1.0,
+    offset_x: float = 0.0,
+    offset_y: float = 0.0,
+    rotate: float = 0.0,
+) -> np.ndarray:
+    """Build the 3x3 output->input mapping matrix (transform.ts:119-175).
+
+    ``rotate`` is in turns.  The matrix maps centred normalized output
+    coords (x/w-0.5, y/h-0.5, 1) to centred normalized input coords.
+    """
+    aspect = width / height
+    fx = -1.0 if flip_h else 1.0
+    fy = -1.0 if flip_v else 1.0
+    sx = scale_x * fx
+    sy = scale_y * fy
+    rot = rotate * 2.0 * math.pi
+
+    anchor_in = np.array(
+        [[1, 0, anchor_x], [0, 1, anchor_y], [0, 0, 1]], dtype=np.float64
+    )
+    scale_m = np.array(
+        [[1.0 / (sx * aspect), 0, 0], [0, 1.0 / sy, 0], [0, 0, 1]], dtype=np.float64
+    )
+    rot_m = np.array(
+        [
+            [math.cos(rot), -math.sin(rot), 0],
+            [math.sin(rot), math.cos(rot), 0],
+            [0, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    translate = np.array(
+        [[1, 0, offset_x * aspect], [0, 1, offset_y], [0, 0, 1]], dtype=np.float64
+    )
+    anchor_out = np.array(
+        [[1, 0, -anchor_x * aspect], [0, 1, -anchor_y], [0, 0, 1]], dtype=np.float64
+    )
+    project = np.array([[aspect, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=np.float64)
+
+    m = anchor_in @ scale_m @ rot_m @ translate @ anchor_out @ project
+    return m.astype(np.float32)
+
+
+def is_axis_aligned(mat: np.ndarray, eps: float = 1e-12) -> bool:
+    """True when the warp has no rotation/shear term (separable path)."""
+    return abs(float(mat[0, 1])) <= eps and abs(float(mat[1, 0])) <= eps
+
+
+# --------------------------------------------------------- tensor-side
+
+
+def _bilinear_setup(pos: torch.Tensor, size: int):
+    """Normalized coords -> (i0, frac) per OpenCL CLK_FILTER_LINEAR:
+    u = pos*size - 0.5; texels floor(u), floor(u)+1 with weight frac."""
+    u = pos * size - 0.5
+    i0 = torch.floor(u)
+    return i0.to(torch.int64), u - i0
+
+
+def _gather2d(src: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
+    """Border-zero 2-D texel fetch from (C, H, W) at integer coords."""
+    h, w = src.shape[-2], src.shape[-1]
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+    flat = src.reshape(src.shape[0], -1)
+    vals = flat[:, idx.reshape(-1)].reshape(src.shape[0], *idx.shape)
+    return vals * valid[None].to(src.dtype)
+
+
+def _sample_bilinear(src: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    h, w = src.shape[-2], src.shape[-1]
+    x0, fx = _bilinear_setup(px, w)
+    y0, fy = _bilinear_setup(py, h)
+    v00 = _gather2d(src, x0, y0)
+    v10 = _gather2d(src, x0 + 1, y0)
+    v01 = _gather2d(src, x0, y0 + 1)
+    v11 = _gather2d(src, x0 + 1, y0 + 1)
+    fx = fx[None]
+    fy = fy[None]
+    top = v00 * (1.0 - fx) + v10 * fx
+    bot = v01 * (1.0 - fx) + v11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def _out_coords(size: int, device) -> torch.Tensor:
+    """x / size - 0.5 for x in [0, size).  The divisor is a tensor: PyTorch
+    divides a CUDA tensor by a Python scalar as a multiply by its
+    reciprocal, which is not the IEEE quotient the kernel and the JAX
+    package use and moves texel positions by an ulp."""
+    x = torch.arange(size, dtype=torch.float32, device=device)
+    return x / torch.full_like(x, float(size)) - 0.5
+
+
+def warp_affine(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """General DVE warp (transform.ts:36-59): output pixel (x, y) samples
+    the input at mat @ (x/w-0.5, y/h-0.5, 1) + 0.5, bilinear, border 0."""
+    h, w = src.shape[-2], src.shape[-1]
+    ix = _out_coords(w, src.device)[None, :]
+    iy = _out_coords(h, src.device)[:, None]
+    px = mat[0, 0] * ix + mat[0, 1] * iy + mat[0, 2] + 0.5
+    py = mat[1, 0] * ix + mat[1, 1] * iy + mat[1, 2] + 0.5
+    return _sample_bilinear(src, px.expand(h, w), py.expand(h, w))
+
+
+def _interp_1d(src: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bilinear interpolation along one dim: two gathers + lerp, border 0."""
+    size = src.shape[dim]
+    i0, frac = _bilinear_setup(pos, size)
+    shape = [1] * src.ndim
+    shape[dim] = -1
+
+    def tap(idx):
+        valid = ((idx >= 0) & (idx < size)).to(src.dtype).reshape(shape)
+        return torch.index_select(src, dim, torch.clamp(idx, 0, size - 1)) * valid
+
+    f = frac.reshape(shape)
+    return tap(i0) * (1.0 - f) + tap(i0 + 1) * f
+
+
+def warp_axis_aligned(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned warp (scale/translate/flip, mat[0,1] == mat[1,0] == 0)
+    as separable row then column interpolation.  Same indices and
+    weights as warp_affine."""
+    h, w = src.shape[-2], src.shape[-1]
+    px = mat[0, 0] * _out_coords(w, src.device) + mat[0, 2] + 0.5  # (W,)
+    py = mat[1, 1] * _out_coords(h, src.device) + mat[1, 2] + 0.5  # (H,)
+    rows = _interp_1d(src, py, dim=1)
+    return _interp_1d(rows, px, dim=2)
