@@ -8,29 +8,56 @@ Run from the repository root:  python3 chip_smoke.py
 2. Builds the kernels from phaneron_tpu_torch/csrc (nvcc, sm_90a) and
    prints the build seconds and ptxas's register counts.
 3. Compares each kernel with its plain PyTorch version on the card, at
-   the 1080p shapes of the main path, on seeded random words over the
+   the 1080p shapes of the main paths, on seeded random words over the
    full 10-bit code range and on the formats' fill_buf ramps:
-   v210_unpack and planar422_unpack <= 4e-5, v210_pack <= 1 code on
-   random inputs and pack(unpack(fill_buf)) == fill_buf bit-exact (also
-   at widths with a pitch pad), warp <= 5e-5.
-4. Drives the main path, make_channel_program(spec)(params), for the
-   entry() structure (v210 dissolve with an axis-aligned DVE under a
-   yuv422p8 layer) at 1920x1080 over 100 frames, with the mix ramping
-   0 -> 1 and the DVE scale animating 0.90 -> 1.0.  Every frame's codes
-   must be <= 1 from the plain path on the card, and each kernel's launch
-   counter must show it on every frame.
+   v210_unpack (4 and 3 channels) and planar422_unpack <= 4e-5,
+   v210_pack <= 1 code on random inputs and pack(unpack(fill_buf)) ==
+   fill_buf bit-exact (also at widths with a pitch pad), warp (4 and 3
+   channels, single and pair) <= 5e-5, yadif_ring and yadif_pair on
+   seeded random opaque rings (C 3 and 4, opaque, tff and bff, both
+   parities) max |delta| == 0, packed_composite (the default load's
+   4-dissolve tick, and cuts between dissolves under other matrices)
+   <= 1 code, and its code delta against K4 + combine_rgb + K2 on the
+   card (a record).
+4. Drives the entry() path, make_channel_program(spec)(params) (v210
+   dissolve with an axis-aligned DVE under a yuv422p8 layer) at
+   1920x1080 over 100 frames, with the mix ramping 0 -> 1 and the DVE
+   scale animating 0.90 -> 1.0.  Every frame's codes must be <= 1 from
+   the plain path on the card, and each kernel's launch counter must show
+   it on every frame.
 5. Times, with CUDA events after warm-up, the median ms per frame of the
-   kernel path and the plain path (batches of back-to-back frames), the
-   frame latency with the card idle before and after, and each kernel
-   against its plain version.  The v210_pack record's max_abs_err is its
-   largest code delta.
+   entry path, kernel and plain (batches of back-to-back frames), and the
+   frame latency with the card idle before and after.
+6. Drives the interlaced default load, four 1080i50 channels as
+   bench.py interlaced_channels_step: per channel 8 distinct seeded v210
+   sources and 4 DVE + dissolve layers (a distinct axis-aligned matrix
+   per layer, mix animating), over 8 frame periods, each: unpack the new
+   frame of every source to 3 channels, advance its ring, one
+   make_yadif_pair_field_program call per source, two channel-program
+   ticks (each one packed_composite launch), one
+   make_interlaced_word_pack_program.  Every period's interlaced words
+   must be <= 1 code from the plain path on the card, and each kernel's
+   launch counter must move on every period.
+7. Runs the in-program ring route (deinterlace=True layers over the same
+   rings, parity on the card) for the two ticks of one channel: it must
+   equal the pair route bit for bit, and launch yadif_ring and
+   packed_composite.
+8. Times the default load's frame period (kernel and plain path, and its
+   share of the 40 ms period), and each kernel against its plain version
+   at the default load's shapes (K3: the entry path's), K4 also against
+   torch.nn.functional.grid_sample on the same frames, and K1, K2 and K4
+   again at the entry path's 4-channel shapes.
 
-Prints one JSON line of per-kernel records, then, as the last line,
-{"ok": true, "device": {...}}.  Any failed phase raises and exits 1.
+Prints one JSON line of per-kernel records (bound_ms: the least bytes
+the function must move over 3.35 TB/s, or its float32 operations,
+counted from the kernel's source, over 67 TFLOP/s, whichever is larger),
+then, as the last line, {"ok": true, "device": {...}}.  Any failed phase
+raises and exits 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -46,6 +73,31 @@ SEED = 1234
 TOL_UNPACK = 4e-5  # one LUT step (powf vs the host pow)
 TOL_WARP = 5e-5
 TOL_CODES = 1
+
+# interlaced default load (bench.py interlaced_channels_step)
+N_CHANNELS = 4
+N_SOURCES = 8  # per channel: 4 dissolve layers
+PERIODS = 8  # frame periods driven and checked (two 20 ms field ticks each)
+PERIOD_MS = 40.0  # 1080i50
+TFF = True
+ROW_STEP = 3  # rows each source moves per period
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# float32 operations per element, counted from csrc/: one each for add,
+# subtract, multiply, divide, abs, min, max, floor, rint and powf;
+# compares and selects are not counted
+OPS_TRANSFER = 8  # phn::g2l / l2g: scale, rint, max, min, scale, then offset, scale, powf
+OPS_DECODE_PX = 3 * 6 + 3 * OPS_TRANSFER + 3 * 5  # 3x4 matrix, transfers, 3x3 gamut
+OPS_ENCODE_PX = 3 * OPS_TRANSFER + 9 + 9  # transfers, luma row, two chroma rows every other pixel
+OPS_WARP_PX = 18  # per output pixel and matrix: ix, iy, px, py, floor and fraction
+OPS_WARP_SAMPLE = 12  # sample(): three lerps
+OPS_MIX = 4  # v * mix + vb * (1 - mix)
+OPS_ALPHA = 6  # packed composite: wy, wx, 1 - wy * wx
+OPS_OVER = 2  # out * k + v
+OPS_YADIF_SAMPLE = 50 + 39  # spatial_pred + temporal_clamp, per predicted sample
 
 
 def check(cond: bool, msg: str) -> None:
@@ -95,6 +147,24 @@ def latency_ms(torch, fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def best_of_two(torch, kernel_fn, plain_fn, plain_kw=None) -> tuple[float, float]:
+    """Kernel and plain ms, the better of two runs each, in turns."""
+    plain_kw = plain_kw or {}
+    ms = [time_ms(torch, kernel_fn)]
+    pms = [time_ms(torch, plain_fn, **plain_kw)]
+    ms.append(time_ms(torch, kernel_fn))
+    pms.append(time_ms(torch, plain_fn, **plain_kw))
+    return min(ms), min(pms)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least ms the card could take: bytes over HBM bandwidth or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_words(rng, width: int, height: int) -> np.ndarray:
     from phaneron_tpu_torch.ops.formats import v210
 
@@ -109,8 +179,34 @@ def code_delta(torch, a, b, width: int, height: int) -> int:
     return max(int((x - y).abs().max()) for x, y in zip(ca, cb))
 
 
+def warp_source_texels(torch, mat, height: int, width: int) -> int:
+    """Source texels an axis-aligned warp by ``mat`` reads: the rows and
+    columns its in-range taps land on (this run's matrix decides it)."""
+    from phaneron_tpu_torch.ops.geometry import _bilinear_setup, _out_coords
+
+    def used(m, off, size):
+        i0, _ = _bilinear_setup(m * _out_coords(size, mat.device) + off + 0.5, size)
+        taps = torch.cat([i0, i0 + 1])
+        return int(taps[(taps >= 0) & (taps < size)].unique().numel())
+
+    return used(mat[1, 1], mat[1, 2], height) * used(mat[0, 0], mat[0, 2], width)
+
+
+def grid_sample_args(torch, srcs, mat):
+    """(input, grid) for F.grid_sample computing the same warp: grid
+    g = 2 * (m00 * ix + m02) (align_corners=False, zero padding)."""
+    from phaneron_tpu_torch.ops.geometry import _out_coords
+
+    _, h, w = srcs[0].shape
+    gx = 2.0 * (mat[0, 0] * _out_coords(w, mat.device) + mat[0, 2])
+    gy = 2.0 * (mat[1, 1] * _out_coords(h, mat.device) + mat[1, 2])
+    grid = torch.stack([gx[None, :].expand(h, w), gy[:, None].expand(h, w)], dim=-1)
+    return torch.stack(srcs), grid[None].expand(len(srcs), h, w, 2).contiguous()
+
+
 def phase_kernels(torch, dev, rng) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel of the entry path against its plain version at the
+    main path's shapes."""
     from phaneron_tpu_torch.graph.convert import to_tensor, words_to_numpy
     from phaneron_tpu_torch.ops import kernels as K
     from phaneron_tpu_torch.ops.formats import v210, yuv422p8
@@ -178,6 +274,119 @@ def phase_kernels(torch, dev, rng) -> dict:
     return rec
 
 
+def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
+    """The kernels of the interlaced default load against their plain
+    versions at 1920x1080: K1 and K4 with 3 channels, yadif ring and
+    pair (C 3 and 4, opaque, tff and bff, both parities)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops import yadif as Y
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp, warp_plain
+
+    err = lambda a, b: float((a - b).abs().max())
+
+    # K1, 3 channels: one source per launch (the unpack stage program)
+    # and two, random words and the ramp
+    words = [to_tensor(random_words(rng, W, H), dev), to_tensor(v210.fill_buf(W, H)[0], dev)]
+    e1 = max(
+        err(a, b) for a, b in zip(K.v210_unpack(words, W, H, channels=3),
+                                  K.v210_unpack_plain(words, W, H, channels=3))
+    )
+    one = [words[0]]
+    e1 = max(e1, err(K.v210_unpack(one, W, H, channels=3)[0],
+                     K.v210_unpack_plain(one, W, H, channels=3)[0]))
+    print(f"K1 v210_unpack, 3 channels, max |kernel - plain| = {e1:.3e} (<= {TOL_UNPACK})")
+    check(e1 <= TOL_UNPACK, f"v210_unpack 3-channel error {e1}")
+    rec["v210_unpack"]["max_abs_err"] = max(rec["v210_unpack"]["max_abs_err"], e1)
+    rec["v210_unpack"]["rgb3_args"] = (one, W, H, "709", "709", 3)
+
+    # K4, 3 channels, single and pair
+    a = torch.from_numpy(rng.random((3, H, W), dtype=np.float32)).to(dev)
+    b = torch.from_numpy(rng.random((3, H, W), dtype=np.float32)).to(dev)
+    mix = torch.tensor(0.45, device=dev)
+    e4 = 0.0
+    for kw in (dict(scale_x=0.9, scale_y=0.9, offset_x=0.02), dict(scale_x=0.5, scale_y=2.0, offset_y=-0.1),
+               dict(flip_h=True, scale_x=1.3), dict()):
+        mat = to_tensor(transform_matrix(W, H, **kw), dev)
+        e4 = max(e4, err(warp(a, mat), warp_plain(a, mat)))
+        e4 = max(e4, err(warp(a, mat, b, mix), warp_plain(a, mat, b, mix)))
+    print(f"K4 warp, 3 channels, max |kernel - plain| = {e4:.3e} (<= {TOL_WARP})")
+    check(e4 <= TOL_WARP, f"warp 3-channel error {e4}")
+    mat = to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02), dev)
+    rec["warp"]["max_abs_err"] = max(rec["warp"]["max_abs_err"], e4)
+    rec["warp"]["rgb3_args"] = (a, mat, b, mix)
+    # the library call computing the same warps (both sources, no mix)
+    gs_in, gs_grid = grid_sample_args(torch, [a, b], mat)
+    gs = torch.nn.functional.grid_sample(gs_in, gs_grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=False)
+    e_gs = max(err(gs[0], warp_plain(a, mat)), err(gs[1], warp_plain(b, mat)))
+    print(f"grid_sample vs plain warp max |delta| = {e_gs:.3e} (a record: the library's own rounding)")
+    rec["warp"]["library_args"] = (gs_in, gs_grid)
+
+    # yadif ring and pair: seeded random opaque rings
+    ey = 0.0
+    cases = 0
+    for channels, opaque in ((3, False), (4, False), (4, True)):
+        ring = [torch.from_numpy(rng.random((channels, H, W), dtype=np.float32)).to(dev) for _ in range(3)]
+        if channels == 4:
+            for f in ring:
+                f[3] = 1.0
+        for tff in (True, False):
+            for parity in (0, 1):
+                par = torch.tensor(parity, dtype=torch.int32, device=dev)
+                ey = max(ey, err(Y.yadif_ring(*ring, par, tff, opaque=opaque),
+                                 Y.yadif_ring_plain(*ring, parity, tff, opaque=opaque)))
+                cases += 1
+            got = Y.yadif_pair(*ring, tff, opaque=opaque)
+            want = Y.yadif_pair_plain(*ring, tff, opaque=opaque)
+            ey = max(ey, max(err(g, w) for g, w in zip(got, want)))
+            cases += 1
+        if channels == 3:
+            rec["yadif_ring"] = dict(args=(*ring, torch.tensor(1, dtype=torch.int32, device=dev), TFF))
+            rec["yadif_pair"] = dict(args=(*ring, TFF))
+    print(f"yadif_ring / yadif_pair max |kernel - plain| = {ey} over {cases} cases "
+          "(C 3 and 4, opaque, tff and bff, both parities; == 0)")
+    check(ey == 0.0, f"yadif kernels differ from their plain versions by {ey}")
+    rec["yadif_ring"]["max_abs_err"] = ey
+    rec["yadif_pair"]["max_abs_err"] = ey
+
+    # packed composite: the default load's tick (4 dissolve layers,
+    # distinct matrices), and cuts between dissolves under matrices that
+    # scale up, flip and leave the frame
+    from phaneron_tpu_torch.ops.composite import combine_rgb
+    from phaneron_tpu_torch.ops.packed_warp import packed_composite, packed_composite_plain
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    srcs = [torch.from_numpy(rng.random((3, H, W), dtype=np.float32)).to(dev) for _ in range(8)]
+    tick_mats = [to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev)
+                 for i in range(4)]
+    odd_mats = [to_tensor(transform_matrix(W, H, **kw), dev) for kw in (
+        dict(scale_x=0.5, scale_y=2.0, offset_y=-0.1), dict(flip_h=True, scale_x=1.3),
+        dict(), dict(scale_x=0.7, scale_y=0.6, offset_x=0.45))]
+    mixes = [torch.tensor(0.2 + 0.15 * i, device=dev) for i in range(4)]
+    d5 = d_staged = 0
+    for cfg, mats in (((2, 2, 2, 2), tick_mats), ((2, 1, 2, 1), odd_mats)):
+        mx = [m if n == 2 else None for n, m in zip(cfg, mixes)]
+        args = (srcs[:sum(cfg)], cfg, mats, mx)
+        got = packed_composite(*args)
+        d5 = max(d5, code_delta(torch, got, packed_composite_plain(*args), W, H))
+        layers, s = [], 0
+        for n, mat, m in zip(cfg, mats, mx):
+            rgb = warp(srcs[s], mat) if n == 1 else warp(srcs[s], mat, srcs[s + 1], m)
+            layers.append((rgb, *warp_alpha_vectors(H, W, mat)))
+            s += n
+        d_staged = max(d_staged, code_delta(torch, got, K.v210_pack(combine_rgb(layers)), W, H))
+        if cfg == (2, 2, 2, 2):
+            rec["packed_composite"] = dict(args=args)
+    print(f"packed_composite max code delta vs plain = {d5} (<= {TOL_CODES}); vs K4 + combine_rgb "
+          f"+ K2 on the card = {d_staged} (a record)")
+    check(d5 <= TOL_CODES, f"packed_composite code delta {d5}")
+    rec["packed_composite"]["max_abs_err"] = float(d5)
+    torch.cuda.synchronize()
+
+
 def entry_spec_params(rng, dev):
     """The entry() structure at 1080p: a v210 dissolve with an
     axis-aligned DVE under a plain yuv422p8 layer."""
@@ -222,6 +431,99 @@ def animate(torch, params, dev, t: float) -> None:
     layer["mix"] = torch.tensor(t, dtype=torch.float32, device=dev)
 
 
+def interlaced_spec(deinterlace: bool = False):
+    """One 1080i50 channel of the default load: 4 DVE + dissolve layers
+    over opaque 3-channel fields (bench.py interlaced_channels_step)."""
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.runtime.frame import RGBA_F32
+
+    layer = LayerSpec(RGBA_F32, transition="dissolve", has_transform=True, axis_aligned=True,
+                      src_b_format=RGBA_F32, src_opaque=True, deinterlace=deinterlace)
+    return ChannelSpec(W, H, "v210", layers=(layer,) * 4, tff=TFF)
+
+
+def interlaced_inputs(torch, dev, rng) -> list:
+    """Per channel: 8 distinct seeded v210 sources, each PERIODS + 2
+    frames on the card (the source moving ROW_STEP rows a period), a
+    distinct axis-aligned matrix per layer and the animated mixes."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    chans = []
+    for c in range(N_CHANNELS):
+        frames = []
+        for _ in range(N_SOURCES):
+            base = to_tensor(random_words(rng, W, H), dev)
+            frames.append([torch.roll(base, ROW_STEP * k, dims=0) for k in range(PERIODS + 2)])
+        mats = [
+            to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9,
+                                       offset_x=0.02 + 0.003 * i + 0.0007 * c), dev)
+            for i in range(4)
+        ]
+        mixes = [
+            [[torch.tensor(0.1 + 0.05 * i + 0.6 * (2 * p + t) / (2 * PERIODS - 1),
+                           dtype=torch.float32, device=dev) for i in range(4)] for t in (0, 1)]
+            for p in range(PERIODS)
+        ]
+        chans.append(dict(frames=frames, mats=mats, mixes=mixes))
+    return chans
+
+
+class InterlacedLoad:
+    """The default load's device work, one frame period per call, as
+    bench.py interlaced_channels_step: per channel and period, 8 unpacks
+    to 3 channels, 8 ring advances, 8 pair deinterlaces, 2 channel-program
+    ticks, 1 packed-domain field interleave.  ``plain=True`` runs every
+    stage's plain version on the card.  ``stage(name)`` is entered around
+    each stage (a profiler range in tools/port_profile.py; nothing by
+    default)."""
+
+    def __init__(self, chans: list, plain: bool):
+        from phaneron_tpu_torch.graph.pipeline import (
+            make_channel_program,
+            make_interlaced_word_pack_program,
+            make_unpack_program,
+            make_yadif_pair_field_program,
+        )
+
+        self.chans = chans
+        self.unpack = make_unpack_program("v210", W, H, "709", "709", channels=3, plain=plain)
+        self.pair = make_yadif_pair_field_program(H, W, TFF, channels=3, plain=plain)
+        self.program = make_channel_program(interlaced_spec(), plain=plain)
+        self.word_pack = make_interlaced_word_pack_program("v210")
+        # two aged frames per ring before the first period
+        self.rings = [[[self.unpack([f[k]]) for k in range(2)] for f in ch["frames"]] for ch in chans]
+        self.period_index = 0
+        self.stage = lambda name: contextlib.nullcontext()
+
+    def tick_params(self, ch: dict, fields: list, p: int, t: int) -> dict:
+        return {"layers": [
+            {"src": fields[2 * i][t], "src_b": fields[2 * i + 1][t], "matrix": ch["mats"][i],
+             "mix": ch["mixes"][p][t][i]}
+            for i in range(4)
+        ]}
+
+    def __call__(self) -> list:
+        p = self.period_index % PERIODS
+        self.period_index += 1
+        outs = []
+        for ch, rings in zip(self.chans, self.rings):
+            fields = []
+            for frames, ring in zip(ch["frames"], rings):
+                with self.stage("unpack"):
+                    ring.append(self.unpack([frames[p + 2]]))
+                del ring[:-3]
+                with self.stage("yadif_pair"):
+                    fields.append(self.pair(*ring))
+            ticks = []
+            for t in (0, 1):
+                with self.stage("tick"):
+                    ticks.append(self.program(self.tick_params(ch, fields, p, t)))
+            with self.stage("word_pack"):
+                outs.append(self.word_pack(*ticks)[0])
+        return outs
+
+
 def main() -> int:
     import torch
 
@@ -232,8 +534,11 @@ def main() -> int:
     from phaneron_tpu_torch.graph.pipeline import make_channel_program
     from phaneron_tpu_torch.ops import _build
     from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops import packed_warp as PW
     from phaneron_tpu_torch.ops import warp as warp_mod
+    from phaneron_tpu_torch.ops import yadif as Y
     from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
+    from phaneron_tpu_torch.ops.formats.yuv422p8 import pitch as y422_pitch
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -251,41 +556,65 @@ def main() -> int:
     # -------- phase 3: kernels against their plain versions
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, dev, rng)
+    phase_interlaced_kernels(torch, dev, rng, rec)
 
-    # -------- phase 4: the main path
-    spec, params = entry_spec_params(rng, dev)
-    program = make_channel_program(spec)
-    plain_program = make_channel_program(spec, plain=True)
     wrappers = {
         "v210_unpack": K.v210_unpack, "warp": warp_mod.warp,
         "planar422_unpack": K.planar422_unpack, "v210_pack": K.v210_pack,
+        "yadif_ring": Y.yadif_ring, "yadif_pair": Y.yadif_pair,
+        "packed_composite": PW.packed_composite,
     }
-    v210_words = pitch_bytes(W) // 4
-    for fn in wrappers.values():
-        fn.launches = 0
-    worst = 0
-    t0 = time.perf_counter()
-    for f in range(FRAMES):
-        before = {k: fn.launches for k, fn in wrappers.items()}
-        animate(torch, params, dev, f / (FRAMES - 1))
-        out = program(params)
-        after = {k: fn.launches for k, fn in wrappers.items()}
-        missing = [k for k in wrappers if after[k] == before[k]]
-        check(not missing, f"frame {f}: kernels not launched: {missing}")
-        ref = plain_program(params)
-        check(len(out) == 1 and tuple(out[0].shape) == (H, v210_words), f"frame {f}: output shape")
-        check(out[0].dtype == torch.int32, f"frame {f}: output dtype {out[0].dtype}")
-        d = code_delta(torch, out[0], ref[0], W, H)
-        worst = max(worst, d)
-        check(d <= TOL_CODES, f"frame {f}: kernel path {d} codes from the plain path")
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"main path: {FRAMES} frames {W}x{H} in {time.perf_counter() - t0:.2f} s, "
-          f"max code delta vs plain path {worst}, launches {launches}")
-    for k, n in launches.items():
-        check(n >= FRAMES, f"{k} launched {n} times over {FRAMES} frames")
+    plain_fns = {
+        "v210_unpack": K.v210_unpack_plain, "warp": warp_mod.warp_plain,
+        "planar422_unpack": K.planar422_unpack_plain, "v210_pack": K.v210_pack_plain,
+        "yadif_ring": Y.yadif_ring_plain, "yadif_pair": Y.yadif_pair_plain,
+        "packed_composite": PW.packed_composite_plain,
+    }
+    launches = {k: {} for k in wrappers}
 
-    # -------- phase 5: timing (records, not targets)
+    def run_path(path: str, kernels: tuple, fn) -> None:
+        """Drive one main path with every count at 0 just before and read
+        just after; each kernel of the path must have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        for k, w in wrappers.items():
+            launches[k][path] = w.launches
+        for k in kernels:
+            check(launches[k][path] > 0, f"{path}: {k} never launched")
+        print(f"{path} path launches: { {k: launches[k][path] for k in wrappers} }")
+
+    # -------- phase 4: the entry() path
+    spec, params = entry_spec_params(rng, dev)
+    program = make_channel_program(spec)
+    plain_program = make_channel_program(spec, plain=True)
+    v210_words = pitch_bytes(W) // 4
+    entry_kernels = ("v210_unpack", "warp", "planar422_unpack", "v210_pack")
+
+    def entry_path():
+        worst = 0
+        t0 = time.perf_counter()
+        for f in range(FRAMES):
+            before = {k: wrappers[k].launches for k in entry_kernels}
+            animate(torch, params, dev, f / (FRAMES - 1))
+            out = program(params)
+            missing = [k for k in entry_kernels if wrappers[k].launches == before[k]]
+            check(not missing, f"frame {f}: kernels not launched: {missing}")
+            ref = plain_program(params)
+            check(len(out) == 1 and tuple(out[0].shape) == (H, v210_words), f"frame {f}: output shape")
+            check(out[0].dtype == torch.int32, f"frame {f}: output dtype {out[0].dtype}")
+            d = code_delta(torch, out[0], ref[0], W, H)
+            worst = max(worst, d)
+            check(d <= TOL_CODES, f"frame {f}: kernel path {d} codes from the plain path")
+        print(f"entry path: {FRAMES} frames {W}x{H} in {time.perf_counter() - t0:.2f} s, "
+              f"max code delta vs plain path {worst}")
+
+    run_path("entry", entry_kernels, entry_path)
+    for k in entry_kernels:
+        check(launches[k]["entry"] >= FRAMES, f"{k} launched {launches[k]['entry']} times over {FRAMES} frames")
+
+    # -------- phase 5: entry path timing (records, not targets)
     animate(torch, params, dev, 0.5)
     frame_ms, plain_frame_ms = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
@@ -296,31 +625,167 @@ def main() -> int:
     print(f"frame latency ms on {card} (synchronised per frame): kernel path "
           f"{latency_ms(torch, lambda: program(params)):.4f}, "
           f"plain path {latency_ms(torch, lambda: plain_program(params)):.4f}")
-    plain_fns = {
-        "v210_unpack": K.v210_unpack_plain, "warp": warp_mod.warp_plain,
-        "planar422_unpack": K.planar422_unpack_plain, "v210_pack": K.v210_pack_plain,
+
+    # -------- phase 6: the interlaced default load, 4 x 1080i50
+    chans = interlaced_inputs(torch, dev, rng)
+    load = InterlacedLoad(chans, plain=False)
+    plain_load = InterlacedLoad(chans, plain=True)
+    interlaced_kernels = ("v210_unpack", "yadif_pair", "packed_composite")
+
+    def interlaced_path():
+        worst = 0
+        t0 = time.perf_counter()
+        for p in range(PERIODS):
+            before = {k: wrappers[k].launches for k in interlaced_kernels}
+            outs = load()
+            missing = [k for k in interlaced_kernels if wrappers[k].launches == before[k]]
+            check(not missing, f"period {p}: kernels not launched: {missing}")
+            refs = plain_load()
+            for c, (o, r) in enumerate(zip(outs, refs)):
+                check(tuple(o.shape) == (H, v210_words) and o.dtype == torch.int32,
+                      f"period {p} channel {c}: output {tuple(o.shape)} {o.dtype}")
+                d = code_delta(torch, o, r, W, H)
+                worst = max(worst, d)
+                check(d <= TOL_CODES, f"period {p} channel {c}: kernel path {d} codes from the plain path")
+        print(f"interlaced path: {PERIODS} frame periods of {N_CHANNELS} channels {W}x{H} "
+              f"({N_SOURCES} v210 sources, 4 DVE + dissolve layers each) in "
+              f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}")
+
+    run_path("interlaced", interlaced_kernels, interlaced_path)
+    # each tick is one packed composite: no staged warp or pack
+    for k, per_period in (("v210_unpack", N_CHANNELS * N_SOURCES), ("yadif_pair", N_CHANNELS * N_SOURCES),
+                          ("packed_composite", N_CHANNELS * 2), ("warp", 0), ("v210_pack", 0)):
+        check(launches[k]["interlaced"] == per_period * PERIODS,
+              f"{k}: {launches[k]['interlaced']} launches, expected {per_period} a period")
+
+    # -------- phase 7: the in-program ring route on channel 0
+    ring_program = make_channel_program(interlaced_spec(deinterlace=True))
+    ch0, rings0 = chans[0], load.rings[0]
+    p_last = (load.period_index - 1) % PERIODS
+    parities = [torch.tensor(p, dtype=torch.int32, device=dev) for p in ((0, 1) if TFF else (1, 0))]
+    ring_out = []
+
+    def ring_route():
+        for t in (0, 1):
+            ring_out.append(ring_program({"layers": [
+                {"src_ring": tuple(rings0[2 * i]), "src_b_ring": tuple(rings0[2 * i + 1]),
+                 "parity": parities[t], "matrix": ch0["mats"][i], "mix": ch0["mixes"][p_last][t][i]}
+                for i in range(4)
+            ]})[0])
+
+    run_path("ring_route", ("yadif_ring", "packed_composite"), ring_route)
+    fields = [load.pair(*ring) for ring in rings0]
+    for t in (0, 1):
+        (via_pair,) = load.program(load.tick_params(ch0, fields, p_last, t))
+        check(torch.equal(ring_out[t], via_pair), f"ring route tick {t} differs from the pair route")
+    print("ring route (deinterlace=True, parity on the card) == pair route, both ticks: True")
+
+    # -------- phase 8: timing (records, not targets)
+    period_ms, plain_period_ms = [], []
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "plain":
+            plain_period_ms.append(time_ms(torch, plain_load, batches=3, calls=2, warmup=1))
+        else:
+            period_ms.append(time_ms(torch, load, batches=7, calls=5))
+    kp, pp = statistics.median(period_ms), statistics.median(plain_period_ms)
+    print(f"interlaced frame period ms ({N_CHANNELS} x 1080i50) on {card}: kernel path {kp:.4f} "
+          f"(runs {period_ms}), {100 * kp / PERIOD_MS:.1f} % of the {PERIOD_MS:.0f} ms period; "
+          f"plain path {pp:.4f} (runs {plain_period_ms})")
+    print(f"interlaced frame period latency ms on {card} (synchronised per period): kernel path "
+          f"{latency_ms(torch, load, reps=10):.4f}")
+
+    rgb = 3 * 4 * H * W  # one (3, H, W) float32 frame
+    rgba = 4 * 4 * H * W
+    words_bytes = H * pitch_bytes(W)
+    y422_bytes = H * 2 * y422_pitch(W)
+    px = H * W
+
+    def warp_bytes(args) -> float:
+        src, mat, src_b = args[0], args[1], args[2]
+        c = src.shape[0]
+        return 2 * c * 4 * warp_source_texels(torch, mat, H, W) + c * 4 * px + 36 + 4
+
+    def warp_ops(c: int, n_src: int) -> float:
+        return px * (OPS_WARP_PX + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
+
+    def composite_bytes_ops(args) -> tuple[float, float]:
+        _, cfg, mats, _ = args
+        nbytes = words_bytes + sum(
+            n * (3 * 4 * warp_source_texels(torch, m, H, W) + 4) + 36 for n, m in zip(cfg, mats)
+        )
+        ops = px * OPS_ENCODE_PX + sum(
+            warp_ops(3, n) + px * (OPS_ALPHA + (3 * OPS_OVER if i else 0)) for i, n in enumerate(cfg)
+        )
+        return nbytes, ops
+
+    c_bytes, c_ops = composite_bytes_ops(rec["packed_composite"]["args"])
+
+    # name -> (args, bytes, ops, shape) at the records' shapes; the
+    # interlaced load's shapes where it runs the kernel
+    r_unpack = rec["v210_unpack"]["rgb3_args"]
+    r_pack = (rec["yadif_pair"]["args"][1],)
+    shapes = {
+        "v210_unpack": (r_unpack, words_bytes + rgb, OPS_DECODE_PX * px, "1 source, 3 channels"),
+        "v210_pack": (r_pack, rgb + words_bytes, OPS_ENCODE_PX * px, "(3, H, W) in"),
+        "planar422_unpack": (rec["planar422_unpack"]["args"], y422_bytes + rgba, OPS_DECODE_PX * px,
+                             "yuv422p8, 4 channels (entry path)"),
+        "warp": (rec["warp"]["rgb3_args"], warp_bytes(rec["warp"]["rgb3_args"]), warp_ops(3, 2),
+                 "3-channel dissolve pair"),
+        "yadif_ring": (rec["yadif_ring"]["args"], 3.5 * rgb, OPS_YADIF_SAMPLE * 3 * px / 2,
+                       "3 channels, one parity"),
+        "yadif_pair": (rec["yadif_pair"]["args"], 5 * rgb, OPS_YADIF_SAMPLE * 3 * px,
+                       "3 channels, both parities"),
+        "packed_composite": (rec["packed_composite"]["args"], c_bytes, c_ops,
+                             "4 dissolve layers, 8 (3, H, W) sources"),
     }
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
         "v210_pack": ("phaneron_tpu_torch/csrc/v210_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
         "planar422_unpack": ("phaneron_tpu_torch/csrc/planar422_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:892"),
         "warp": ("phaneron_tpu_torch/csrc/warp.cu", "phaneron_tpu/ops/pallas_warp.py:532"),
+        "yadif_ring": ("phaneron_tpu_torch/csrc/yadif.cu", "phaneron_tpu/ops/pallas_yadif.py:500"),
+        "yadif_pair": ("phaneron_tpu_torch/csrc/yadif.cu", "phaneron_tpu/ops/pallas_yadif.py:756"),
+        "packed_composite": ("phaneron_tpu_torch/csrc/packed_composite.cu",
+                             "phaneron_tpu/ops/pallas_packed_warp.py:1216"),
     }
     records = []
-    for name in ("v210_unpack", "warp", "planar422_unpack", "v210_pack"):
-        args = rec[name]["args"]
-        ms = [time_ms(torch, lambda: wrappers[name](*args))]
-        pms = [time_ms(torch, lambda: plain_fns[name](*args))]
-        ms.append(time_ms(torch, lambda: wrappers[name](*args)))
-        pms.append(time_ms(torch, lambda: plain_fns[name](*args)))
-        kernel_ms, plain_ms = min(ms), min(pms)
-        print(f"{name} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for name in shapes:
+        args, nbytes, ops, shape = shapes[name]
+        kernel_ms, plain_ms = best_of_two(
+            torch, lambda: wrappers[name](*args), lambda: plain_fns[name](*args),
+            dict(batches=5, calls=4) if name in ("yadif_ring", "yadif_pair", "packed_composite") else None,
+        )
+        bound_ms, bound_by = bound(nbytes, ops)
+        library_ms = None
+        if name == "warp":
+            gs_in, gs_grid = rec["warp"]["library_args"]
+            library_ms = time_ms(torch, lambda: torch.nn.functional.grid_sample(
+                gs_in, gs_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+        print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)"
+              + (f", grid_sample {library_ms:.4f} ms (both sources, no mix)" if library_ms else ""))
         source, replaces = meta[name]
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec[name]["max_abs_err"],
-            "ms": kernel_ms, "plain_ms": plain_ms,
+            "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+            "max_abs_err": rec[name]["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
         })
+    # the entry path's 4-channel shapes of K1, K2 and K4
+    entry_shapes = {
+        "v210_unpack": (rec["v210_unpack"]["args"], 2 * (words_bytes + rgba), 2 * OPS_DECODE_PX * px,
+                        "2 sources, 4 channels"),
+        "v210_pack": (rec["v210_pack"]["args"], rgb + words_bytes, OPS_ENCODE_PX * px, "(4, H, W) in"),
+        "warp": (rec["warp"]["args"], warp_bytes(rec["warp"]["args"]), warp_ops(4, 2),
+                 "4-channel dissolve pair"),
+    }
+    for name, (args, nbytes, ops, shape) in entry_shapes.items():
+        kernel_ms, plain_ms = best_of_two(
+            torch, lambda: wrappers[name](*args), lambda: plain_fns[name](*args)
+        )
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"{name} ({shape}, entry path) on {card}: kernel {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Shared device helpers for the channel-frame kernels: OpenCL-style
-// rounding, the analytic transfer functions and the YCbCr decode.
+// rounding, the analytic transfer functions, the YCbCr decode and encode,
+// the v210 group packing and the axis-aligned bilinear taps.
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py), and the
@@ -80,6 +81,70 @@ __device__ __forceinline__ int encode_row(const Encode& e, int c, float rp, floa
                                           float bp) {
   return u16_sat_rte(e.col[4 * c] * rp + e.col[4 * c + 1] * gp + e.col[4 * c + 2] * bp +
                      e.col[4 * c + 3]);
+}
+
+// v210 words of one 6-pixel group from its 10-bit codes (luma of every
+// pixel, chroma of the even ones)
+__device__ __forceinline__ int4 v210_group(const unsigned ys[6], const unsigned cb[3],
+                                           const unsigned cr[3]) {
+  int4 w;
+  w.x = static_cast<int>((cr[0] << 20) | (ys[0] << 10) | cb[0]);
+  w.y = static_cast<int>((ys[2] << 20) | (cb[1] << 10) | ys[1]);
+  w.z = static_cast<int>((cb[2] << 20) | (ys[3] << 10) | cr[1]);
+  w.w = static_cast<int>((ys[5] << 20) | (cr[2] << 10) | ys[4]);
+  return w;
+}
+
+// The bilinear taps of output pixel (x, y) under an axis-aligned DVE
+// matrix (3, 3), in the order of ops/geometry.py warp_axis_aligned:
+// texel coordinates
+//   px = (m00 * (x/W - 0.5) + m02 + 0.5) * W - 0.5
+//   py = (m11 * (y/H - 0.5) + m12 + 0.5) * H - 0.5
+// (pallas_warp.py:541-547, geometry.py:186-196), taps floor and floor+1
+// with weight frac; a tap outside the frame is invalid and reads 0.
+struct Taps {
+  int x0, y0;
+  float fx, fy;
+  bool vx0, vx1, vy0, vy1;
+};
+
+__device__ __forceinline__ Taps axis_taps(const float* mat, int x, int y, int width,
+                                          int height) {
+  const float fw = static_cast<float>(width), fh = static_cast<float>(height);
+  const float ix = static_cast<float>(x) / fw - 0.5f;
+  const float iy = static_cast<float>(y) / fh - 0.5f;
+  const float px = (mat[0] * ix + mat[2] + 0.5f) * fw - 0.5f;
+  const float py = (mat[4] * iy + mat[5] + 0.5f) * fh - 0.5f;
+  const float flx = floorf(px), fly = floorf(py);
+  Taps t;
+  t.fx = px - flx;
+  t.fy = py - fly;
+  t.x0 = static_cast<int>(flx);
+  t.y0 = static_cast<int>(fly);
+  t.vx0 = t.x0 >= 0 && t.x0 < width;
+  t.vx1 = t.x0 + 1 >= 0 && t.x0 + 1 < width;
+  t.vy0 = t.y0 >= 0 && t.y0 < height;
+  t.vy1 = t.y0 + 1 >= 0 && t.y0 + 1 < height;
+  return t;
+}
+
+// One (H, W) plane at the taps: the lerp along rows first, then along
+// columns.  Row pointers are dereferenced only where the row is valid.
+__device__ __forceinline__ float sample(const float* __restrict__ s, int width, const Taps& t) {
+  const float* r0 = s + static_cast<ptrdiff_t>(t.y0) * width;
+  const float* r1 = r0 + width;
+  float c0 = 0.0f, c1 = 0.0f;
+  if (t.vx0) {
+    const float t0 = t.vy0 ? r0[t.x0] : 0.0f;
+    const float t1 = t.vy1 ? r1[t.x0] : 0.0f;
+    c0 = t0 * (1.0f - t.fy) + t1 * t.fy;
+  }
+  if (t.vx1) {
+    const float t0 = t.vy0 ? r0[t.x0 + 1] : 0.0f;
+    const float t1 = t.vy1 ? r1[t.x0 + 1] : 0.0f;
+    c1 = t0 * (1.0f - t.fy) + t1 * t.fy;
+  }
+  return c0 * (1.0f - t.fx) + c1 * t.fx;
 }
 
 inline Decode decode_from(const float* coeffs) {

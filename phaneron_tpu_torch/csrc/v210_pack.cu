@@ -37,12 +37,7 @@ __global__ void v210_pack_kernel(const float* __restrict__ rgb, int4* __restrict
       cr[p / 2] = static_cast<unsigned>(phn::encode_row(e, 2, rp, gp, bp)) & phn::kField;
     }
   }
-  int4 w;
-  w.x = static_cast<int>((cr[0] << 20) | (ys[0] << 10) | cb[0]);
-  w.y = static_cast<int>((ys[2] << 20) | (cb[1] << 10) | ys[1]);
-  w.z = static_cast<int>((cb[2] << 20) | (ys[3] << 10) | cr[1]);
-  w.w = static_cast<int>((ys[5] << 20) | (cr[2] << 10) | ys[4]);
-  words[static_cast<size_t>(row) * groups + gi] = w;
+  words[static_cast<size_t>(row) * groups + gi] = phn::v210_group(ys, cb, cr);
 }
 
 }  // namespace

@@ -8,7 +8,10 @@ the host with numpy.
   "src_b": [...], "matrix": (3, 3), "mix": scalar}, ...]}`` with numpy
   leaves (the caller ``np.asarray``-s JAX arrays) -> the same structure
   of tensors on ``device``.  uint32 planes (v210 words) become int32
-  bit-views; float64 leaves become float32.
+  bit-views; float64 leaves become float32; a (C, H, W) float source
+  (``rgba_f32``) stays one tensor.  Deinterlace rings (``src_ring``,
+  ``src_b_ring``: three (C, H, W) frames) stay tuples, and an integer
+  ``parity`` becomes a 0-d int32 tensor.
 - ``words_to_numpy(t)``: the inverse for word tensors, -> uint32 numpy.
 - ``spec_from_fields(d)``: a JAX ``ChannelSpec._asdict()`` (layers as
   LayerSpec tuples or dicts) -> the port's ChannelSpec.
@@ -28,18 +31,22 @@ __all__ = ["params_from_numpy", "spec_from_fields", "words_to_numpy", "to_tensor
 
 def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
     """One numpy leaf -> a tensor on ``device`` (uint32 -> int32 bit-view,
-    float64 -> float32)."""
+    float64 -> float32, int64 -> int32)."""
     a = np.asarray(value)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     elif a.dtype == np.float64:
         a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def params_from_numpy(params: Mapping, device: torch.device | str) -> dict:
     def leaf(value):
-        if isinstance(value, (list, tuple)):
+        if isinstance(value, tuple):
+            return tuple(to_tensor(v, device) for v in value)
+        if isinstance(value, list):
             return [to_tensor(v, device) for v in value]
         return to_tensor(value, device)
 

@@ -1,32 +1,50 @@
-"""The per-channel frame program (counterpart of
-phaneron_tpu/graph/pipeline.py, the staged branch of ``_channel_frame``).
+"""The per-channel frame program and the stage programs (counterpart of
+phaneron_tpu/graph/pipeline.py: the staged branch of ``_channel_frame``
+and the modular stage programs the runtime and the bench drive).
 
-    unpack -> colour -> per-layer DVE warp -> dissolve
+    unpack | yadif ring | rgba_f32 field -> per-layer DVE warp -> dissolve
            -> N-layer 'over' combine -> colour -> pack
 
 Each stage with a TPU kernel in the JAX package goes through its CUDA
-kernel wrapper (ops/kernels.py, ops/warp.py): every v210 source slot of
-the frame in one unpack launch, planar 4:2:2 sources through the planar
-unpack, DVE layers through the warp (a dissolve with a transform as one
-pair launch), and the v210 pack.  The combine is plain tensor code, as
-it is plain XLA in the JAX package.  A wrapper given CPU tensors runs
+kernel wrapper (ops/kernels.py, ops/warp.py, ops/yadif.py,
+ops/packed_warp.py): every v210 source slot of the frame in one unpack
+launch, planar 4:2:2 sources through the planar unpack, deinterlaced
+slots through the yadif ring kernel, DVE layers through the warp (a
+dissolve with a transform as one pair launch), and the v210 pack.  The
+staged combine is plain tensor code, as it is plain XLA in the JAX
+package.  A wrapper given CPU tensors runs
 its plain version, so on the CPU the whole program is plain PyTorch.
 
+Opaque alpha-free (3, H, W) sources (deinterlaced fields of a v210
+source, ``rgba_f32`` fields from the pair deinterlace) take the
+3-channel route of the JAX package: a cut or a same-matrix dissolve
+rides as an ``(rgb, wy, wx)`` tuple whose alpha is the separable warp
+alpha, the combine is ``combine_rgb`` and the pack takes the (3, H, W)
+composite.  Other structures pad alpha to 1 and take the 4-channel route.
+When every layer is such a DVE layer (at least two) into v210, the whole
+stack runs as one packed composite launch instead (warp, 'over' and pack;
+JAX ``_packed_composite_run`` with the run spanning the stack).  A run
+that spans only part of the stack stays staged (ROADMAP.md B7, the RGBA
+emit).
+
 The JAX package picks its TPU kernels by VMEM and scale-bucket gates
-(warp_bucket, warp_fits, batch_unpack_fits, width % 128).  The port keys
+(warp_bucket, warp_fits, yadif_ring_fits, width % 128).  The port keys
 only on correctness conditions: source format, transition, transform
 (axis-aligned or not) and output format.  On a CUDA device a structure
 without a ported kernel raises NotImplementedError naming the ROADMAP
 item it waits for; it never runs plain code on the card unasked.
-``make_channel_program(spec, plain=True)`` runs every stage's plain
-version on the params' device: the reference the kernel path is checked
-against on the card.
+``plain=True`` on the channel, unpack and pair-deinterlace programs runs
+every stage's plain version on the inputs' device: the reference the
+kernel path is checked against on the card.
 
 Specs are hashable NamedTuples with the JAX package's fields, so a JAX
 spec converts with ``spec_from_fields(jax_spec._asdict())``
 (graph/convert.py).  Params are ``{"layers": [per-layer dicts, bottom to
-top]}`` with tensors on one device: "src"/"src_b" plane lists, "matrix"
-(3, 3) float32, "mix" a 0-d float32 tensor.
+top]}`` with tensors on one device: "src"/"src_b" plane lists (or a (C,
+H, W) float32 frame for ``rgba_f32``), "matrix" (3, 3) float32, "mix" a
+0-d float32 tensor; a deinterlaced slot carries "<key>_ring", a tuple of
+three (C, H, W) frames (prev, cur, next), and "parity", a 0-d int32
+tensor or a Python int.
 """
 
 from __future__ import annotations
@@ -37,11 +55,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import io as fio
-from ..ops import kernels, warp as warp_mod
+from ..ops import kernels, packed_warp, warp as warp_mod, yadif
 from ..ops.coeffs import make_saver
-from ..ops.composite import combine, mix_frames
+from ..ops.composite import combine, combine_rgb, mix_frames
 from ..ops.formats import FORMATS, get_format
 from ..ops.geometry import warp_affine
+from ..runtime.frame import RGBA_F32
 
 __all__ = [
     "LayerSpec",
@@ -49,6 +68,12 @@ __all__ = [
     "make_channel_program",
     "missing_kernel",
     "check_structure",
+    "make_unpack_program",
+    "make_pack_program",
+    "make_interlaced_pack_program",
+    "make_interlaced_word_pack_program",
+    "make_yadif_pair_field_program",
+    "make_yadif_program",
 ]
 
 
@@ -88,7 +113,7 @@ class ChannelSpec(NamedTuple):
 
 _V210 = "v210"
 _PLANAR422_8 = ("yuv422p", "yuv422p8")
-_SOURCE_FORMATS = (_V210,) + _PLANAR422_8
+_SOURCE_FORMATS = (_V210,) + _PLANAR422_8 + (RGBA_F32,)
 
 
 def _slot_formats(ls: LayerSpec) -> list[tuple[str, str]]:
@@ -104,8 +129,6 @@ def _unported(spec: ChannelSpec) -> Optional[str]:
     if spec.emit_rgba:
         return "A4 (emit_rgba: the composited RGBA output)"
     for ls in spec.layers:
-        if ls.deinterlace:
-            return "A6 and B8/B9 (yadif deinterlace)"
         if ls.src_size is not None:
             return "A3 (resize_frame for src_size sources)"
         if ls.transition not in ("none", "dissolve"):
@@ -155,33 +178,66 @@ class _Stages(NamedTuple):
     planar422_unpack: Callable
     warp: Callable
     v210_pack: Callable
+    yadif_ring: Callable
+    yadif_pair: Callable
+    packed_composite: Callable
 
 
 _KERNELS = _Stages(
-    kernels.v210_unpack, kernels.planar422_unpack, warp_mod.warp, kernels.v210_pack
+    kernels.v210_unpack, kernels.planar422_unpack, warp_mod.warp, kernels.v210_pack,
+    yadif.yadif_ring, yadif.yadif_pair, packed_warp.packed_composite,
 )
 _PLAIN = _Stages(
     kernels.v210_unpack_plain, kernels.planar422_unpack_plain, warp_mod.warp_plain,
-    kernels.v210_pack_plain,
+    kernels.v210_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
+    packed_warp.packed_composite_plain,
 )
 
 
 def _params_device(params: dict) -> torch.device:
     if not params["layers"]:
         raise ValueError("channel params hold no layers")
-    return params["layers"][0]["src"][0].device
+    layer = params["layers"][0]
+    for key in ("src", "src_ring"):
+        if key in layer:
+            value = layer[key]
+            return (value if isinstance(value, torch.Tensor) else value[0]).device
+    raise ValueError("channel params: layer 0 holds neither 'src' nor 'src_ring'")
 
 
-def _unpack_sources(spec: ChannelSpec, params: dict, st: _Stages) -> dict:
-    """Unpack every source slot: all v210 slots of the frame in ONE
-    unpack call (the JAX package's _batch_unpack_slots), the planar 4:2:2
-    slots one by one.  Returns {(layer index, slot key): rgba}."""
+def _fit_channel(frame: torch.Tensor, spec: ChannelSpec) -> torch.Tensor:
+    """An already-unpacked frame must have the channel's geometry: the
+    stretch-fit of the JAX package (resize_frame) is not ported."""
+    if tuple(frame.shape[-2:]) != (spec.height, spec.width):
+        raise NotImplementedError(
+            f"source frame {tuple(frame.shape[-2:])} differs from the channel's "
+            f"{(spec.height, spec.width)}: ROADMAP.md A3 (resize_frame)"
+        )
+    return frame
+
+
+def _sources(spec: ChannelSpec, params: dict, st: _Stages) -> dict:
+    """Every source slot of the frame -> {(layer index, slot key): frame}.
+    A deinterlaced slot runs yadif over its ring at the params' parity,
+    an ``rgba_f32`` slot passes its frame through, all v210 slots unpack
+    in ONE call (the JAX package's _batch_unpack_slots) and planar 4:2:2
+    slots one by one (JAX ``_layer_source``)."""
     w, h = spec.width, spec.height
     out = {}
     v210_slots = []
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
         for key, fmt in _slot_formats(ls):
-            if fmt == _V210:
+            ring = lp.get(f"{key}_ring") if ls.deinterlace else None
+            if ring is not None:
+                opaque = ls.src_opaque and ring[0].shape[0] == 4
+                out[(li, key)] = _fit_channel(
+                    st.yadif_ring(ring[0], ring[1], ring[2], lp["parity"], spec.tff,
+                                  opaque=opaque),
+                    spec,
+                )
+            elif fmt == RGBA_F32:
+                out[(li, key)] = _fit_channel(lp[key], spec)
+            elif fmt == _V210:
                 v210_slots.append((li, key))
             else:
                 out[(li, key)] = st.planar422_unpack(
@@ -195,19 +251,82 @@ def _unpack_sources(spec: ChannelSpec, params: dict, st: _Stages) -> dict:
     return out
 
 
+def _with_alpha_one(rgb3: torch.Tensor) -> torch.Tensor:
+    """(3, H, W) -> (4, H, W) with alpha == 1: the route for layer
+    structures whose warped alpha is not separable."""
+    return torch.cat([rgb3, torch.ones_like(rgb3[:1])])
+
+
 def _warp_one(ls: LayerSpec, rgba: torch.Tensor, mat, st: _Stages) -> torch.Tensor:
     if ls.axis_aligned:
         return st.warp(rgba, mat)
     return warp_affine(rgba, mat)  # plain only: check_structure keeps it off CUDA
 
 
+def _process_layer_rgb3(
+    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
+) -> Optional[tuple]:
+    """3-channel route for an opaque alpha-free source (JAX
+    ``_process_layer_rgb3``): warp RGB only and carry the separable warp
+    alpha as (wy, wx) vectors.  Returns (rgb (3,H,W), wy (H,), wx (W,)),
+    or None when the structure needs a real alpha plane."""
+    h, w = spec.height, spec.width
+    rgb = srcs[(li, "src")]
+    if not ls.has_transform:
+        if ls.transition != "none":
+            return None
+        ones = lambda n: torch.ones((n,), dtype=torch.float32, device=rgb.device)
+        return (rgb, ones(h), ones(w))
+    if not ls.axis_aligned or (ls.transition == "dissolve" and not ls.warp_same_mat):
+        return None
+    mat = lp["matrix"]
+    wy, wx = warp_mod.warp_alpha_vectors(h, w, mat)
+    if ls.transition == "dissolve":
+        rgb_b = srcs[(li, "src_b")]
+        if rgb_b.shape[0] == 4:
+            rgb_b = rgb_b[:3]  # opaque contract: alpha == 1
+        return (st.warp(rgb, mat, rgb_b, lp["mix"]), wy, wx)
+    return (st.warp(rgb, mat), wy, wx)
+
+
+def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict) -> Optional[tuple]:
+    """(srcs, layer_cfg, mats, mixes) for one packed composite launch over
+    the whole stack, or None: at least two layers into v210, each a cut
+    or a same-matrix dissolve under an axis-aligned DVE over (3, H, W)
+    sources."""
+    if spec.out_format != _V210 or not 2 <= len(spec.layers) <= packed_warp.MAX_LAYERS:
+        return None
+    flat, cfg, mats, mixes = [], [], [], []
+    for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+        if not (ls.has_transform and ls.axis_aligned):
+            return None
+        if ls.transition == "dissolve" and not ls.warp_same_mat:
+            return None
+        frames = [srcs[(li, key)] for key, _ in _slot_formats(ls)]
+        if any(f.shape[0] != 3 for f in frames):
+            return None
+        flat += frames
+        cfg.append(len(frames))
+        mats.append(lp["matrix"])
+        mixes.append(lp["mix"] if len(frames) == 2 else None)
+    return flat, tuple(cfg), mats, mixes
+
+
 def _process_layer(
-    ls: LayerSpec, lp: dict, srcs: dict, li: int, st: _Stages
-) -> torch.Tensor:
+    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
+):
+    """One layer -> a (4, H, W) RGBA frame or an (rgb, wy, wx) tuple."""
     rgba = srcs[(li, "src")]
+    if rgba.shape[0] == 3:
+        out3 = _process_layer_rgb3(ls, lp, srcs, li, spec, st)
+        if out3 is not None:
+            return out3
+        rgba = _with_alpha_one(rgba)
     if ls.transition == "none":
         return _warp_one(ls, rgba, lp["matrix"], st) if ls.has_transform else rgba
     rgba_b = srcs[(li, "src_b")]
+    if rgba_b.shape[0] == 3:
+        rgba_b = _with_alpha_one(rgba_b)
     mix = lp["mix"]
     if not ls.has_transform:
         return mix_frames(rgba, rgba_b, mix)
@@ -227,15 +346,24 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False) -> list
     device = _params_device(params)
     check_structure(spec, device)
     st = _PLAIN if plain else _KERNELS
-    srcs = _unpack_sources(spec, params, st)
+    srcs = _sources(spec, params, st)
+    run = _packed_composite_args(spec, params, srcs)
+    if run is not None:
+        return [st.packed_composite(*run, spec.out_col_spec)]
     layers = [
-        _process_layer(ls, lp, srcs, li, st)
+        _process_layer(ls, lp, srcs, li, spec, st)
         for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"]))
     ]
-    black = torch.zeros((4, spec.height, spec.width), dtype=torch.float32, device=device)
-    composited = combine([black] + layers)
+    if any(isinstance(f, tuple) for f in layers):
+        # alpha-free combine: the pack never reads alpha
+        composited = combine_rgb(layers)
+    else:
+        black = torch.zeros((4, spec.height, spec.width), dtype=torch.float32, device=device)
+        composited = combine([black] + layers)
     if spec.out_format == _V210:
         return [st.v210_pack(composited, spec.out_col_spec)]
+    if composited.shape[0] == 3:
+        composited = _with_alpha_one(composited)
     out_fmt = get_format(spec.out_format)
     saver = make_saver(out_fmt.INFO, spec.out_col_spec, spec.gamma_mode, device)
     return fio.from_rgba(out_fmt, composited, saver, spec.width, spec.height)
@@ -250,5 +378,155 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
 
     def program(params: dict) -> list:
         return _channel_frame(spec, params, plain)
+
+    return program
+
+
+# ------------------------- modular stage programs (runtime pipelines) --
+#
+# Cached plain Python callables, one per static configuration; each runs
+# on the device of its inputs.  The JAX package jits them; PyTorch runs
+# eagerly.
+
+
+def _analytic_only(gamma_mode: str) -> None:
+    if gamma_mode != "analytic":
+        raise ValueError(
+            f"gamma_mode '{gamma_mode}': the port's unpack and pack kernels compute the "
+            "analytic transfer"
+        )
+
+
+@lru_cache(maxsize=None)
+def make_unpack_program(
+    fmt_name: str, width: int, height: int, col_spec: str, out_col_spec: str,
+    gamma_mode: str = "analytic", channels: int = 4, plain: bool = False,
+):
+    """Producer-side ToRGBA as its own stage (io.ts:26-114): planes ->
+    linear (channels, H, W) float32.  ``channels=3`` emits alpha-free
+    frames for opaque wire formats (alpha would be the constant 1), the
+    frames of the 3-channel deinterlace ring.  v210 goes through K1; a
+    yuv422p8 source through K3, sliced to 3 channels where asked (as the
+    JAX package's off-route path does)."""
+    _analytic_only(gamma_mode)
+    if channels not in (3, 4):
+        raise ValueError(f"make_unpack_program: channels must be 3 or 4, got {channels}")
+    st = _PLAIN if plain else _KERNELS
+    if fmt_name == _V210:
+
+        def program(planes):
+            return st.v210_unpack(
+                [planes[0]], width, height, col_spec, out_col_spec, channels
+            )[0]
+
+    elif fmt_name in _PLANAR422_8:
+
+        def program(planes):
+            return st.planar422_unpack(planes, width, height, col_spec, out_col_spec)[
+                :channels
+            ]
+
+    else:
+        raise NotImplementedError(
+            f"unpack of '{fmt_name}' not ported yet: ROADMAP.md A2 and B10-B12"
+        )
+    return program
+
+
+@lru_cache(maxsize=None)
+def make_pack_program(
+    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic"
+):
+    """Consumer-side FromRGBA as its own stage (io.ts:116-179): a linear
+    RGB(A) (C, H, W) frame -> the packed planes."""
+    _analytic_only(gamma_mode)
+    if fmt_name != _V210:
+        raise NotImplementedError(
+            f"pack to '{fmt_name}' not ported yet: ROADMAP.md B11 and B13"
+        )
+
+    def program(rgba):
+        if tuple(rgba.shape[-2:]) != (height, width):
+            raise ValueError(f"pack program: frame {tuple(rgba.shape)} is not {height}x{width}")
+        return [kernels.v210_pack(rgba, col_spec)]
+
+    return program
+
+
+@lru_cache(maxsize=None)
+def make_interlaced_pack_program(
+    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic"
+):
+    """Pack two field-rate frames into one interlaced packed frame: even
+    lines from the top-field frame, odd from the bottom, the functional
+    form of the reference consumer's two write passes
+    (macadamConsumer.ts:224-244, v210.ts:126-129)."""
+    pack = make_pack_program(fmt_name, width, height, col_spec, gamma_mode)
+
+    def program(top_rgba, bottom_rgba):
+        return pack(fio.interleave_rgba_fields(top_rgba, bottom_rgba))
+
+    return program
+
+
+@lru_cache(maxsize=None)
+def make_interlaced_word_pack_program(fmt_name: str):
+    """Field-pair interlaced output in the PACKED domain, or None.
+
+    For a format without vertical chroma subsampling (sub_y == 1: v210,
+    planar 4:2:2) every packed row depends only on its own image row, so
+    the interlaced wire frame is a row-parity select over the two field
+    ticks' packed planes, equal to interleave_rgba_fields + pack with no
+    second encode.  sub_y > 1 formats (4:2:0) return None and keep the
+    RGBA path."""
+    if get_format(fmt_name).INFO.sub_y != 1:
+        return None
+
+    def program(top_planes, bottom_planes):
+        outs = []
+        for t, b in zip(top_planes, bottom_planes):
+            # every sub_y == 1 format packs planes with image rows as the
+            # leading dim
+            rows = torch.arange(t.shape[0], device=t.device)
+            even = (rows % 2 == 0).reshape(-1, *([1] * (t.ndim - 1)))
+            outs.append(torch.where(even, t, b))
+        return outs
+
+    return program
+
+
+@lru_cache(maxsize=None)
+def make_yadif_pair_field_program(
+    height: int, width: int, tff: bool, channels: int = 4, skip_spatial: bool = False,
+    plain: bool = False,
+):
+    """Producer-side pair deinterlace: BOTH field ticks of a frame period
+    from one launch and one ring read (the yadif pair kernel).
+
+    Returns fn(prev, cur, next_) -> (first, second) in field EMISSION
+    order (tff: parity 0 then 1; bff: 1 then 0, the runtime/layer.py
+    parity law).  Each output equals the in-program yadif ring path at
+    that parity.  The channel program then takes the fields as
+    ``rgba_f32`` sources."""
+    st = _PLAIN if plain else _KERNELS
+    shape = (channels, height, width)
+
+    def program(prev, cur, next_):
+        if tuple(cur.shape) != shape:
+            raise ValueError(f"yadif pair program: frame {tuple(cur.shape)}, expected {shape}")
+        o0, o1 = st.yadif_pair(prev, cur, next_, tff, skip_spatial)
+        return (o0, o1) if tff else (o1, o0)
+
+    return program
+
+
+@lru_cache(maxsize=None)
+def make_yadif_program(tff: bool, skip_spatial: bool):
+    """Standalone deinterlace step over a 3-frame ring:
+    fn(prev, cur, next_, parity) -> the frame at that parity (the yadif
+    ring kernel)."""
+
+    def program(prev, cur, next_, parity):
+        return yadif.yadif_ring(prev, cur, next_, parity, tff, skip_spatial)
 
     return program

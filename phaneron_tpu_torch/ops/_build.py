@@ -1,8 +1,9 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``library()`` compiles every ``phaneron_tpu_torch/csrc/*.cu`` with nvcc
-into one shared library with a plain C interface, under ``build/kernels/``
-at the repository root, and loads it.  The file name carries a hash of
+``library()`` compiles every ``phaneron_tpu_torch/csrc/*.cu`` with nvcc,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, under ``build/kernels/`` at
+the repository root, and loads it.  The file name carries a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads the existing library.  Nothing but the package's own sources goes
 into the build.  A failed build raises with nvcc's output.
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
@@ -36,7 +38,7 @@ CSRC = _PKG / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,10 +46,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: pointers and the stream as
 # c_void_p (a plain int would be cut to 32 bits), sizes as c_int
 _SIGNATURES = {
-    "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
     "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "phn_packed_composite": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
 }
 
 
@@ -90,22 +95,32 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd: list[str], what: str) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {what} ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 def _compile(out: Path, srcs: list[Path]) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(p) for p in srcs if p.suffix == ".cu")]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [str(Path(tmp_dir) / f"{p.stem}.o") for p in cus]
+        # one nvcc per source, all at once
+        with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+            logs = list(pool.map(
+                lambda po: _run([nvcc, *NVCC_FLAGS, "-c", "-o", po[1], str(po[0])], po[0].name),
+                zip(cus, objs),
+            ))
+        tmp = str(Path(tmp_dir) / out.name)
+        logs.append(_run([nvcc, "-shared", "-o", tmp, *objs], "link"))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    log = proc.stdout + proc.stderr
+    log = "".join(logs)
     out.with_suffix(".log").write_text(log)
     return log
 

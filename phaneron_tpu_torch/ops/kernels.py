@@ -14,7 +14,7 @@ Counterpart of phaneron_tpu/ops/pallas_kernels.py.  Each kernel has:
 
 | wrapper            | CUDA source                  | replaces (phaneron_tpu/ops/pallas_kernels.py)             |
 |--------------------|------------------------------|-----------------------------------------------------------|
-| v210_unpack        | csrc/v210_unpack.cu          | _make_v210_spatial_unpack, make_v210_unpack_rgba           |
+| v210_unpack        | csrc/v210_unpack.cu          | _make_v210_spatial_unpack (C 3, 4), make_v210_unpack_rgba  |
 | v210_pack          | csrc/v210_pack.cu            | make_v210_pack_rgba                                        |
 | planar422_unpack   | csrc/planar422_unpack.cu     | _make_planar422_spatial_unpack, make_planar422_unpack_rgba |
 """
@@ -124,32 +124,40 @@ def _saver(out_col_spec: str, device: torch.device):
 
 def v210_unpack_plain(
     words: Sequence[torch.Tensor], width: int, height: int,
-    col_spec: str = "709", out_col_spec: str = "709",
+    col_spec: str = "709", out_col_spec: str = "709", channels: int = 4,
 ) -> list[torch.Tensor]:
     """Plain version of v210_unpack: each (H, G*4) int32 word tensor ->
-    linear RGBA (4, H, W) float32."""
+    linear RGB(A) (channels, H, W) float32."""
     return [
-        to_rgba(v210fmt, [w], _loader("v210", col_spec, out_col_spec, w.device), width, height)
+        to_rgba(
+            v210fmt, [w], _loader("v210", col_spec, out_col_spec, w.device), width, height
+        )[:channels]
         for w in words
     ]
 
 
 def v210_unpack(
     words: Sequence[torch.Tensor], width: int, height: int,
-    col_spec: str = "709", out_col_spec: str = "709",
+    col_spec: str = "709", out_col_spec: str = "709", channels: int = 4,
 ) -> list[torch.Tensor]:
-    """v210 words -> linear RGBA (4, H, W) float32 for every source, up
-    to MAX_SRCS sources per launch.  Each word tensor is (H, pitch_bytes/4)
-    int32 holding the uint32 bit pattern."""
+    """v210 words -> linear RGB(A) (channels, H, W) float32 for every
+    source, up to MAX_SRCS sources per launch.  ``channels`` 4 gives RGBA
+    with alpha 1, 3 the alpha-free opaque frames of the deinterlace ring.
+    Each word tensor is (H, pitch_bytes/4) int32 holding the uint32 bit
+    pattern."""
+    if channels not in (3, 4):
+        raise ValueError(f"v210_unpack: channels must be 3 or 4, got {channels}")
     if not words:
         return []
     if is_cpu(words[0], "v210_unpack"):
-        return v210_unpack_plain(words, width, height, col_spec, out_col_spec)
+        return v210_unpack_plain(words, width, height, col_spec, out_col_spec, channels)
     dev = words[0].device
     groups = v210fmt.pitch(width) // 6
     for w in words:
         check_arg(w, "v210_unpack words", dev, torch.int32, (height, groups * 4), align=16)
-    outs = [torch.empty((4, height, width), dtype=torch.float32, device=dev) for _ in words]
+    outs = [
+        torch.empty((channels, height, width), dtype=torch.float32, device=dev) for _ in words
+    ]
     coeffs = _decode_coeffs(10, 64, 940, 896, col_spec, out_col_spec)
     lib = library()
     with torch.cuda.device(dev):
@@ -160,7 +168,7 @@ def v210_unpack(
             outp = (ctypes.c_void_p * len(chunk))(*(outs[j].data_ptr() for j in chunk))
             rc = lib.phn_v210_unpack(
                 ctypes.addressof(ins), ctypes.addressof(outp), len(chunk),
-                width, height, groups, ctypes.addressof(coeffs), stream,
+                width, height, groups, channels, ctypes.addressof(coeffs), stream,
             )
             check_launch(rc, "v210_unpack")
             v210_unpack.launches += 1

@@ -39,6 +39,8 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "phaneron_tpu_torch.graph.pipeline" in res["modules"]
     assert "phaneron_tpu_torch.ops.kernels" in res["modules"]
     assert "phaneron_tpu_torch.ops.warp" in res["modules"]
+    assert "phaneron_tpu_torch.ops.yadif" in res["modules"]
+    assert "phaneron_tpu_torch.ops.packed_warp" in res["modules"]
     assert res["jax"] == []
     assert res["reference"] == []
     assert res["built"] == 0

@@ -166,7 +166,8 @@ def test_build_sources_and_flags():
     the wrappers on a machine that may have no nvcc)."""
     names = sorted(p.name for p in _build.sources())
     assert names == [
-        "phn_common.cuh", "planar422_unpack.cu", "v210_pack.cu", "v210_unpack.cu", "warp.cu",
+        "packed_composite.cu", "phn_common.cuh", "planar422_unpack.cu", "v210_pack.cu",
+        "v210_unpack.cu", "warp.cu", "yadif.cu",
     ]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags

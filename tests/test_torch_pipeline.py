@@ -181,12 +181,18 @@ def _spec(*layers, out_format="v210", **kw):
 
 
 def test_entry_structure_dispatches_to_kernels_on_cuda():
-    spec = _spec(tpipe.LayerSpec("v210", transition="dissolve", has_transform=True,
-                                 src_b_format="v210"),
-                 tpipe.LayerSpec("yuv422p8"))
-    assert tpipe.missing_kernel(spec) is None
-    tpipe.check_structure(spec, torch.device("cuda"))  # does not raise
-    tpipe.check_structure(spec, "cpu")
+    """The entry() structure and the interlaced default load's structures
+    (a deinterlaced ring layer, rgba_f32 field layers) have every kernel."""
+    entry = _spec(tpipe.LayerSpec("v210", transition="dissolve", has_transform=True,
+                                  src_b_format="v210"),
+                  tpipe.LayerSpec("yuv422p8"))
+    ring = _spec(tpipe.LayerSpec("v210", deinterlace=True))
+    fields = _spec(tpipe.LayerSpec("rgba_f32", transition="dissolve", has_transform=True,
+                                   src_b_format="rgba_f32", src_opaque=True))
+    for spec in (entry, ring, fields):
+        assert tpipe.missing_kernel(spec) is None
+        tpipe.check_structure(spec, torch.device("cuda"))  # does not raise
+        tpipe.check_structure(spec, "cpu")
 
 
 @pytest.mark.parametrize(
@@ -197,7 +203,7 @@ def test_entry_structure_dispatches_to_kernels_on_cuda():
                                warp_same_mat=False)), "B4", True),
         (_spec(tpipe.LayerSpec("v210"), out_format="yuv422p8"), "B11", True),
         (_spec(tpipe.LayerSpec("v210", transition="wipe")), "wipe", False),
-        (_spec(tpipe.LayerSpec("v210", deinterlace=True)), "yadif", False),
+        (_spec(tpipe.LayerSpec("yuv422p10le")), "yuv422p10le", False),
         (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame", False),
         (_spec(tpipe.LayerSpec("nv12")), "nv12", False),
         (_spec(tpipe.LayerSpec("v210"), emit_rgba=True), "emit_rgba", False),

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the device time of the PyTorch + CUDA port goes, on one GPU.
+
+Run from the repository root:  python3 tools/port_profile.py [--periods N]
+
+Drives chip_smoke.py's two main paths at 1920x1080 (the interlaced
+default load, four 1080i50 channels, one frame period per step; the
+entry() channel frame) under torch.profiler after warm-up, and prints
+for each: the host-clock ms per step without the profiler (synchronised
+before and after), the device time per step by kernel (self device time
+of the device-side events in key_averages), the device's busy share of
+the step, the number of device operations per step, and the host time
+of each stage (record_function ranges that chip_smoke.InterlacedLoad
+opens through its ``stage`` hook).  Exits 1 without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def host_ms(torch, step, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profile(torch, name: str, step, steps: int, card: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    for _ in range(3):
+        step()
+    wall = host_ms(torch, step, max(steps, 5))
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_device = lambda e: e.device_type == DeviceType.CUDA
+    # device-side events only: the host-side op that launched a kernel
+    # carries the same device time
+    kernels = [e for e in events if on_device(e) and not e.key.startswith("stage:")]
+    busy = sum(device_us(e) for e in kernels) / steps / 1e3
+    launches = sum(e.count for e in kernels) / steps
+    print(f"== {name} on {card}: host-clock {wall:.4f} ms per step (no profiler), device busy "
+          f"{busy:.4f} ms per step ({100 * busy / wall:.1f} %), {launches:.0f} device "
+          f"kernels and copies per step, {steps} steps profiled")
+    for e in sorted(kernels, key=device_us, reverse=True)[:14]:
+        ms = device_us(e) / steps / 1e3
+        print(f"   {ms:9.4f} ms  {100 * ms / busy:5.1f} %  x{e.count / steps:6.1f}  {e.key[:90]}")
+    # host time of each stage range (the profiler's own overhead
+    # included); its device time is that of its kernels above
+    for e in sorted(events, key=lambda e: e.key):
+        if e.key.startswith("stage:") and not on_device(e):
+            print(f"   stage {e.key[6:]:<12} host {e.cpu_time_total / steps / 1e3:9.4f} ms "
+                  f"per step (profiled)")
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--periods", type=int, default=8)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("port_profile: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    import numpy as np
+    from torch.profiler import record_function
+
+    from phaneron_tpu_torch.graph.pipeline import make_channel_program
+
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(card)
+    rng = np.random.default_rng(cs.SEED)
+
+    load = cs.InterlacedLoad(cs.interlaced_inputs(torch, dev, rng), plain=False)
+    load.stage = lambda name: record_function(f"stage:{name}")
+
+    profile(torch, "interlaced default load, 4 x 1080i50, one frame period", load,
+            args.periods, card)
+
+    spec, params = cs.entry_spec_params(rng, dev)
+    program = make_channel_program(spec)
+    cs.animate(torch, params, dev, 0.5)
+    profile(torch, "entry() channel frame, 1080p", lambda: program(params), 50, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
