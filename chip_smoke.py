@@ -5,48 +5,59 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. Exits 1 unless CUDA is available; prints the card's name and power
    limit (nvidia-smi) and the torch / CUDA versions.
-2. Builds the kernels from phaneron_tpu_torch/csrc (nvcc, sm_90a) and
-   prints the build seconds and ptxas's register counts.
+2. Builds the kernels from phaneron_tpu_torch/csrc (nvcc, sm_90a; one
+   nvcc per source, all started together) and prints the build seconds
+   and ptxas's register counts.
 3. Compares each kernel with its plain PyTorch version on the card, at
    the 1080p shapes of the main paths, on seeded random words over the
    full 10-bit code range and on the formats' fill_buf ramps:
-   v210_unpack (4 and 3 channels) and planar422_unpack <= 4e-5,
-   v210_pack <= 1 code on random inputs and pack(unpack(fill_buf)) ==
-   fill_buf bit-exact (also at widths with a pitch pad), warp (4 and 3
-   channels, single and pair) <= 5e-5, yadif_ring and yadif_pair on
-   seeded random opaque rings (C 3 and 4, opaque, tff and bff, both
-   parities) max |delta| == 0, packed_composite (the default load's
-   4-dissolve tick, and cuts between dissolves under other matrices)
-   <= 1 code, and its code delta against K4 + combine_rgb + K2 on the
-   card (a record).
-4. Drives the entry() path, make_channel_program(spec)(params) (v210
-   dissolve with an axis-aligned DVE under a yuv422p8 layer) at
-   1920x1080 over 100 frames, with the mix ramping 0 -> 1 and the DVE
-   scale animating 0.90 -> 1.0.  Every frame's codes must be <= 1 from
-   the plain path on the card, and each kernel's launch counter must show
-   it on every frame.
-5. Times, with CUDA events after warm-up, the median ms per frame of the
-   entry path, kernel and plain (batches of back-to-back frames), and the
-   frame latency with the card idle before and after.
-6. Drives the interlaced default load, four 1080i50 channels as
-   bench.py interlaced_channels_step: per channel 8 distinct seeded v210
-   sources and 4 DVE + dissolve layers (a distinct axis-aligned matrix
-   per layer, mix animating), over 8 frame periods, each: unpack the new
-   frame of every source to 3 channels, advance its ring, one
-   make_yadif_pair_field_program call per source, two channel-program
-   ticks (each one packed_composite launch), one
-   make_interlaced_word_pack_program.  Every period's interlaced words
-   must be <= 1 code from the plain path on the card, and each kernel's
-   launch counter must move on every period.
-7. Runs the in-program ring route (deinterlace=True layers over the same
-   rings, parity on the card) for the two ticks of one channel: it must
-   equal the pair route bit for bit, and launch yadif_ring and
-   packed_composite.
-8. Times the default load's frame period (kernel and plain path, and its
-   share of the 40 ms period), and each kernel against its plain version
-   at the default load's shapes (K3: the entry path's), K4 also against
-   torch.nn.functional.grid_sample on the same frames, and K1, K2 and K4
-   again at the entry path's 4-channel shapes.
+   v210_unpack (4 and 3 channels) and planar422_unpack exactly (both
+   gather gamma'->linear from one table), v210_pack <= 1 code on random
+   inputs and pack(unpack(fill_buf)) == fill_buf bit-exact (also at
+   widths with a pitch pad), warp (4 and 3 channels, single and pair)
+   <= 5e-5, yadif_ring and yadif_pair on seeded random opaque rings (C 3
+   and 4, opaque, tff and bff, both parities) max |delta| == 0; then, to
+   <= 1 code (expected 0), packed_composite over (3, H, W) frames and over
+   v210 words, fused_v210 (cut and dissolve, also at 1280 wide),
+   combine_pack (4-channel and (rgb, wy, wx) layers) and packed_warp
+   (single, shared-matrix pair, distinct-matrix pair, max |delta| 0), and
+   each fused kernel's delta against the staged kernels it replaces (a
+   record).
+4. Drives each main path through make_channel_program (or the stage
+   programs), every launch count set to 0 just before and read just
+   after, each frame's words <= 1 code from the plain path on the card:
+   - entry: the entry() structure (a v210 dissolve with an axis-aligned
+     DVE under a yuv422p8 layer) at 1920x1080 over 50 frames, mix
+     ramping 0 -> 1 and the DVE scale animating 0.90 -> 1.0: one
+     packed_warp, planar422_unpack and combine_pack launch a frame;
+   - progressive: bench.py composite_step (4 DVE + dissolve layers, a
+     matrix each, 8 distinct v210 sources: rolled fill_buf ramps and
+     seeded random words, mixes animating) at 3840x2160 and 1920x1080:
+     exactly one packed_composite launch a frame and no v210_unpack,
+     warp, combine_pack, v210_pack or packed_warp;
+   - playout: one v210 clip as a cut, and a dissolve between two clips
+     with the mix animating, at 1920x1080 and 3840x2160: one fused_v210
+     launch a frame;
+   - stage_programs: the producer unpack and consumer pack stage programs
+     round-trip the fill_buf ramp bit for bit (v210_unpack, v210_pack);
+   - interlaced: the default load, four 1080i50 channels as bench.py
+     interlaced_channels_step: per channel 8 distinct seeded v210 sources
+     and 4 DVE + dissolve layers (a distinct axis-aligned matrix per
+     layer, mix animating), over 8 frame periods, each: unpack the new
+     frame of every source to 3 channels, advance its ring, one
+     make_yadif_pair_field_program call per source, two channel-program
+     ticks (each one packed_composite launch), one
+     make_interlaced_word_pack_program;
+   - ring_route: the in-program ring route (deinterlace=True layers over
+     the same rings, parity on the card) for the two ticks of one
+     channel: it must equal the pair route bit for bit.
+5. Times, with CUDA events after warm-up, the median ms per frame (or
+   period) of each path, kernel and plain (batches of back-to-back
+   frames), the progressive frame also on the staged K1 (3 ch) + K5
+   (rgb3) route, and each frame's latency with the card idle before and
+   after; then each kernel against its plain version at a main path's
+   shapes, K4 also against torch.nn.functional.grid_sample on the same
+   frames (3 and 4 channels).
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -67,10 +78,13 @@ import time
 import numpy as np
 
 W, H = 1920, 1080
-FRAMES = 100
+UHD_W, UHD_H = 3840, 2160
+FRAMES = 50  # entry path frames
+PROG_FRAMES = 4  # progressive frames per geometry
+PLAYOUT_FRAMES = 8  # playout frames per geometry and transition
 SEED = 1234
 
-TOL_UNPACK = 4e-5  # one LUT step (powf vs the host pow)
+TOL_UNPACK = 0.0  # kernel and plain version gather gamma'->linear from one table
 TOL_WARP = 5e-5
 TOL_CODES = 1
 
@@ -89,9 +103,10 @@ FP32_FLOPS = 67e12
 # float32 operations per element, counted from csrc/: one each for add,
 # subtract, multiply, divide, abs, min, max, floor, rint and powf;
 # compares and selects are not counted
-OPS_TRANSFER = 8  # phn::g2l / l2g: scale, rint, max, min, scale, then offset, scale, powf
-OPS_DECODE_PX = 3 * 6 + 3 * OPS_TRANSFER + 3 * 5  # 3x4 matrix, transfers, 3x3 gamut
-OPS_ENCODE_PX = 3 * OPS_TRANSFER + 9 + 9  # transfers, luma row, two chroma rows every other pixel
+OPS_G2L = 4  # phn::g2l: scale, rint, max, min (the table gather is a load)
+OPS_L2G = 8  # phn::l2g: scale, rint, max, min, scale, then offset, scale, powf
+OPS_DECODE_PX = 3 * 6 + 3 * OPS_G2L + 3 * 5  # 3x4 matrix, transfers, 3x3 gamut
+OPS_ENCODE_PX = 3 * OPS_L2G + 9 + 9  # transfers, luma row, two chroma rows every other pixel
 OPS_WARP_PX = 18  # per output pixel and matrix: ix, iy, px, py, floor and fraction
 OPS_WARP_SAMPLE = 12  # sample(): three lerps
 OPS_MIX = 4  # v * mix + vb * (1 - mix)
@@ -192,6 +207,19 @@ def warp_source_texels(torch, mat, height: int, width: int) -> int:
     return used(mat[1, 1], mat[1, 2], height) * used(mat[0, 0], mat[0, 2], width)
 
 
+def warp_source_groups(torch, mat, height: int, width: int) -> int:
+    """v210 groups an axis-aligned warp by ``mat`` reads: the rows and the
+    6-pixel groups of the columns its in-range taps land on."""
+    from phaneron_tpu_torch.ops.geometry import _bilinear_setup, _out_coords
+
+    def used(m, off, size, per):
+        i0, _ = _bilinear_setup(m * _out_coords(size, mat.device) + off + 0.5, size)
+        taps = torch.cat([i0, i0 + 1])
+        return int((taps[(taps >= 0) & (taps < size)] // per).unique().numel())
+
+    return used(mat[1, 1], mat[1, 2], height, 1) * used(mat[0, 0], mat[0, 2], width, 6)
+
+
 def grid_sample_args(torch, srcs, mat):
     """(input, grid) for F.grid_sample computing the same warp: grid
     g = 2 * (m00 * ix + m02) (align_corners=False, zero padding)."""
@@ -205,8 +233,8 @@ def grid_sample_args(torch, srcs, mat):
 
 
 def phase_kernels(torch, dev, rng) -> dict:
-    """Each kernel of the entry path against its plain version at the
-    main path's shapes."""
+    """K1-K4 (the staged path's unpacks, pack and warp) against their
+    plain versions at 1080p."""
     from phaneron_tpu_torch.graph.convert import to_tensor, words_to_numpy
     from phaneron_tpu_torch.ops import kernels as K
     from phaneron_tpu_torch.ops.formats import v210, yuv422p8
@@ -387,6 +415,89 @@ def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_packed_source_kernels(torch, dev, rng, rec: dict) -> None:
+    """The kernels of the progressive, playout and entry paths against
+    their plain versions at 1920x1080 from seeded full-range random words:
+    packed_composite over v210 words, fused_v210, combine_pack and
+    packed_warp; and against the staged kernels each one fuses."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.formats import v210, yuv422p8
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp, warp_alpha_vectors
+
+    words = lambda w=W, h=H: to_tensor(random_words(rng, w, h), dev)
+    delta = lambda a, b, w=W, h=H: code_delta(torch, a, b, w, h)
+    err = lambda a, b: float((a - b).abs().max())
+    a, b = words(), words()
+    fill = to_tensor(v210.fill_buf(W, H)[0], dev)
+    mix = torch.tensor(0.35, device=dev)
+
+    # packed composite, v210 words: the progressive frame's 4 dissolves and
+    # cuts between dissolves under matrices that scale up, flip and leave
+    srcs = [words() for _ in range(8)]
+    prog_mats = [to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev)
+                 for i in range(4)]
+    odd_mats = [to_tensor(transform_matrix(W, H, **kw), dev) for kw in (
+        dict(scale_x=0.5, scale_y=2.0, offset_y=-0.1), dict(flip_h=True, scale_x=1.3),
+        dict(), dict(scale_x=0.7, scale_y=0.6, offset_x=0.45))]
+    mixes = [torch.tensor(0.4 + 0.05 * i, device=dev) for i in range(4)]
+    d7 = d7_staged = 0
+    for cfg, mats in (((2, 2, 2, 2), prog_mats), ((2, 1, 2, 1), odd_mats)):
+        mx = [m if n == 2 else None for n, m in zip(cfg, mixes)]
+        kw = dict(src_kind="packed", size=(W, H))
+        got = PW.packed_composite(srcs[:sum(cfg)], cfg, mats, mx, **kw)
+        d7 = max(d7, delta(got, PW.packed_composite_plain(srcs[:sum(cfg)], cfg, mats, mx, **kw)))
+        staged = PW.packed_composite(K.v210_unpack(srcs[:sum(cfg)], W, H, channels=3), cfg, mats, mx)
+        d7_staged = max(d7_staged, delta(got, staged))
+    print(f"packed_composite (v210 words) max code delta vs plain = {d7} (<= {TOL_CODES}); vs "
+          f"K1 (3 ch) + K5 (rgb3) on the card = {d7_staged} (a record)")
+    check(d7 <= TOL_CODES, f"packed_composite (packed) code delta {d7}")
+    rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(d7))
+
+    # fused v210: cut and dissolve, and a width with a partial group and a pitch pad
+    d3 = d3_staged = 0
+    for w, h in ((W, H), (1280, 16)):
+        x, y = (words(w, h), words(w, h)) if w != W else (a, fill)
+        for args in ((x, w, h), (x, w, h, y, mix)):
+            got = K.fused_v210(*args)
+            d3 = max(d3, delta(got, K.fused_v210_plain(*args), w, h))
+        d3_staged = max(d3_staged, delta(K.fused_v210(x, w, h), K.v210_pack(K.v210_unpack([x], w, h)[0]), w, h))
+    print(f"fused_v210 max code delta vs plain = {d3} (<= {TOL_CODES}); cut vs K1 + K2 on the card "
+          f"= {d3_staged} (a record)")
+    check(d3 <= TOL_CODES, f"fused_v210 code delta {d3}")
+    rec["fused_v210"] = dict(max_abs_err=float(d3))
+
+    # packed warp: single, shared-matrix pair, distinct-matrix pair
+    m = to_tensor(transform_matrix(W, H, scale_x=0.9, offset_x=0.05), dev)
+    mb = to_tensor(transform_matrix(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05), dev)
+    e6 = 0.0
+    for args in ((a, m, W, H), (a, m, W, H, b, mix), (a, m, W, H, b, mix, mb)):
+        e6 = max(e6, err(PW.packed_warp(*args), PW.packed_warp_plain(*args)))
+    fa, fb = K.v210_unpack([a, b], W, H)
+    e6_staged = err(PW.packed_warp(a, m, W, H, b, mix), warp(fa, m, fb, mix))
+    print(f"packed_warp max |kernel - plain| = {e6} over single, shared and distinct pairs (== 0); "
+          f"pair vs K1 + K4 on the card = {e6_staged} (a record)")
+    check(e6 == 0.0, f"packed_warp differs from its plain version by {e6}")
+    rec["packed_warp"] = dict(max_abs_err=e6)
+
+    # combine + pack: the entry frame's layers, and 4-channel and (rgb, wy, wx) layers mixed
+    y422 = K.planar422_unpack([to_tensor(p, dev) for p in yuv422p8.fill_buf(W, H)], W, H)
+    entry_layers = [PW.packed_warp(a, m, W, H, b, mix), y422]
+    mixed = [fa, (fb[:3].contiguous(), *warp_alpha_vectors(H, W, m)), entry_layers[0],
+             (fa[:3].contiguous(), *warp_alpha_vectors(H, W, mb))]
+    d5 = max(delta(K.combine_pack(l), K.combine_pack_plain(l)) for l in (entry_layers, mixed))
+    from phaneron_tpu_torch.ops.composite import combine_rgb
+
+    d5_staged = delta(K.combine_pack(mixed), K.v210_pack(combine_rgb(mixed)))
+    print(f"combine_pack max code delta vs plain = {d5} (<= {TOL_CODES}); vs combine_rgb + K2 on "
+          f"the card = {d5_staged} (a record)")
+    check(d5 <= TOL_CODES, f"combine_pack code delta {d5}")
+    rec["combine_pack"] = dict(max_abs_err=float(d5))
+    torch.cuda.synchronize()
+
+
 def entry_spec_params(rng, dev):
     """The entry() structure at 1080p: a v210 dissolve with an
     axis-aligned DVE under a plain yuv422p8 layer."""
@@ -429,6 +540,95 @@ def animate(torch, params, dev, t: float) -> None:
         transform_matrix(W, H, scale_x=s, scale_y=s, offset_x=0.05 * (1.0 - t))
     ).to(dev)
     layer["mix"] = torch.tensor(t, dtype=torch.float32, device=dev)
+
+
+def progressive_spec_params(torch, dev, rng, w: int, h: int):
+    """bench.py composite_step at w x h: 4 DVE + dissolve layers, each its
+    own axis-aligned matrix, over 8 distinct v210 sources (4 fill_buf
+    ramps rolled by whole groups, 4 seeded random word frames; each
+    dissolve goes from a ramp to random words), v210 out."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    base = v210.fill_buf(w, h)[0]
+    ramps = [to_tensor(np.roll(base, 4 * 11 * (k + 1), axis=1), dev) for k in range(4)]
+    noise = [to_tensor(random_words(rng, w, h), dev) for _ in range(4)]
+    layer = LayerSpec("v210", transition="dissolve", has_transform=True, axis_aligned=True,
+                      src_b_format="v210")
+    spec = ChannelSpec(w, h, "v210", layers=(layer,) * 4)
+    params = {"layers": [
+        {"src": [ramps[i]], "src_b": [noise[i]],
+         "matrix": to_tensor(transform_matrix(w, h, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev),
+         "mix": torch.tensor(0.4 + 0.05 * i, device=dev)}
+        for i in range(4)
+    ]}
+    return spec, params
+
+
+def progressive_animate(torch, params, dev, t: float) -> None:
+    for i, lp in enumerate(params["layers"]):
+        lp["mix"] = torch.tensor(0.4 + 0.05 * i + 0.2 * t, dtype=torch.float32, device=dev)
+
+
+def playout_spec_params(torch, dev, rng, w: int, h: int, dissolve: bool):
+    """PLAY 1-10 clip (a v210 cut) or PLAY 1-10 clip2 MIX (a dissolve from
+    the fill_buf ramp to seeded random words), no DVE, v210 out."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import v210
+
+    clip = to_tensor(random_words(rng, w, h), dev)
+    if not dissolve:
+        return ChannelSpec(w, h, "v210", layers=(LayerSpec("v210"),)), {"layers": [{"src": [clip]}]}
+    spec = ChannelSpec(w, h, "v210", layers=(LayerSpec("v210", transition="dissolve", src_b_format="v210"),))
+    ramp = to_tensor(v210.fill_buf(w, h)[0], dev)
+    return spec, {"layers": [{"src": [ramp], "src_b": [clip], "mix": torch.tensor(0.0, device=dev)}]}
+
+
+def playout_animate(torch, params, dev, t: float) -> None:
+    if "mix" in params["layers"][0]:
+        params["layers"][0]["mix"] = torch.tensor(t, dtype=torch.float32, device=dev)
+
+
+def drive_frames(torch, program, plain_program, params, animate, frames: int, w: int, h: int,
+                 what: str) -> int:
+    """``frames`` animated frames of a channel program, each checked
+    against the plain program on the card; returns the worst code delta."""
+    from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
+
+    worst = 0
+    for f in range(frames):
+        animate(f / max(frames - 1, 1))
+        out = program(params)
+        ref = plain_program(params)
+        check(len(out) == 1 and tuple(out[0].shape) == (h, pitch_bytes(w) // 4)
+              and out[0].dtype == torch.int32, f"{what} frame {f}: output {tuple(out[0].shape)} {out[0].dtype}")
+        d = code_delta(torch, out[0], ref[0], w, h)
+        worst = max(worst, d)
+        check(d <= TOL_CODES, f"{what} frame {f}: kernel path {d} codes from the plain path")
+    return worst
+
+
+def time_frame(torch, card: str, what: str, program, plain_program, params, extra=None) -> dict:
+    """Kernel and plain ms per frame (in turns), the frame latency, and
+    ``extra`` (name -> callable) timed beside them."""
+    frame_ms, plain_ms = [], []
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "plain":
+            plain_ms.append(time_ms(torch, lambda: plain_program(params), batches=3, calls=2, warmup=1))
+        else:
+            frame_ms.append(time_ms(torch, lambda: program(params)))
+    out = dict(ms=statistics.median(frame_ms), runs=frame_ms, plain_ms=statistics.median(plain_ms),
+               plain_runs=plain_ms, latency_ms=latency_ms(torch, lambda: program(params)))
+    line = (f"{what} frame ms on {card}: kernel path {out['ms']:.4f} (runs {frame_ms}), latency "
+            f"{out['latency_ms']:.4f}, plain path {out['plain_ms']:.4f} (runs {plain_ms})")
+    for name, fn in (extra or {}).items():
+        out[name] = time_ms(torch, fn)
+        line += f", {name} {out[name]:.4f}"
+    print(line)
+    return out
 
 
 def interlaced_spec(deinterlace: bool = False):
@@ -557,89 +757,137 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, dev, rng)
     phase_interlaced_kernels(torch, dev, rng, rec)
+    phase_packed_source_kernels(torch, dev, rng, rec)
 
     wrappers = {
         "v210_unpack": K.v210_unpack, "warp": warp_mod.warp,
         "planar422_unpack": K.planar422_unpack, "v210_pack": K.v210_pack,
         "yadif_ring": Y.yadif_ring, "yadif_pair": Y.yadif_pair,
-        "packed_composite": PW.packed_composite,
+        "packed_composite": PW.packed_composite, "fused_v210": K.fused_v210,
+        "combine_pack": K.combine_pack, "packed_warp": PW.packed_warp,
     }
     plain_fns = {
         "v210_unpack": K.v210_unpack_plain, "warp": warp_mod.warp_plain,
         "planar422_unpack": K.planar422_unpack_plain, "v210_pack": K.v210_pack_plain,
         "yadif_ring": Y.yadif_ring_plain, "yadif_pair": Y.yadif_pair_plain,
-        "packed_composite": PW.packed_composite_plain,
+        "packed_composite": PW.packed_composite_plain, "fused_v210": K.fused_v210_plain,
+        "combine_pack": K.combine_pack_plain, "packed_warp": PW.packed_warp_plain,
     }
     launches = {k: {} for k in wrappers}
 
-    def run_path(path: str, kernels: tuple, fn) -> None:
+    def run_path(path: str, per_frame: dict, frames: int, fn) -> None:
         """Drive one main path with every count at 0 just before and read
-        just after; each kernel of the path must have launched."""
+        just after: each kernel named in ``per_frame`` must have launched
+        exactly that many times a frame, every other kernel not at all."""
         for w in wrappers.values():
             w.launches = 0
         fn()
         torch.cuda.synchronize()
         for k, w in wrappers.items():
             launches[k][path] = w.launches
-        for k in kernels:
-            check(launches[k][path] > 0, f"{path}: {k} never launched")
         print(f"{path} path launches: { {k: launches[k][path] for k in wrappers} }")
+        for k in wrappers:
+            want = per_frame.get(k, 0) * frames
+            check(launches[k][path] == want, f"{path}: {k} launched {launches[k][path]} times, "
+                                             f"expected {want} over {frames} frames")
 
-    # -------- phase 4: the entry() path
+    timing = {}
+
+    # -------- phase 4a: the entry() path (packed warp pair, planar unpack, combine + pack)
     spec, params = entry_spec_params(rng, dev)
     program = make_channel_program(spec)
     plain_program = make_channel_program(spec, plain=True)
-    v210_words = pitch_bytes(W) // 4
-    entry_kernels = ("v210_unpack", "warp", "planar422_unpack", "v210_pack")
 
     def entry_path():
-        worst = 0
         t0 = time.perf_counter()
-        for f in range(FRAMES):
-            before = {k: wrappers[k].launches for k in entry_kernels}
-            animate(torch, params, dev, f / (FRAMES - 1))
-            out = program(params)
-            missing = [k for k in entry_kernels if wrappers[k].launches == before[k]]
-            check(not missing, f"frame {f}: kernels not launched: {missing}")
-            ref = plain_program(params)
-            check(len(out) == 1 and tuple(out[0].shape) == (H, v210_words), f"frame {f}: output shape")
-            check(out[0].dtype == torch.int32, f"frame {f}: output dtype {out[0].dtype}")
-            d = code_delta(torch, out[0], ref[0], W, H)
-            worst = max(worst, d)
-            check(d <= TOL_CODES, f"frame {f}: kernel path {d} codes from the plain path")
+        worst = drive_frames(torch, program, plain_program, params,
+                             lambda t: animate(torch, params, dev, t), FRAMES, W, H, "entry")
         print(f"entry path: {FRAMES} frames {W}x{H} in {time.perf_counter() - t0:.2f} s, "
               f"max code delta vs plain path {worst}")
 
-    run_path("entry", entry_kernels, entry_path)
-    for k in entry_kernels:
-        check(launches[k]["entry"] >= FRAMES, f"{k} launched {launches[k]['entry']} times over {FRAMES} frames")
-
-    # -------- phase 5: entry path timing (records, not targets)
+    run_path("entry", {"packed_warp": 1, "planar422_unpack": 1, "combine_pack": 1}, FRAMES, entry_path)
     animate(torch, params, dev, 0.5)
-    frame_ms, plain_frame_ms = [], []
-    for order in ("plain", "kernel", "kernel", "plain"):
-        fn = plain_program if order == "plain" else program
-        (plain_frame_ms if order == "plain" else frame_ms).append(time_ms(torch, lambda: fn(params)))
-    print(f"frame ms on {card}: kernel path {statistics.median(frame_ms):.4f} "
-          f"(runs {frame_ms}), plain path {statistics.median(plain_frame_ms):.4f} (runs {plain_frame_ms})")
-    print(f"frame latency ms on {card} (synchronised per frame): kernel path "
-          f"{latency_ms(torch, lambda: program(params)):.4f}, "
-          f"plain path {latency_ms(torch, lambda: plain_program(params)):.4f}")
+    timing["entry"] = time_frame(torch, card, f"entry {W}x{H}", program, plain_program, params)
+    entry_warp_args = (params["layers"][0]["src"][0], params["layers"][0]["matrix"], W, H,
+                       params["layers"][0]["src_b"][0], params["layers"][0]["mix"])
+    entry_pack_layers = [PW.packed_warp(*entry_warp_args),
+                         K.planar422_unpack(params["layers"][1]["src"], W, H)]
+
+    # -------- phase 4b: the progressive frame (bench.py composite_step), UHD and 1080p
+    prog_args = {}
+    for w, h in ((UHD_W, UHD_H), (W, H)):
+        pspec, pparams = progressive_spec_params(torch, dev, rng, w, h)
+        pprog = make_channel_program(pspec)
+        pplain = make_channel_program(pspec, plain=True)
+        path = f"progressive_{w}x{h}"
+
+        def progressive_path():
+            t0 = time.perf_counter()
+            worst = drive_frames(torch, pprog, pplain, pparams,
+                                 lambda t: progressive_animate(torch, pparams, dev, t), PROG_FRAMES, w, h, path)
+            print(f"{path}: {PROG_FRAMES} frames (4 DVE + dissolve layers, 8 v210 sources) in "
+                  f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}")
+
+        run_path(path, {"packed_composite": 1}, PROG_FRAMES, progressive_path)
+        progressive_animate(torch, pparams, dev, 0.5)
+        lps = pparams["layers"]
+        srcs = [s for lp in lps for s in (lp["src"][0], lp["src_b"][0])]
+        cfg, mats, mixes = (2, 2, 2, 2), [lp["matrix"] for lp in lps], [lp["mix"] for lp in lps]
+        staged = lambda: PW.packed_composite(K.v210_unpack(srcs, w, h, channels=3), cfg, mats, mixes)
+        timing[path] = time_frame(torch, card, path, pprog, pplain, pparams,
+                                  extra={"staged K1 (3 ch) + K5 (rgb3) ms": staged})
+        prog_args[(w, h)] = ((srcs, cfg, mats, mixes), dict(src_kind="packed", size=(w, h)))
+
+    # -------- phase 4c: playout (fused v210: a cut, and a dissolve with the mix animating)
+    playout_args = {}
+    for w, h in ((W, H), (UHD_W, UHD_H)):
+        for dissolve in (False, True):
+            sspec, sparams = playout_spec_params(torch, dev, rng, w, h, dissolve)
+            sprog = make_channel_program(sspec)
+            splain = make_channel_program(sspec, plain=True)
+            path = f"playout_{'dissolve' if dissolve else 'cut'}_{w}x{h}"
+
+            def playout_path():
+                worst = drive_frames(torch, sprog, splain, sparams,
+                                     lambda t: playout_animate(torch, sparams, dev, t), PLAYOUT_FRAMES, w, h, path)
+                print(f"{path}: {PLAYOUT_FRAMES} frames, max code delta vs plain path {worst}")
+
+            run_path(path, {"fused_v210": 1}, PLAYOUT_FRAMES, playout_path)
+            playout_animate(torch, sparams, dev, 0.5)
+            timing[path] = time_frame(torch, card, path, sprog, splain, sparams)
+            lp = sparams["layers"][0]
+            playout_args[(w, h, dissolve)] = (
+                (lp["src"][0], w, h, lp["src_b"][0], lp["mix"]) if dissolve else (lp["src"][0], w, h))
+
+    # -------- phase 4d: the producer unpack and consumer pack stage programs
+    from phaneron_tpu_torch.graph.convert import to_tensor, words_to_numpy
+    from phaneron_tpu_torch.graph.pipeline import make_pack_program, make_unpack_program
+    from phaneron_tpu_torch.ops.formats import v210 as v210fmt
+
+    fill_np = v210fmt.fill_buf(W, H)[0]
+    fill = to_tensor(fill_np, dev)
+    unpack_stage = make_unpack_program("v210", W, H, "709", "709")
+    pack_stage = make_pack_program("v210", W, H, "709")
+
+    def stage_path():
+        for _ in range(4):
+            (out,) = pack_stage(unpack_stage([fill]))
+            check(np.array_equal(words_to_numpy(out), fill_np), "stage programs: fill_buf round trip")
+        print("stage programs: unpack -> pack of fill_buf == fill_buf, 4 frames")
+
+    run_path("stage_programs", {"v210_unpack": 1, "v210_pack": 1}, 4, stage_path)
 
     # -------- phase 6: the interlaced default load, 4 x 1080i50
     chans = interlaced_inputs(torch, dev, rng)
     load = InterlacedLoad(chans, plain=False)
     plain_load = InterlacedLoad(chans, plain=True)
-    interlaced_kernels = ("v210_unpack", "yadif_pair", "packed_composite")
+    v210_words = pitch_bytes(W) // 4
 
     def interlaced_path():
         worst = 0
         t0 = time.perf_counter()
         for p in range(PERIODS):
-            before = {k: wrappers[k].launches for k in interlaced_kernels}
             outs = load()
-            missing = [k for k in interlaced_kernels if wrappers[k].launches == before[k]]
-            check(not missing, f"period {p}: kernels not launched: {missing}")
             refs = plain_load()
             for c, (o, r) in enumerate(zip(outs, refs)):
                 check(tuple(o.shape) == (H, v210_words) and o.dtype == torch.int32,
@@ -651,12 +899,9 @@ def main() -> int:
               f"({N_SOURCES} v210 sources, 4 DVE + dissolve layers each) in "
               f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}")
 
-    run_path("interlaced", interlaced_kernels, interlaced_path)
-    # each tick is one packed composite: no staged warp or pack
-    for k, per_period in (("v210_unpack", N_CHANNELS * N_SOURCES), ("yadif_pair", N_CHANNELS * N_SOURCES),
-                          ("packed_composite", N_CHANNELS * 2), ("warp", 0), ("v210_pack", 0)):
-        check(launches[k]["interlaced"] == per_period * PERIODS,
-              f"{k}: {launches[k]['interlaced']} launches, expected {per_period} a period")
+    # per period: each tick one packed composite, no staged warp or pack
+    run_path("interlaced", {"v210_unpack": N_CHANNELS * N_SOURCES, "yadif_pair": N_CHANNELS * N_SOURCES,
+                            "packed_composite": N_CHANNELS * 2}, PERIODS, interlaced_path)
 
     # -------- phase 7: the in-program ring route on channel 0
     ring_program = make_channel_program(interlaced_spec(deinterlace=True))
@@ -673,7 +918,7 @@ def main() -> int:
                 for i in range(4)
             ]})[0])
 
-    run_path("ring_route", ("yadif_ring", "packed_composite"), ring_route)
+    run_path("ring_route", {"yadif_ring": N_SOURCES, "packed_composite": 1}, 2, ring_route)
     fields = [load.pair(*ring) for ring in rings0]
     for t in (0, 1):
         (via_pair,) = load.program(load.tick_params(ch0, fields, p_last, t))
@@ -696,7 +941,7 @@ def main() -> int:
 
     rgb = 3 * 4 * H * W  # one (3, H, W) float32 frame
     rgba = 4 * 4 * H * W
-    words_bytes = H * pitch_bytes(W)
+    words_bytes = H * pitch_bytes(W) * 1.0
     y422_bytes = H * 2 * y422_pitch(W)
     px = H * W
 
@@ -705,39 +950,67 @@ def main() -> int:
         c = src.shape[0]
         return 2 * c * 4 * warp_source_texels(torch, mat, H, W) + c * 4 * px + 36 + 4
 
-    def warp_ops(c: int, n_src: int) -> float:
-        return px * (OPS_WARP_PX + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
+    def warp_ops(c: int, n_src: int, pixels: int = px) -> float:
+        return pixels * (OPS_WARP_PX + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
 
-    def composite_bytes_ops(args) -> tuple[float, float]:
-        _, cfg, mats, _ = args
-        nbytes = words_bytes + sum(
-            n * (3 * 4 * warp_source_texels(torch, m, H, W) + 4) + 36 for n, m in zip(cfg, mats)
-        )
-        ops = px * OPS_ENCODE_PX + sum(
-            warp_ops(3, n) + px * (OPS_ALPHA + (3 * OPS_OVER if i else 0)) for i, n in enumerate(cfg)
-        )
+    def composite_bytes_ops(cfg, mats, w: int, h: int, packed: bool) -> tuple[float, float]:
+        """Least bytes and operations of a packed composite: each source
+        texel (or v210 group) the taps reach read once and decoded once,
+        the warps, alphas and 'over' per pixel, the encode, the words out."""
+        pixels = w * h
+        nbytes = h * pitch_bytes(w) + 36 * len(cfg) + 4 * sum(n == 2 for n in cfg)
+        ops = pixels * OPS_ENCODE_PX
+        for i, (n, m) in enumerate(zip(cfg, mats)):
+            if packed:
+                nbytes += n * 16 * warp_source_groups(torch, m, h, w)
+                ops += n * warp_source_texels(torch, m, h, w) * OPS_DECODE_PX
+            else:
+                nbytes += n * 12 * warp_source_texels(torch, m, h, w)
+            ops += warp_ops(3, n, pixels) + pixels * (OPS_ALPHA + (3 * OPS_OVER if i else 0))
         return nbytes, ops
 
-    c_bytes, c_ops = composite_bytes_ops(rec["packed_composite"]["args"])
-
-    # name -> (args, bytes, ops, shape) at the records' shapes; the
-    # interlaced load's shapes where it runs the kernel
+    # name -> (kernel call, plain call, bytes, ops, shape) at a main path's shapes
+    call = lambda fn, args, kw=None: (lambda: fn(*args, **(kw or {})))
     r_unpack = rec["v210_unpack"]["rgb3_args"]
     r_pack = (rec["yadif_pair"]["args"][1],)
+    rgb3_cfg, rgb3_mats = rec["packed_composite"]["args"][1], rec["packed_composite"]["args"][2]
+    c_bytes, c_ops = composite_bytes_ops(rgb3_cfg, rgb3_mats, W, H, packed=False)
+    (uhd_args, uhd_kw) = prog_args[(UHD_W, UHD_H)]
+    u_bytes, u_ops = composite_bytes_ops(uhd_args[1], uhd_args[2], UHD_W, UHD_H, packed=True)
+    (hd_args, hd_kw) = prog_args[(W, H)]
+    h_bytes, h_ops = composite_bytes_ops(hd_args[1], hd_args[2], W, H, packed=True)
+    f_args = playout_args[(W, H, True)]
+    fu_args = playout_args[(UHD_W, UHD_H, True)]
+    pw_mat = entry_warp_args[1]
+    pw_bytes = 2 * 16 * warp_source_groups(torch, pw_mat, H, W) + rgba + 36 + 4
+    pw_ops = 2 * warp_source_texels(torch, pw_mat, H, W) * OPS_DECODE_PX + warp_ops(4, 2)
     shapes = {
-        "v210_unpack": (r_unpack, words_bytes + rgb, OPS_DECODE_PX * px, "1 source, 3 channels"),
-        "v210_pack": (r_pack, rgb + words_bytes, OPS_ENCODE_PX * px, "(3, H, W) in"),
-        "planar422_unpack": (rec["planar422_unpack"]["args"], y422_bytes + rgba, OPS_DECODE_PX * px,
-                             "yuv422p8, 4 channels (entry path)"),
-        "warp": (rec["warp"]["rgb3_args"], warp_bytes(rec["warp"]["rgb3_args"]), warp_ops(3, 2),
-                 "3-channel dissolve pair"),
-        "yadif_ring": (rec["yadif_ring"]["args"], 3.5 * rgb, OPS_YADIF_SAMPLE * 3 * px / 2,
-                       "3 channels, one parity"),
-        "yadif_pair": (rec["yadif_pair"]["args"], 5 * rgb, OPS_YADIF_SAMPLE * 3 * px,
-                       "3 channels, both parities"),
-        "packed_composite": (rec["packed_composite"]["args"], c_bytes, c_ops,
-                             "4 dissolve layers, 8 (3, H, W) sources"),
+        "v210_unpack": (call(K.v210_unpack, r_unpack), call(K.v210_unpack_plain, r_unpack),
+                        words_bytes + rgb, OPS_DECODE_PX * px, "1 source, 3 channels (interlaced path)"),
+        "v210_pack": (call(K.v210_pack, r_pack), call(K.v210_pack_plain, r_pack), rgb + words_bytes,
+                      OPS_ENCODE_PX * px, "(3, H, W) in"),
+        "planar422_unpack": (call(K.planar422_unpack, rec["planar422_unpack"]["args"]),
+                             call(K.planar422_unpack_plain, rec["planar422_unpack"]["args"]),
+                             y422_bytes + rgba, OPS_DECODE_PX * px, "yuv422p8, 4 channels (entry path)"),
+        "warp": (call(warp_mod.warp, rec["warp"]["rgb3_args"]), call(warp_mod.warp_plain, rec["warp"]["rgb3_args"]),
+                 warp_bytes(rec["warp"]["rgb3_args"]), warp_ops(3, 2), "3-channel dissolve pair"),
+        "yadif_ring": (call(Y.yadif_ring, rec["yadif_ring"]["args"]), call(Y.yadif_ring_plain, rec["yadif_ring"]["args"]),
+                       3.5 * rgb, OPS_YADIF_SAMPLE * 3 * px / 2, "3 channels, one parity"),
+        "yadif_pair": (call(Y.yadif_pair, rec["yadif_pair"]["args"]), call(Y.yadif_pair_plain, rec["yadif_pair"]["args"]),
+                       5 * rgb, OPS_YADIF_SAMPLE * 3 * px, "3 channels, both parities"),
+        "packed_composite": (call(PW.packed_composite, uhd_args, uhd_kw),
+                             call(PW.packed_composite_plain, uhd_args, uhd_kw), u_bytes, u_ops,
+                             "v210 words, 4 dissolve layers, 8 sources, 3840x2160 (progressive path)"),
+        "fused_v210": (call(K.fused_v210, f_args), call(K.fused_v210_plain, f_args), 3 * words_bytes + 4,
+                       px * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX),
+                       "v210 dissolve, 1920x1080 (playout path)"),
+        "combine_pack": (call(K.combine_pack, (entry_pack_layers,)), call(K.combine_pack_plain, (entry_pack_layers,)),
+                         rgb + rgba + words_bytes, px * (1 + 3 * OPS_OVER + OPS_ENCODE_PX),
+                         "2 RGBA layers, 1920x1080 (entry path)"),
+        "packed_warp": (call(PW.packed_warp, entry_warp_args), call(PW.packed_warp_plain, entry_warp_args),
+                        pw_bytes, pw_ops, "v210 dissolve pair, shared matrix, 1920x1080 (entry path)"),
     }
+    slow_plain = ("yadif_ring", "yadif_pair", "packed_composite", "packed_warp")
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
         "v210_pack": ("phaneron_tpu_torch/csrc/v210_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
@@ -747,13 +1020,14 @@ def main() -> int:
         "yadif_pair": ("phaneron_tpu_torch/csrc/yadif.cu", "phaneron_tpu/ops/pallas_yadif.py:756"),
         "packed_composite": ("phaneron_tpu_torch/csrc/packed_composite.cu",
                              "phaneron_tpu/ops/pallas_packed_warp.py:1216"),
+        "fused_v210": ("phaneron_tpu_torch/csrc/fused_v210.cu", "phaneron_tpu/ops/pallas_kernels.py:1399"),
+        "combine_pack": ("phaneron_tpu_torch/csrc/combine_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:733"),
+        "packed_warp": ("phaneron_tpu_torch/csrc/packed_warp.cu", "phaneron_tpu/ops/pallas_packed_warp.py:416"),
     }
     records = []
-    for name in shapes:
-        args, nbytes, ops, shape = shapes[name]
+    for name, (kernel_fn, plain_fn, nbytes, ops, shape) in shapes.items():
         kernel_ms, plain_ms = best_of_two(
-            torch, lambda: wrappers[name](*args), lambda: plain_fns[name](*args),
-            dict(batches=5, calls=4) if name in ("yadif_ring", "yadif_pair", "packed_composite") else None,
+            torch, kernel_fn, plain_fn, dict(batches=5, calls=4) if name in slow_plain else None,
         )
         bound_ms, bound_by = bound(nbytes, ops)
         library_ms = None
@@ -762,7 +1036,7 @@ def main() -> int:
             library_ms = time_ms(torch, lambda: torch.nn.functional.grid_sample(
                 gs_in, gs_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
         print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)"
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP)"
               + (f", grid_sample {library_ms:.4f} ms (both sources, no mix)" if library_ms else ""))
         source, replaces = meta[name]
         records.append({
@@ -771,21 +1045,40 @@ def main() -> int:
             "max_abs_err": rec[name]["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
         })
-    # the entry path's 4-channel shapes of K1, K2 and K4
-    entry_shapes = {
-        "v210_unpack": (rec["v210_unpack"]["args"], 2 * (words_bytes + rgba), 2 * OPS_DECODE_PX * px,
-                        "2 sources, 4 channels"),
-        "v210_pack": (rec["v210_pack"]["args"], rgb + words_bytes, OPS_ENCODE_PX * px, "(4, H, W) in"),
-        "warp": (rec["warp"]["args"], warp_bytes(rec["warp"]["args"]), warp_ops(4, 2),
-                 "4-channel dissolve pair"),
+    # other shapes of the same kernels, printed beside the records
+    g4_in, g4_grid = grid_sample_args(torch, [rec["warp"]["args"][0], rec["warp"]["args"][2]], rec["warp"]["args"][1])
+    other = {
+        "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
+                                                call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
+                                                2 * (words_bytes + rgba), 2 * OPS_DECODE_PX * px),
+        "v210_pack ((4, H, W) in)": (call(K.v210_pack, rec["v210_pack"]["args"]),
+                                     call(K.v210_pack_plain, rec["v210_pack"]["args"]),
+                                     rgb + words_bytes, OPS_ENCODE_PX * px),
+        "warp (4-channel dissolve pair)": (call(warp_mod.warp, rec["warp"]["args"]),
+                                           call(warp_mod.warp_plain, rec["warp"]["args"]),
+                                           warp_bytes(rec["warp"]["args"]), warp_ops(4, 2)),
+        "packed_composite (rgb3, 4 dissolve layers, 1920x1080, interlaced path)": (
+            call(PW.packed_composite, rec["packed_composite"]["args"]),
+            call(PW.packed_composite_plain, rec["packed_composite"]["args"]), c_bytes, c_ops),
+        "packed_composite (v210 words, 4 dissolve layers, 1920x1080, progressive path)": (
+            call(PW.packed_composite, hd_args, hd_kw), call(PW.packed_composite_plain, hd_args, hd_kw),
+            h_bytes, h_ops),
+        "fused_v210 (v210 dissolve, 3840x2160, playout path)": (
+            call(K.fused_v210, fu_args), call(K.fused_v210_plain, fu_args),
+            3 * UHD_H * pitch_bytes(UHD_W) + 4,
+            UHD_W * UHD_H * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX)),
     }
-    for name, (args, nbytes, ops, shape) in entry_shapes.items():
-        kernel_ms, plain_ms = best_of_two(
-            torch, lambda: wrappers[name](*args), lambda: plain_fns[name](*args)
-        )
+    for label, (kernel_fn, plain_fn, nbytes, ops) in other.items():
+        kernel_ms, plain_ms = best_of_two(torch, kernel_fn, plain_fn, dict(batches=3, calls=2, warmup=1))
         bound_ms, bound_by = bound(nbytes, ops)
-        print(f"{name} ({shape}, entry path) on {card}: kernel {kernel_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
+        extra = ""
+        if label.startswith("warp"):
+            gs4 = time_ms(torch, lambda: torch.nn.functional.grid_sample(
+                g4_in, g4_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+            extra = f", grid_sample 4 channels {gs4:.4f} ms (both sources, no mix)"
+        print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
+    print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

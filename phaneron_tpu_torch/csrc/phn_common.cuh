@@ -1,12 +1,16 @@
 // Shared device helpers for the channel-frame kernels: OpenCL-style
-// rounding, the analytic transfer functions, the YCbCr decode and encode,
-// the v210 group packing and the axis-aligned bilinear taps.
+// rounding, the transfer functions, the YCbCr decode and encode, the v210
+// word fields and group packing, the axis-aligned bilinear taps and the
+// block-wide encode + pack of a row segment.
 //
 // Every expression keeps the operation order of the plain PyTorch
-// versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py), and the
-// library is compiled with -fmad=false (ops/_build.py): each multiply and
-// add rounds on its own, as on the CPU, so a kernel differs from its plain
-// version only where CUDA's powf and the host's pow round differently.
+// versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
+// ops/geometry.py), and the library is compiled with -fmad=false
+// (ops/_build.py): each multiply and add rounds on its own, as on the
+// CPU.  gamma'->linear is a gather from the host-built table the plain
+// versions gather from (ops/gamma.py g2l_table), so a decode equals its
+// plain version to the bit; a kernel differs from its plain version only
+// where CUDA's powf and torch.pow round linear->gamma' differently.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,22 +20,18 @@ namespace phn {
 
 constexpr unsigned kField = 0x3FFu;  // one 10-bit v210 field
 
-// gamma'->linear literals, in the order of ops/gamma.py g2l_constants
-struct G2L {
-  float inv_max, beta, inv_delta, alpha_m1, inv_alpha, inv_gamma;
-};
-
 // linear->gamma' literals, in the order of ops/gamma.py l2g_constants
 struct L2G {
   float inv_max, beta, delta, alpha, alpha_m1, gamma;
 };
 
 // YCbCr code -> linear RGB: 3x4 colour matrix (rows R', G', B' over
-// (Y, U, V, 1)), transfer function, 3x3 gamut matrix
+// (Y, U, V, 1)), the gamma'->linear table (65536 float32 in device
+// memory), 3x3 gamut matrix
 struct Decode {
   float col[12];
   float gamut[9];
-  G2L g;
+  const float* g2l;
 };
 
 // linear RGB -> YCbCr code: transfer function, 3x4 matrix (rows Y, U, V
@@ -46,12 +46,10 @@ __device__ __forceinline__ int u16_sat_rte(float x) {
   return static_cast<int>(fminf(fmaxf(rintf(x), 0.0f), 65535.0f));
 }
 
-// The transfer function at the LUT cell the reference would index,
-// lut[u16_sat_rte(x * 65535)], evaluated analytically
-__device__ __forceinline__ float g2l(const G2L& g, float x) {
-  float fi = static_cast<float>(u16_sat_rte(x * 65535.0f)) * g.inv_max;
-  if (fi < g.beta) return fi * g.inv_delta;
-  return powf((fi + g.alpha_m1) * g.inv_alpha, g.inv_gamma);
+// gamma'->linear: the table cell the reference indexes,
+// lut[u16_sat_rte(x * 65535)]
+__device__ __forceinline__ float g2l(const float* lut, float x) {
+  return __ldg(lut + u16_sat_rte(x * 65535.0f));
 }
 
 __device__ __forceinline__ float l2g(const L2G& g, float x) {
@@ -67,13 +65,53 @@ __device__ __forceinline__ void decode(const Decode& d, float yf, float uf, floa
   for (int c = 0; c < 3; ++c) {
     float gam = d.col[4 * c] * yf + d.col[4 * c + 1] * uf + d.col[4 * c + 2] * vf +
                 d.col[4 * c + 3];
-    lin[c] = g2l(d.g, gam);
+    lin[c] = g2l(d.g2l, gam);
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     rgb[c] = d.gamut[3 * c] * lin[0] + d.gamut[3 * c + 1] * lin[1] +
              d.gamut[3 * c + 2] * lin[2];
   }
+}
+
+// Pixel p (0..5) of a v210 group's four words w: its luma field and the
+// fields of its chroma pair p / 2 (the layout of ops/formats/v210.py)
+__device__ __forceinline__ void v210_fields(const int4& w, int p, unsigned& y, unsigned& cb,
+                                            unsigned& cr) {
+  const unsigned w0 = w.x, w1 = w.y, w2 = w.z, w3 = w.w;
+  switch (p) {
+    case 0: y = w0 >> 10; break;
+    case 1: y = w1; break;
+    case 2: y = w1 >> 20; break;
+    case 3: y = w2 >> 10; break;
+    case 4: y = w3; break;
+    default: y = w3 >> 20; break;
+  }
+  switch (p >> 1) {
+    case 0: cb = w0; cr = w0 >> 20; break;
+    case 1: cb = w1 >> 10; cr = w2; break;
+    default: cb = w2 >> 20; cr = w3 >> 10; break;
+  }
+  y &= kField;
+  cb &= kField;
+  cr &= kField;
+}
+
+// Linear RGB of pixel p of the group whose words are w: the decode every
+// v210 kernel runs (K1, the fused v210 program, the packed warp and the
+// packed composite)
+__device__ __forceinline__ void decode_v210(const Decode& d, const int4& w, int p,
+                                            float rgb[3]) {
+  unsigned y, cb, cr;
+  v210_fields(w, p, y, cb, cr);
+  decode(d, static_cast<float>(y), static_cast<float>(cb), static_cast<float>(cr), rgb);
+}
+
+// Linear RGB of texel (x, y) of a v210 frame of `groups` groups a row
+__device__ __forceinline__ void v210_texel(const int4* __restrict__ words, int groups, int x,
+                                           int y, const Decode& d, float rgb[3]) {
+  const int4 w = __ldg(words + static_cast<size_t>(y) * groups + x / 6);
+  decode_v210(d, w, x % 6, rgb);
 }
 
 // One code row of the encode matrix, rounded and saturated
@@ -128,31 +166,94 @@ __device__ __forceinline__ Taps axis_taps(const float* mat, int x, int y, int wi
   return t;
 }
 
-// One (H, W) plane at the taps: the lerp along rows first, then along
-// columns.  Row pointers are dereferenced only where the row is valid.
-__device__ __forceinline__ float sample(const float* __restrict__ s, int width, const Taps& t) {
-  const float* r0 = s + static_cast<ptrdiff_t>(t.y0) * width;
-  const float* r1 = r0 + width;
+// The bilinear value at the taps from the four texel values v00 (x0, y0),
+// v01 (x0, y0+1), v10 (x0+1, y0), v11 (x0+1, y0+1): the lerp along rows
+// first, then along columns; an invalid tap counts as 0.
+__device__ __forceinline__ float bilerp(const Taps& t, float v00, float v01, float v10,
+                                        float v11) {
   float c0 = 0.0f, c1 = 0.0f;
   if (t.vx0) {
-    const float t0 = t.vy0 ? r0[t.x0] : 0.0f;
-    const float t1 = t.vy1 ? r1[t.x0] : 0.0f;
+    const float t0 = t.vy0 ? v00 : 0.0f;
+    const float t1 = t.vy1 ? v01 : 0.0f;
     c0 = t0 * (1.0f - t.fy) + t1 * t.fy;
   }
   if (t.vx1) {
-    const float t0 = t.vy0 ? r0[t.x0 + 1] : 0.0f;
-    const float t1 = t.vy1 ? r1[t.x0 + 1] : 0.0f;
+    const float t0 = t.vy0 ? v10 : 0.0f;
+    const float t1 = t.vy1 ? v11 : 0.0f;
     c1 = t0 * (1.0f - t.fy) + t1 * t.fy;
   }
   return c0 * (1.0f - t.fx) + c1 * t.fx;
 }
 
-inline Decode decode_from(const float* coeffs) {
-  // coeffs: col[12], gamut[9], g2l[6] (ops/kernels.py _decode_coeffs)
+// One (H, W) float plane at the taps.  Only valid texels are read.
+__device__ __forceinline__ float sample(const float* __restrict__ s, int width, const Taps& t) {
+  const float* r0 = s + static_cast<ptrdiff_t>(t.y0) * width;
+  const float* r1 = r0 + width;
+  return bilerp(t, t.vx0 && t.vy0 ? r0[t.x0] : 0.0f, t.vx0 && t.vy1 ? r1[t.x0] : 0.0f,
+                t.vx1 && t.vy0 ? r0[t.x0 + 1] : 0.0f, t.vx1 && t.vy1 ? r1[t.x0 + 1] : 0.0f);
+}
+
+// Linear RGB of a v210 frame at the taps: each valid tap decoded with
+// v210_texel (the value K1 writes for that texel), then bilerp per
+// channel, so this equals K1 followed by sample() on its output.
+__device__ __forceinline__ void sample_v210(const int4* __restrict__ words, int groups,
+                                            const Decode& d, const Taps& t, float out[3]) {
+  float v[4][3] = {};
+  if (t.vx0 && t.vy0) v210_texel(words, groups, t.x0, t.y0, d, v[0]);
+  if (t.vx0 && t.vy1) v210_texel(words, groups, t.x0, t.y0 + 1, d, v[1]);
+  if (t.vx1 && t.vy0) v210_texel(words, groups, t.x0 + 1, t.y0, d, v[2]);
+  if (t.vx1 && t.vy1) v210_texel(words, groups, t.x0 + 1, t.y0 + 1, d, v[3]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = bilerp(t, v[0][c], v[1][c], v[2][c], v[3][c]);
+}
+
+// Row segments of the kernels that encode one pixel per thread: a block
+// of kPixelsPerBlock threads covers kGroupsPerBlock v210 groups of a row.
+constexpr int kGroupsPerBlock = 32;
+constexpr int kPixelsPerBlock = 6 * kGroupsPerBlock;
+
+// Called by every thread of such a block (blockIdx.x: the segment, row:
+// the image row): each thread encodes its pixel x from linear RGB (luma
+// for every pixel, chroma for even ones; a pixel past the frame width
+// packs as zero) into shared memory, then kGroupsPerBlock threads
+// assemble one group's four words each and write them with one 16-byte
+// store.  The codes equal ops/kernels.py v210_pack_plain's.
+__device__ __forceinline__ void encode_pack_block(const Encode& e, const float rgb[3], int x,
+                                                  int width, int row, int groups,
+                                                  int4* __restrict__ words) {
+  __shared__ unsigned ys[kPixelsPerBlock];
+  __shared__ unsigned cb[kPixelsPerBlock / 2];
+  __shared__ unsigned cr[kPixelsPerBlock / 2];
+  const int t = threadIdx.x;
+  unsigned yc = 0, cbc = 0, crc = 0;
+  if (x < width) {
+    const float rp = l2g(e.g, rgb[0]);
+    const float gp = l2g(e.g, rgb[1]);
+    const float bp = l2g(e.g, rgb[2]);
+    yc = static_cast<unsigned>(encode_row(e, 0, rp, gp, bp)) & kField;
+    if ((x & 1) == 0) {
+      cbc = static_cast<unsigned>(encode_row(e, 1, rp, gp, bp)) & kField;
+      crc = static_cast<unsigned>(encode_row(e, 2, rp, gp, bp)) & kField;
+    }
+  }
+  ys[t] = yc;
+  if ((t & 1) == 0) {
+    cb[t / 2] = cbc;
+    cr[t / 2] = crc;
+  }
+  __syncthreads();
+  const int gi = blockIdx.x * kGroupsPerBlock + t;
+  if (t >= kGroupsPerBlock || gi >= groups) return;
+  words[static_cast<size_t>(row) * groups + gi] = v210_group(ys + 6 * t, cb + 3 * t, cr + 3 * t);
+}
+
+inline Decode decode_from(const float* coeffs, const float* g2l_table) {
+  // coeffs: col[12], gamut[9] (ops/kernels.py _decode_coeffs); the table
+  // in device memory
   Decode d;
   for (int i = 0; i < 12; ++i) d.col[i] = coeffs[i];
   for (int i = 0; i < 9; ++i) d.gamut[i] = coeffs[12 + i];
-  d.g = G2L{coeffs[21], coeffs[22], coeffs[23], coeffs[24], coeffs[25], coeffs[26]};
+  d.g2l = g2l_table;
   return d;
 }
 

@@ -45,17 +45,18 @@ __global__ void planar422_unpack_kernel(const uint8_t* __restrict__ y,
 }  // namespace
 
 // y: (height, y_pitch) uint8; u, v: (height, c_pitch) uint8; out: (4,
-// height, width) float32.  coeffs: col[12], gamut[9], g2l[6].  Returns
+// height, width) float32.  coeffs: col[12], gamut[9]; g2l: the
+// gamma'->linear table (65536 float32) in device memory.  Returns
 // cudaGetLastError().
 extern "C" int phn_planar422_unpack(const void* y, const void* u, const void* v, void* out,
                                     int width, int height, int y_pitch, int c_pitch,
-                                    const float* coeffs, void* stream) {
+                                    const float* coeffs, const float* g2l, void* stream) {
   const int pairs = (width + 1) / 2;
   const dim3 block(128);
   const dim3 grid((pairs + block.x - 1) / block.x, height);
   planar422_unpack_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
-      static_cast<const uint8_t*>(v), static_cast<float*>(out), phn::decode_from(coeffs),
+      static_cast<const uint8_t*>(v), static_cast<float*>(out), phn::decode_from(coeffs, g2l),
       width, height, y_pitch, c_pitch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,8 @@
 //
 // Bound: device-memory bytes.  Per pixel it reads 16/6 bytes of words and
 // writes 16 bytes of RGBA (12 of RGB with C = 3); the arithmetic (two
-// matrices and three powf) is far below the card's rate.  Design: one thread per 6-pixel group
+// matrices and three gathers from the gamma'->linear table, which stays
+// in L1/L2) is far below the card's rate.  Design: one thread per 6-pixel group
 // reads its four words with a single 16-byte load and gathers the fields
 // directly in registers, where the TPU kernel needed phase planes and
 // one-hot MXU deinterleaves.  Threads of a warp cover neighbouring
@@ -36,13 +37,6 @@ __global__ void v210_unpack_kernel(Sources s, phn::Decode d, int width, int heig
   if (gi >= groups || x0 >= width) return;
 
   const int4 w = s.words[blockIdx.z][static_cast<size_t>(row) * groups + gi];
-  const unsigned w0 = w.x, w1 = w.y, w2 = w.z, w3 = w.w;
-  using phn::kField;
-  const unsigned ys[6] = {(w0 >> 10) & kField, w1 & kField, (w1 >> 20) & kField,
-                          (w2 >> 10) & kField, w3 & kField, (w3 >> 20) & kField};
-  const unsigned cb[3] = {w0 & kField, (w1 >> 10) & kField, (w2 >> 20) & kField};
-  const unsigned cr[3] = {(w0 >> 20) & kField, w2 & kField, (w3 >> 10) & kField};
-
   const size_t plane = static_cast<size_t>(width) * height;
   float* o = s.out[blockIdx.z] + static_cast<size_t>(row) * width;
 #pragma unroll
@@ -50,8 +44,7 @@ __global__ void v210_unpack_kernel(Sources s, phn::Decode d, int width, int heig
     const int x = x0 + p;
     if (x >= width) break;
     float rgb[3];
-    phn::decode(d, static_cast<float>(ys[p]), static_cast<float>(cb[p / 2]),
-                static_cast<float>(cr[p / 2]), rgb);
+    phn::decode_v210(d, w, p, rgb);
     o[x] = rgb[0];
     o[plane + x] = rgb[1];
     o[2 * plane + x] = rgb[2];
@@ -62,11 +55,12 @@ __global__ void v210_unpack_kernel(Sources s, phn::Decode d, int width, int heig
 }  // namespace
 
 // words[i]: (height, groups*4) int32 words; outs[i]: (channels, height,
-// width) float32, channels 3 or 4.  coeffs: col[12], gamut[9], g2l[6].
-// Returns cudaGetLastError().
+// width) float32, channels 3 or 4.  coeffs: col[12], gamut[9]; g2l: the
+// gamma'->linear table (65536 float32) in device memory.  Returns
+// cudaGetLastError().
 extern "C" int phn_v210_unpack(const void* const* words, void* const* outs, int n_srcs,
                                int width, int height, int groups, int channels,
-                               const float* coeffs, void* stream) {
+                               const float* coeffs, const float* g2l, void* stream) {
   if (n_srcs < 1 || n_srcs > kMaxSrcs || (channels != 3 && channels != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   Sources s{};
@@ -77,6 +71,6 @@ extern "C" int phn_v210_unpack(const void* const* words, void* const* outs, int 
   const dim3 block(128);
   const dim3 grid((groups + block.x - 1) / block.x, height, n_srcs);
   v210_unpack_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, phn::decode_from(coeffs), width, height, groups, channels);
+      s, phn::decode_from(coeffs, g2l), width, height, groups, channels);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,50 +1,60 @@
 """The per-channel frame program and the stage programs (counterpart of
-phaneron_tpu/graph/pipeline.py: the staged branch of ``_channel_frame``
+phaneron_tpu/graph/pipeline.py: ``_channel_frame`` with its kernel
+routes, ``make_channel_program``'s selection of the fused v210 program,
 and the modular stage programs the runtime and the bench drive).
 
     unpack | yadif ring | rgba_f32 field -> per-layer DVE warp -> dissolve
            -> N-layer 'over' combine -> colour -> pack
 
-Each stage with a TPU kernel in the JAX package goes through its CUDA
-kernel wrapper (ops/kernels.py, ops/warp.py, ops/yadif.py,
-ops/packed_warp.py): every v210 source slot of the frame in one unpack
-launch, planar 4:2:2 sources through the planar unpack, deinterlaced
-slots through the yadif ring kernel, DVE layers through the warp (a
-dissolve with a transform as one pair launch), and the v210 pack.  The
-staged combine is plain tensor code, as it is plain XLA in the JAX
-package.  A wrapper given CPU tensors runs
-its plain version, so on the CPU the whole program is plain PyTorch.
+Routes into a v210 output, in the order they are chosen:
 
-Opaque alpha-free (3, H, W) sources (deinterlaced fields of a v210
-source, ``rgba_f32`` fields from the pair deinterlace) take the
-3-channel route of the JAX package: a cut or a same-matrix dissolve
-rides as an ``(rgb, wy, wx)`` tuple whose alpha is the separable warp
-alpha, the combine is ``combine_rgb`` and the pack takes the (3, H, W)
-composite.  Other structures pad alpha to 1 and take the 4-channel route.
-When every layer is such a DVE layer (at least two) into v210, the whole
-stack runs as one packed composite launch instead (warp, 'over' and pack;
-JAX ``_packed_composite_run`` with the run spanning the stack).  A run
-that spans only part of the stack stays staged (ROADMAP.md B7, the RGBA
-emit).
+1. **fused v210** (B3, ``kernels.fused_v210``): the top layer is a v210
+   clip without DVE, as a cut or a dissolve.  It decodes opaque, so it
+   covers every lower layer; ``make_channel_program`` picks this route
+   before it looks at the lower layers (JAX ``supported_spec``), so an
+   unported lower layer does not stop it.
+2. **packed composite** (B7, ``packed_warp.packed_composite``): every
+   layer (at least two) an axis-aligned DVE cut or same-matrix dissolve
+   over sources of one kind: v210 words decoded at the taps ('packed',
+   the progressive multi-layer channel) or opaque (3, H, W) frames
+   ('rgb3': deinterlaced fields, ``rgba_f32`` fields).  One launch, words
+   in, words out (JAX ``_packed_composite_run`` with the run spanning
+   the stack).
+3. **staged**: each layer on its own, then ``kernels.combine_pack`` (B5)
+   'over' black and packs.  A v210 DVE layer (a cut, or a dissolve under
+   one shared or two distinct matrices) decodes at its warp taps in one
+   ``packed_warp`` launch (B6) and its slots are not unpacked; every
+   other v210 slot of the frame unpacks in one K1 launch, planar 4:2:2
+   slots through K3, deinterlaced slots through the yadif ring kernel,
+   other DVE layers through K4.  Opaque alpha-free (3, H, W) sources
+   take the 3-channel route of the JAX package (``(rgb, wy, wx)`` tuples
+   whose alpha is the separable warp alpha); other structures pad alpha
+   to 1.  Runs that span only part of the stack stay on this route
+   (ROADMAP.md B7, the RGBA emit).
 
-The JAX package picks its TPU kernels by VMEM and scale-bucket gates
-(warp_bucket, warp_fits, yadif_ring_fits, width % 128).  The port keys
-only on correctness conditions: source format, transition, transform
-(axis-aligned or not) and output format.  On a CUDA device a structure
-without a ported kernel raises NotImplementedError naming the ROADMAP
-item it waits for; it never runs plain code on the card unasked.
-``plain=True`` on the channel, unpack and pair-deinterlace programs runs
-every stage's plain version on the inputs' device: the reference the
-kernel path is checked against on the card.
+A wrapper given CPU tensors runs its plain version, so on the CPU the
+whole program is plain PyTorch.  The JAX package picks its TPU kernels
+by VMEM and geometry gates (warp_bucket, warp_fits, packed_warp_fits,
+combine_pack_fits, packed_composite_fits, width % 128 or % 768).  The
+port keys only on correctness conditions: source format, transition,
+transform (axis-aligned or not), ``warp_same_mat`` and output format.
+So at 1080p the port takes B5, B6 and B7 where the JAX package on a TPU
+stays staged; the numbers agree within each contract.  On a CUDA device
+a structure without a ported kernel raises NotImplementedError naming
+the ROADMAP item it waits for; it never runs plain code on the card
+unasked.  ``plain=True`` on the channel, unpack and pair-deinterlace
+programs runs every stage's plain version on the inputs' device: the
+reference the kernel path is checked against on the card.
 
 Specs are hashable NamedTuples with the JAX package's fields, so a JAX
 spec converts with ``spec_from_fields(jax_spec._asdict())``
 (graph/convert.py).  Params are ``{"layers": [per-layer dicts, bottom to
 top]}`` with tensors on one device: "src"/"src_b" plane lists (or a (C,
-H, W) float32 frame for ``rgba_f32``), "matrix" (3, 3) float32, "mix" a
-0-d float32 tensor; a deinterlaced slot carries "<key>_ring", a tuple of
-three (C, H, W) frames (prev, cur, next), and "parity", a 0-d int32
-tensor or a Python int.
+H, W) float32 frame for ``rgba_f32``), "matrix" (3, 3) float32 (and
+"matrix_b" for a dissolve with distinct matrices), "mix" a 0-d float32
+tensor; a deinterlaced slot carries "<key>_ring", a tuple of three (C,
+H, W) frames (prev, cur, next), and "parity", a 0-d int32 tensor or a
+Python int.
 """
 
 from __future__ import annotations
@@ -141,6 +151,25 @@ def _unported(spec: ChannelSpec) -> Optional[str]:
     return None
 
 
+def _v210_clip(ls: LayerSpec) -> bool:
+    """A layer of v210 clips at channel geometry, not deinterlaced, as a
+    cut or a dissolve: what the kernels that decode v210 words read."""
+    return (
+        not ls.deinterlace
+        and ls.src_size is None
+        and ls.transition in ("none", "dissolve")
+        and all(fmt == _V210 for _, fmt in _slot_formats(ls))
+    )
+
+
+def _packed_layer_ok(ls: LayerSpec) -> bool:
+    """True when a layer runs the packed-source warp (B6): an axis-aligned
+    DVE over a v210 clip, a dissolve pair under one shared or two
+    distinct matrices (JAX ``_packed_layer_ok`` with its correctness
+    conditions only).  Its slots are never unpacked on the staged route."""
+    return ls.has_transform and ls.axis_aligned and _v210_clip(ls)
+
+
 def missing_kernel(spec: ChannelSpec) -> Optional[str]:
     """The ROADMAP item a structure waits for when the port runs it only
     through plain code (no CUDA kernel yet), or None when every stage of
@@ -153,8 +182,9 @@ def missing_kernel(spec: ChannelSpec) -> Optional[str]:
     for ls in spec.layers:
         if ls.has_transform and not ls.axis_aligned:
             return "B14 (rotation: a non-axis-aligned DVE)"
-        if ls.has_transform and ls.transition == "dissolve" and not ls.warp_same_mat:
-            return "B4 (dissolve pair with distinct matrices)"
+        distinct = ls.transition == "dissolve" and not ls.warp_same_mat
+        if ls.has_transform and distinct and not _packed_layer_ok(ls):
+            return "B4 (dissolve pair with distinct matrices over non-v210 sources)"
     return None
 
 
@@ -181,16 +211,20 @@ class _Stages(NamedTuple):
     yadif_ring: Callable
     yadif_pair: Callable
     packed_composite: Callable
+    packed_warp: Callable
+    combine_pack: Callable
 
 
 _KERNELS = _Stages(
     kernels.v210_unpack, kernels.planar422_unpack, warp_mod.warp, kernels.v210_pack,
-    yadif.yadif_ring, yadif.yadif_pair, packed_warp.packed_composite,
+    yadif.yadif_ring, yadif.yadif_pair, packed_warp.packed_composite, packed_warp.packed_warp,
+    kernels.combine_pack,
 )
 _PLAIN = _Stages(
     kernels.v210_unpack_plain, kernels.planar422_unpack_plain, warp_mod.warp_plain,
     kernels.v210_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
-    packed_warp.packed_composite_plain,
+    packed_warp.packed_composite_plain, packed_warp.packed_warp_plain,
+    kernels.combine_pack_plain,
 )
 
 
@@ -216,16 +250,21 @@ def _fit_channel(frame: torch.Tensor, spec: ChannelSpec) -> torch.Tensor:
     return frame
 
 
-def _sources(spec: ChannelSpec, params: dict, st: _Stages) -> dict:
+def _sources(
+    spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset = frozenset()
+) -> dict:
     """Every source slot of the frame -> {(layer index, slot key): frame}.
     A deinterlaced slot runs yadif over its ring at the params' parity,
     an ``rgba_f32`` slot passes its frame through, all v210 slots unpack
     in ONE call (the JAX package's _batch_unpack_slots) and planar 4:2:2
-    slots one by one (JAX ``_layer_source``)."""
+    slots one by one (JAX ``_layer_source``).  The slots of the layers in
+    ``skip`` are left raw: the packed warp decodes them."""
     w, h = spec.width, spec.height
     out = {}
     v210_slots = []
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+        if li in skip:
+            continue
         for key, fmt in _slot_formats(ls):
             ring = lp.get(f"{key}_ring") if ls.deinterlace else None
             if ring is not None:
@@ -289,33 +328,78 @@ def _process_layer_rgb3(
     return (st.warp(rgb, mat), wy, wx)
 
 
-def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict) -> Optional[tuple]:
-    """(srcs, layer_cfg, mats, mixes) for one packed composite launch over
-    the whole stack, or None: at least two layers into v210, each a cut
-    or a same-matrix dissolve under an axis-aligned DVE over (3, H, W)
-    sources."""
+def _composite_kind(ls: LayerSpec, lp: dict) -> Optional[str]:
+    """A layer's source kind for the packed composite (JAX
+    ``_packed_composite_layer_kind``): an axis-aligned DVE cut or
+    same-matrix dissolve over v210 words ('packed', decoded at the taps)
+    or over slots that give opaque (3, H, W) frames ('rgb3': a 3-channel
+    deinterlace ring, an ``rgba_f32`` field); else None."""
+    if not (ls.has_transform and ls.axis_aligned) or ls.src_size is not None:
+        return None
+    if ls.transition not in ("none", "dissolve"):
+        return None
+    if ls.transition == "dissolve" and not ls.warp_same_mat:
+        return None
+    if _packed_layer_ok(ls):
+        return "packed"
+
+    def rgb3(key: str, fmt: str) -> bool:
+        ring = lp.get(f"{key}_ring") if ls.deinterlace else None
+        if ring is not None:
+            return ring[0].shape[0] == 3
+        return fmt == RGBA_F32 and lp[key].shape[0] == 3
+
+    return "rgb3" if all(rgb3(key, fmt) for key, fmt in _slot_formats(ls)) else None
+
+
+def _stack_kind(spec: ChannelSpec, params: dict) -> Optional[str]:
+    """The source kind when the whole stack runs as one packed composite
+    launch, else None: at least two layers (at most its MAX_LAYERS) into
+    v210, every layer of that one kind (JAX ``_packed_composite_run``
+    with the run spanning the stack)."""
     if spec.out_format != _V210 or not 2 <= len(spec.layers) <= packed_warp.MAX_LAYERS:
+        return None
+    kinds = {_composite_kind(ls, lp) for ls, lp in zip(spec.layers, params["layers"])}
+    return kinds.pop() if len(kinds) == 1 else None
+
+
+def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict) -> Optional[tuple]:
+    """(srcs, layer_cfg, mats, mixes) of the whole stack's packed
+    composite launch, or None (``_stack_kind``): the sources are the
+    layers' v210 words for the 'packed' kind and their (3, H, W) frames
+    in ``srcs`` for 'rgb3'."""
+    kind = _stack_kind(spec, params)
+    if kind is None:
         return None
     flat, cfg, mats, mixes = [], [], [], []
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
-        if not (ls.has_transform and ls.axis_aligned):
-            return None
-        if ls.transition == "dissolve" and not ls.warp_same_mat:
-            return None
-        frames = [srcs[(li, key)] for key, _ in _slot_formats(ls)]
-        if any(f.shape[0] != 3 for f in frames):
-            return None
-        flat += frames
-        cfg.append(len(frames))
+        keys = [key for key, _ in _slot_formats(ls)]
+        flat += [lp[key][0] if kind == "packed" else srcs[(li, key)] for key in keys]
+        cfg.append(len(keys))
         mats.append(lp["matrix"])
-        mixes.append(lp["mix"] if len(frames) == 2 else None)
+        mixes.append(lp["mix"] if len(keys) == 2 else None)
     return flat, tuple(cfg), mats, mixes
+
+
+def _packed_warp_layer(ls: LayerSpec, lp: dict, spec: ChannelSpec, st: _Stages):
+    """A B6 layer (``_packed_layer_ok``): decode at the warp taps straight
+    from its words (JAX ``_process_layer``'s packed branch)."""
+    kw = dict(col_spec=spec.col_spec, out_col_spec=spec.out_col_spec)
+    mat = lp["matrix"]
+    if ls.transition == "none":
+        return st.packed_warp(lp["src"][0], mat, spec.width, spec.height, **kw)
+    mat_b = None if ls.warp_same_mat else lp.get("matrix_b", mat)
+    return st.packed_warp(
+        lp["src"][0], mat, spec.width, spec.height, lp["src_b"][0], lp["mix"], mat_b, **kw
+    )
 
 
 def _process_layer(
     ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
 ):
     """One layer -> a (4, H, W) RGBA frame or an (rgb, wy, wx) tuple."""
+    if _packed_layer_ok(ls):
+        return _packed_warp_layer(ls, lp, spec, st)
     rgba = srcs[(li, "src")]
     if rgba.shape[0] == 3:
         out3 = _process_layer_rgb3(ls, lp, srcs, li, spec, st)
@@ -342,39 +426,73 @@ def _process_layer(
 
 
 def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False) -> list:
-    """params -> the packed output planes of one frame."""
+    """params -> the packed output planes of one frame (routes 2 and 3 of
+    the module docstring)."""
     device = _params_device(params)
     check_structure(spec, device)
     st = _PLAIN if plain else _KERNELS
-    srcs = _sources(spec, params, st)
-    run = _packed_composite_args(spec, params, srcs)
-    if run is not None:
-        return [st.packed_composite(*run, spec.out_col_spec)]
+    kind = _stack_kind(spec, params)
+    b6 = frozenset(li for li, ls in enumerate(spec.layers) if _packed_layer_ok(ls))
+    srcs = {} if kind == "packed" else _sources(spec, params, st, skip=b6)
+    if kind is not None:
+        return [st.packed_composite(
+            *_packed_composite_args(spec, params, srcs), spec.out_col_spec, src_kind=kind,
+            size=(spec.width, spec.height), col_spec=spec.col_spec,
+        )]
     layers = [
         _process_layer(ls, lp, srcs, li, spec, st)
         for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"]))
     ]
+    if spec.out_format == _V210:
+        if len(layers) <= kernels.MAX_LAYERS:
+            return [st.combine_pack(layers, spec.out_col_spec)]
+        return [st.v210_pack(combine_rgb(layers), spec.out_col_spec)]
     if any(isinstance(f, tuple) for f in layers):
-        # alpha-free combine: the pack never reads alpha
-        composited = combine_rgb(layers)
+        composited = _with_alpha_one(combine_rgb(layers))
     else:
         black = torch.zeros((4, spec.height, spec.width), dtype=torch.float32, device=device)
         composited = combine([black] + layers)
-    if spec.out_format == _V210:
-        return [st.v210_pack(composited, spec.out_col_spec)]
-    if composited.shape[0] == 3:
-        composited = _with_alpha_one(composited)
     out_fmt = get_format(spec.out_format)
     saver = make_saver(out_fmt.INFO, spec.out_col_spec, spec.gamma_mode, device)
     return fio.from_rgba(out_fmt, composited, saver, spec.width, spec.height)
+
+
+def _fused_v210_ok(spec: ChannelSpec) -> bool:
+    """The fused v210 program covers the structure (JAX
+    ``supported_spec``): a v210 output and a top layer that is a v210
+    clip, not deinterlaced, without DVE, as a cut or a dissolve from a
+    v210 clip.  It decodes opaque, so the lower layers never show."""
+    if spec.out_format != _V210 or spec.emit_rgba or not spec.layers:
+        return False
+    return not spec.layers[-1].has_transform and _v210_clip(spec.layers[-1])
+
+
+def _fused_v210_program(spec: ChannelSpec, plain: bool):
+    """The channel as one fused v210 launch (JAX ``_monolithic_program``)."""
+    fused = kernels.fused_v210_plain if plain else kernels.fused_v210
+    kw = dict(col_spec=spec.col_spec, out_col_spec=spec.out_col_spec)
+    dissolve = spec.layers[-1].transition == "dissolve"
+
+    def program(params: dict) -> list:
+        top = params["layers"][-1]
+        if dissolve:
+            return [fused(top["src"][0], spec.width, spec.height, top["src_b"][0], top["mix"], **kw)]
+        return [fused(top["src"][0], spec.width, spec.height, **kw)]
+
+    return program
 
 
 @lru_cache(maxsize=None)
 def make_channel_program(spec: ChannelSpec, plain: bool = False):
     """The frame program for a channel structure, cached per spec.
     Returned callable: params -> list of packed output planes, on the
-    params' device.  ``plain=True`` runs the plain version of every
-    kernel stage instead (the on-card reference)."""
+    params' device.  A structure the fused v210 program covers gets it
+    (route 1), whatever its lower layers; every other structure is
+    checked (``check_structure``) and runs ``_channel_frame``.
+    ``plain=True`` runs the plain version of every kernel stage instead
+    (the on-card reference)."""
+    if _fused_v210_ok(spec):
+        return _fused_v210_program(spec, plain)
 
     def program(params: dict) -> list:
         return _channel_frame(spec, params, plain)

@@ -46,13 +46,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: pointers and the stream as
 # c_void_p (a plain int would be cut to 32 bits), sizes as c_int
 _SIGNATURES = {
-    "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
-    "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "phn_packed_composite": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -5,13 +5,28 @@ through 2^16-entry LUTs indexed by ``convert_ushort_sat_rte(value *
 65535)`` (v210.ts:68-70,148-150).  Two implementations, both quantizing
 to the same 16-bit index first:
 
-- ``mode='lut'``      — a gather from the 65536-entry float32 LUT;
-- ``mode='analytic'`` — the ITU transfer formula at that index, in
-  float32, with the JAX package's expression order (gamma.py:46-73).
-  The CUDA kernels evaluate this same formula.
+- ``mode='lut'``      — a gather from the reference's 65536-entry LUT;
+- ``mode='analytic'`` — the ITU transfer formula at that index, with the
+  JAX package's float32 expression order (gamma.py:46-73).
+
+gamma'->linear in 'analytic' mode is a gather from ``g2l_table``: the
+formula evaluated once per index on the host, with the C library's
+float32 ``powf`` for the power term.  That is the function XLA's CPU
+backend calls for a float32 ``pow``, so the table equals JAX's
+``gamma2linear_at_index`` at every one of the 65536 indices
+(tests/test_torch_colour.py); ``torch.pow`` and a float64 power rounded
+once differ from it at 1071-1078 and 24-40 indices.  The CUDA kernels
+gather from the same table (uploaded once per device and col_spec), so
+kernel and plain version agree by construction.  linear->gamma' stays
+the float32 formula with ``torch.pow`` (CUDA ``powf`` in the kernels):
+it lands in the same 10-bit codes as JAX's at every tested input.
 """
 
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -21,32 +36,20 @@ from .quant import u16_sat_rte
 
 __all__ = [
     "gamma_lut_apply",
+    "g2l_table",
+    "g2l_table_on",
     "gamma2linear_at_index",
     "linear2gamma_at_index",
-    "g2l_constants",
     "l2g_constants",
 ]
 
 INV_LUT_MAX = np.float32(1.0 / (LUT_ENTRIES - 1))
 
 
-def g2l_constants(col_spec: str) -> tuple[float, ...]:
-    """(inv_lut_max, beta*delta, 1/delta, alpha-1, 1/alpha, 1/gamma) as
-    float32 values: the literals of gamma2linear_at_index, shared with
-    the CUDA kernels so both evaluate the same float32 formula."""
-    p = COLOUR_SPECS[col_spec]
-    return tuple(
-        float(np.float32(v))
-        for v in (
-            INV_LUT_MAX, p.beta * p.delta, 1.0 / p.delta, p.alpha - 1.0,
-            1.0 / p.alpha, 1.0 / p.gamma,
-        )
-    )
-
-
 def l2g_constants(col_spec: str) -> tuple[float, ...]:
     """(inv_lut_max, beta, delta, alpha, alpha-1, gamma) as float32
-    values: the literals of linear2gamma_at_index."""
+    values: the literals of linear2gamma_at_index, shared with the CUDA
+    kernels so both evaluate the same float32 formula."""
     p = COLOUR_SPECS[col_spec]
     return tuple(
         float(np.float32(v))
@@ -59,23 +62,46 @@ def gamma_lut_apply(lut: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return lut[u16_sat_rte(x * 65535.0).long()]
 
 
-def _index_to_f(idx: torch.Tensor, inv_lut_max: float) -> torch.Tensor:
-    return idx.to(torch.float32) * inv_lut_max
+def _powf(base: np.ndarray, exponent: np.float32) -> np.ndarray:
+    """The C library's float32 powf, element by element."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    powf = libm.powf
+    powf.restype = ctypes.c_float
+    powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    e = float(exponent)
+    return np.array([powf(b, e) for b in base.tolist()], dtype=np.float32)
+
+
+@lru_cache(maxsize=None)
+def g2l_table(col_spec: str) -> np.ndarray:
+    """gamma'->linear at every LUT index, (65536,) float32: the JAX
+    package's float32 formula (fi = idx * inv_max; fi * inv_delta below
+    beta*delta, else ((fi + alpha-1) * 1/alpha) ** (1/gamma)), the power
+    by the C library's powf."""
+    p = COLOUR_SPECS[col_spec]
+    fi = np.arange(LUT_ENTRIES, dtype=np.float32) * INV_LUT_MAX
+    lo = fi * np.float32(1.0 / p.delta)
+    base = (fi + np.float32(p.alpha - 1.0)) * np.float32(1.0 / p.alpha)
+    hi = _powf(base, np.float32(1.0 / p.gamma))
+    table = np.where(fi < np.float32(p.beta * p.delta), lo, hi).astype(np.float32)
+    table.setflags(write=False)
+    return table
+
+
+@lru_cache(maxsize=None)
+def g2l_table_on(col_spec: str, device: torch.device) -> torch.Tensor:
+    """g2l_table on ``device``, uploaded once per device and col_spec."""
+    return torch.from_numpy(g2l_table(col_spec).copy()).to(device)
 
 
 def gamma2linear_at_index(col_spec: str, idx: torch.Tensor) -> torch.Tensor:
     """Analytic LUT cell value at an integer index in [0, 65535]."""
-    inv_max, beta, inv_delta, alpha_m1, inv_alpha, inv_gamma = g2l_constants(col_spec)
-    fi = _index_to_f(idx, inv_max)
-    lo = fi * inv_delta
-    hi = torch.pow((fi + alpha_m1) * inv_alpha, inv_gamma)
-    return torch.where(fi < beta, lo, hi)
+    return g2l_table_on(col_spec, idx.device)[idx.long()]
 
 
 def linear2gamma_at_index(col_spec: str, idx: torch.Tensor) -> torch.Tensor:
     inv_max, beta, delta, alpha, alpha_m1, gamma = l2g_constants(col_spec)
-    fi = _index_to_f(idx, inv_max)
+    fi = idx.to(torch.float32) * inv_max
     lo = fi * delta
     hi = alpha * torch.pow(fi, gamma) - alpha_m1
     return torch.where(fi < beta, lo, hi)
-

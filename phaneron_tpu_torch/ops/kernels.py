@@ -17,6 +17,11 @@ Counterpart of phaneron_tpu/ops/pallas_kernels.py.  Each kernel has:
 | v210_unpack        | csrc/v210_unpack.cu          | _make_v210_spatial_unpack (C 3, 4), make_v210_unpack_rgba  |
 | v210_pack          | csrc/v210_pack.cu            | make_v210_pack_rgba                                        |
 | planar422_unpack   | csrc/planar422_unpack.cu     | _make_planar422_spatial_unpack, make_planar422_unpack_rgba |
+| fused_v210         | csrc/fused_v210.cu           | make_fused_v210_program (_make_kernel)                     |
+| combine_pack       | csrc/combine_pack.cu         | make_v210_combine_pack                                     |
+
+Every decode gathers gamma'->linear from ops/gamma.py g2l_table; the
+kernels receive the same table on their device (``g2l_table_on``).
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from ._build import library
 from .coeffs import make_loader, make_saver
 from .formats import v210 as v210fmt
 from .formats import yuv422p8 as yuv422p8fmt
-from .gamma import g2l_constants, l2g_constants
+from .composite import combine, combine_rgb, mix_frames
+from .gamma import g2l_table_on, l2g_constants
 from .io import from_rgba, to_rgba
 
 __all__ = [
@@ -43,10 +49,16 @@ __all__ = [
     "v210_pack_plain",
     "planar422_unpack",
     "planar422_unpack_plain",
+    "fused_v210",
+    "fused_v210_plain",
+    "combine_pack",
+    "combine_pack_plain",
     "MAX_SRCS",
+    "MAX_LAYERS",
 ]
 
 MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
+MAX_LAYERS = 8  # layers per combine_pack launch (kMaxLayers in csrc/combine_pack.cu)
 
 
 # ------------------------------------------------------------- helpers
@@ -95,10 +107,18 @@ def _c_floats(values) -> ctypes.Array:
 @lru_cache(maxsize=None)
 def _decode_coeffs(num_bits: int, black: int, white: int, chroma: int,
                    col_spec: str, out_col_spec: str) -> ctypes.Array:
-    """col[12], gamut[9], g2l[6] for csrc Decode (phn_common.cuh)."""
+    """col[12], gamut[9] for csrc Decode (phn_common.cuh); its
+    gamma'->linear table is g2l_table_on(col_spec, device)."""
     col = cm.ycbcr2rgb_matrix(col_spec, num_bits, black, white, chroma)
     gamut = cm.rgb2rgb_matrix(col_spec, out_col_spec)
-    return _c_floats(np.concatenate([col.ravel(), gamut.ravel(), g2l_constants(col_spec)]))
+    return _c_floats(np.concatenate([col.ravel(), gamut.ravel()]))
+
+
+def v210_decode_args(col_spec: str, out_col_spec: str, device: torch.device) -> tuple[int, int]:
+    """(coefficient array address, table pointer) of a v210 decode on
+    ``device``: the decode arguments of every kernel reading v210 words."""
+    coeffs = _decode_coeffs(10, 64, 940, 896, col_spec, out_col_spec)
+    return ctypes.addressof(coeffs), g2l_table_on(col_spec, device).data_ptr()
 
 
 @lru_cache(maxsize=None)
@@ -158,7 +178,7 @@ def v210_unpack(
     outs = [
         torch.empty((channels, height, width), dtype=torch.float32, device=dev) for _ in words
     ]
-    coeffs = _decode_coeffs(10, 64, 940, 896, col_spec, out_col_spec)
+    coeffs, g2l = v210_decode_args(col_spec, out_col_spec, dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = stream_handle(dev)
@@ -168,7 +188,7 @@ def v210_unpack(
             outp = (ctypes.c_void_p * len(chunk))(*(outs[j].data_ptr() for j in chunk))
             rc = lib.phn_v210_unpack(
                 ctypes.addressof(ins), ctypes.addressof(outp), len(chunk),
-                width, height, groups, channels, ctypes.addressof(coeffs), stream,
+                width, height, groups, channels, coeffs, g2l, stream,
             )
             check_launch(rc, "v210_unpack")
             v210_unpack.launches += 1
@@ -246,7 +266,8 @@ def planar422_unpack(
     with torch.cuda.device(y.device):
         rc = library().phn_planar422_unpack(
             y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            width, height, p, p // 2, ctypes.addressof(coeffs), stream_handle(y.device),
+            width, height, p, p // 2, ctypes.addressof(coeffs),
+            g2l_table_on(col_spec, y.device).data_ptr(), stream_handle(y.device),
         )
     check_launch(rc, "planar422_unpack")
     planar422_unpack.launches += 1
@@ -254,3 +275,138 @@ def planar422_unpack(
 
 
 planar422_unpack.launches = 0
+
+
+# ------------------------------------------------ B3 fused v210 program
+
+
+def _check_mix(mix, device: torch.device) -> torch.Tensor:
+    mix = torch.as_tensor(mix, dtype=torch.float32, device=device).reshape(1)
+    check_arg(mix, "mix", device, torch.float32, (1,))
+    return mix
+
+
+def fused_v210_plain(
+    words: torch.Tensor, width: int, height: int, words_b: torch.Tensor | None = None,
+    mix=None, col_spec: str = "709", out_col_spec: str = "709",
+) -> torch.Tensor:
+    """Plain version of fused_v210: the staged path of the top layer,
+    v210_unpack_plain (4 ch) -> mix_frames -> 'over' black -> v210_pack_plain."""
+    srcs = v210_unpack_plain(
+        [words] + ([words_b] if words_b is not None else []), width, height,
+        col_spec, out_col_spec,
+    )
+    top = srcs[0] if words_b is None else mix_frames(srcs[0], srcs[1], mix)
+    return v210_pack_plain(combine([torch.zeros_like(top), top]), out_col_spec)
+
+
+def fused_v210(
+    words: torch.Tensor, width: int, height: int, words_b: torch.Tensor | None = None,
+    mix=None, col_spec: str = "709", out_col_spec: str = "709",
+) -> torch.Tensor:
+    """A channel whose top layer is a v210 clip without DVE, in one launch:
+    (H, pitch_bytes/4) int32 words of the clip (and, for a dissolve, of
+    the second clip and ``mix``, a 0-d tensor or float) -> the channel's
+    v210 output words, decode -> dissolve words*mix + words_b*(1-mix) ->
+    'over' black -> encode.  The opaque top layer covers every lower
+    layer, so they are not read (JAX ``supported_spec``)."""
+    if (words_b is None) != (mix is None):
+        raise ValueError("fused_v210: words_b and mix go together")
+    if is_cpu(words, "fused_v210"):
+        return fused_v210_plain(words, width, height, words_b, mix, col_spec, out_col_spec)
+    dev = words.device
+    groups = v210fmt.pitch(width) // 6
+    shape = (height, groups * 4)
+    check_arg(words, "fused_v210 words", dev, torch.int32, shape, align=16)
+    b_ptr = mix_ptr = None
+    if words_b is not None:
+        check_arg(words_b, "fused_v210 words_b", dev, torch.int32, shape, align=16)
+        mix = _check_mix(mix, dev)
+        b_ptr, mix_ptr = words_b.data_ptr(), mix.data_ptr()
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    coeffs, g2l = v210_decode_args(col_spec, out_col_spec, dev)
+    with torch.cuda.device(dev):
+        rc = library().phn_fused_v210(
+            words.data_ptr(), b_ptr, mix_ptr, out.data_ptr(), width, height, groups,
+            coeffs, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+        )
+    check_launch(rc, "fused_v210")
+    fused_v210.launches += 1
+    return out
+
+
+fused_v210.launches = 0
+
+
+# --------------------------------------------------- B5 combine + pack
+
+
+def _check_layers(layers: Sequence) -> tuple[int, int]:
+    if not layers:
+        raise ValueError("combine_pack: at least one layer")
+    first = layers[0][0] if isinstance(layers[0], tuple) else layers[0]
+    _, h, w = first.shape
+    for f in layers:
+        frame = f[0] if isinstance(f, tuple) else f
+        c = 3 if isinstance(f, tuple) else 4
+        if tuple(frame.shape) != (c, h, w):
+            raise ValueError(
+                f"combine_pack: a layer is a (4, H, W) frame or an (rgb (3, H, W), wy, wx) "
+                f"tuple at {h}x{w}, got {tuple(frame.shape)}"
+            )
+    return h, w
+
+
+def combine_pack_plain(layers: Sequence, out_col_spec: str = "709") -> torch.Tensor:
+    """Plain version of combine_pack: combine_rgb -> v210_pack_plain."""
+    _check_layers(layers)
+    return v210_pack_plain(combine_rgb(list(layers)), out_col_spec)
+
+
+def combine_pack(layers: Sequence, out_col_spec: str = "709") -> torch.Tensor:
+    """Layers bottom to top, each a (4, H, W) float32 premultiplied RGBA
+    frame or an ``(rgb (3, H, W), wy (H,), wx (W,))`` tuple whose alpha is
+    wy[:, None] * wx, 'over' the implicit black base and packed to v210
+    words (H, pitch_bytes/4) int32, at most MAX_LAYERS layers a launch."""
+    h, w = _check_layers(layers)
+    first = layers[0][0] if isinstance(layers[0], tuple) else layers[0]
+    if is_cpu(first, "combine_pack"):
+        return combine_pack_plain(layers, out_col_spec)
+    if len(layers) > MAX_LAYERS:
+        raise ValueError(f"combine_pack: at most {MAX_LAYERS} layers per launch")
+    dev = first.device
+    frames, chans, wys, wxs = [], [], [], []
+    for f in layers:
+        if isinstance(f, tuple):
+            rgb, wy, wx = f
+            check_arg(rgb, "combine_pack rgb", dev, torch.float32, (3, h, w))
+            check_arg(wy, "combine_pack wy", dev, torch.float32, (h,))
+            check_arg(wx, "combine_pack wx", dev, torch.float32, (w,))
+            frames.append(rgb.data_ptr())
+            chans.append(3)
+            wys.append(wy.data_ptr())
+            wxs.append(wx.data_ptr())
+        else:
+            check_arg(f, "combine_pack frame", dev, torch.float32, (4, h, w))
+            frames.append(f.data_ptr())
+            chans.append(4)
+            wys.append(None)
+            wxs.append(None)
+    n = len(layers)
+    ptrs = lambda xs: (ctypes.c_void_p * n)(*xs)
+    frame_p, wy_p, wx_p = ptrs(frames), ptrs(wys), ptrs(wxs)
+    chan_p = (ctypes.c_int * n)(*chans)
+    groups = v210fmt.pitch(w) // 6
+    out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().phn_combine_pack(
+            ctypes.addressof(frame_p), ctypes.addressof(chan_p), ctypes.addressof(wy_p),
+            ctypes.addressof(wx_p), n, out.data_ptr(), w, h, groups,
+            ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+        )
+    check_launch(rc, "combine_pack")
+    combine_pack.launches += 1
+    return out
+
+
+combine_pack.launches = 0

@@ -1,23 +1,37 @@
-"""The packed composite kernel: a run of DVE layers warped, 'over'
-composited and packed to v210 in one launch.
+"""The packed-source warp and the packed composite: DVE layers that read
+v210 words, decoded at each bilinear tap, or opaque 3-channel frames.
 
-Counterpart of phaneron_tpu/ops/pallas_packed_warp.py
-``make_packed_composite_program`` in its ``src_kind='rgb3'``,
-``emit='packed'`` mode: opaque alpha-free (3, H, W) float32 sources (the
-deinterlaced fields of the interlaced default load), each layer a cut or
-a same-matrix dissolve pair under an axis-aligned matrix.
-``packed_composite`` launches csrc/packed_composite.cu for CUDA tensors
-and runs ``packed_composite_plain`` for CPU tensors;
-``packed_composite.launches`` counts kernel launches.
+Counterpart of phaneron_tpu/ops/pallas_packed_warp.py:
 
-The plain version is the staged path it fuses: per layer the warp (a
-dissolve pair mixed after the warp) with its separable alpha
-``warp_alpha_vectors``, ``combine_rgb`` and the v210 pack.  The TPU
-kernel premixes the pair before one warp, in bf16 hi/lo products; the
-port keeps the staged order, within 1 code of it (tests/
-test_torch_packed_warp.py).  Packed v210 word sources decoded inside the
-warp window, the RGBA emit and the packed warp are still to port
-(ROADMAP.md Queue B, B6 and B7).
+| wrapper          | CUDA source               | replaces                                                   |
+|------------------|---------------------------|------------------------------------------------------------|
+| packed_warp      | csrc/packed_warp.cu       | _make_program (make_packed_warp_program, make_packed_warp_pair_program, n_mat 1 and 2) |
+| packed_composite | csrc/packed_composite.cu  | make_packed_composite_program, emit='packed', src_kind 'rgb3' and 'packed' |
+
+``packed_warp`` decodes one v210 source (or a dissolve pair under one
+shared or two distinct matrices) at the taps of an axis-aligned warp and
+returns linear RGBA; its alpha is the warp of the constant-1 plane.
+``packed_composite`` runs a whole stack of DVE layers (cuts or
+same-matrix dissolves) into v210 words in one launch, from opaque
+(3, H, W) float32 sources (``src_kind='rgb3'``, the deinterlaced fields
+of the interlaced default load) or from v210 words (``'packed'``, the
+progressive multi-layer channel).  Each wrapper launches its kernel for
+CUDA tensors and runs its plain version for CPU tensors; ``.launches``
+counts kernel launches.
+
+The plain versions are the staged paths the kernels fuse: the v210
+unpack, the warp (a dissolve pair mixed after the warp), and for the
+composite the separable alpha ``warp_alpha_vectors``, ``combine_rgb``
+and the v210 pack.  The TPU kernels premix a shared-matrix pair before
+one warp, in bf16 hi/lo products, and the composite decodes with a
+polynomial gamma; the port keeps the staged order and the exact decode,
+within 1 code of them (tests/test_torch_packed_warp.py,
+tests/test_torch_packed_source.py).  The TPU gates (``packed_warp_fits``,
+``packed_composite_fits``: widths a multiple of 768, VMEM plans, HD
+padded to 384 groups) are not ported: the kernels take any geometry, so
+at 1080p the port takes these routes where the JAX package on a TPU
+stays staged, with the same numbers within each contract.  The RGBA
+emits and part-stack runs are still to port (ROADMAP.md Queue B, B7).
 """
 
 from __future__ import annotations
@@ -28,39 +42,138 @@ from typing import Sequence
 import torch
 
 from ._build import library
-from .composite import combine_rgb
+from .composite import combine_rgb, mix_frames
 from .formats import v210 as v210fmt
-from .kernels import _encode_coeffs, check_arg, check_launch, is_cpu, stream_handle, v210_pack_plain
+from .geometry import warp_axis_aligned
+from .kernels import (
+    _check_mix,
+    _encode_coeffs,
+    check_arg,
+    check_launch,
+    is_cpu,
+    stream_handle,
+    v210_decode_args,
+    v210_pack_plain,
+    v210_unpack_plain,
+)
 from .warp import warp_alpha_vectors, warp_plain
 
-__all__ = ["packed_composite", "packed_composite_plain", "MAX_LAYERS"]
+__all__ = [
+    "packed_warp",
+    "packed_warp_plain",
+    "packed_composite",
+    "packed_composite_plain",
+    "MAX_LAYERS",
+]
 
 MAX_LAYERS = 8  # layers per launch (kMaxLayers in csrc/packed_composite.cu)
+_KINDS = ("rgb3", "packed")
 
 
-def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes) -> None:
+def _mat_on(mat, device: torch.device, name: str) -> torch.Tensor:
+    mat = torch.as_tensor(mat, dtype=torch.float32, device=device)
+    check_arg(mat, name, device, torch.float32, (3, 3))
+    return mat
+
+
+# ------------------------------------------------------ B6 packed warp
+
+
+def packed_warp_plain(
+    words: torch.Tensor, mat, width: int, height: int, words_b: torch.Tensor | None = None,
+    mix=None, mat_b=None, col_spec: str = "709", out_col_spec: str = "709",
+) -> torch.Tensor:
+    """Plain version of packed_warp: v210_unpack_plain (4 ch) ->
+    warp_axis_aligned (-> mix_frames)."""
+    srcs = v210_unpack_plain(
+        [words] + ([words_b] if words_b is not None else []), width, height,
+        col_spec, out_col_spec,
+    )
+    out = warp_axis_aligned(srcs[0], mat)
+    if words_b is None:
+        return out
+    return mix_frames(out, warp_axis_aligned(srcs[1], mat if mat_b is None else mat_b), mix)
+
+
+def packed_warp(
+    words: torch.Tensor, mat, width: int, height: int, words_b: torch.Tensor | None = None,
+    mix=None, mat_b=None, col_spec: str = "709", out_col_spec: str = "709",
+) -> torch.Tensor:
+    """Axis-aligned bilinear DVE warp of a v210 source, (H, pitch_bytes/4)
+    int32 words, by the (3, 3) matrix ``mat`` (m00, m02, m11, m12 read),
+    border zero, decoding each tap -> linear RGBA (4, H, W) float32.  With
+    ``words_b`` and ``mix``: the dissolve pair warp(a)*mix +
+    warp(b)*(1-mix), b under ``mat_b`` (default: ``mat``)."""
+    if (words_b is None) != (mix is None):
+        raise ValueError("packed_warp: words_b and mix go together")
+    if words_b is None and mat_b is not None:
+        raise ValueError("packed_warp: mat_b needs words_b")
+    if is_cpu(words, "packed_warp"):
+        return packed_warp_plain(
+            words, mat, width, height, words_b, mix, mat_b, col_spec, out_col_spec
+        )
+    dev = words.device
+    groups = v210fmt.pitch(width) // 6
+    shape = (height, groups * 4)
+    check_arg(words, "packed_warp words", dev, torch.int32, shape, align=16)
+    mat = _mat_on(mat, dev, "packed_warp mat")
+    b_ptr = mat_b_ptr = mix_ptr = None
+    if words_b is not None:
+        check_arg(words_b, "packed_warp words_b", dev, torch.int32, shape, align=16)
+        mat_b = mat if mat_b is None else _mat_on(mat_b, dev, "packed_warp mat_b")
+        mix = _check_mix(mix, dev)
+        b_ptr, mat_b_ptr, mix_ptr = words_b.data_ptr(), mat_b.data_ptr(), mix.data_ptr()
+    out = torch.empty((4, height, width), dtype=torch.float32, device=dev)
+    coeffs, g2l = v210_decode_args(col_spec, out_col_spec, dev)
+    with torch.cuda.device(dev):
+        rc = library().phn_packed_warp(
+            words.data_ptr(), b_ptr, mat.data_ptr(), mat_b_ptr, mix_ptr, out.data_ptr(),
+            width, height, groups, coeffs, g2l, stream_handle(dev),
+        )
+    check_launch(rc, "packed_warp")
+    packed_warp.launches += 1
+    return out
+
+
+packed_warp.launches = 0
+
+
+# ------------------------------------------------- K5 packed composite
+
+
+def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
+                  src_kind: str, size) -> tuple[int, int]:
+    """(height, width) of the layers, after the structural checks."""
+    if src_kind not in _KINDS:
+        raise ValueError(f"packed_composite: src_kind must be one of {_KINDS}, got {src_kind!r}")
     if not layer_cfg or any(n not in (1, 2) for n in layer_cfg):
         raise ValueError(f"packed_composite: layer_cfg entries must be 1 or 2, got {layer_cfg}")
     if len(srcs) != sum(layer_cfg):
         raise ValueError(f"packed_composite: {len(srcs)} sources for layer_cfg {layer_cfg}")
     if len(mats) != len(layer_cfg) or len(mixes) != len(layer_cfg):
         raise ValueError("packed_composite: one matrix and one mix per layer")
-    shape = tuple(srcs[0].shape)
-    if len(shape) != 3 or shape[0] != 3:
-        raise ValueError(f"packed_composite: expected (3, H, W) sources, got {shape}")
     for n, mix in zip(layer_cfg, mixes):
         if n == 2 and mix is None:
             raise ValueError("packed_composite: a dissolve layer needs its mix")
+    shape = tuple(srcs[0].shape)
+    if src_kind == "packed":
+        if size is None:
+            raise ValueError("packed_composite: packed sources need size=(width, height)")
+        return size[1], size[0]
+    if len(shape) != 3 or shape[0] != 3:
+        raise ValueError(f"packed_composite: expected (3, H, W) sources, got {shape}")
+    return shape[1], shape[2]
 
 
 def packed_composite_plain(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
-    out_col_spec: str = "709",
+    out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
 ) -> torch.Tensor:
-    """Plain version of packed_composite: the staged warp -> combine_rgb
-    -> v210 pack path."""
-    _check_layers(srcs, layer_cfg, mats, mixes)
-    _, h, w = srcs[0].shape
+    """Plain version of packed_composite: [v210_unpack_plain (3 ch) ->] the
+    staged warp -> combine_rgb -> v210 pack path."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size)
+    if src_kind == "packed":
+        srcs = v210_unpack_plain(srcs, w, h, col_spec, out_col_spec, channels=3)
     layers, s = [], 0
     for n, mat, mix in zip(layer_cfg, mats, mixes):
         rgb = warp_plain(srcs[s], mat) if n == 1 else warp_plain(srcs[s], mat, srcs[s + 1], mix)
@@ -71,42 +184,45 @@ def packed_composite_plain(
 
 def packed_composite(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
-    out_col_spec: str = "709",
+    out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
 ) -> torch.Tensor:
-    """Layers bottom to top over opaque (3, H, W) float32 sources -> v210
-    words (H, pitch_bytes/4) int32.
+    """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32.
 
+    ``src_kind='rgb3'``: opaque (3, H, W) float32 sources.  ``'packed'``:
+    v210 words (H, pitch_bytes/4) int32 of a ``size=(width, height)``
+    frame, decoded (``col_spec`` -> ``out_col_spec``) at each tap.
     ``layer_cfg[m]`` is layer m's source count (1 a cut, 2 a dissolve
     pair); ``srcs`` lists them flat.  ``mats[m]`` is its (3, 3) matrix
     (only m00, m02, m11, m12 are read), ``mixes[m]`` its mix (a 0-d
     tensor or float; None for a cut).  Each layer's alpha is its separable
     warp alpha; the bottom layer composites over black."""
-    _check_layers(srcs, layer_cfg, mats, mixes)
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size)
     if is_cpu(srcs[0], "packed_composite"):
-        return packed_composite_plain(srcs, layer_cfg, mats, mixes, out_col_spec)
+        return packed_composite_plain(
+            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec
+        )
     if len(layer_cfg) > MAX_LAYERS:
         raise ValueError(f"packed_composite: at most {MAX_LAYERS} layers per launch")
     dev = srcs[0].device
-    _, h, w = srcs[0].shape
-    for s in srcs:
-        check_arg(s, "packed_composite src", dev, torch.float32, (3, h, w))
-    mats = [torch.as_tensor(m, dtype=torch.float32, device=dev) for m in mats]
-    for m in mats:
-        check_arg(m, "packed_composite mat", dev, torch.float32, (3, 3))
-    mixes = [
-        None if n == 1 else torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(1)
-        for n, x in zip(layer_cfg, mixes)
-    ]
     groups = v210fmt.pitch(w) // 6
+    packed = src_kind == "packed"
+    for s in srcs:
+        if packed:
+            check_arg(s, "packed_composite words", dev, torch.int32, (h, groups * 4), align=16)
+        else:
+            check_arg(s, "packed_composite src", dev, torch.float32, (3, h, w))
+    mats = [_mat_on(m, dev, "packed_composite mat") for m in mats]
+    mixes = [None if n == 1 else _check_mix(x, dev) for n, x in zip(layer_cfg, mixes)]
     out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
     src_p, mat_p, mix_p = ptrs(srcs), ptrs(mats), ptrs(mixes)
     n_src = (ctypes.c_int * len(layer_cfg))(*layer_cfg)
+    dec, g2l = v210_decode_args(col_spec, out_col_spec, dev) if packed else (None, None)
     with torch.cuda.device(dev):
         rc = library().phn_packed_composite(
             ctypes.addressof(src_p), ctypes.addressof(mat_p), ctypes.addressof(mix_p),
-            ctypes.addressof(n_src), len(layer_cfg), out.data_ptr(), w, h, groups,
-            ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+            ctypes.addressof(n_src), len(layer_cfg), int(packed), out.data_ptr(), w, h, groups,
+            dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")
     packed_composite.launches += 1

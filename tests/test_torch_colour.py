@@ -1,6 +1,7 @@
 """Port parity: colour science, rounding and the transfer functions of
 phaneron_tpu_torch against phaneron_tpu on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,11 +57,39 @@ IDX = np.arange(65536, dtype=np.int32)
 @pytest.mark.parametrize("col", SPECS)
 def test_gamma2linear_within_one_ulp(col):
     """gamma' -> linear over every LUT index: within 1 float32 ulp of JAX
-    (not exact: torch's float32 pow and XLA's round differently at ~1.6%
-    of the indices)."""
+    (exact since the table takes the C library's powf, which is XLA's:
+    test_gamma2linear_table_equals_jax)."""
     want = np.asarray(jgamma.gamma2linear_at_index(col, jnp.asarray(IDX)))
     got = tgamma.gamma2linear_at_index(col, torch.from_numpy(IDX)).numpy()
     assert ulps(got, want).max() <= 1
+
+
+@pytest.mark.parametrize("col", SPECS)
+def test_gamma2linear_table_equals_jax(col):
+    """The gamma'->linear table (the C library's powf for the power term)
+    equals JAX's gamma2linear_at_index at all 65536 indices, and the
+    analytic Gamma of the port's loaders gathers from it."""
+    want = np.asarray(jgamma.gamma2linear_at_index(col, jnp.asarray(IDX)))
+    table = tgamma.g2l_table(col)
+    assert table.dtype == np.float32 and table.shape == (65536,)
+    assert int((table != want).sum()) == 0
+    idx = torch.from_numpy(IDX)
+    assert torch.equal(tgamma.gamma2linear_at_index(col, idx), torch.from_numpy(want.copy()))
+
+
+@pytest.mark.parametrize("col", SPECS)
+def test_gamma2linear_power_branch_equals_jax_programs(col):
+    """Inside a compiled JAX program the power branch keeps these values
+    (XLA's float32 pow is the C library's powf); only the linear branch
+    moves, by at most 2 ulps, where XLA folds fi * (1/65535) * (1/delta)
+    into one constant product."""
+    p = jcm.COLOUR_SPECS[col]
+    want = np.asarray(jax.jit(lambda i: jgamma.gamma2linear_at_index(col, i))(jnp.asarray(IDX)))
+    table = tgamma.g2l_table(col)
+    fi = IDX.astype(np.float32) * np.float32(1.0 / 65535)
+    power = fi >= np.float32(p.beta * p.delta)
+    assert np.array_equal(table[power], want[power])
+    assert ulps(table[~power], want[~power]).max() <= 2
 
 
 @pytest.mark.parametrize("col", SPECS)

@@ -25,7 +25,10 @@ from torch_parity import max_code_delta, random_words, words_to_planes
 
 torch.set_num_threads(1)
 
-TOL_UNPACK = 4e-5  # one LUT step: FMA formation / pow rounding
+# one LUT step at the top of the BT.709 curve (2.022 / 65535): the table
+# equals JAX's transfer function, but XLA contracts the colour matrix's
+# multiply-adds into FMAs, which moves a few LUT indices by one
+TOL_UNPACK = 3.1e-5
 TOL_WARP = 5e-5  # the Pallas warp's bf16 hi/lo split, ~2^-17
 V210 = jget_format("v210")
 
@@ -166,8 +169,9 @@ def test_build_sources_and_flags():
     the wrappers on a machine that may have no nvcc)."""
     names = sorted(p.name for p in _build.sources())
     assert names == [
-        "packed_composite.cu", "phn_common.cuh", "planar422_unpack.cu", "v210_pack.cu",
-        "v210_unpack.cu", "warp.cu", "yadif.cu",
+        "combine_pack.cu", "fused_v210.cu", "packed_composite.cu", "packed_warp.cu",
+        "phn_common.cuh", "planar422_unpack.cu", "v210_pack.cu", "v210_unpack.cu", "warp.cu",
+        "yadif.cu",
     ]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags

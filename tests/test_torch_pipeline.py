@@ -199,7 +199,8 @@ def test_entry_structure_dispatches_to_kernels_on_cuda():
     "spec,item,cpu_runs",
     [
         (_spec(tpipe.LayerSpec("v210", has_transform=True, axis_aligned=False)), "B14", True),
-        (_spec(tpipe.LayerSpec("v210", transition="dissolve", has_transform=True,
+        # distinct matrices over v210 sources run on the packed warp (B6)
+        (_spec(tpipe.LayerSpec("yuv422p8", transition="dissolve", has_transform=True,
                                warp_same_mat=False)), "B4", True),
         (_spec(tpipe.LayerSpec("v210"), out_format="yuv422p8"), "B11", True),
         (_spec(tpipe.LayerSpec("v210", transition="wipe")), "wipe", False),

@@ -3,9 +3,11 @@
 
 Run from the repository root:  python3 tools/port_profile.py [--periods N]
 
-Drives chip_smoke.py's two main paths at 1920x1080 (the interlaced
-default load, four 1080i50 channels, one frame period per step; the
-entry() channel frame) under torch.profiler after warm-up, and prints
+Drives chip_smoke.py's main paths (the interlaced default load, four
+1080i50 channels, one frame period per step; the entry() channel frame
+at 1920x1080; the progressive 4-layer frame at 3840x2160 and 1920x1080;
+the playout dissolve at 1920x1080 and 3840x2160) under torch.profiler
+after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
@@ -108,6 +110,17 @@ def main() -> int:
     program = make_channel_program(spec)
     cs.animate(torch, params, dev, 0.5)
     profile(torch, "entry() channel frame, 1080p", lambda: program(params), 50, card)
+
+    for w, h in ((cs.UHD_W, cs.UHD_H), (cs.W, cs.H)):
+        pspec, pparams = cs.progressive_spec_params(torch, dev, rng, w, h)
+        pprog = make_channel_program(pspec)
+        cs.progressive_animate(torch, pparams, dev, 0.5)
+        profile(torch, f"progressive 4-layer frame, {w}x{h}", lambda: pprog(pparams), 20, card)
+    for w, h in ((cs.W, cs.H), (cs.UHD_W, cs.UHD_H)):
+        sspec, sparams = cs.playout_spec_params(torch, dev, rng, w, h, dissolve=True)
+        sprog = make_channel_program(sspec)
+        cs.playout_animate(torch, sparams, dev, 0.5)
+        profile(torch, f"playout dissolve, {w}x{h}", lambda: sprog(sparams), 50, card)
     return 0
 
 
