@@ -22,7 +22,10 @@ Run from the repository root:  python3 chip_smoke.py
    combine_pack (4-channel and (rgb, wy, wx) layers) and packed_warp
    (single, shared-matrix pair, distinct-matrix pair, max |delta| 0), and
    each fused kernel's delta against the staged kernels it replaces (a
-   record).
+   record); then the straggler modes: rotate (single, dissolve and wipe
+   pairs under one matrix or two, C 4 and 3, at 25, 100 and -7 degrees)
+   and K4's wipe and distinct-matrix pairs <= 5e-5, packed_composite's
+   rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code.
 4. Drives each main path through make_channel_program (or the stage
    programs), every launch count set to 0 just before and read just
    after, each frame's words <= 1 code from the plain path on the card:
@@ -50,14 +53,22 @@ Run from the repository root:  python3 chip_smoke.py
      make_interlaced_word_pack_program;
    - ring_route: the in-program ring route (deinterlace=True layers over
      the same rings, parity on the card) for the two ticks of one
-     channel: it must equal the pair route bit for bit.
+     channel: it must equal the pair route bit for bit;
+   - straggler channels (bench.py composite_variant_step): 3 DVE +
+     dissolve layers under a one_rotation or wipe top layer at 3840x2160
+     and 1920x1080 (1 v210_unpack, 1 packed_composite emitting rgba, 1
+     rotate or warp, 1 combine_pack a frame), a rotated distinct-matrix
+     dissolve at 1080p, and two emit_rgba channels at 1080p (the
+     progressive frame: 1 packed_composite emitting both; one_rotation:
+     the torch combine and 1 v210_pack), whose rgba frame must be within
+     2e-4 of the plain path's and carry the top layer's alpha.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
    (rgb3) route, and each frame's latency with the card idle before and
    after; then each kernel against its plain version at a main path's
-   shapes, K4 also against torch.nn.functional.grid_sample on the same
-   frames (3 and 4 channels).
+   shapes, K4 and rotate also against torch.nn.functional.grid_sample on
+   the same frames.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -112,7 +123,15 @@ OPS_WARP_SAMPLE = 12  # sample(): three lerps
 OPS_MIX = 4  # v * mix + vb * (1 - mix)
 OPS_ALPHA = 6  # packed composite: wy, wx, 1 - wy * wx
 OPS_OVER = 2  # out * k + v
+OPS_COVER = 2  # packed composite rgba emit: cover * k + a
 OPS_YADIF_SAMPLE = 50 + 39  # spatial_pred + temporal_clamp, per predicted sample
+# rotate.cu affine_taps per output pixel and matrix: ix, iy, px, py, u, v,
+# floors, fractions and the clamps of the tap index
+OPS_AFFINE_PX = 26
+
+# the straggler channels (bench.py composite_variant_step)
+STRAGGLER_FRAMES = 4  # frames per geometry and variant
+TOL_RGBA = 2e-4  # the rgba emit against the plain path
 
 
 def check(cond: bool, msg: str) -> None:
@@ -230,6 +249,38 @@ def grid_sample_args(torch, srcs, mat):
     gy = 2.0 * (mat[1, 1] * _out_coords(h, mat.device) + mat[1, 2])
     grid = torch.stack([gx[None, :].expand(h, w), gy[:, None].expand(h, w)], dim=-1)
     return torch.stack(srcs), grid[None].expand(len(srcs), h, w, 2).contiguous()
+
+
+def affine_grid_args(torch, srcs, mat):
+    """(input, grid) for F.grid_sample computing the affine warp:
+    g = 2 * (mat[:2] @ (ix, iy, 1)) (align_corners=False, zero padding)."""
+    from phaneron_tpu_torch.ops.geometry import _out_coords
+
+    _, h, w = srcs[0].shape
+    ix = _out_coords(w, mat.device)[None, :]
+    iy = _out_coords(h, mat.device)[:, None]
+    gx = 2.0 * (mat[0, 0] * ix + mat[0, 1] * iy + mat[0, 2])
+    gy = 2.0 * (mat[1, 0] * ix + mat[1, 1] * iy + mat[1, 2])
+    grid = torch.stack([gx.expand(h, w), gy.expand(h, w)], dim=-1)
+    return torch.stack(srcs), grid[None].expand(len(srcs), h, w, 2).contiguous()
+
+
+def affine_source_texels(torch, mat, height: int, width: int) -> int:
+    """Source texels an affine warp by ``mat`` reads: the distinct
+    in-range taps of every output pixel (this run's matrix decides it)."""
+    from phaneron_tpu_torch.ops.geometry import _bilinear_setup, _out_coords
+
+    ix = _out_coords(width, mat.device)[None, :]
+    iy = _out_coords(height, mat.device)[:, None]
+    x0, _ = _bilinear_setup(mat[0, 0] * ix + mat[0, 1] * iy + mat[0, 2] + 0.5, width)
+    y0, _ = _bilinear_setup(mat[1, 0] * ix + mat[1, 1] * iy + mat[1, 2] + 0.5, height)
+    taps = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            ok = (x >= 0) & (x < width) & (y >= 0) & (y < height)
+            taps.append((y * width + x)[ok])
+    return int(torch.cat(taps).unique().numel())
 
 
 def phase_kernels(torch, dev, rng) -> dict:
@@ -498,6 +549,163 @@ def phase_packed_source_kernels(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+def rotation_matrix(w: int, h: int, degrees: float, scale: float = 0.9, offset_x: float = 0.0):
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    return transform_matrix(w, h, rotate=degrees / 360.0, scale_x=scale, scale_y=scale, offset_x=offset_x)
+
+
+def phase_straggler_kernels(torch, dev, rng, rec: dict) -> None:
+    """The straggler channels' kernel modes against their plain versions
+    at 1920x1080 (C 4 and 3): rotate single, dissolve pair (one shared
+    matrix or two) and wipe pair (one or two matrices) at 25, 100 and -7
+    degrees; K4's wipe pairs and distinct-matrix dissolve; the packed
+    composite's rgba and both emits over v210 words and over (3, H, W)
+    frames (3 dissolve layers)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops import rotate as R
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp, warp_plain
+
+    err = lambda a, b: float((a - b).abs().max())
+    frame = lambda c: torch.from_numpy(rng.random((c, H, W), dtype=np.float32)).to(dev)
+    a4, b4, a3, b3 = frame(4), frame(4), frame(3), frame(3)
+    mask = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    mix = torch.tensor(0.35, device=dev)
+
+    def pair_cases(src, src_b, m, mb):
+        return [((src, m), {}), ((src, m, src_b, mix), {}), ((src, m, src_b, mix, mb), {}),
+                ((src, m, src_b), dict(mask=mask)), ((src, m, src_b), dict(mat_b=mb, mask=mask))]
+
+    er = 0.0
+    for angle in (25, 100, -7):
+        m = to_tensor(rotation_matrix(W, H, angle), dev)
+        mb = to_tensor(rotation_matrix(W, H, angle + 30, 0.8, 0.05), dev)
+        for src, src_b in ((a4, b4), (a3, b3)):
+            for args, kw in pair_cases(src, src_b, m, mb):
+                er = max(er, err(R.rotate(*args, **kw), R.rotate_plain(*args, **kw)))
+    print(f"rotate max |kernel - plain| = {er:.3e} over single, dissolve and wipe pairs (shared and "
+          f"distinct matrices), C 4 and 3, 25 / 100 / -7 degrees (<= {TOL_WARP})")
+    check(er <= TOL_WARP, f"rotate error {er}")
+    rot = to_tensor(rotation_matrix(W, H, 100), dev)
+    rec["rotate"] = dict(max_abs_err=er, pair_args=(a4, rot, b4, mix, to_tensor(rotation_matrix(W, H, 95, 0.85), dev)),
+                         wipe_args=((a4, rot, b4), dict(mask=mask)))
+
+    m = to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.05), dev)
+    mb = to_tensor(transform_matrix(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05), dev)
+    e4 = 0.0
+    for src, src_b in ((a4, b4), (a3, b3)):
+        for args, kw in pair_cases(src, src_b, m, mb)[2:]:
+            e4 = max(e4, err(warp(*args, **kw), warp_plain(*args, **kw)))
+    print(f"K4 warp wipe pairs (shared and distinct matrices) and distinct-matrix dissolve, C 4 and 3, "
+          f"max |kernel - plain| = {e4:.3e} (<= {TOL_WARP})")
+    check(e4 <= TOL_WARP, f"warp wipe / distinct error {e4}")
+    rec["warp"]["max_abs_err"] = max(rec["warp"]["max_abs_err"], e4)
+    rec["warp"]["wipe_args"] = ((a4, m, b4), dict(mask=mask))
+    rec["warp"]["distinct_args"] = (a4, m, b4, mix, mb)
+
+    mats = [to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev)
+            for i in range(3)]
+    mixes = [torch.tensor(0.4 + 0.05 * i, device=dev) for i in range(3)]
+    words = [to_tensor(random_words(rng, W, H), dev) for _ in range(6)]
+    frames = [frame(3) for _ in range(6)]
+    e_rgba, d7 = 0.0, 0
+    for kind, srcs in (("packed", words), ("rgb3", frames)):
+        args = (srcs, (2, 2, 2), mats, mixes)
+        kw = dict(src_kind=kind, size=(W, H))
+        packed = PW.packed_composite(*args, **kw)
+        for emit in ("rgba", "both"):
+            got = PW.packed_composite(*args, emit=emit, **kw)
+            want = PW.packed_composite_plain(*args, emit=emit, **kw)
+            if emit == "both":
+                check(torch.equal(got[0], packed), f"packed_composite {kind}: 'both' words differ from 'packed'")
+                d7 = max(d7, code_delta(torch, got[0], want[0], W, H))
+                got, want = got[1], want[1]
+            check(tuple(got.shape) == (4, H, W) and bool(torch.isfinite(got).all()),
+                  f"packed_composite {kind} {emit}: frame {tuple(got.shape)}")
+            e_rgba = max(e_rgba, err(got, want))
+        if kind == "rgb3":
+            rec["packed_composite"]["rgb3_emit_args"] = (args, kw)
+    print(f"packed_composite rgba / both emits (v210 words and rgb3, 3 dissolve layers) max |frame - "
+          f"plain| = {e_rgba:.3e} (<= {TOL_RGBA}), both's words vs plain {d7} codes (<= {TOL_CODES})")
+    check(e_rgba <= TOL_RGBA, f"packed_composite rgba emit error {e_rgba}")
+    check(d7 <= TOL_CODES, f"packed_composite both emit code delta {d7}")
+    rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(d7))
+    rec["packed_composite"]["rgba_max_abs_err"] = e_rgba
+    torch.cuda.synchronize()
+
+
+def straggler_spec_params(torch, dev, w: int, h: int, variant: str, emit_rgba: bool = False):
+    """bench.py composite_variant_step at w x h: 3 v210 DVE + dissolve
+    layers (scale 0.9, offset_x 0.02 + 0.003 i, mix 0.4 + 0.05 i) under one
+    straggler: 'one_rotation' a v210 cut rotated 100 degrees at scale 0.9,
+    'wipe' a v210 wipe with DVE (scale 0.9, offset_x 0.05; src, src_b and
+    mask v210), 'rotated_pair' a v210 dissolve rotated under two distinct
+    matrices (100 and 95 degrees).  Every slot its own source: the v210
+    ramp rolled by 17 k + 3 words (7, 9 and 8 sources)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    base = v210.fill_buf(w, h)[0]
+    k = iter(range(16))
+    src = lambda: [to_tensor(np.roll(base, 17 * (next(k) + 1) + 3, axis=1), dev)]
+    diss = LayerSpec("v210", transition="dissolve", has_transform=True, axis_aligned=True,
+                     src_b_format="v210")
+    layers = [
+        {"src": src(), "src_b": src(),
+         "matrix": to_tensor(transform_matrix(w, h, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev),
+         "mix": torch.tensor(0.4 + 0.05 * i, device=dev)}
+        for i in range(3)
+    ]
+    if variant == "one_rotation":
+        top = LayerSpec("v210", has_transform=True, axis_aligned=False)
+        layers.append({"src": src(), "matrix": to_tensor(rotation_matrix(w, h, 100), dev)})
+    elif variant == "wipe":
+        top = LayerSpec("v210", transition="wipe", has_transform=True, axis_aligned=True,
+                        mask_format="v210", src_b_format="v210")
+        layers.append({"src": src(), "src_b": src(), "mask": src(),
+                       "matrix": to_tensor(transform_matrix(w, h, scale_x=0.9, scale_y=0.9, offset_x=0.05), dev)})
+    else:
+        top = LayerSpec("v210", transition="dissolve", has_transform=True, axis_aligned=False,
+                        src_b_format="v210", warp_same_mat=False)
+        layers.append({"src": src(), "src_b": src(), "matrix": to_tensor(rotation_matrix(w, h, 100), dev),
+                       "matrix_b": to_tensor(rotation_matrix(w, h, 95, 0.85), dev),
+                       "mix": torch.tensor(0.6, device=dev)})
+    return ChannelSpec(w, h, "v210", layers=(diss,) * 3 + (top,), emit_rgba=emit_rgba), {"layers": layers}
+
+
+def straggler_animate(torch, params, dev, w: int, h: int, variant: str, t: float) -> None:
+    """The run's mixes move, and the rotated layers turn (100 -> 120
+    degrees); the wipe's mask is a source and stays."""
+    lps = params["layers"]
+    for i, lp in enumerate(lps[:3]):
+        lp["mix"] = torch.tensor(0.4 + 0.05 * i + 0.2 * t, dtype=torch.float32, device=dev)
+    if variant != "wipe":
+        lps[3]["matrix"] = torch.from_numpy(rotation_matrix(w, h, 100 + 20 * t)).to(dev)
+    if variant == "rotated_pair":
+        lps[3]["matrix_b"] = torch.from_numpy(rotation_matrix(w, h, 95 - 20 * t, 0.85)).to(dev)
+        lps[3]["mix"] = torch.tensor(0.6 - 0.3 * t, dtype=torch.float32, device=dev)
+
+
+def top_alpha(torch, spec, params):
+    """The emitted alpha a channel owes: its top layer's, the separable
+    wy x wx of an axis-aligned warp or the rotated plane of ones, from the
+    plain versions."""
+    from phaneron_tpu_torch.ops.rotate import rotate_plain
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    mat = params["layers"][-1]["matrix"]
+    if spec.layers[-1].axis_aligned:
+        wy, wx = warp_alpha_vectors(spec.height, spec.width, mat)
+        return wy[:, None] * wx[None, :]
+    ones = torch.ones((1, spec.height, spec.width), dtype=torch.float32, device=mat.device)
+    return rotate_plain(ones, mat)[0]
+
+
 def entry_spec_params(rng, dev):
     """The entry() structure at 1080p: a v210 dissolve with an
     axis-aligned DVE under a plain yuv422p8 layer."""
@@ -593,9 +801,12 @@ def playout_animate(torch, params, dev, t: float) -> None:
 
 
 def drive_frames(torch, program, plain_program, params, animate, frames: int, w: int, h: int,
-                 what: str) -> int:
+                 what: str, alpha=None) -> int:
     """``frames`` animated frames of a channel program, each checked
-    against the plain program on the card; returns the worst code delta."""
+    against the plain program on the card; returns the worst code delta.
+    ``alpha`` (params -> (H, W) plane): an emit_rgba channel, whose frame
+    must be finite, within TOL_RGBA of the plain path's and carry that
+    alpha, the top layer's."""
     from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
 
     worst = 0
@@ -603,6 +814,15 @@ def drive_frames(torch, program, plain_program, params, animate, frames: int, w:
         animate(f / max(frames - 1, 1))
         out = program(params)
         ref = plain_program(params)
+        if alpha is not None:
+            rgba, ref_rgba = out["rgba"], ref["rgba"]
+            check(tuple(rgba.shape) == (4, h, w) and rgba.dtype == torch.float32
+                  and bool(torch.isfinite(rgba).all()), f"{what} frame {f}: rgba {tuple(rgba.shape)}")
+            e = float((rgba - ref_rgba).abs().max())
+            check(e <= TOL_RGBA, f"{what} frame {f}: rgba {e} from the plain path")
+            ea = float((rgba[3] - alpha(params)).abs().max())
+            check(ea <= TOL_WARP, f"{what} frame {f}: emitted alpha {ea} from the top layer's")
+            out, ref = out["packed"], ref["packed"]
         check(len(out) == 1 and tuple(out[0].shape) == (h, pitch_bytes(w) // 4)
               and out[0].dtype == torch.int32, f"{what} frame {f}: output {tuple(out[0].shape)} {out[0].dtype}")
         d = code_delta(torch, out[0], ref[0], w, h)
@@ -735,6 +955,7 @@ def main() -> int:
     from phaneron_tpu_torch.ops import _build
     from phaneron_tpu_torch.ops import kernels as K
     from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops import rotate as R
     from phaneron_tpu_torch.ops import warp as warp_mod
     from phaneron_tpu_torch.ops import yadif as Y
     from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
@@ -758,20 +979,14 @@ def main() -> int:
     rec = phase_kernels(torch, dev, rng)
     phase_interlaced_kernels(torch, dev, rng, rec)
     phase_packed_source_kernels(torch, dev, rng, rec)
+    phase_straggler_kernels(torch, dev, rng, rec)
 
     wrappers = {
         "v210_unpack": K.v210_unpack, "warp": warp_mod.warp,
         "planar422_unpack": K.planar422_unpack, "v210_pack": K.v210_pack,
         "yadif_ring": Y.yadif_ring, "yadif_pair": Y.yadif_pair,
         "packed_composite": PW.packed_composite, "fused_v210": K.fused_v210,
-        "combine_pack": K.combine_pack, "packed_warp": PW.packed_warp,
-    }
-    plain_fns = {
-        "v210_unpack": K.v210_unpack_plain, "warp": warp_mod.warp_plain,
-        "planar422_unpack": K.planar422_unpack_plain, "v210_pack": K.v210_pack_plain,
-        "yadif_ring": Y.yadif_ring_plain, "yadif_pair": Y.yadif_pair_plain,
-        "packed_composite": PW.packed_composite_plain, "fused_v210": K.fused_v210_plain,
-        "combine_pack": K.combine_pack_plain, "packed_warp": PW.packed_warp_plain,
+        "combine_pack": K.combine_pack, "packed_warp": PW.packed_warp, "rotate": R.rotate,
     }
     launches = {k: {} for k in wrappers}
 
@@ -925,6 +1140,48 @@ def main() -> int:
         check(torch.equal(ring_out[t], via_pair), f"ring route tick {t} differs from the pair route")
     print("ring route (deinterlace=True, parity on the card) == pair route, both ticks: True")
 
+    # -------- phase 7b: the straggler channels (bench.py composite_variant_step)
+    # and emit_rgba channels: a packed composite run emitting its frame under
+    # a rotated, wiped or rotated-pair top layer
+    straggler_args = {}
+    straggler_launches = {
+        "one_rotation": {"v210_unpack": 1, "packed_composite": 1, "rotate": 1, "combine_pack": 1},
+        "wipe": {"v210_unpack": 1, "packed_composite": 1, "warp": 1, "combine_pack": 1},
+        "rotated_pair": {"v210_unpack": 1, "packed_composite": 1, "rotate": 1, "combine_pack": 1},
+    }
+    straggler_cases = [(variant, w, h, False) for variant in ("one_rotation", "wipe")
+                       for w, h in ((UHD_W, UHD_H), (W, H))]
+    straggler_cases += [("rotated_pair", W, H, False), ("progressive", W, H, True), ("one_rotation", W, H, True)]
+    for variant, w, h, emit_rgba in straggler_cases:
+        if variant == "progressive":
+            vspec, vparams = progressive_spec_params(torch, dev, rng, w, h)
+            vspec = vspec._replace(emit_rgba=True)
+            vanimate = lambda t, p=vparams: progressive_animate(torch, p, dev, t)
+            per_frame = {"packed_composite": 1}  # one 'both' launch: words and frame
+        else:
+            vspec, vparams = straggler_spec_params(torch, dev, w, h, variant, emit_rgba)
+            vanimate = lambda t, p=vparams, v=variant, w=w, h=h: straggler_animate(torch, p, dev, w, h, v, t)
+            per_frame = dict(straggler_launches[variant])
+            if emit_rgba:  # the staged emit_rgba tail: torch combine, then K2
+                del per_frame["combine_pack"]
+                per_frame["v210_pack"] = 1
+        vprog = make_channel_program(vspec)
+        vplain = make_channel_program(vspec, plain=True)
+        path = f"{variant}{'_emit_rgba' if emit_rgba else ''}_{w}x{h}"
+        alpha = (lambda p, s=vspec: top_alpha(torch, s, p)) if emit_rgba else None
+
+        def straggler_path():
+            t0 = time.perf_counter()
+            worst = drive_frames(torch, vprog, vplain, vparams, vanimate, STRAGGLER_FRAMES, w, h, path,
+                                 alpha=alpha)
+            print(f"{path}: {STRAGGLER_FRAMES} frames in {time.perf_counter() - t0:.2f} s, max code delta "
+                  f"vs plain path {worst}" + (", rgba and top-layer alpha checked" if emit_rgba else ""))
+
+        run_path(path, per_frame, STRAGGLER_FRAMES, straggler_path)
+        vanimate(0.5)
+        timing[path] = time_frame(torch, card, path, vprog, vplain, vparams)
+        straggler_args[path] = (vspec, vparams)
+
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
@@ -950,16 +1207,25 @@ def main() -> int:
         c = src.shape[0]
         return 2 * c * 4 * warp_source_texels(torch, mat, H, W) + c * 4 * px + 36 + 4
 
-    def warp_ops(c: int, n_src: int, pixels: int = px) -> float:
-        return pixels * (OPS_WARP_PX + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
+    def warp_ops(c: int, n_src: int, pixels: int = px, n_mat: int = 1, per_px: int = OPS_WARP_PX) -> float:
+        """Per output pixel: the taps of each matrix, the samples of each
+        source and channel, the pair's mix (or wipe blend)."""
+        return pixels * (n_mat * per_px + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
 
-    def composite_bytes_ops(cfg, mats, w: int, h: int, packed: bool) -> tuple[float, float]:
+    def composite_bytes_ops(cfg, mats, w: int, h: int, packed: bool, emit: str = "packed") -> tuple[float, float]:
         """Least bytes and operations of a packed composite: each source
         texel (or v210 group) the taps reach read once and decoded once,
-        the warps, alphas and 'over' per pixel, the encode, the words out."""
+        the warps, alphas and 'over' per pixel, then the encode and the
+        words out, and/or the (4, H, W) frame with its coverage alpha."""
         pixels = w * h
-        nbytes = h * pitch_bytes(w) + 36 * len(cfg) + 4 * sum(n == 2 for n in cfg)
-        ops = pixels * OPS_ENCODE_PX
+        nbytes = 36 * len(cfg) + 4 * sum(n == 2 for n in cfg)
+        ops = 0.0
+        if emit != "rgba":
+            nbytes += h * pitch_bytes(w)
+            ops += pixels * OPS_ENCODE_PX
+        if emit != "packed":
+            nbytes += 16 * pixels
+            ops += pixels * OPS_COVER * (len(cfg) - 1)
         for i, (n, m) in enumerate(zip(cfg, mats)):
             if packed:
                 nbytes += n * 16 * warp_source_groups(torch, m, h, w)
@@ -968,6 +1234,14 @@ def main() -> int:
                 nbytes += n * 12 * warp_source_texels(torch, m, h, w)
             ops += warp_ops(3, n, pixels) + pixels * (OPS_ALPHA + (3 * OPS_OVER if i else 0))
         return nbytes, ops
+
+    def run_args(path: str, start: int, end: int, emit: str):
+        """The packed composite call of a driven path's run [start, end)."""
+        from phaneron_tpu_torch.graph.pipeline import _Run, _packed_composite_args
+
+        vspec, vparams = straggler_args[path]
+        args = _packed_composite_args(vspec, vparams, {}, _Run(start, end, emit, "packed"))
+        return args, dict(src_kind="packed", size=(vspec.width, vspec.height), emit=emit)
 
     # name -> (kernel call, plain call, bytes, ops, shape) at a main path's shapes
     call = lambda fn, args, kw=None: (lambda: fn(*args, **(kw or {})))
@@ -984,6 +1258,10 @@ def main() -> int:
     pw_mat = entry_warp_args[1]
     pw_bytes = 2 * 16 * warp_source_groups(torch, pw_mat, H, W) + rgba + 36 + 4
     pw_ops = 2 * warp_source_texels(torch, pw_mat, H, W) * OPS_DECODE_PX + warp_ops(4, 2)
+    # the one_rotation frame's top layer at UHD, as the path unpacks it
+    top = straggler_args[f"one_rotation_{UHD_W}x{UHD_H}"][1]["layers"][3]
+    rot_args = (K.v210_unpack(top["src"], UHD_W, UHD_H)[0], top["matrix"])
+    rot_lib = affine_grid_args(torch, [rot_args[0]], rot_args[1])
     shapes = {
         "v210_unpack": (call(K.v210_unpack, r_unpack), call(K.v210_unpack_plain, r_unpack),
                         words_bytes + rgb, OPS_DECODE_PX * px, "1 source, 3 channels (interlaced path)"),
@@ -1009,8 +1287,12 @@ def main() -> int:
                          "2 RGBA layers, 1920x1080 (entry path)"),
         "packed_warp": (call(PW.packed_warp, entry_warp_args), call(PW.packed_warp_plain, entry_warp_args),
                         pw_bytes, pw_ops, "v210 dissolve pair, shared matrix, 1920x1080 (entry path)"),
+        "rotate": (call(R.rotate, rot_args), call(R.rotate_plain, rot_args),
+                   16 * affine_source_texels(torch, rot_args[1], UHD_H, UHD_W) + 16 * UHD_W * UHD_H + 36,
+                   warp_ops(4, 1, UHD_W * UHD_H, per_px=OPS_AFFINE_PX),
+                   "RGBA cut at 100 degrees, 3840x2160 (one_rotation path)"),
     }
-    slow_plain = ("yadif_ring", "yadif_pair", "packed_composite", "packed_warp")
+    slow_plain = ("yadif_ring", "yadif_pair", "packed_composite", "packed_warp", "rotate")
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
         "v210_pack": ("phaneron_tpu_torch/csrc/v210_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
@@ -1023,7 +1305,10 @@ def main() -> int:
         "fused_v210": ("phaneron_tpu_torch/csrc/fused_v210.cu", "phaneron_tpu/ops/pallas_kernels.py:1399"),
         "combine_pack": ("phaneron_tpu_torch/csrc/combine_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:733"),
         "packed_warp": ("phaneron_tpu_torch/csrc/packed_warp.cu", "phaneron_tpu/ops/pallas_packed_warp.py:416"),
+        "rotate": ("phaneron_tpu_torch/csrc/rotate.cu", "phaneron_tpu/ops/pallas_rotate.py:326"),
     }
+    grid_sample = lambda args: (lambda: torch.nn.functional.grid_sample(
+        *args, mode="bilinear", padding_mode="zeros", align_corners=False))
     records = []
     for name, (kernel_fn, plain_fn, nbytes, ops, shape) in shapes.items():
         kernel_ms, plain_ms = best_of_two(
@@ -1032,12 +1317,12 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, ops)
         library_ms = None
         if name == "warp":
-            gs_in, gs_grid = rec["warp"]["library_args"]
-            library_ms = time_ms(torch, lambda: torch.nn.functional.grid_sample(
-                gs_in, gs_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+            library_ms = time_ms(torch, grid_sample(rec["warp"]["library_args"]))
+        elif name == "rotate":
+            library_ms = time_ms(torch, grid_sample(rot_lib))
         print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP)"
-              + (f", grid_sample {library_ms:.4f} ms (both sources, no mix)" if library_ms else ""))
+              + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else ""))
         source, replaces = meta[name]
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1045,8 +1330,21 @@ def main() -> int:
             "max_abs_err": rec[name]["max_abs_err"], "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
         })
-    # other shapes of the same kernels, printed beside the records
-    g4_in, g4_grid = grid_sample_args(torch, [rec["warp"]["args"][0], rec["warp"]["args"][2]], rec["warp"]["args"][1])
+    # other shapes and modes of the same kernels, printed beside the records:
+    # label -> (kernel call, plain call, bytes, ops[, (input, grid) of the
+    # grid_sample computing the same warps, without the mix])
+    g4_args = grid_sample_args(torch, [rec["warp"]["args"][0], rec["warp"]["args"][2]], rec["warp"]["args"][1])
+    (wa, wm, wb), wkw = rec["warp"]["wipe_args"]
+    da, dm, db, dmix, dmb = rec["warp"]["distinct_args"]
+    ra, rm, rb, rmix, rmb = rec["rotate"]["pair_args"]
+    (rwa, rwm, rwb), rwkw = rec["rotate"]["wipe_args"]
+    both = lambda a, b: tuple(torch.cat(x) for x in zip(a, b))
+    o_rgba_args, o_rgba_kw = run_args(f"one_rotation_{UHD_W}x{UHD_H}", 0, 3, "rgba")
+    o_rgba = composite_bytes_ops(o_rgba_args[1], o_rgba_args[2], UHD_W, UHD_H, packed=True, emit="rgba")
+    p_both_args, p_both_kw = run_args(f"progressive_emit_rgba_{W}x{H}", 0, 4, "both")
+    p_both = composite_bytes_ops(p_both_args[1], p_both_args[2], W, H, packed=True, emit="both")
+    r3_args, r3_kw = rec["packed_composite"]["rgb3_emit_args"]
+    r3 = composite_bytes_ops(r3_args[1], r3_args[2], W, H, packed=False, emit="rgba")
     other = {
         "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
                                                 call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
@@ -1056,7 +1354,32 @@ def main() -> int:
                                      rgb + words_bytes, OPS_ENCODE_PX * px),
         "warp (4-channel dissolve pair)": (call(warp_mod.warp, rec["warp"]["args"]),
                                            call(warp_mod.warp_plain, rec["warp"]["args"]),
-                                           warp_bytes(rec["warp"]["args"]), warp_ops(4, 2)),
+                                           warp_bytes(rec["warp"]["args"]), warp_ops(4, 2), g4_args),
+        "warp (4-channel wipe pair, one matrix, 1920x1080, wipe path)": (
+            call(warp_mod.warp, (wa, wm, wb), wkw), call(warp_mod.warp_plain, (wa, wm, wb), wkw),
+            warp_bytes((wa, wm, wb)) + 4 * px, warp_ops(4, 2), grid_sample_args(torch, [wa, wb], wm)),
+        "warp (4-channel dissolve pair, two matrices, 1920x1080)": (
+            call(warp_mod.warp, rec["warp"]["distinct_args"]), call(warp_mod.warp_plain, rec["warp"]["distinct_args"]),
+            16 * (warp_source_texels(torch, dm, H, W) + warp_source_texels(torch, dmb, H, W)) + rgba + 72 + 4,
+            warp_ops(4, 2, n_mat=2), both(grid_sample_args(torch, [da], dm), grid_sample_args(torch, [db], dmb))),
+        "rotate (4-channel dissolve pair, two matrices, 100 and 95 degrees, 1920x1080)": (
+            call(R.rotate, rec["rotate"]["pair_args"]), call(R.rotate_plain, rec["rotate"]["pair_args"]),
+            16 * (affine_source_texels(torch, rm, H, W) + affine_source_texels(torch, rmb, H, W)) + rgba + 72 + 4,
+            warp_ops(4, 2, n_mat=2, per_px=OPS_AFFINE_PX),
+            both(affine_grid_args(torch, [ra], rm), affine_grid_args(torch, [rb], rmb))),
+        "rotate (4-channel wipe pair, one matrix, 100 degrees, 1920x1080)": (
+            call(R.rotate, (rwa, rwm, rwb), rwkw), call(R.rotate_plain, (rwa, rwm, rwb), rwkw),
+            2 * 16 * affine_source_texels(torch, rwm, H, W) + rgba + 4 * px + 36,
+            warp_ops(4, 2, per_px=OPS_AFFINE_PX), affine_grid_args(torch, [rwa, rwb], rwm)),
+        "packed_composite (v210 words, emit rgba, 3 dissolve layers, 3840x2160, one_rotation path)": (
+            call(PW.packed_composite, o_rgba_args, o_rgba_kw), call(PW.packed_composite_plain, o_rgba_args, o_rgba_kw),
+            *o_rgba),
+        "packed_composite (v210 words, emit both, 4 dissolve layers, 1920x1080, progressive emit_rgba path)": (
+            call(PW.packed_composite, p_both_args, p_both_kw), call(PW.packed_composite_plain, p_both_args, p_both_kw),
+            *p_both),
+        "packed_composite (rgb3, emit rgba, 3 dissolve layers, 1920x1080)": (
+            call(PW.packed_composite, r3_args, dict(r3_kw, emit="rgba")),
+            call(PW.packed_composite_plain, r3_args, dict(r3_kw, emit="rgba")), *r3),
         "packed_composite (rgb3, 4 dissolve layers, 1920x1080, interlaced path)": (
             call(PW.packed_composite, rec["packed_composite"]["args"]),
             call(PW.packed_composite_plain, rec["packed_composite"]["args"]), c_bytes, c_ops),
@@ -1068,14 +1391,12 @@ def main() -> int:
             3 * UHD_H * pitch_bytes(UHD_W) + 4,
             UHD_W * UHD_H * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX)),
     }
-    for label, (kernel_fn, plain_fn, nbytes, ops) in other.items():
+    for label, (kernel_fn, plain_fn, nbytes, ops, *library) in other.items():
         kernel_ms, plain_ms = best_of_two(torch, kernel_fn, plain_fn, dict(batches=3, calls=2, warmup=1))
         bound_ms, bound_by = bound(nbytes, ops)
         extra = ""
-        if label.startswith("warp"):
-            gs4 = time_ms(torch, lambda: torch.nn.functional.grid_sample(
-                g4_in, g4_grid, mode="bilinear", padding_mode="zeros", align_corners=False))
-            extra = f", grid_sample 4 channels {gs4:.4f} ms (both sources, no mix)"
+        if library:
+            extra = f", grid_sample {time_ms(torch, grid_sample(library[0])):.4f} ms (the same sources, no mix)"
         print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
     print(json.dumps({"frames": timing}))

@@ -1,25 +1,31 @@
 // K5 packed_composite: a run of DVE layers, each a cut or a dissolve pair
-// under one axis-aligned matrix, 'over' composited bottom to top and
-// packed to v210 words, in one launch.  Sources are opaque (3, H, W)
-// float32 frames (kind rgb3) or v210 words decoded at each bilinear tap
-// (kind packed).
+// under one axis-aligned matrix, 'over' composited bottom to top, in one
+// launch, emitting v210 words ('packed'), the composited frame ('rgba') or
+// both.  Sources are opaque (3, H, W) float32 frames (kind rgb3) or v210
+// words decoded at each bilinear tap (kind packed).
 //
 // Replaces phaneron_tpu/ops/pallas_packed_warp.py:make_packed_composite_program
-// in its emit='packed' mode, with src_kind 'rgb3' (the tick of an
-// interlaced channel: deinterlaced fields -> premixed warps -> 'over' ->
-// encode -> v210) and src_kind 'packed' (the progressive multi-layer v210
-// channel: the whole frame from source words to output words).  Its
-// 'rgba' and 'both' emits are still to port (ROADMAP.md B7).
+// in all its emits, with src_kind 'rgb3' (the tick of an interlaced
+// channel: deinterlaced fields -> premixed warps -> 'over' -> encode ->
+// v210) and src_kind 'packed' (the progressive multi-layer v210 channel:
+// the whole frame from source words to output words).  'rgba' is a run
+// that spans part of the stack (stragglers composite around it on the
+// staged path); 'both' an emit_rgba channel's whole stack.
 //
 // Per output pixel and layer m the kernel computes, in the operation order
 // of the staged plain path (ops/packed_warp.py packed_composite_plain =
 // [v210_unpack_plain, 3 channels,] warp_plain, warp_alpha_vectors,
-// combine_rgb, v210_pack_plain):
+// combine_rgb, coverage, v210_pack_plain):
 //   rgb_m = warp(a) * mix + warp(b) * (1 - mix)     (phn::sample, or
 //                                                    phn::sample_v210 for words)
 //   alpha_m = wy[y] * wx[x]                         (the separable warp alpha)
 //   out = rgb_0;  out = out * (1 - alpha_m) + rgb_m  for m >= 1
-// then the v210 encode and packing of csrc/v210_pack.cu.  With -fmad=false
+//   cover = alpha_0;  cover = cover * (1 - alpha_m) + alpha_m
+// then the v210 encode and packing of csrc/v210_pack.cu, and/or the
+// (4, H, W) frame (out, cover): the run's coverage alpha 1 - prod(1 -
+// alpha_m), what a layer above or below needs to composite with the run
+// (the emitted alpha is the top layer's; the pipeline restores it,
+// graph/pipeline.py _top_alpha_fixup).  With -fmad=false
 // it equals [K1 (3 ch) +] K4 + combine_rgb + K2 on the card to the bit,
 // and the plain version up to the pack's powf rounding.  The TPU kernel
 // premixes the two sources before one warp and runs the warp as bf16
@@ -29,8 +35,9 @@
 //
 // Bound: device-memory bytes.  Each source texel (or v210 word) the
 // layers' matrices reach is read once (neighbouring pixels' taps share
-// cache lines, so L1 and L2 serve the overlap) and 16/6 bytes of words are
-// written per pixel; no intermediate frame, alpha plane or composite
+// cache lines, so L1 and L2 serve the overlap) and 16/6 bytes of words (16
+// bytes of frame for the rgba emit) are written per pixel; no intermediate
+// frame, alpha plane or composite
 // touches device memory, where the staged path writes and re-reads a
 // decoded and a warped frame per source and the composite.  In the packed
 // kind every tap is decoded where it is used: 4 taps x 2 sources x 4
@@ -73,11 +80,13 @@ __device__ __forceinline__ void sample_src(const void* src, const phn::Taps& tp,
 }
 
 template <bool kPacked>
-__global__ void packed_composite_kernel(Layers L, int4* __restrict__ words, phn::Decode d,
-                                        phn::Encode e, int width, int height, int groups) {
+__global__ void packed_composite_kernel(Layers L, int4* __restrict__ words,
+                                        float* __restrict__ rgba, phn::Decode d, phn::Encode e,
+                                        int width, int height, int groups) {
   const int row = blockIdx.y;
   const int x = blockIdx.x * phn::kPixelsPerBlock + threadIdx.x;
   float out[3] = {0.0f, 0.0f, 0.0f};
+  float cover = 0.0f;
   if (x < width) {
     int s = 0;
     for (int m = 0; m < L.n_layers; ++m) {
@@ -86,7 +95,8 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words, phn:
       // warp_alpha_vectors
       const float wy = (tp.vy0 ? 1.0f - tp.fy : 0.0f) + (tp.vy1 ? tp.fy : 0.0f);
       const float wx = (tp.vx0 ? 1.0f - tp.fx : 0.0f) + (tp.vx1 ? tp.fx : 0.0f);
-      const float k = 1.0f - wy * wx;
+      const float a = wy * wx;
+      const float k = 1.0f - a;
       float v[3];
       sample_src<kPacked>(L.src[s], tp, d, width, height, groups, v);
       if (L.n_src[m] == 2) {
@@ -98,10 +108,18 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words, phn:
       }
 #pragma unroll
       for (int c = 0; c < 3; ++c) out[c] = m == 0 ? v[c] : out[c] * k + v[c];
+      cover = m == 0 ? a : cover * k + a;
       s += L.n_src[m];
     }
+    if (rgba != nullptr) {
+      const size_t plane = static_cast<size_t>(width) * height;
+      const size_t o = static_cast<size_t>(row) * width + x;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[c];
+      rgba[3 * plane + o] = cover;
+    }
   }
-  phn::encode_pack_block(e, out, x, width, row, groups, words);
+  if (words != nullptr) phn::encode_pack_block(e, out, x, width, row, groups, words);
 }
 
 }  // namespace
@@ -110,17 +128,20 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words, phn:
 // (packed 0) or (height, groups*4) int32 v210 words (packed 1); mats:
 // n_layers (3, 3) float32; mixes: n_layers pointers to one float32 (null
 // for a cut); n_src: n_layers entries of 1 or 2 summing to n_srcs.
-// words: (height, groups*4) int32.  dec_coeffs: col[12], gamut[9] and
-// g2l, the gamma'->linear table in device memory (read for packed 1
-// only); enc_coeffs: col[12], l2g[6].  Returns cudaGetLastError().
+// Outputs, at least one: words (height, groups*4) int32 (emit 'packed'),
+// rgba (4, height, width) float32 (emit 'rgba'); both for emit 'both'.
+// dec_coeffs: col[12], gamut[9] and g2l, the gamma'->linear table in
+// device memory (read for packed 1 only); enc_coeffs: col[12], l2g[6].
+// Returns cudaGetLastError().
 extern "C" int phn_packed_composite(const void* const* srcs, const void* const* mats,
                                     const void* const* mixes, const int* n_src, int n_layers,
-                                    int packed, void* words, int width, int height, int groups,
-                                    const float* dec_coeffs, const float* g2l,
+                                    int packed, void* words, void* rgba, int width, int height,
+                                    int groups, const float* dec_coeffs, const float* g2l,
                                     const float* enc_coeffs, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
   if (packed && (dec_coeffs == nullptr || g2l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (words == nullptr && rgba == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Layers L{};
   L.n_layers = n_layers;
   int s = 0;
@@ -136,12 +157,14 @@ extern "C" int phn_packed_composite(const void* const* srcs, const void* const* 
   const dim3 block(phn::kPixelsPerBlock);
   const dim3 grid((groups + phn::kGroupsPerBlock - 1) / phn::kGroupsPerBlock, height);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int4* w = static_cast<int4*>(words);
+  float* f = static_cast<float*>(rgba);
   if (packed) {
     packed_composite_kernel<true><<<grid, block, 0, st>>>(
-        L, static_cast<int4*>(words), d, phn::encode_from(enc_coeffs), width, height, groups);
+        L, w, f, d, phn::encode_from(enc_coeffs), width, height, groups);
   } else {
     packed_composite_kernel<false><<<grid, block, 0, st>>>(
-        L, static_cast<int4*>(words), d, phn::encode_from(enc_coeffs), width, height, groups);
+        L, w, f, d, phn::encode_from(enc_coeffs), width, height, groups);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,25 +12,34 @@ Routes into a v210 output, in the order they are chosen:
    clip without DVE, as a cut or a dissolve.  It decodes opaque, so it
    covers every lower layer; ``make_channel_program`` picks this route
    before it looks at the lower layers (JAX ``supported_spec``), so an
-   unported lower layer does not stop it.
-2. **packed composite** (B7, ``packed_warp.packed_composite``): every
-   layer (at least two) an axis-aligned DVE cut or same-matrix dissolve
-   over sources of one kind: v210 words decoded at the taps ('packed',
-   the progressive multi-layer channel) or opaque (3, H, W) frames
-   ('rgb3': deinterlaced fields, ``rgba_f32`` fields).  One launch, words
-   in, words out (JAX ``_packed_composite_run`` with the run spanning
-   the stack).
+   unported lower layer does not stop it.  Not for ``emit_rgba``.
+2. **packed composite, whole stack** (B7, ``packed_warp.packed_composite``):
+   the dispatch plan (``_packed_composite_run``, JAX
+   ``_packed_composite_run``) finds the longest contiguous run of at
+   least two layers of one kind, each an axis-aligned DVE cut or
+   same-matrix dissolve over v210 words decoded at the taps ('packed',
+   the progressive multi-layer channel) or over opaque (3, H, W) frames
+   ('rgb3': deinterlaced fields, ``rgba_f32`` fields).  When that run is
+   the whole stack, one launch makes the frame: words out, or words and
+   the composited frame for ``emit_rgba`` (emit 'both').
 3. **staged**: each layer on its own, then ``kernels.combine_pack`` (B5)
-   'over' black and packs.  A v210 DVE layer (a cut, or a dissolve under
-   one shared or two distinct matrices) decodes at its warp taps in one
-   ``packed_warp`` launch (B6) and its slots are not unpacked; every
-   other v210 slot of the frame unpacks in one K1 launch, planar 4:2:2
-   slots through K3, deinterlaced slots through the yadif ring kernel,
-   other DVE layers through K4.  Opaque alpha-free (3, H, W) sources
-   take the 3-channel route of the JAX package (``(rgb, wy, wx)`` tuples
-   whose alpha is the separable warp alpha); other structures pad alpha
-   to 1.  Runs that span only part of the stack stay on this route
-   (ROADMAP.md B7, the RGBA emit).
+   'over' black and packs.  A run that spans part of the stack is one
+   packed composite launch emitting its RGBA frame with the run's
+   coverage alpha, composited as one layer; the layers around it (the
+   stragglers: a rotation, a wipe, a distinct-matrix dissolve, another
+   source kind) take their own kernels.  A v210 DVE layer (a cut, or a
+   dissolve under one shared or two distinct matrices) decodes at its
+   warp taps in one ``packed_warp`` launch (B6) and its slots are not
+   unpacked; every other v210 slot of the frame (wipe masks included)
+   unpacks in one K1 launch, planar 4:2:2 slots through K3, deinterlaced
+   slots through the yadif ring kernel, other axis-aligned DVE layers,
+   their dissolves and wipes through K4, rotated ones through
+   ``rotate.rotate`` (B14).  Opaque alpha-free (3, H, W) sources take the
+   3-channel route of the JAX package (``(rgb, wy, wx)`` tuples whose
+   alpha is the separable warp alpha); other structures pad alpha to 1.
+   With ``emit_rgba`` the tail is ``combine`` (torch ops) and K2, and
+   the program returns ``{"packed": [...], "rgba": frame}`` whose alpha
+   is the top layer's.
 
 A wrapper given CPU tensors runs its plain version, so on the CPU the
 whole program is plain PyTorch.  The JAX package picks its TPU kernels
@@ -49,12 +58,13 @@ reference the kernel path is checked against on the card.
 Specs are hashable NamedTuples with the JAX package's fields, so a JAX
 spec converts with ``spec_from_fields(jax_spec._asdict())``
 (graph/convert.py).  Params are ``{"layers": [per-layer dicts, bottom to
-top]}`` with tensors on one device: "src"/"src_b" plane lists (or a (C,
-H, W) float32 frame for ``rgba_f32``), "matrix" (3, 3) float32 (and
-"matrix_b" for a dissolve with distinct matrices), "mix" a 0-d float32
-tensor; a deinterlaced slot carries "<key>_ring", a tuple of three (C,
-H, W) frames (prev, cur, next), and "parity", a 0-d int32 tensor or a
-Python int.
+top]}`` with tensors on one device: "src"/"src_b"/"mask" plane lists (or
+a (C, H, W) float32 frame for ``rgba_f32``), "matrix" (3, 3) float32
+(and "matrix_b" for a pair with distinct matrices), "mix" a 0-d float32
+tensor; a wipe blends by the R channel of its unpacked "mask"; a
+deinterlaced slot carries "<key>_ring", a tuple of three (C, H, W)
+frames (prev, cur, next), and "parity", a 0-d int32 tensor or a Python
+int.
 """
 
 from __future__ import annotations
@@ -65,11 +75,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import io as fio
-from ..ops import kernels, packed_warp, warp as warp_mod, yadif
+from ..ops import kernels, packed_warp, rotate as rotate_mod, warp as warp_mod, yadif
 from ..ops.coeffs import make_saver
-from ..ops.composite import combine, combine_rgb, mix_frames
+from ..ops.composite import combine, combine_rgb, mix_frames, wipe_mask
 from ..ops.formats import FORMATS, get_format
-from ..ops.geometry import warp_affine
 from ..runtime.frame import RGBA_F32
 
 __all__ = [
@@ -126,23 +135,28 @@ _PLANAR422_8 = ("yuv422p", "yuv422p8")
 _SOURCE_FORMATS = (_V210,) + _PLANAR422_8 + (RGBA_F32,)
 
 
+_TRANSITIONS = ("none", "dissolve", "wipe")
+
+
 def _slot_formats(ls: LayerSpec) -> list[tuple[str, str]]:
+    """(key, format) of each source slot of a layer: src, then src_b for a
+    dissolve or a wipe, then a wipe's mask."""
     slots = [("src", ls.src_format)]
-    if ls.transition == "dissolve":
+    if ls.transition in ("dissolve", "wipe"):
         slots.append(("src_b", ls.src_b_format or ls.src_format))
+    if ls.transition == "wipe":
+        slots.append(("mask", ls.mask_format or ls.src_format))
     return slots
 
 
 def _unported(spec: ChannelSpec) -> Optional[str]:
     """The ROADMAP item a structure waits for when the port has no code
     for it at all (neither kernel nor plain version)."""
-    if spec.emit_rgba:
-        return "A4 (emit_rgba: the composited RGBA output)"
     for ls in spec.layers:
         if ls.src_size is not None:
             return "A3 (resize_frame for src_size sources)"
-        if ls.transition not in ("none", "dissolve"):
-            return f"A3 and B4 wipe mode (transition '{ls.transition}')"
+        if ls.transition not in _TRANSITIONS:
+            return f"A4 (transition '{ls.transition}': not one of {_TRANSITIONS})"
         for _, fmt in _slot_formats(ls):
             if fmt not in _SOURCE_FORMATS:
                 return f"A2 and B10-B12 (source format '{fmt}')"
@@ -179,12 +193,6 @@ def missing_kernel(spec: ChannelSpec) -> Optional[str]:
         return reason
     if spec.out_format != _V210:
         return f"B11 (pack kernel for output format '{spec.out_format}')"
-    for ls in spec.layers:
-        if ls.has_transform and not ls.axis_aligned:
-            return "B14 (rotation: a non-axis-aligned DVE)"
-        distinct = ls.transition == "dissolve" and not ls.warp_same_mat
-        if ls.has_transform and distinct and not _packed_layer_ok(ls):
-            return "B4 (dissolve pair with distinct matrices over non-v210 sources)"
     return None
 
 
@@ -213,18 +221,19 @@ class _Stages(NamedTuple):
     packed_composite: Callable
     packed_warp: Callable
     combine_pack: Callable
+    rotate: Callable
 
 
 _KERNELS = _Stages(
     kernels.v210_unpack, kernels.planar422_unpack, warp_mod.warp, kernels.v210_pack,
     yadif.yadif_ring, yadif.yadif_pair, packed_warp.packed_composite, packed_warp.packed_warp,
-    kernels.combine_pack,
+    kernels.combine_pack, rotate_mod.rotate,
 )
 _PLAIN = _Stages(
     kernels.v210_unpack_plain, kernels.planar422_unpack_plain, warp_mod.warp_plain,
     kernels.v210_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
     packed_warp.packed_composite_plain, packed_warp.packed_warp_plain,
-    kernels.combine_pack_plain,
+    kernels.combine_pack_plain, rotate_mod.rotate_plain,
 )
 
 
@@ -255,10 +264,11 @@ def _sources(
 ) -> dict:
     """Every source slot of the frame -> {(layer index, slot key): frame}.
     A deinterlaced slot runs yadif over its ring at the params' parity,
-    an ``rgba_f32`` slot passes its frame through, all v210 slots unpack
-    in ONE call (the JAX package's _batch_unpack_slots) and planar 4:2:2
-    slots one by one (JAX ``_layer_source``).  The slots of the layers in
-    ``skip`` are left raw: the packed warp decodes them."""
+    an ``rgba_f32`` slot passes its frame through, all v210 slots (wipe
+    masks too) unpack in ONE call (the JAX package's _batch_unpack_slots)
+    and planar 4:2:2 slots one by one (JAX ``_layer_source``).  The slots
+    of the layers in ``skip`` are left raw: the packed warp or the packed
+    composite decodes them."""
     w, h = spec.width, spec.height
     out = {}
     v210_slots = []
@@ -296,12 +306,6 @@ def _with_alpha_one(rgb3: torch.Tensor) -> torch.Tensor:
     return torch.cat([rgb3, torch.ones_like(rgb3[:1])])
 
 
-def _warp_one(ls: LayerSpec, rgba: torch.Tensor, mat, st: _Stages) -> torch.Tensor:
-    if ls.axis_aligned:
-        return st.warp(rgba, mat)
-    return warp_affine(rgba, mat)  # plain only: check_structure keeps it off CUDA
-
-
 def _process_layer_rgb3(
     ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
 ) -> Optional[tuple]:
@@ -316,8 +320,10 @@ def _process_layer_rgb3(
             return None
         ones = lambda n: torch.ones((n,), dtype=torch.float32, device=rgb.device)
         return (rgb, ones(h), ones(w))
-    if not ls.axis_aligned or (ls.transition == "dissolve" and not ls.warp_same_mat):
-        return None
+    if ls.transition not in ("none", "dissolve") or not ls.axis_aligned:
+        return None  # a wipe or a rotation: alpha is not separable
+    if ls.transition == "dissolve" and not ls.warp_same_mat:
+        return None  # the mix of two warps: a sum of two outer products
     mat = lp["matrix"]
     wy, wx = warp_mod.warp_alpha_vectors(h, w, mat)
     if ls.transition == "dissolve":
@@ -352,33 +358,83 @@ def _composite_kind(ls: LayerSpec, lp: dict) -> Optional[str]:
     return "rgb3" if all(rgb3(key, fmt) for key, fmt in _slot_formats(ls)) else None
 
 
-def _stack_kind(spec: ChannelSpec, params: dict) -> Optional[str]:
-    """The source kind when the whole stack runs as one packed composite
-    launch, else None: at least two layers (at most its MAX_LAYERS) into
-    v210, every layer of that one kind (JAX ``_packed_composite_run``
-    with the run spanning the stack)."""
-    if spec.out_format != _V210 or not 2 <= len(spec.layers) <= packed_warp.MAX_LAYERS:
-        return None
-    kinds = {_composite_kind(ls, lp) for ls, lp in zip(spec.layers, params["layers"])}
-    return kinds.pop() if len(kinds) == 1 else None
+class _Run(NamedTuple):
+    """The packed composite's dispatch plan: layers [start, end), what the
+    launch emits ('packed', 'both' or 'rgba') and the source kind."""
+
+    start: int
+    end: int
+    emit: str
+    kind: str
 
 
-def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict) -> Optional[tuple]:
-    """(srcs, layer_cfg, mats, mixes) of the whole stack's packed
-    composite launch, or None (``_stack_kind``): the sources are the
-    layers' v210 words for the 'packed' kind and their (3, H, W) frames
-    in ``srcs`` for 'rgb3'."""
-    kind = _stack_kind(spec, params)
-    if kind is None:
+def _packed_composite_run(spec: ChannelSpec, params: dict) -> Optional[_Run]:
+    """The longest contiguous run of at least two layers of one composite
+    kind (``_composite_kind``; a tie keeps the lowest run), or None (JAX
+    ``_packed_composite_run`` with its correctness conditions only).  A
+    run that is the whole stack into v210 emits 'packed' ('both' under
+    ``emit_rgba``); any other run emits 'rgba', its frame with the run's
+    coverage alpha, and the layers around it stay staged.  A run longer
+    than the kernel's MAX_LAYERS stays staged too."""
+    kinds = [_composite_kind(ls, lp) for ls, lp in zip(spec.layers, params["layers"])]
+    best = None
+    i, n = 0, len(kinds)
+    while i < n:
+        if kinds[i] is None:
+            i += 1
+            continue
+        j = i
+        while j < n and kinds[j] == kinds[i]:
+            j += 1
+        if best is None or j - i > best[1] - best[0]:
+            best = (i, j)
+        i = j
+    if best is None or not 2 <= best[1] - best[0] <= packed_warp.MAX_LAYERS:
         return None
+    start, end = best
+    if (start, end) == (0, n) and spec.out_format == _V210:
+        emit = "both" if spec.emit_rgba else "packed"
+    else:
+        emit = "rgba"
+    return _Run(start, end, emit, kinds[start])
+
+
+def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Run) -> tuple:
+    """(srcs, layer_cfg, mats, mixes) of the run's packed composite launch
+    (JAX ``_dispatch_packed_composite``): the sources are the layers' v210
+    words for the 'packed' kind and their (3, H, W) frames in ``srcs`` for
+    'rgb3'."""
     flat, cfg, mats, mixes = [], [], [], []
-    for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+    for li in range(run.start, run.end):
+        ls, lp = spec.layers[li], params["layers"][li]
         keys = [key for key, _ in _slot_formats(ls)]
-        flat += [lp[key][0] if kind == "packed" else srcs[(li, key)] for key in keys]
+        flat += [lp[key][0] if run.kind == "packed" else srcs[(li, key)] for key in keys]
         cfg.append(len(keys))
         mats.append(lp["matrix"])
         mixes.append(lp["mix"] if len(keys) == 2 else None)
     return flat, tuple(cfg), mats, mixes
+
+
+def _dispatch_packed_composite(
+    spec: ChannelSpec, params: dict, srcs: dict, run: _Run, st: _Stages
+):
+    """One packed composite launch over the run, emitting ``run.emit``."""
+    return st.packed_composite(
+        *_packed_composite_args(spec, params, srcs, run), spec.out_col_spec,
+        src_kind=run.kind, size=(spec.width, spec.height), col_spec=spec.col_spec,
+        emit=run.emit,
+    )
+
+
+def _top_alpha_fixup(rgba: torch.Tensor, spec: ChannelSpec, params: dict, top: int) -> torch.Tensor:
+    """The emitted frame's alpha is the top layer's (combine.ts:47-59): when
+    the packed composite run holds the stack top, its coverage alpha is
+    replaced by that layer's separable warp alpha wy x wx (JAX
+    ``_top_alpha_fixup``; exact for an axis-aligned warp of the constant-1
+    plane)."""
+    wy, wx = warp_mod.warp_alpha_vectors(spec.height, spec.width, params["layers"][top]["matrix"])
+    ch = torch.arange(4, device=rgba.device)[:, None, None]
+    return torch.where(ch == 3, (wy[:, None] * wx[None, :])[None], rgba)
 
 
 def _packed_warp_layer(ls: LayerSpec, lp: dict, spec: ChannelSpec, st: _Stages):
@@ -397,7 +453,10 @@ def _packed_warp_layer(ls: LayerSpec, lp: dict, spec: ChannelSpec, st: _Stages):
 def _process_layer(
     ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
 ):
-    """One layer -> a (4, H, W) RGBA frame or an (rgb, wy, wx) tuple."""
+    """One layer -> a (4, H, W) RGBA frame or an (rgb, wy, wx) tuple.  A
+    DVE layer runs K4 when axis-aligned and ``rotate`` (B14) when not, a
+    dissolve or wipe pair in the same launch; without DVE a dissolve is
+    ``mix_frames`` and a wipe ``wipe_mask`` (torch ops; XLA in JAX)."""
     if _packed_layer_ok(ls):
         return _packed_warp_layer(ls, lp, spec, st)
     rgba = srcs[(li, "src")]
@@ -406,55 +465,81 @@ def _process_layer(
         if out3 is not None:
             return out3
         rgba = _with_alpha_one(rgba)
+    dve = st.warp if ls.axis_aligned else st.rotate
+    mat = lp.get("matrix")
     if ls.transition == "none":
-        return _warp_one(ls, rgba, lp["matrix"], st) if ls.has_transform else rgba
+        return dve(rgba, mat) if ls.has_transform else rgba
     rgba_b = srcs[(li, "src_b")]
     if rgba_b.shape[0] == 3:
         rgba_b = _with_alpha_one(rgba_b)
-    mix = lp["mix"]
+    mask = srcs[(li, "mask")] if ls.transition == "wipe" else None
     if not ls.has_transform:
-        return mix_frames(rgba, rgba_b, mix)
-    mat = lp["matrix"]
-    if ls.axis_aligned and ls.warp_same_mat:
-        # dissolve pair: both sources warped and mixed in one launch
-        return st.warp(rgba, mat, rgba_b, mix)
-    return mix_frames(
-        _warp_one(ls, rgba, mat, st),
-        _warp_one(ls, rgba_b, lp.get("matrix_b", mat), st),
-        mix,
-    )
+        return mix_frames(rgba, rgba_b, lp["mix"]) if mask is None else wipe_mask(rgba, rgba_b, mask)
+    # src_b's own matrix: a distinct-matrix pair, and any rotated pair
+    # (JAX reads matrix_b for every pair it does not run as one shared
+    # matrix; pipeline.py:409-476)
+    mat_b = None if ls.axis_aligned and ls.warp_same_mat else lp.get("matrix_b", mat)
+    if mask is None:
+        return dve(rgba, mat, rgba_b, lp["mix"], mat_b)
+    return dve(rgba, mat, rgba_b, mat_b=mat_b, mask=mask[0])
 
 
-def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False) -> list:
-    """params -> the packed output planes of one frame (routes 2 and 3 of
-    the module docstring)."""
+def _rgba_of(layer) -> torch.Tensor:
+    """A layer as a (4, H, W) frame: an (rgb, wy, wx) tuple gets its
+    separable alpha as a plane (JAX pipeline.py:886-898)."""
+    if not isinstance(layer, tuple):
+        return layer
+    rgb, wy, wx = layer
+    return torch.cat([rgb, (wy[:, None] * wx[None, :])[None]])
+
+
+def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
+    """params -> the packed output planes of one frame, or under
+    ``emit_rgba`` {"packed": planes, "rgba": the composited (4, H, W)
+    frame} (routes 2 and 3 of the module docstring)."""
     device = _params_device(params)
     check_structure(spec, device)
     st = _PLAIN if plain else _KERNELS
-    kind = _stack_kind(spec, params)
+    run = _packed_composite_run(spec, params)
+    # B6 layers (a 'packed' run's among them) read their words raw; an
+    # rgb3 run's slots (rgba_f32 fields, yadif rings) are made here
     b6 = frozenset(li for li, ls in enumerate(spec.layers) if _packed_layer_ok(ls))
-    srcs = {} if kind == "packed" else _sources(spec, params, st, skip=b6)
-    if kind is not None:
-        return [st.packed_composite(
-            *_packed_composite_args(spec, params, srcs), spec.out_col_spec, src_kind=kind,
-            size=(spec.width, spec.height), col_spec=spec.col_spec,
-        )]
-    layers = [
-        _process_layer(ls, lp, srcs, li, spec, st)
-        for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"]))
-    ]
-    if spec.out_format == _V210:
+    srcs = _sources(spec, params, st, skip=b6)
+    if run is not None and run.emit != "rgba":
+        out = _dispatch_packed_composite(spec, params, srcs, run, st)
+        if run.emit == "packed":
+            return [out]
+        words, rgba = out
+        return {"packed": [words], "rgba": _top_alpha_fixup(rgba, spec, params, run.end - 1)}
+    layers = []
+    for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+        if run is not None and run.start <= li < run.end:
+            if li == run.start:  # the run as one layer: RGB and coverage alpha
+                layers.append(_dispatch_packed_composite(spec, params, srcs, run, st))
+            continue
+        layers.append(_process_layer(ls, lp, srcs, li, spec, st))
+    if spec.out_format == _V210 and not spec.emit_rgba:
         if len(layers) <= kernels.MAX_LAYERS:
             return [st.combine_pack(layers, spec.out_col_spec)]
         return [st.v210_pack(combine_rgb(layers), spec.out_col_spec)]
+    if spec.emit_rgba:
+        layers = [_rgba_of(f) for f in layers]
     if any(isinstance(f, tuple) for f in layers):
         composited = _with_alpha_one(combine_rgb(layers))
     else:
         black = torch.zeros((4, spec.height, spec.width), dtype=torch.float32, device=device)
         composited = combine([black] + layers)
-    out_fmt = get_format(spec.out_format)
-    saver = make_saver(out_fmt.INFO, spec.out_col_spec, spec.gamma_mode, device)
-    return fio.from_rgba(out_fmt, composited, saver, spec.width, spec.height)
+        if run is not None and run.end == len(spec.layers):
+            # the run is the stack top: its coverage alpha drove the 'over';
+            # the emitted alpha is the top layer's
+            composited = _top_alpha_fixup(composited, spec, params, run.end - 1)
+    if spec.out_format == _V210:
+        packed = [st.v210_pack(composited, spec.out_col_spec)]
+    else:
+        out_fmt = get_format(spec.out_format)
+        saver = make_saver(out_fmt.INFO, spec.out_col_spec, spec.gamma_mode, device)
+        packed = fio.from_rgba(out_fmt, composited, saver, spec.width, spec.height)
+    return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed
 
 
 def _fused_v210_ok(spec: ChannelSpec) -> bool:
@@ -486,7 +571,9 @@ def _fused_v210_program(spec: ChannelSpec, plain: bool):
 def make_channel_program(spec: ChannelSpec, plain: bool = False):
     """The frame program for a channel structure, cached per spec.
     Returned callable: params -> list of packed output planes, on the
-    params' device.  A structure the fused v210 program covers gets it
+    params' device (under ``emit_rgba``: {"packed": planes, "rgba": the
+    composited (4, H, W) frame, alpha the top layer's}).  A structure the
+    fused v210 program covers gets it
     (route 1), whatever its lower layers; every other structure is
     checked (``check_structure``) and runs ``_channel_frame``.
     ``plain=True`` runs the plain version of every kernel stage instead

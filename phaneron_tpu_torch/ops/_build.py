@@ -49,10 +49,11 @@ _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
     "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "phn_warp": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),

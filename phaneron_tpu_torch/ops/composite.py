@@ -1,15 +1,23 @@
-"""Compositing ops: N-layer combine, transitions and mix (counterpart of
-phaneron_tpu/ops/composite.py; combine.ts, transition.ts, mix.ts) over
-planar (4, H, W) linear premultiplied RGBA frames.  ``mix`` may be a
-Python float or a 0-d tensor on the frames' device, so animating it
-needs no host round trip.
+"""Compositing ops: N-layer combine, transitions, mix and wipe
+(counterpart of phaneron_tpu/ops/composite.py; combine.ts, transition.ts,
+mix.ts, wipe.ts) over planar (4, H, W) linear premultiplied RGBA frames.
+``mix``, ``wipe`` and ``enables`` may be Python values or tensors on the
+frames' device, so animating them needs no host round trip.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["combine", "combine_rgb", "dissolve", "mix_frames"]
+__all__ = [
+    "combine",
+    "combine_rgb",
+    "combine_masked",
+    "dissolve",
+    "wipe_mask",
+    "mix_frames",
+    "wipe_h",
+]
 
 
 def _over(out: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
@@ -54,12 +62,37 @@ def combine_rgb(layers: list) -> torch.Tensor:
     return out
 
 
+def combine_masked(layers: list[torch.Tensor], enables) -> torch.Tensor:
+    """Fixed-arity combine with per-layer enable flags: equal to
+    combine(the enabled layers), alpha included.  ``enables`` is an
+    (N,) bool tensor; enables[0] is ignored (the base layer is always
+    present)."""
+    out = layers[0]
+    for i, layer in enumerate(layers[1:], start=1):
+        out = torch.where(enables[i], _over(out, layer), out)
+    return out
+
+
 def dissolve(in0: torch.Tensor, in1: torch.Tensor, mix) -> torch.Tensor:
     """transition_dissolve: out = in0 * mix + in1 * (1 - mix)
     (transition.ts:60-65)."""
     return in0 * mix + in1 * (1.0 - mix)
 
 
+def wipe_mask(in0: torch.Tensor, in1: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """transition_wipe: per-pixel blend by the mask frame's R channel
+    (transition.ts:66-74): out = in1 * m + in0 * (1 - m), m = mask[0]."""
+    m = mask[0]
+    return in1 * m + in0 * (1.0 - m)
+
+
 def mix_frames(in0: torch.Tensor, in1: torch.Tensor, mix) -> torch.Tensor:
     """Plain linear mix (mix.ts:24-46)."""
     return in0 * mix + in1 * (1.0 - mix)
+
+
+def wipe_h(in0: torch.Tensor, in1: torch.Tensor, wipe) -> torch.Tensor:
+    """Hard-edge horizontal wipe: x > w * wipe ? in1 : in0 (wipe.ts:24-48)."""
+    w = in0.shape[-1]
+    x = torch.arange(w, dtype=torch.float32, device=in0.device)[None, None, :]
+    return torch.where(x > w * torch.as_tensor(wipe, dtype=torch.float32), in1, in0)

@@ -6,18 +6,20 @@ Counterpart of phaneron_tpu/ops/pallas_packed_warp.py:
 | wrapper          | CUDA source               | replaces                                                   |
 |------------------|---------------------------|------------------------------------------------------------|
 | packed_warp      | csrc/packed_warp.cu       | _make_program (make_packed_warp_program, make_packed_warp_pair_program, n_mat 1 and 2) |
-| packed_composite | csrc/packed_composite.cu  | make_packed_composite_program, emit='packed', src_kind 'rgb3' and 'packed' |
+| packed_composite | csrc/packed_composite.cu  | make_packed_composite_program, emit 'packed', 'rgba', 'both', src_kind 'rgb3' and 'packed' |
 
 ``packed_warp`` decodes one v210 source (or a dissolve pair under one
 shared or two distinct matrices) at the taps of an axis-aligned warp and
 returns linear RGBA; its alpha is the warp of the constant-1 plane.
-``packed_composite`` runs a whole stack of DVE layers (cuts or
-same-matrix dissolves) into v210 words in one launch, from opaque
-(3, H, W) float32 sources (``src_kind='rgb3'``, the deinterlaced fields
-of the interlaced default load) or from v210 words (``'packed'``, the
-progressive multi-layer channel).  Each wrapper launches its kernel for
-CUDA tensors and runs its plain version for CPU tensors; ``.launches``
-counts kernel launches.
+``packed_composite`` runs a run of DVE layers (cuts or same-matrix
+dissolves) in one launch, into v210 words, into the composited RGBA
+frame with the run's coverage alpha (a run that spans part of the
+stack), or both (an ``emit_rgba`` channel), from opaque (3, H, W) float32
+sources (``src_kind='rgb3'``, the deinterlaced fields of the interlaced
+default load) or from v210 words (``'packed'``, the progressive
+multi-layer channel).  Each wrapper launches its kernel for CUDA tensors
+and runs its plain version for CPU tensors; ``.launches`` counts kernel
+launches.
 
 The plain versions are the staged paths the kernels fuse: the v210
 unpack, the warp (a dissolve pair mixed after the warp), and for the
@@ -30,8 +32,7 @@ tests/test_torch_packed_source.py).  The TPU gates (``packed_warp_fits``,
 ``packed_composite_fits``: widths a multiple of 768, VMEM plans, HD
 padded to 384 groups) are not ported: the kernels take any geometry, so
 at 1080p the port takes these routes where the JAX package on a TPU
-stays staged, with the same numbers within each contract.  The RGBA
-emits and part-stack runs are still to port (ROADMAP.md Queue B, B7).
+stays staged, with the same numbers within each contract.
 """
 
 from __future__ import annotations
@@ -63,11 +64,13 @@ __all__ = [
     "packed_warp_plain",
     "packed_composite",
     "packed_composite_plain",
+    "coverage",
     "MAX_LAYERS",
 ]
 
 MAX_LAYERS = 8  # layers per launch (kMaxLayers in csrc/packed_composite.cu)
 _KINDS = ("rgb3", "packed")
+_EMITS = ("packed", "rgba", "both")
 
 
 def _mat_on(mat, device: torch.device, name: str) -> torch.Tensor:
@@ -142,10 +145,12 @@ packed_warp.launches = 0
 
 
 def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
-                  src_kind: str, size) -> tuple[int, int]:
+                  src_kind: str, size, emit: str) -> tuple[int, int]:
     """(height, width) of the layers, after the structural checks."""
     if src_kind not in _KINDS:
         raise ValueError(f"packed_composite: src_kind must be one of {_KINDS}, got {src_kind!r}")
+    if emit not in _EMITS:
+        raise ValueError(f"packed_composite: emit must be one of {_EMITS}, got {emit!r}")
     if not layer_cfg or any(n not in (1, 2) for n in layer_cfg):
         raise ValueError(f"packed_composite: layer_cfg entries must be 1 or 2, got {layer_cfg}")
     if len(srcs) != sum(layer_cfg):
@@ -165,13 +170,27 @@ def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, 
     return shape[1], shape[2]
 
 
+def coverage(layers: Sequence[tuple]) -> torch.Tensor:
+    """The 'over'-accumulated alpha of (rgb, wy, wx) layers, bottom to top:
+    a = a*(1 - a_m) + a_m from a_0, a_m = wy[:, None] * wx, i.e.
+    1 - prod(1 - a_m) (pallas_packed_warp.py make_packed_composite_program,
+    emit 'rgba')."""
+    cover = None
+    for _, wy, wx in layers:
+        a = wy[:, None] * wx[None, :]
+        cover = a if cover is None else cover * (1.0 - a) + a
+    return cover
+
+
 def packed_composite_plain(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-) -> torch.Tensor:
+    emit: str = "packed",
+):
     """Plain version of packed_composite: [v210_unpack_plain (3 ch) ->] the
-    staged warp -> combine_rgb -> v210 pack path."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size)
+    staged warp -> combine_rgb -> v210 pack path, and for the rgba emits
+    the frame (combine_rgb, coverage)."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit)
     if src_kind == "packed":
         srcs = v210_unpack_plain(srcs, w, h, col_spec, out_col_spec, channels=3)
     layers, s = [], 0
@@ -179,14 +198,23 @@ def packed_composite_plain(
         rgb = warp_plain(srcs[s], mat) if n == 1 else warp_plain(srcs[s], mat, srcs[s + 1], mix)
         layers.append((rgb, *warp_alpha_vectors(h, w, mat)))
         s += n
-    return v210_pack_plain(combine_rgb(layers), out_col_spec)
+    rgb = combine_rgb(layers)
+    words = v210_pack_plain(rgb, out_col_spec) if emit != "rgba" else None
+    if emit == "packed":
+        return words
+    rgba = torch.cat([rgb, coverage(layers)[None]])
+    return rgba if emit == "rgba" else (words, rgba)
 
 
 def packed_composite(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-) -> torch.Tensor:
-    """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32.
+    emit: str = "packed",
+):
+    """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32
+    (``emit='packed'``), the composited (4, H, W) float32 frame
+    (``'rgba'``: RGB over black and the run's coverage alpha, see
+    ``coverage``), or (words, frame) (``'both'``).
 
     ``src_kind='rgb3'``: opaque (3, H, W) float32 sources.  ``'packed'``:
     v210 words (H, pitch_bytes/4) int32 of a ``size=(width, height)``
@@ -196,10 +224,10 @@ def packed_composite(
     (only m00, m02, m11, m12 are read), ``mixes[m]`` its mix (a 0-d
     tensor or float; None for a cut).  Each layer's alpha is its separable
     warp alpha; the bottom layer composites over black."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size)
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit)
     if is_cpu(srcs[0], "packed_composite"):
         return packed_composite_plain(
-            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec
+            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec, emit
         )
     if len(layer_cfg) > MAX_LAYERS:
         raise ValueError(f"packed_composite: at most {MAX_LAYERS} layers per launch")
@@ -213,20 +241,27 @@ def packed_composite(
             check_arg(s, "packed_composite src", dev, torch.float32, (3, h, w))
     mats = [_mat_on(m, dev, "packed_composite mat") for m in mats]
     mixes = [None if n == 1 else _check_mix(x, dev) for n, x in zip(layer_cfg, mixes)]
-    out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+    words = rgba = None
+    if emit != "rgba":
+        words = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+    if emit != "packed":
+        rgba = torch.empty((4, h, w), dtype=torch.float32, device=dev)
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
     src_p, mat_p, mix_p = ptrs(srcs), ptrs(mats), ptrs(mixes)
     n_src = (ctypes.c_int * len(layer_cfg))(*layer_cfg)
     dec, g2l = v210_decode_args(col_spec, out_col_spec, dev) if packed else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = library().phn_packed_composite(
             ctypes.addressof(src_p), ctypes.addressof(mat_p), ctypes.addressof(mix_p),
-            ctypes.addressof(n_src), len(layer_cfg), int(packed), out.data_ptr(), w, h, groups,
-            dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+            ctypes.addressof(n_src), len(layer_cfg), int(packed), ptr(words), ptr(rgba), w, h,
+            groups, dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")
     packed_composite.launches += 1
-    return out
+    if emit == "packed":
+        return words
+    return rgba if emit == "rgba" else (words, rgba)
 
 
 packed_composite.launches = 0

@@ -1,16 +1,17 @@
-"""The axis-aligned DVE warp kernel (single source or dissolve pair).
+"""The axis-aligned DVE warp kernel (single source, dissolve pair, wipe
+pair).
 
-Counterpart of phaneron_tpu/ops/pallas_warp.py (``_make_program`` in its
-single and dissolve-pair modes, ``n_ch`` 4 and 3).  ``warp`` launches
-csrc/warp.cu for CUDA tensors and runs ``warp_plain`` (ops/geometry.py
-warp_axis_aligned) for CPU tensors; ``warp.launches`` counts kernel
-launches.  Frames are (C, H, W) float32 with C = 4 (RGBA) or 3 (opaque
-alpha-free frames, whose warped alpha is ``warp_alpha_vectors``).
+Counterpart of phaneron_tpu/ops/pallas_warp.py (``_make_program`` in all
+its modes: single, dissolve pair and wipe pair, one shared matrix or two,
+``n_ch`` 4 and 3).  ``warp`` launches csrc/warp.cu for CUDA tensors and
+runs ``warp_plain`` (ops/geometry.py warp_axis_aligned, then mix_frames
+or wipe_mask) for CPU tensors; ``warp.launches`` counts kernel launches.
+Frames are (C, H, W) float32 with C = 4 (RGBA) or 3 (opaque alpha-free
+frames, whose warped alpha is ``warp_alpha_vectors``).
 
 The TPU kernel's scale buckets, DMA windows and one-hot weights exist
 for VMEM; the CUDA kernel gathers its taps directly, so it takes any
-geometry and any axis-aligned matrix.  The wipe mode and dissolve pairs
-with distinct matrices are still to port (ROADMAP.md Queue B, B4).
+geometry and any axis-aligned matrix.
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ from __future__ import annotations
 import torch
 
 from ._build import library
-from .composite import mix_frames
+from .composite import mix_frames, wipe_mask
 from .geometry import _bilinear_setup, _out_coords, warp_axis_aligned
-from .kernels import check_arg, check_launch, is_cpu, stream_handle
+from .kernels import _check_mix, check_arg, check_launch, is_cpu, stream_handle
 
-__all__ = ["warp", "warp_plain", "warp_alpha_vectors"]
+__all__ = ["warp", "warp_plain", "warp_alpha_vectors", "pair_args", "mix_pair", "launch_pair"]
 
 
 def warp_alpha_vectors(height: int, width: int, mat: torch.Tensor) -> tuple:
@@ -48,50 +49,93 @@ def warp_alpha_vectors(height: int, width: int, mat: torch.Tensor) -> tuple:
     return weight_sum(py, height), weight_sum(px, width)
 
 
+def mix_pair(out: torch.Tensor, out_b: torch.Tensor, mix, mask) -> torch.Tensor:
+    """The pair step after two warps: the dissolve
+    out*mix + out_b*(1-mix), or with a (H, W) ``mask`` the wipe
+    out_b*m + out*(1-m) (the JAX package's XLA expressions,
+    pipeline.py:466-476)."""
+    if mask is not None:
+        return wipe_mask(out, out_b, mask[None])
+    return mix_frames(out, out_b, mix)
+
+
+def pair_args(name: str, src: torch.Tensor, src_b, mix, mat_b, mask) -> None:
+    """The argument rules shared by the pair kernels: a single source
+    takes none of src_b, mix, mat_b, mask; a pair takes src_b and
+    exactly one of mix (dissolve) or mask (wipe)."""
+    if src.ndim != 3 or src.shape[0] not in (3, 4):
+        raise ValueError(f"{name}: expected (3|4, H, W), got {tuple(src.shape)}")
+    if src_b is None:
+        if mix is not None or mask is not None or mat_b is not None:
+            raise ValueError(f"{name}: mix, mask and mat_b need src_b")
+    elif (mix is None) == (mask is None):
+        raise ValueError(f"{name}: src_b takes either mix (dissolve) or mask (wipe)")
+
+
 def warp_plain(
     src: torch.Tensor, mat: torch.Tensor,
     src_b: torch.Tensor | None = None, mix: torch.Tensor | float | None = None,
+    mat_b: torch.Tensor | None = None, mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain version of warp: warp(src) or warp(src)*mix + warp(src_b)*(1-mix)."""
+    """Plain version of warp: warp(src), or the pair step (``mix_pair``)
+    over warp(src, mat) and warp(src_b, mat_b)."""
     out = warp_axis_aligned(src, mat)
     if src_b is None:
         return out
-    return mix_frames(out, warp_axis_aligned(src_b, mat), mix)
+    return mix_pair(out, warp_axis_aligned(src_b, mat if mat_b is None else mat_b), mix, mask)
 
 
 def warp(
     src: torch.Tensor, mat: torch.Tensor,
     src_b: torch.Tensor | None = None, mix: torch.Tensor | float | None = None,
+    mat_b: torch.Tensor | None = None, mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Axis-aligned bilinear DVE warp of a (C, H, W) float32 frame, C = 3
     or 4, by the (3, 3) matrix ``mat`` (only m00, m02, m11, m12 are
-    read), border zero.  With ``src_b`` and ``mix``: the dissolve pair
-    warp(src)*mix + warp(src_b)*(1-mix), both sources under the same
-    matrix."""
-    if (src_b is None) != (mix is None):
-        raise ValueError("warp: src_b and mix go together")
-    if src.ndim != 3 or src.shape[0] not in (3, 4):
-        raise ValueError(f"warp: expected (3|4, H, W), got {tuple(src.shape)}")
+    read), border zero.  With ``src_b``, under ``mat_b`` (default:
+    ``mat``): the dissolve pair warp(src)*mix + warp(src_b)*(1-mix), or
+    with an (H, W) float32 ``mask`` in place of ``mix`` the wipe pair
+    warp(src_b)*m + warp(src)*(1-m)."""
+    pair_args("warp", src, src_b, mix, mat_b, mask)
     if is_cpu(src, "warp"):
-        return warp_plain(src, mat, src_b, mix)
+        return warp_plain(src, mat, src_b, mix, mat_b, mask)
+    out = launch_pair("warp", "phn_warp", src, mat, src_b, mix, mat_b, mask)
+    warp.launches += 1
+    return out
+
+
+def launch_pair(
+    name: str, entry: str, src: torch.Tensor, mat, src_b, mix, mat_b, mask
+) -> torch.Tensor:
+    """Check the CUDA arguments of a pair kernel (csrc/warp.cu phn_warp,
+    csrc/rotate.cu phn_rotate: one C interface), launch ``entry`` on the
+    current stream and return its output."""
     dev = src.device
     c, h, w = src.shape
-    check_arg(src, "warp src", dev, torch.float32, (c, h, w))
+    check_arg(src, f"{name} src", dev, torch.float32, (c, h, w))
     mat = torch.as_tensor(mat, dtype=torch.float32, device=dev)
-    check_arg(mat, "warp mat", dev, torch.float32, (3, 3))
-    b_ptr = mix_ptr = None
+    check_arg(mat, f"{name} mat", dev, torch.float32, (3, 3))
+    ptrs = dict(b=None, mat_b=None, mix=None, mask=None)
     if src_b is not None:
-        check_arg(src_b, "warp src_b", dev, torch.float32, (c, h, w))
-        mix = torch.as_tensor(mix, dtype=torch.float32, device=dev).reshape(1)
-        b_ptr, mix_ptr = src_b.data_ptr(), mix.data_ptr()
+        check_arg(src_b, f"{name} src_b", dev, torch.float32, (c, h, w))
+        ptrs["b"] = src_b.data_ptr()
+        if mat_b is not None:
+            mat_b = torch.as_tensor(mat_b, dtype=torch.float32, device=dev)
+            check_arg(mat_b, f"{name} mat_b", dev, torch.float32, (3, 3))
+            ptrs["mat_b"] = mat_b.data_ptr()
+        if mask is not None:
+            check_arg(mask, f"{name} mask", dev, torch.float32, (h, w))
+            ptrs["mask"] = mask.data_ptr()
+        else:
+            mix = _check_mix(mix, dev)
+            ptrs["mix"] = mix.data_ptr()
     out = torch.empty_like(src)
     with torch.cuda.device(dev):
-        rc = library().phn_warp(
-            src.data_ptr(), b_ptr, mat.data_ptr(), mix_ptr, out.data_ptr(),
-            c, h, w, stream_handle(dev),
+        rc = getattr(library(), entry)(
+            src.data_ptr(), ptrs["b"], mat.data_ptr(), ptrs["mat_b"], ptrs["mix"], ptrs["mask"],
+            out.data_ptr(), c, h, w, stream_handle(dev),
         )
-    check_launch(rc, "warp")
-    warp.launches += 1
+    check_launch(rc, name)
     return out
 
 

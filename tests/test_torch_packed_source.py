@@ -164,7 +164,7 @@ def test_progressive_frame_and_packed_composite_within_one_code_of_jax():
     assert packed_composite_fits(H, W, bucket, 4, src_kind="packed")
     tspec = spec_from_fields(_progressive(False)._asdict())
     tparams = params_from_numpy(_progressive_params(words, lambda w: w), "cpu")
-    assert tpipe._stack_kind(tspec, tparams) == "packed"
+    assert tpipe._packed_composite_run(tspec, tparams) == (0, 4, "packed", "packed")
     (got,) = tpipe.make_channel_program(tspec)(tparams)
     got = words_to_numpy(got)
     want = _jax_run(spec, _progressive_params(words, words_to_planes))
@@ -224,7 +224,8 @@ def test_channel_program_routes_v210_layers(layers, kind, b6):
                 lp[key] = [rng.integers(0, 256, size=s, dtype=np.uint8) for s in ((H, W), (H, W // 2), (H, W // 2))]
         params["layers"].append(lp)
     tp = params_from_numpy(params, "cpu")
-    assert tpipe._stack_kind(spec, tp) == kind
+    run = tpipe._packed_composite_run(spec, tp)
+    assert (None if run is None else run.kind) == kind
     assert tuple(li for li, ls in enumerate(layers) if tpipe._packed_layer_ok(ls)) == (
         tuple(range(len(layers))) if kind == "packed" else b6)
     assert tpipe.missing_kernel(spec) is None
@@ -232,6 +233,7 @@ def test_channel_program_routes_v210_layers(layers, kind, b6):
     (plain,) = tpipe.make_channel_program(spec, plain=True)(tp)
     assert torch.equal(got, plain)
     if kind == "packed":
-        run = tpipe._packed_composite_args(spec, tp, {})
-        want = PW.packed_composite_plain(*run, src_kind="packed", size=(W, H))
+        assert (run.start, run.end, run.emit) == (0, len(layers), "packed")
+        args = tpipe._packed_composite_args(spec, tp, {}, run)
+        want = PW.packed_composite_plain(*args, src_kind="packed", size=(W, H))
         assert torch.equal(got, want)

@@ -131,13 +131,15 @@ def test_channel_program_runs_whole_stack_rgb3_runs_as_one_composite(layers, fus
             lp["matrix_b"] = lp["matrix"]
         params["layers"].append(lp)
     srcs = tpipe._sources(spec, params, tpipe._PLAIN)
-    run = tpipe._packed_composite_args(spec, params, srcs)
+    run = tpipe._packed_composite_run(spec, params)
     assert (run is not None) == fused
     (got,) = tpipe.make_channel_program(spec)(params)
     if fused:
-        assert run[1] == tuple(2 if ls.transition == "dissolve" else 1 for ls in layers)
-        assert torch.equal(got, PW.packed_composite_plain(*run))
+        assert run == (0, len(layers), "packed", "rgb3")
+        args = tpipe._packed_composite_args(spec, params, srcs, run)
+        assert args[1] == tuple(2 if ls.transition == "dissolve" else 1 for ls in layers)
+        assert torch.equal(got, PW.packed_composite_plain(*args))
     # 4-channel sources take the staged route
     four = {"layers": [dict(lp, src=torch.cat([lp["src"], torch.ones_like(lp["src"][:1])]))
                        for lp in params["layers"]]}
-    assert tpipe._packed_composite_args(spec, four, tpipe._sources(spec, four, tpipe._PLAIN)) is None
+    assert tpipe._packed_composite_run(spec, four) is None

@@ -196,24 +196,41 @@ def test_entry_structure_dispatches_to_kernels_on_cuda():
 
 
 @pytest.mark.parametrize(
+    "spec,item",
+    [
+        # rotation (B14), distinct matrices over planar sources and a
+        # wipe (B4), with DVE and without, emit_rgba (A4 with B7's emits)
+        (_spec(tpipe.LayerSpec("v210", has_transform=True, axis_aligned=False)), "B14"),
+        (_spec(tpipe.LayerSpec("yuv422p8", transition="dissolve", has_transform=True,
+                               warp_same_mat=False)), "B4"),
+        (_spec(tpipe.LayerSpec("v210", transition="wipe"),
+               tpipe.LayerSpec("v210", transition="wipe", has_transform=True,
+                               mask_format="yuv422p8", src_b_format="rgba_f32")), "wipe"),
+        (_spec(tpipe.LayerSpec("v210"), emit_rgba=True), "emit_rgba"),
+    ],
+)
+def test_straggler_structures_run_on_cuda(spec, item):
+    """The structures this slice ported have every kernel: they pass
+    check_structure on the card and on the CPU."""
+    assert tpipe.missing_kernel(spec) is None, item
+    tpipe.check_structure(spec, torch.device("cuda"))
+    tpipe.check_structure(spec, "cpu")
+
+
+@pytest.mark.parametrize(
     "spec,item,cpu_runs",
     [
-        (_spec(tpipe.LayerSpec("v210", has_transform=True, axis_aligned=False)), "B14", True),
-        # distinct matrices over v210 sources run on the packed warp (B6)
-        (_spec(tpipe.LayerSpec("yuv422p8", transition="dissolve", has_transform=True,
-                               warp_same_mat=False)), "B4", True),
         (_spec(tpipe.LayerSpec("v210"), out_format="yuv422p8"), "B11", True),
-        (_spec(tpipe.LayerSpec("v210", transition="wipe")), "wipe", False),
         (_spec(tpipe.LayerSpec("yuv422p10le")), "yuv422p10le", False),
         (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame", False),
         (_spec(tpipe.LayerSpec("nv12")), "nv12", False),
-        (_spec(tpipe.LayerSpec("v210"), emit_rgba=True), "emit_rgba", False),
     ],
 )
 def test_structures_outside_the_slice_raise_on_cuda(spec, item, cpu_runs):
-    """A rotation (and every other structure without a ported kernel)
-    raises on the card path, naming its ROADMAP item; on the CPU it runs
-    where a plain version exists and raises otherwise."""
+    """A structure without a ported kernel (a planar output, a 10-bit or
+    4:2:0 source, an off-geometry source) raises on the card path, naming
+    its ROADMAP item; on the CPU it runs where a plain version exists and
+    raises otherwise."""
     with pytest.raises(NotImplementedError, match=item):
         tpipe.check_structure(spec, torch.device("cuda"))
     if cpu_runs:

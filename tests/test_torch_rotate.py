@@ -1,0 +1,254 @@
+"""Port parity for the affine DVE (B14, ops/rotate.py ``rotate``), the
+axis-aligned warp's wipe and distinct-matrix pair modes (B4, ops/warp.py
+``warp``) and the wipe compositing ops (ops/composite.py) against
+phaneron_tpu on the CPU at 256x64, the geometry of JAX's own rotate
+tests (tests/test_pallas_rotate.py).
+
+Contracts:
+- ``rotate``'s plain version is ``warp_affine`` (then the dissolve mix or
+  the wipe blend), the direct bilinear gather the Hopper kernel computes.
+  It equals JAX's ``warp_affine`` and its XLA mix / ``wipe_mask`` to
+  ``TOL_AFFINE``: the port divides x / W by a tensor and evaluates the
+  texel position without contraction, as JAX's eager CPU ops do.
+- JAX's rotate kernel (``make_rotate_program``, interpret mode) is a
+  quarter turn and two shear passes that approximate that gather; it is
+  held to JAX's own bounds (tests/test_pallas_rotate.py:50-73, 136-149):
+  interior rms < 2e-3 and pointwise < 0.01 inside the eroded opaque
+  region (JAX allows 0.03 past 45 degrees; the port holds 0.01), < 1e-3 on the far exterior, < 1e-4
+  for an axis-aligned matrix.
+- K4's wipe and distinct-matrix pairs equal JAX's XLA expressions
+  (pipeline.py:466-476) bit for bit, and are within 5e-5 of the Pallas
+  pair programs (the Pallas warp's bf16 hi/lo class against the gather,
+  tests/test_pallas_warp.py:38; 1e-6 separates the Pallas pair from its
+  own two single warps only).
+- ``wipe_mask``, ``wipe_h`` and ``combine_masked`` equal JAX's bit for
+  bit."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phaneron_tpu.ops import composite as jcomp
+from phaneron_tpu.ops.geometry import transform_matrix, warp_affine, warp_axis_aligned
+from phaneron_tpu.ops.pallas_rotate import make_rotate_program, rot_bucket_of, rotate_fits
+from phaneron_tpu.ops.pallas_warp import bucket_of, make_warp_pair_program, make_wipe_pair_program
+from phaneron_tpu_torch.ops import composite as tcomp
+from phaneron_tpu_torch.ops.rotate import rotate, rotate_plain
+from phaneron_tpu_torch.ops.warp import warp, warp_plain
+
+torch.set_num_threads(1)
+
+W, H = 256, 64
+ANGLES = (25, 100, -7)  # degrees; 100 is bench.py's one_rotation
+TOL_AFFINE = 0.0
+MODES = ("single", "dissolve", "wipe")
+
+
+def _smooth(phase: float = 0.0) -> np.ndarray:
+    """A smooth opaque RGBA frame (tests/test_pallas_rotate.py _smooth)."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    return np.stack([
+        0.5 + 0.4 * np.sin(2 * np.pi * (x / W + 0.7 * y / H + phase)),
+        0.5 + 0.3 * np.cos(2 * np.pi * (0.5 * x / W + 1.3 * y / H + phase)),
+        0.25 + 0.5 * (x / W) * (y / H),
+        np.ones((H, W), np.float32),
+    ]).astype(np.float32)
+
+
+def _frames(content: str, seed: int) -> tuple:
+    """(a, b, mask): two (4, H, W) frames and an (H, W) wipe mask."""
+    rng = np.random.default_rng(seed)
+    if content == "smooth":
+        y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+        mask = (0.5 + 0.5 * np.sin(2 * np.pi * (x / W - 0.3 * y / H))).astype(np.float32)
+        return _smooth(), _smooth(0.37), mask
+    a, b = (rng.random((4, H, W), dtype=np.float32) for _ in range(2))
+    return a, b, rng.random((H, W), dtype=np.float32)
+
+
+def _mats(angle: float) -> tuple:
+    """The layer's matrix and a distinct one for src_b (another angle)."""
+    m = transform_matrix(W, H, rotate=angle / 360.0, scale_x=0.9, scale_y=0.9)
+    mb = transform_matrix(W, H, rotate=(angle + 30) / 360.0, scale_x=0.8, scale_y=0.85,
+                          offset_x=0.05)
+    return m.astype(np.float32), mb.astype(np.float32)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _jax_pair(mode: str, wa, wb, mix, mask):
+    """JAX's XLA pair step after two warps (pipeline.py:466-476)."""
+    if mode == "dissolve":
+        return wa * mix + wb * (1.0 - mix)
+    return jcomp.wipe_mask(wa, wb, jnp.asarray(mask)[None])
+
+
+def _port_call(fn, mode: str, a, b, m, mb, mix, mask):
+    """fn in ``mode``; ``mb`` None shares ``m``."""
+    if mode == "single":
+        return fn(_t(a), _t(m))
+    mat_b = None if mb is None else _t(mb)
+    if mode == "dissolve":
+        return fn(_t(a), _t(m), _t(b), torch.tensor(mix), mat_b)
+    return fn(_t(a), _t(m), _t(b), mat_b=mat_b, mask=_t(mask))
+
+
+# ----------------------------------------------------------------- B14
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("content", ["smooth", "random"])
+@pytest.mark.parametrize("angle", ANGLES)
+def test_rotate_plain_matches_jax_warp_affine(angle, content, mode):
+    """rotate (its plain version on CPU tensors) against JAX's
+    warp_affine, then the dissolve mix or the wipe blend, with two
+    distinct matrices for a pair; CPU tensors launch nothing."""
+    a, b, mask = _frames(content, 3 + len(mode))
+    m, mb = _mats(angle)
+    mix = np.float32(0.35)
+    wa = warp_affine(jnp.asarray(a), jnp.asarray(m))
+    want = wa if mode == "single" else _jax_pair(
+        mode, wa, warp_affine(jnp.asarray(b), jnp.asarray(mb)), mix, mask)
+    before = rotate.launches
+    got = _port_call(rotate, mode, a, b, m, mb, mix, mask)
+    assert rotate.launches == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == (4, H, W)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL_AFFINE
+    assert torch.equal(got, _port_call(rotate_plain, mode, a, b, m, mb, mix, mask))
+
+
+def _erode(mask: np.ndarray, r: int) -> np.ndarray:
+    out = mask.copy()
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            out &= np.roll(np.roll(mask, dy, 0), dx, 1)
+    return out
+
+
+def _jax_rotate(src: np.ndarray, m: np.ndarray) -> np.ndarray:
+    code = rot_bucket_of(m, W, H)
+    assert code >= 0 and rotate_fits(H, W, code)
+    return np.asarray(make_rotate_program(H, W, code, interpret=True)(jnp.asarray(src), jnp.asarray(m)))
+
+
+def _within_shear_bounds(got: np.ndarray, want: np.ndarray, alphas: list) -> None:
+    """JAX's bounds for its shear rotation against the direct gather, on
+    the [4:-4, 8:-8] crop: rms and pointwise inside the eroded region
+    where every rotated source is opaque, near zero on the eroded region
+    that no rotated source covers."""
+    gi, wi = got[:, 4:-4, 8:-8], want[:, 4:-4, 8:-8]
+    interior = _erode(np.minimum.reduce(alphas) > 0.999, 2)[4:-4, 8:-8]
+    exterior = _erode(np.maximum.reduce(alphas) < 1e-3, 2)[4:-4, 8:-8]
+    err = np.abs(gi - wi).max(axis=0)
+    assert interior.any()
+    assert float(np.sqrt(np.mean((gi - wi)[:, interior] ** 2))) < 2e-3
+    assert float(err[interior].max()) < 0.01
+    if exterior.any():
+        assert float(err[exterior].max()) < 1e-3
+
+
+@pytest.mark.parametrize("angle", ANGLES)
+def test_rotate_within_jax_rotate_kernel_bounds(angle):
+    """rotate against make_rotate_program (interpret), single and as the
+    distinct-matrix dissolve that JAX's Pallas route runs as two rotate
+    launches and an XLA mix (pipeline.py:445-468)."""
+    a, b, _ = _frames("smooth", 0)
+    m, mb = _mats(angle)
+    got = rotate(_t(a), _t(m)).numpy()
+    _within_shear_bounds(got, _jax_rotate(a, m), [got[3]])
+    mix = np.float32(0.6)
+    pair = rotate(_t(a), _t(m), _t(b), torch.tensor(mix), _t(mb)).numpy()
+    want = _jax_rotate(a, m) * mix + _jax_rotate(b, mb) * (np.float32(1.0) - mix)
+    alphas = [got[3], rotate(_t(b), _t(mb)).numpy()[3]]
+    _within_shear_bounds(pair, want, alphas)
+
+
+def test_rotate_axis_aligned_matrix_matches_jax_kernel_and_the_separable_warp():
+    """An axis-aligned matrix: JAX's shear passes degenerate to the
+    separable taps (< 1e-4, tests/test_pallas_rotate.py:50-56); the
+    direct gather equals the separable warp up to lerp order (1e-6)."""
+    a, _, _ = _frames("random", 9)
+    m = transform_matrix(W, H, scale_x=0.9, scale_y=1.1, offset_x=0.03).astype(np.float32)
+    got = rotate(_t(a), _t(m)).numpy()
+    assert np.abs(got - _jax_rotate(a, m)).max() < 1e-4
+    assert np.abs(got - warp(_t(a), _t(m)).numpy()).max() <= 1e-6
+
+
+# ------------------------------------------------------------------- B4
+
+
+@pytest.mark.parametrize("mode,same_mat", [("wipe", True), ("wipe", False), ("dissolve", False)])
+def test_warp_pair_modes_match_jax(mode, same_mat):
+    """K4's wipe pair (one shared matrix or two) and distinct-matrix
+    dissolve pair against JAX's XLA expressions over warp_axis_aligned,
+    and against make_wipe_pair_program / make_warp_pair_program
+    (same_mat=False) in interpret mode."""
+    a, b, mask = _frames("random", 21 + same_mat)
+    m = transform_matrix(W, H, scale_x=0.9, scale_y=0.8, offset_x=0.05).astype(np.float32)
+    mb = m if same_mat else transform_matrix(W, H, scale_x=1.2, offset_y=-0.1).astype(np.float32)
+    mix = np.float32(0.3)
+    wa = warp_axis_aligned(jnp.asarray(a), jnp.asarray(m))
+    wb = warp_axis_aligned(jnp.asarray(b), jnp.asarray(mb))
+    xla = np.asarray(_jax_pair(mode, wa, wb, mix, mask))
+    bucket = bucket_of(m, mb)
+    if mode == "wipe":
+        prog = make_wipe_pair_program(H, W, bucket, same_mat=same_mat, interpret=True)
+        pallas = prog(jnp.asarray(a), jnp.asarray(b), jnp.asarray(m), jnp.asarray(mb), jnp.asarray(mask))
+    else:
+        prog = make_warp_pair_program(H, W, bucket, same_mat=False, interpret=True)
+        pallas = prog(jnp.asarray(a), jnp.asarray(b), jnp.asarray(m), jnp.asarray(mb), jnp.float32(mix))
+    before = warp.launches
+    got = _port_call(warp, mode, a, b, m, None if same_mat else mb, mix, mask)
+    assert warp.launches == before
+    np.testing.assert_array_equal(got.numpy(), xla)
+    assert np.abs(got.numpy() - np.asarray(pallas)).max() <= 5e-5
+    assert torch.equal(got, _port_call(warp_plain, mode, a, b, m, None if same_mat else mb, mix, mask))
+
+
+@pytest.mark.parametrize("fn", [warp, rotate])
+def test_pair_argument_rules(fn):
+    """A pair takes src_b and exactly one of mix (dissolve) or mask
+    (wipe); mat_b, mix and mask need src_b; frames are (3|4, H, W)."""
+    a, b, mask = (_t(x) for x in _frames("random", 5))
+    m = _t(transform_matrix(W, H, scale_x=0.9))
+    with pytest.raises(ValueError, match="either mix"):
+        fn(a, m, b)
+    with pytest.raises(ValueError, match="either mix"):
+        fn(a, m, b, torch.tensor(0.5), mask=mask)
+    with pytest.raises(ValueError, match="need src_b"):
+        fn(a, m, mat_b=m)
+    with pytest.raises(ValueError, match="expected"):
+        fn(a[0], m)
+    # a 3-channel frame warps its RGB planes alone
+    assert torch.equal(fn(a[:3].contiguous(), m), fn(a, m)[:3])
+
+
+# ---------------------------------------------------- A3 compositing ops
+
+
+def test_wipe_mask_and_wipe_h_equal_jax():
+    a, b, mask = _frames("random", 31)
+    frame = np.stack([mask] * 4)
+    np.testing.assert_array_equal(
+        tcomp.wipe_mask(_t(a), _t(b), _t(frame)).numpy(),
+        np.asarray(jcomp.wipe_mask(jnp.asarray(a), jnp.asarray(b), jnp.asarray(frame))),
+    )
+    for wipe in (0.0, 0.3, 0.71, 1.0):
+        want = np.asarray(jcomp.wipe_h(jnp.asarray(a), jnp.asarray(b), jnp.float32(wipe)))
+        np.testing.assert_array_equal(tcomp.wipe_h(_t(a), _t(b), wipe).numpy(), want)
+        np.testing.assert_array_equal(tcomp.wipe_h(_t(a), _t(b), torch.tensor(wipe)).numpy(), want)
+
+
+def test_combine_masked_equals_jax_and_combine_of_enabled_layers():
+    rng = np.random.default_rng(37)
+    layers = [rng.random((4, H, W), dtype=np.float32) for _ in range(4)]
+    for enables in ((True, True, False, True), (True, False, False, False), (False,) * 4):
+        en = np.array(enables)
+        got = tcomp.combine_masked([_t(f) for f in layers], torch.from_numpy(en))
+        want = jcomp.combine_masked([jnp.asarray(f) for f in layers], jnp.asarray(en))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        live = [layers[0]] + [f for f, e in zip(layers[1:], en[1:]) if e]
+        assert torch.equal(got, tcomp.combine([_t(f) for f in live]))

@@ -6,8 +6,10 @@ Run from the repository root:  python3 tools/port_profile.py [--periods N]
 Drives chip_smoke.py's main paths (the interlaced default load, four
 1080i50 channels, one frame period per step; the entry() channel frame
 at 1920x1080; the progressive 4-layer frame at 3840x2160 and 1920x1080;
-the playout dissolve at 1920x1080 and 3840x2160) under torch.profiler
-after warm-up, and prints
+the playout dissolve at 1920x1080 and 3840x2160; the straggler channels:
+one_rotation and wipe at 3840x2160 and 1920x1080, the rotated
+distinct-matrix dissolve and the emit_rgba frames at 1920x1080) under
+torch.profiler after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
@@ -121,6 +123,17 @@ def main() -> int:
         sprog = make_channel_program(sspec)
         cs.playout_animate(torch, sparams, dev, 0.5)
         profile(torch, f"playout dissolve, {w}x{h}", lambda: sprog(sparams), 50, card)
+    cases = [(v, w, h, False) for v in ("one_rotation", "wipe") for w, h in ((cs.UHD_W, cs.UHD_H), (cs.W, cs.H))]
+    cases += [("rotated_pair", cs.W, cs.H, False), ("one_rotation", cs.W, cs.H, True)]
+    for variant, w, h, emit_rgba in cases:
+        vspec, vparams = cs.straggler_spec_params(torch, dev, w, h, variant, emit_rgba)
+        vprog = make_channel_program(vspec)
+        cs.straggler_animate(torch, vparams, dev, w, h, variant, 0.5)
+        profile(torch, f"{variant}{' emit_rgba' if emit_rgba else ''}, {w}x{h}", lambda: vprog(vparams), 20, card)
+    espec, eparams = cs.progressive_spec_params(torch, dev, rng, cs.W, cs.H)
+    eprog = make_channel_program(espec._replace(emit_rgba=True))
+    cs.progressive_animate(torch, eparams, dev, 0.5)
+    profile(torch, f"progressive 4-layer frame emit_rgba, {cs.W}x{cs.H}", lambda: eprog(eparams), 20, card)
     return 0
 
 
