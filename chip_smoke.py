@@ -25,7 +25,18 @@ Run from the repository root:  python3 chip_smoke.py
    record); then the straggler modes: rotate (single, dissolve and wipe
    pairs under one matrix or two, C 4 and 3, at 25, 100 and -7 degrees)
    and K4's wipe and distinct-matrix pairs <= 5e-5, packed_composite's
-   rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code.
+   rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code; then
+   the planar kernels of the file-media formats at 1920x1080, 1918x1080
+   (a pitch pad) and 1920x1081 (an odd height), on seeded full-range
+   random planes (10-bit codes in [0, 1023]) and the fill_buf ramps:
+   planar422_unpack at 10 bit (B10), planar420_unpack (B12, yuv420p and
+   nv12) max |delta| 0; planar422_pack (B11, 8 and 10 bit) and
+   planar420_pack (B13, yuv420p and nv12) <= 1 code on random RGBA (C 4
+   and 3) and pack(unpack(fill_buf)) == fill_buf bit-exact, pad included;
+   and the stage programs of every format against their plain versions:
+   make_unpack_program at channels 3 and 4 (max |delta| 0),
+   make_pack_program, make_interlaced_pack_program("yuv420p") and
+   make_interlaced_word_pack_program("yuv422p10le") (<= 1 code).
 4. Drives each main path through make_channel_program (or the stage
    programs), every launch count set to 0 just before and read just
    after, each frame's words <= 1 code from the plain path on the card:
@@ -61,7 +72,18 @@ Run from the repository root:  python3 chip_smoke.py
      dissolve at 1080p, and two emit_rgba channels at 1080p (the
      progressive frame: 1 packed_composite emitting both; one_rotation:
      the torch combine and 1 v210_pack), whose rgba frame must be within
-     2e-4 of the plain path's and carry the top layer's alpha.
+     2e-4 of the plain path's and carry the top layer's alpha;
+   - media: the file-media channel at 1920x1080 and 3840x2160, 8 frames
+     each, its dissolve's mix animating 0 -> 1: a yuv422p10le clip (cut),
+     a yuv420p clip under a picture-in-picture DVE dissolving to an nv12
+     clip under the same matrix, a keyed rgba8 lower third; yuv422p10le
+     out with emit_rgba, the rgba frame packed by the preview (rgba8,
+     sRGB) and file (nv12) consumer stage programs.  A frame: 1
+     planar422_unpack (10 bit), 2 planar420_unpack, 1 warp pair, torch
+     ops for the rgba8 decode and the combine, 1 planar422_pack, then 1
+     planar420_pack and the rgba8 pack in torch ops; every plane <= 1 code
+     from the plain path's, the rgba frame within 2e-4 with the graphic's
+     alpha.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
@@ -72,7 +94,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
-counted from the kernel's source, over 67 TFLOP/s, whichever is larger),
+counted from the kernel's source, over 67 TFLOP/s, whichever is larger;
+"modes": the kernel's other timed shapes and modes),
 then, as the last line, {"ok": true, "device": {...}}.  Any failed phase
 raises and exits 1.
 """
@@ -132,6 +155,15 @@ OPS_AFFINE_PX = 26
 # the straggler channels (bench.py composite_variant_step)
 STRAGGLER_FRAMES = 4  # frames per geometry and variant
 TOL_RGBA = 2e-4  # the rgba emit against the plain path
+
+# the file-media channel (yuv422p10le, yuv420p / nv12, rgba8 sources;
+# yuv422p10le out, rgba8 and nv12 consumers)
+MEDIA_FRAMES = 8  # frames per geometry
+MEDIA_DVE = dict(scale_x=0.5, scale_y=0.5, offset_x=0.2, offset_y=-0.15)  # picture in picture
+# every registry format once (the aliases name the same modules)
+FORMAT_NAMES = ("v210", "yuv422p10le", "yuv422p8", "yuv420p", "nv12", "rgba8", "bgra8")
+# the 4:2:0 encode: luma every pixel, two chroma rows every fourth
+OPS_ENCODE_420_PX = 3 * OPS_L2G + 9 + 18 / 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -211,6 +243,29 @@ def code_delta(torch, a, b, width: int, height: int) -> int:
     ca = v210.unpack_codes([a], width, height)
     cb = v210.unpack_codes([b], width, height)
     return max(int((x - y).abs().max()) for x, y in zip(ca, cb))
+
+
+def format_planes(rng, name: str, width: int, height: int) -> list:
+    """Seeded random planes of a format over its full code range (v210:
+    full-range words; 10-bit planar codes in [0, 1023])."""
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    if name == "v210":
+        return [random_words(rng, width, height)]
+    fmt = get_format(name)
+    hi = 1 << fmt.INFO.num_bits
+    return [rng.integers(0, hi, size=s, dtype=dt) for s, dt in fmt.plane_shapes(width, height)]
+
+
+def plane_delta(torch, a, b) -> int:
+    """Largest sample difference between two lists of planes of any
+    sample type."""
+    return max(int((x.to(torch.int32) - y.to(torch.int32)).abs().max()) for x, y in zip(a, b))
+
+
+def packed_delta(torch, fmt: str, a, b, width: int, height: int) -> int:
+    """Largest code difference between two packings of one format."""
+    return code_delta(torch, a[0], b[0], width, height) if fmt == "v210" else plane_delta(torch, a, b)
 
 
 def warp_source_texels(torch, mat, height: int, width: int) -> int:
@@ -637,6 +692,193 @@ def phase_straggler_kernels(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_planar_kernels(torch, dev, rng, rec: dict) -> None:
+    """The planar kernels of the file-media formats against their plain
+    versions at 1920x1080, 1918x1080 (a pitch pad) and 1920x1081 (an odd
+    height), on seeded full-range random planes and the fill_buf ramps:
+    B10's 10-bit unpack and B12 (yuv420p, nv12) max |delta| 0; B11 (8 and
+    10 bit) and B13 (yuv420p, nv12) <= 1 code on random RGBA (C 4 and 3)
+    and bit-exact ramp round trips, pitch pad included."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    err = lambda a, b: float((a - b).abs().max())
+    sizes = ((W, H), (1918, H), (W, H + 1))
+    unpacks = {name: (K.planar422_unpack, K.planar422_unpack_plain) for name in ("yuv422p10le", "yuv422p8")}
+    unpacks.update({name: (K.planar420_unpack, K.planar420_unpack_plain) for name in ("yuv420p", "nv12")})
+    packs = {name: (K.planar422_pack, K.planar422_pack_plain) for name in ("yuv422p10le", "yuv422p8")}
+    packs.update({name: (K.planar420_pack, K.planar420_pack_plain) for name in ("yuv420p", "nv12")})
+    e_unpack = {"planar422_unpack": 0.0, "planar420_unpack": 0.0}
+    d_pack = {"planar422_pack": 0, "planar420_pack": 0}
+    for name, (unpack, unpack_plain) in unpacks.items():
+        pack, pack_plain = packs[name]
+        for w, h in sizes:
+            fill = get_format(name).fill_buf(w, h)
+            for planes in (format_planes(rng, name, w, h), fill):
+                pt = [to_tensor(p, dev) for p in planes]
+                e_unpack[unpack.__name__] = max(e_unpack[unpack.__name__], err(
+                    unpack(pt, w, h, fmt_name=name), unpack_plain(pt, w, h, fmt_name=name)))
+            rgb = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+            ramp = unpack([to_tensor(p, dev) for p in fill], w, h, fmt_name=name)
+            for x in (rgb, rgb[:3].contiguous(), ramp):
+                d_pack[pack.__name__] = max(d_pack[pack.__name__], plane_delta(
+                    torch, pack(x, name), pack_plain(x, name)))
+            same = all(np.array_equal(g.cpu().numpy(), f) for g, f in zip(pack(ramp, name), fill))
+            print(f"{pack.__name__}({unpack.__name__}(fill_buf)) == fill_buf, {name} {w}x{h}: {same}")
+            check(same, f"{name} round trip at {w}x{h}")
+    covers = {"planar422_unpack": "yuv422p10le and yuv422p8", "planar420_unpack": "yuv420p and nv12"}
+    for name, e in e_unpack.items():
+        print(f"{name} ({covers[name]}) max |kernel - plain| = {e:.3e} (<= {TOL_UNPACK}) at "
+              f"{', '.join(f'{w}x{h}' for w, h in sizes)}, random planes and ramps")
+        check(e <= TOL_UNPACK, f"{name} error {e}")
+    for name, d in d_pack.items():
+        print(f"{name} max code delta vs plain on random RGBA (C 4 and 3) and the ramps = {d} "
+              f"(<= {TOL_CODES})")
+        check(d <= TOL_CODES, f"{name} code delta {d}")
+    rec["planar422_unpack"]["max_abs_err"] = max(rec["planar422_unpack"]["max_abs_err"],
+                                                 e_unpack["planar422_unpack"])
+    rec["planar420_unpack"] = dict(max_abs_err=e_unpack["planar420_unpack"])
+    for name, d in d_pack.items():
+        rec[name] = dict(max_abs_err=float(d))
+    torch.cuda.synchronize()
+
+
+def phase_stage_program_checks(torch, dev, rng) -> None:
+    """The stage programs of every format against their plain versions at
+    1920x1080: make_unpack_program at channels 3 and 4 (max |delta| 0),
+    make_pack_program, make_interlaced_pack_program("yuv420p") and
+    make_interlaced_word_pack_program("yuv422p10le") against the
+    interleave-then-pack it replaces (<= 1 code)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.graph.pipeline import (
+        make_interlaced_pack_program,
+        make_interlaced_word_pack_program,
+        make_pack_program,
+        make_unpack_program,
+    )
+
+    e, d = 0.0, 0
+    rgba = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, H, W)).astype(np.float32)).to(dev)
+    for fmt in FORMAT_NAMES:
+        planes = [to_tensor(p, dev) for p in format_planes(rng, fmt, W, H)]
+        for ch in (3, 4):
+            got = make_unpack_program(fmt, W, H, "709", "709", channels=ch)(planes)
+            want = make_unpack_program(fmt, W, H, "709", "709", channels=ch, plain=True)(planes)
+            check(tuple(got.shape) == (ch, H, W), f"unpack program {fmt}: {tuple(got.shape)}")
+            e = max(e, float((got - want).abs().max()))
+        got = make_pack_program(fmt, W, H, "709")(rgba)
+        d = max(d, packed_delta(torch, fmt, got, make_pack_program(fmt, W, H, "709", plain=True)(rgba), W, H))
+    top, bottom = rgba, torch.from_numpy(rng.uniform(0.0, 1.0, (4, H, W)).astype(np.float32)).to(dev)
+    d = max(d, plane_delta(torch, make_interlaced_pack_program("yuv420p", W, H, "709")(top, bottom),
+                           make_interlaced_pack_program("yuv420p", W, H, "709", plain=True)(top, bottom)))
+    pack = make_pack_program("yuv422p10le", W, H, "709")
+    word = make_interlaced_word_pack_program("yuv422p10le")(pack(top), pack(bottom))
+    d = max(d, plane_delta(torch, word, make_interlaced_pack_program(
+        "yuv422p10le", W, H, "709", plain=True)(top, bottom)))
+    print(f"stage programs of {', '.join(FORMAT_NAMES)}: unpack (C 3 and 4) max |kernel - plain| = {e:.3e} "
+          f"(<= {TOL_UNPACK}); pack, interlaced yuv420p pack and yuv422p10le word pack max code delta "
+          f"vs plain = {d} (<= {TOL_CODES})")
+    check(e <= TOL_UNPACK, f"unpack stage programs error {e}")
+    check(d <= TOL_CODES, f"pack stage programs code delta {d}")
+    torch.cuda.synchronize()
+
+
+def graphic_rgba8(w: int, h: int) -> np.ndarray:
+    """A keyed image-sequence lower third, (H, W, 4) rgba8, premultiplied:
+    alpha 255 in a band of rows, 128 on the rows at its edges, 0
+    elsewhere; red ramps across the frame."""
+    alpha = np.zeros(h, np.float64)
+    top, bottom = int(0.7 * h), int(0.85 * h)
+    alpha[top:bottom] = 255.0
+    alpha[[top - 1, bottom]] = 128.0
+    colour = np.stack(np.broadcast_arrays(np.linspace(20, 235, w)[None, :], 160.0, 60.0), -1)
+    px = np.zeros((h, w, 4), np.uint8)
+    px[..., :3] = np.round(colour * alpha[:, None, None] / 255.0)
+    px[..., 3] = alpha[:, None]
+    return px
+
+
+def media_spec_params(torch, dev, rng, w: int, h: int):
+    """The file-media channel at w x h: L0 a yuv422p10le clip (seeded
+    random 10-bit planes; the FFmpeg producer's ProRes / DNxHR format) as
+    a cut; L1 the yuv420p ramp (H.264 / HEVC) under a picture-in-picture
+    DVE (scale 0.5, offset (0.2, -0.15)) dissolving to seeded random nv12
+    planes (hardware decode) under the same matrix; L2 the rgba8 lower
+    third (image sequence) as a cut.  yuv422p10le out, emit_rgba."""
+    from phaneron_tpu_torch.graph.convert import params_from_numpy
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import yuv420p
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    spec = ChannelSpec(w, h, "yuv422p10le", layers=(
+        LayerSpec("yuv422p10le"),
+        LayerSpec("yuv420p", transition="dissolve", has_transform=True, axis_aligned=True,
+                  src_b_format="nv12"),
+        LayerSpec("rgba8"),
+    ), emit_rgba=True)
+    params = params_from_numpy({"layers": [
+        {"src": format_planes(rng, "yuv422p10le", w, h)},
+        {"src": yuv420p.fill_buf(w, h), "src_b": format_planes(rng, "nv12", w, h),
+         "matrix": transform_matrix(w, h, **MEDIA_DVE), "mix": np.float32(0.0)},
+        {"src": [graphic_rgba8(w, h)]},
+    ]}, dev)
+    return spec, params
+
+
+def media_animate(torch, params, dev, t: float) -> None:
+    params["layers"][1]["mix"] = torch.tensor(t, dtype=torch.float32, device=dev)
+
+
+class MediaChannel:
+    """One frame of the media channel's device work: the channel program,
+    then its rgba frame through the preview consumer's stage program
+    (rgba8, sRGB) and a file consumer's (nv12, 709).  ``plain=True`` runs
+    every stage's plain version on the card."""
+
+    def __init__(self, spec, plain: bool):
+        from phaneron_tpu_torch.graph.pipeline import make_channel_program, make_pack_program
+
+        self.program = make_channel_program(spec, plain=plain)
+        self.preview = make_pack_program("rgba8", spec.width, spec.height, "sRGB", plain=plain)
+        self.file = make_pack_program("nv12", spec.width, spec.height, "709", plain=plain)
+
+    def __call__(self, params) -> tuple:
+        out = self.program(params)
+        return out, self.preview(out["rgba"]), self.file(out["rgba"])
+
+
+def drive_media(torch, media, plain_media, params, dev, frames: int, w: int, h: int, what: str) -> int:
+    """``frames`` frames of the media channel, the mix animating 0 -> 1,
+    each checked against the plain path on the card: the packed
+    yuv422p10le, preview and file planes (shapes, types, <= 1 code) and
+    the rgba frame (finite, within TOL_RGBA, alpha the graphic's)."""
+    from phaneron_tpu_torch.graph.pipeline import make_unpack_program
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    top = make_unpack_program("rgba8", w, h, "709", "709", plain=True)(params["layers"][2]["src"])[3]
+    shapes = lambda fmt: [(s, str(dt)) for s, dt in get_format(fmt).plane_shapes(w, h)]
+    worst = 0
+    for f in range(frames):
+        media_animate(torch, params, dev, f / max(frames - 1, 1))
+        (out, preview, filed), (ref, ref_preview, ref_file) = media(params), plain_media(params)
+        for fmt, planes in (("yuv422p10le", out["packed"]), ("rgba8", preview), ("nv12", filed)):
+            got = [(tuple(p.shape), str(p.dtype).removeprefix("torch.")) for p in planes]
+            check(got == shapes(fmt), f"{what} frame {f}: {fmt} planes {got}")
+        d = max(plane_delta(torch, out["packed"], ref["packed"]), plane_delta(torch, preview, ref_preview),
+                plane_delta(torch, filed, ref_file))
+        worst = max(worst, d)
+        check(d <= TOL_CODES, f"{what} frame {f}: kernel path {d} codes from the plain path")
+        rgba = out["rgba"]
+        check(tuple(rgba.shape) == (4, h, w) and bool(torch.isfinite(rgba).all()),
+              f"{what} frame {f}: rgba {tuple(rgba.shape)}")
+        e = float((rgba - ref["rgba"]).abs().max())
+        check(e <= TOL_RGBA, f"{what} frame {f}: rgba {e} from the plain path")
+        ea = float((rgba[3] - top).abs().max())
+        check(ea <= TOL_WARP, f"{what} frame {f}: emitted alpha {ea} from the graphic's")
+    return worst
+
+
 def straggler_spec_params(torch, dev, w: int, h: int, variant: str, emit_rgba: bool = False):
     """bench.py composite_variant_step at w x h: 3 v210 DVE + dissolve
     layers (scale 0.9, offset_x 0.02 + 0.003 i, mix 0.4 + 0.05 i) under one
@@ -980,6 +1222,9 @@ def main() -> int:
     phase_interlaced_kernels(torch, dev, rng, rec)
     phase_packed_source_kernels(torch, dev, rng, rec)
     phase_straggler_kernels(torch, dev, rng, rec)
+    media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
+    phase_planar_kernels(torch, dev, media_rng, rec)
+    phase_stage_program_checks(torch, dev, media_rng)
 
     wrappers = {
         "v210_unpack": K.v210_unpack, "warp": warp_mod.warp,
@@ -987,6 +1232,8 @@ def main() -> int:
         "yadif_ring": Y.yadif_ring, "yadif_pair": Y.yadif_pair,
         "packed_composite": PW.packed_composite, "fused_v210": K.fused_v210,
         "combine_pack": K.combine_pack, "packed_warp": PW.packed_warp, "rotate": R.rotate,
+        "planar422_pack": K.planar422_pack, "planar420_unpack": K.planar420_unpack,
+        "planar420_pack": K.planar420_pack,
     }
     launches = {k: {} for k in wrappers}
 
@@ -1182,6 +1429,27 @@ def main() -> int:
         timing[path] = time_frame(torch, card, path, vprog, vplain, vparams)
         straggler_args[path] = (vspec, vparams)
 
+    # -------- phase 7c: the file-media channel, 1080p and UHD
+    media_args = {}
+    for w, h in ((W, H), (UHD_W, UHD_H)):
+        mspec, mparams = media_spec_params(torch, dev, media_rng, w, h)
+        media, plain_media = MediaChannel(mspec, plain=False), MediaChannel(mspec, plain=True)
+        path = f"media_{w}x{h}"
+
+        def media_path():
+            t0 = time.perf_counter()
+            worst = drive_media(torch, media, plain_media, mparams, dev, MEDIA_FRAMES, w, h, path)
+            print(f"{path}: {MEDIA_FRAMES} frames (yuv422p10le cut, yuv420p -> nv12 dissolve under a "
+                  f"picture-in-picture DVE, rgba8 key; yuv422p10le out, rgba8 preview, nv12 file) in "
+                  f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}, rgba and "
+                  "top-layer alpha checked")
+
+        run_path(path, {"planar422_unpack": 1, "planar420_unpack": 2, "warp": 1, "planar422_pack": 1,
+                        "planar420_pack": 1}, MEDIA_FRAMES, media_path)
+        media_animate(torch, mparams, dev, 0.5)
+        timing[path] = time_frame(torch, card, path, media, plain_media, mparams)
+        media_args[(w, h)] = (mparams, media.program(mparams)["rgba"])
+
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
@@ -1259,6 +1527,13 @@ def main() -> int:
     pw_bytes = 2 * 16 * warp_source_groups(torch, pw_mat, H, W) + rgba + 36 + 4
     pw_ops = 2 * warp_source_texels(torch, pw_mat, H, W) * OPS_DECODE_PX + warp_ops(4, 2)
     # the one_rotation frame's top layer at UHD, as the path unpacks it
+    # the media channel at 1080p: its sources and its rgba frame
+    m_params, m_rgba = media_args[(W, H)]
+    m_lps = m_params["layers"]
+    p10_args = (m_lps[0]["src"], W, H, "709", "709", "yuv422p10le")
+    y420_args = (m_lps[1]["src"], W, H, "709", "709", "yuv420p")
+    nv12_args = (m_lps[1]["src_b"], W, H, "709", "709", "nv12")
+    planar_px = H * y422_pitch(W)  # samples of a luma plane, pitch included
     top = straggler_args[f"one_rotation_{UHD_W}x{UHD_H}"][1]["layers"][3]
     rot_args = (K.v210_unpack(top["src"], UHD_W, UHD_H)[0], top["matrix"])
     rot_lib = affine_grid_args(torch, [rot_args[0]], rot_args[1])
@@ -1291,8 +1566,18 @@ def main() -> int:
                    16 * affine_source_texels(torch, rot_args[1], UHD_H, UHD_W) + 16 * UHD_W * UHD_H + 36,
                    warp_ops(4, 1, UHD_W * UHD_H, per_px=OPS_AFFINE_PX),
                    "RGBA cut at 100 degrees, 3840x2160 (one_rotation path)"),
+        "planar422_pack": (call(K.planar422_pack, (m_rgba, "yuv422p10le")),
+                           call(K.planar422_pack_plain, (m_rgba, "yuv422p10le")),
+                           rgb + 2 * 2 * planar_px, OPS_ENCODE_PX * px,
+                           "yuv422p10le from the media channel's (4, H, W) frame, 1920x1080 (media path)"),
+        "planar420_unpack": (call(K.planar420_unpack, y420_args), call(K.planar420_unpack_plain, y420_args),
+                             1.5 * planar_px + rgba, OPS_DECODE_PX * px, "yuv420p, 1920x1080 (media path)"),
+        "planar420_pack": (call(K.planar420_pack, (m_rgba, "nv12")), call(K.planar420_pack_plain, (m_rgba, "nv12")),
+                           rgb + 1.5 * planar_px, OPS_ENCODE_420_PX * px,
+                           "nv12 from the media channel's (4, H, W) frame, 1920x1080 (file consumer)"),
     }
     slow_plain = ("yadif_ring", "yadif_pair", "packed_composite", "packed_warp", "rotate")
+    none = "none (no single PyTorch call computes a planar decode or encode)"
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
         "v210_pack": ("phaneron_tpu_torch/csrc/v210_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
@@ -1306,6 +1591,10 @@ def main() -> int:
         "combine_pack": ("phaneron_tpu_torch/csrc/combine_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:733"),
         "packed_warp": ("phaneron_tpu_torch/csrc/packed_warp.cu", "phaneron_tpu/ops/pallas_packed_warp.py:416"),
         "rotate": ("phaneron_tpu_torch/csrc/rotate.cu", "phaneron_tpu/ops/pallas_rotate.py:326"),
+        "planar422_pack": ("phaneron_tpu_torch/csrc/planar422_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:970"),
+        "planar420_unpack": ("phaneron_tpu_torch/csrc/planar420_unpack.cu",
+                             "phaneron_tpu/ops/pallas_kernels.py:1206"),
+        "planar420_pack": ("phaneron_tpu_torch/csrc/planar420_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:1296"),
     }
     grid_sample = lambda args: (lambda: torch.nn.functional.grid_sample(
         *args, mode="bilinear", padding_mode="zeros", align_corners=False))
@@ -1322,7 +1611,8 @@ def main() -> int:
             library_ms = time_ms(torch, grid_sample(rot_lib))
         print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP)"
-              + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else ""))
+              + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else "")
+              + (f", library {none}" if name.startswith("planar") else ""))
         source, replaces = meta[name]
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1390,7 +1680,14 @@ def main() -> int:
             call(K.fused_v210, fu_args), call(K.fused_v210_plain, fu_args),
             3 * UHD_H * pitch_bytes(UHD_W) + 4,
             UHD_W * UHD_H * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX)),
+        "planar422_unpack (yuv422p10le, 4 channels, 1920x1080, media path)": (
+            call(K.planar422_unpack, p10_args), call(K.planar422_unpack_plain, p10_args),
+            2 * 2 * planar_px + rgba, OPS_DECODE_PX * px),
+        "planar420_unpack (nv12, 1920x1080, media path)": (
+            call(K.planar420_unpack, nv12_args), call(K.planar420_unpack_plain, nv12_args),
+            1.5 * planar_px + rgba, OPS_DECODE_PX * px),
     }
+    modes = {}  # kernel name -> its other shapes and modes, for the kernels line
     for label, (kernel_fn, plain_fn, nbytes, ops, *library) in other.items():
         kernel_ms, plain_ms = best_of_two(torch, kernel_fn, plain_fn, dict(batches=3, calls=2, warmup=1))
         bound_ms, bound_by = bound(nbytes, ops)
@@ -1399,6 +1696,10 @@ def main() -> int:
             extra = f", grid_sample {time_ms(torch, grid_sample(library[0])):.4f} ms (the same sources, no mix)"
         print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
+        modes.setdefault(label.split(" ")[0], []).append(dict(
+            shape=label, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+    for r in records:
+        r["modes"] = modes.get(r["name"], [])
     print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Shared device helpers for the channel-frame kernels: OpenCL-style
 // rounding, the transfer functions, the YCbCr decode and encode, the v210
-// word fields and group packing, the axis-aligned bilinear taps and the
-// block-wide encode + pack of a row segment.
+// word fields and group packing, the axis-aligned bilinear taps, the
+// block-wide encode + pack of a row segment and the planar pixel-pair
+// decode and encode.
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
@@ -245,6 +246,69 @@ __device__ __forceinline__ void encode_pack_block(const Encode& e, const float r
   const int gi = blockIdx.x * kGroupsPerBlock + t;
   if (t >= kGroupsPerBlock || gi >= groups) return;
   words[static_cast<size_t>(row) * groups + gi] = v210_group(ys + 6 * t, cb + 3 * t, cr + 3 * t);
+}
+
+// The pixel pair x0 = 2k, x0 + 1 of one planar row (luma samples yrow),
+// which shares one Cb and one Cr sample (the 2x nearest chroma upsample):
+// each pixel inside the frame decoded and stored as RGBA with alpha 1 into
+// out's row o, whose channel planes lie `plane` floats apart.
+template <typename T>
+__device__ __forceinline__ void decode_pair(const Decode& d, const T* __restrict__ yrow, int x0,
+                                            int width, float uf, float vf,
+                                            float* __restrict__ o, size_t plane) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int x = x0 + q;
+    if (x >= width) break;
+    float rgb[3];
+    decode(d, static_cast<float>(yrow[x]), uf, vf, rgb);
+    o[x] = rgb[0];
+    o[plane + x] = rgb[1];
+    o[2 * plane + x] = rgb[2];
+    o[3 * plane + x] = 1.0f;
+  }
+}
+
+// The codes a planar format stores for pixels past the frame width (the
+// pitch pad and an odd width's missing pixel: black luma, null chroma,
+// yuv422p10.ts:180-182) and the mask to its bit depth, as
+// ops/formats/planar.py chroma_null and pallas_kernels.py's code_mask
+struct PlanarPad {
+  unsigned black, null, mask;
+};
+
+inline PlanarPad planar_pad(int num_bits, int luma_black) {
+  return PlanarPad{static_cast<unsigned>(luma_black), 128u << (num_bits - 8),
+                   (1u << num_bits) - 1u};
+}
+
+// Planar codes of the pixel pair x0 = 2k, x0 + 1 of one row of a linear
+// RGB(A) frame (row: the row's R samples; channel planes `plane` floats
+// apart; alpha is not read): both pixels' luma and, when `chroma`, the
+// even pixel's Cb and Cr, each masked to the bit depth.  A pixel past
+// the frame width keeps the pad codes.
+struct PairCodes {
+  unsigned y[2], cb, cr;
+};
+
+__device__ __forceinline__ PairCodes encode_pair(const Encode& e, const float* __restrict__ row,
+                                                 size_t plane, int x0, int width, bool chroma,
+                                                 const PlanarPad& pad) {
+  PairCodes c{{pad.black, pad.black}, pad.null, pad.null};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int x = x0 + q;
+    if (x >= width) break;
+    const float rp = l2g(e.g, row[x]);
+    const float gp = l2g(e.g, row[plane + x]);
+    const float bp = l2g(e.g, row[2 * plane + x]);
+    c.y[q] = static_cast<unsigned>(encode_row(e, 0, rp, gp, bp)) & pad.mask;
+    if (q == 0 && chroma) {
+      c.cb = static_cast<unsigned>(encode_row(e, 1, rp, gp, bp)) & pad.mask;
+      c.cr = static_cast<unsigned>(encode_row(e, 2, rp, gp, bp)) & pad.mask;
+    }
+  }
+  return c;
 }
 
 inline Decode decode_from(const float* coeffs, const float* g2l_table) {

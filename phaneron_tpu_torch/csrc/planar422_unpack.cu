@@ -1,62 +1,63 @@
-// K3 planar422_unpack: 8-bit planar 4:2:2 (yuv422p8) -> linear RGBA
+// K3 / B10 planar422_unpack: planar 4:2:2, 8-bit (yuv422p8, uint8
+// samples) or 10-bit (yuv422p10le, uint16 samples) -> linear RGBA
 // (4, H, W) float32.
 //
 // Replaces phaneron_tpu/ops/pallas_kernels.py:_make_planar422_spatial_unpack
 // (reached through make_planar422_unpack_rgba) and the phase kernel of
 // make_planar422_unpack_rgba, which covers other widths.
 //
-// Bound: device-memory bytes.  Per pixel it reads 2 bytes of samples and
-// writes 16 bytes of RGBA.  Design: one thread per pixel pair reads its
-// two luma samples and the pair's one Cb and Cr sample, so the 2x nearest
-// chroma upsample is a shared register instead of the TPU kernel's
-// one-hot MXU product.  Neighbouring threads read neighbouring samples.
+// Bound: device-memory bytes.  Per pixel it reads 2 samples (2 or 4
+// bytes) and writes 16 bytes of RGBA.  Design: one thread per pixel pair
+// reads its two luma samples and the pair's one Cb and Cr sample, so the
+// 2x nearest chroma upsample is a shared register instead of the TPU
+// kernel's one-hot MXU product (and its 4*hi8 + lo2 bf16 split of 10-bit
+// codes).  Neighbouring threads read neighbouring samples.
 #include "phn_common.cuh"
 
 namespace {
 
-__global__ void planar422_unpack_kernel(const uint8_t* __restrict__ y,
-                                        const uint8_t* __restrict__ u,
-                                        const uint8_t* __restrict__ v,
-                                        float* __restrict__ out, phn::Decode d, int width,
-                                        int height, int y_pitch, int c_pitch) {
+template <typename T>
+__global__ void planar422_unpack_kernel(const T* __restrict__ y, const T* __restrict__ u,
+                                        const T* __restrict__ v, float* __restrict__ out,
+                                        phn::Decode d, int width, int height, int y_pitch,
+                                        int c_pitch) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y;
-  const int x0 = 2 * k;
-  if (x0 >= width) return;
+  if (2 * k >= width) return;
 
-  const float uf = static_cast<float>(u[static_cast<size_t>(row) * c_pitch + k]);
-  const float vf = static_cast<float>(v[static_cast<size_t>(row) * c_pitch + k]);
-  const uint8_t* yrow = y + static_cast<size_t>(row) * y_pitch;
-  const size_t plane = static_cast<size_t>(width) * height;
-  float* o = out + static_cast<size_t>(row) * width;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int x = x0 + q;
-    if (x >= width) break;
-    float rgb[3];
-    phn::decode(d, static_cast<float>(yrow[x]), uf, vf, rgb);
-    o[x] = rgb[0];
-    o[plane + x] = rgb[1];
-    o[2 * plane + x] = rgb[2];
-    o[3 * plane + x] = 1.0f;
-  }
+  const size_t c = static_cast<size_t>(row) * c_pitch + k;
+  phn::decode_pair(d, y + static_cast<size_t>(row) * y_pitch, 2 * k, width,
+                   static_cast<float>(u[c]), static_cast<float>(v[c]),
+                   out + static_cast<size_t>(row) * width, static_cast<size_t>(width) * height);
 }
 
 }  // namespace
 
-// y: (height, y_pitch) uint8; u, v: (height, c_pitch) uint8; out: (4,
-// height, width) float32.  coeffs: col[12], gamut[9]; g2l: the
+// y: (height, y_pitch); u, v: (height, c_pitch) samples, uint8 for
+// num_bits 8 and uint16 for num_bits 10; out: (4, height, width) float32.
+// coeffs: col[12], gamut[9] of the format's decode; g2l: the
 // gamma'->linear table (65536 float32) in device memory.  Returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for another bit depth.
 extern "C" int phn_planar422_unpack(const void* y, const void* u, const void* v, void* out,
                                     int width, int height, int y_pitch, int c_pitch,
-                                    const float* coeffs, const float* g2l, void* stream) {
+                                    int num_bits, const float* coeffs, const float* g2l,
+                                    void* stream) {
   const int pairs = (width + 1) / 2;
   const dim3 block(128);
   const dim3 grid((pairs + block.x - 1) / block.x, height);
-  planar422_unpack_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
-      static_cast<const uint8_t*>(v), static_cast<float*>(out), phn::decode_from(coeffs, g2l),
-      width, height, y_pitch, c_pitch);
+  const phn::Decode d = phn::decode_from(coeffs, g2l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (num_bits == 8) {
+    planar422_unpack_kernel<uint8_t><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
+        static_cast<const uint8_t*>(v), o, d, width, height, y_pitch, c_pitch);
+  } else if (num_bits == 10) {
+    planar422_unpack_kernel<uint16_t><<<grid, block, 0, s>>>(
+        static_cast<const uint16_t*>(y), static_cast<const uint16_t*>(u),
+        static_cast<const uint16_t*>(v), o, d, width, height, y_pitch, c_pitch);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,10 @@ the host with numpy.
   "src_b": [...], "matrix": (3, 3), "mix": scalar}, ...]}`` with numpy
   leaves (the caller ``np.asarray``-s JAX arrays) -> the same structure
   of tensors on ``device``.  uint32 planes (v210 words) become int32
-  bit-views; float64 leaves become float32; a (C, H, W) float source
-  (``rgba_f32``) stays one tensor.  Deinterlace rings (``src_ring``,
+  bit-views; uint16 planes (yuv422p10le) stay torch.uint16 and uint8
+  planes (yuv422p8, yuv420p, nv12, and the (H, W, 4) rgba8 and bgra8
+  pixels) stay uint8; float64 leaves become float32; a (C, H, W) float
+  source (``rgba_f32``) stays one tensor.  Deinterlace rings (``src_ring``,
   ``src_b_ring``: three (C, H, W) frames) stay tuples, and an integer
   ``parity`` becomes a 0-d int32 tensor.
 - ``words_to_numpy(t)``: the inverse for word tensors, -> uint32 numpy.
@@ -31,7 +33,8 @@ __all__ = ["params_from_numpy", "spec_from_fields", "words_to_numpy", "to_tensor
 
 def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
     """One numpy leaf -> a tensor on ``device`` (uint32 -> int32 bit-view,
-    float64 -> float32, int64 -> int32)."""
+    float64 -> float32, int64 -> int32; uint16 and uint8 keep their
+    type)."""
     a = np.asarray(value)
     if a.dtype == np.uint32:
         a = a.view(np.int32)

@@ -31,15 +31,20 @@ Routes into a v210 output, in the order they are chosen:
    dissolve under one shared or two distinct matrices) decodes at its
    warp taps in one ``packed_warp`` launch (B6) and its slots are not
    unpacked; every other v210 slot of the frame (wipe masks included)
-   unpacks in one K1 launch, planar 4:2:2 slots through K3, deinterlaced
-   slots through the yadif ring kernel, other axis-aligned DVE layers,
-   their dissolves and wipes through K4, rotated ones through
+   unpacks in one K1 launch, planar 4:2:2 slots (8 or 10 bit) through
+   K3, 4:2:0 slots (yuv420p, nv12) through B12, RGB slots (rgba8, bgra8)
+   in torch ops, deinterlaced slots through the yadif ring kernel, other
+   axis-aligned DVE layers, their dissolves and wipes through K4, rotated ones through
    ``rotate.rotate`` (B14).  Opaque alpha-free (3, H, W) sources take the
    3-channel route of the JAX package (``(rgb, wy, wx)`` tuples whose
    alpha is the separable warp alpha); other structures pad alpha to 1.
    With ``emit_rgba`` the tail is ``combine`` (torch ops) and K2, and
    the program returns ``{"packed": [...], "rgba": frame}`` whose alpha
    is the top layer's.
+
+Other outputs take the staged route's layers, ``combine`` (torch ops)
+and the output format's pack: B11 for planar 4:2:2 (8 or 10 bit), B13
+for yuv420p and nv12, torch ops for rgba8 and bgra8.
 
 A wrapper given CPU tensors runs its plain version, so on the CPU the
 whole program is plain PyTorch.  The JAX package picks its TPU kernels
@@ -51,7 +56,7 @@ So at 1080p the port takes B5, B6 and B7 where the JAX package on a TPU
 stays staged; the numbers agree within each contract.  On a CUDA device
 a structure without a ported kernel raises NotImplementedError naming
 the ROADMAP item it waits for; it never runs plain code on the card
-unasked.  ``plain=True`` on the channel, unpack and pair-deinterlace
+unasked.  ``plain=True`` on the channel, unpack, pack and pair-deinterlace
 programs runs every stage's plain version on the inputs' device: the
 reference the kernel path is checked against on the card.
 
@@ -76,9 +81,8 @@ import torch
 
 from ..ops import io as fio
 from ..ops import kernels, packed_warp, rotate as rotate_mod, warp as warp_mod, yadif
-from ..ops.coeffs import make_saver
 from ..ops.composite import combine, combine_rgb, mix_frames, wipe_mask
-from ..ops.formats import FORMATS, get_format
+from ..ops.formats import get_format
 from ..runtime.frame import RGBA_F32
 
 __all__ = [
@@ -131,8 +135,6 @@ class ChannelSpec(NamedTuple):
 
 
 _V210 = "v210"
-_PLANAR422_8 = ("yuv422p", "yuv422p8")
-_SOURCE_FORMATS = (_V210,) + _PLANAR422_8 + (RGBA_F32,)
 
 
 _TRANSITIONS = ("none", "dissolve", "wipe")
@@ -149,19 +151,20 @@ def _slot_formats(ls: LayerSpec) -> list[tuple[str, str]]:
     return slots
 
 
-def _unported(spec: ChannelSpec) -> Optional[str]:
-    """The ROADMAP item a structure waits for when the port has no code
-    for it at all (neither kernel nor plain version)."""
+def missing_kernel(spec: ChannelSpec) -> Optional[str]:
+    """The ROADMAP item a structure waits for, or None when the port runs
+    it: every stage then has its kernel on the card and its plain version
+    on the CPU.  A format the registry does not know raises KeyError, as
+    ``get_format`` does in the JAX package."""
     for ls in spec.layers:
         if ls.src_size is not None:
             return "A3 (resize_frame for src_size sources)"
         if ls.transition not in _TRANSITIONS:
             return f"A4 (transition '{ls.transition}': not one of {_TRANSITIONS})"
         for _, fmt in _slot_formats(ls):
-            if fmt not in _SOURCE_FORMATS:
-                return f"A2 and B10-B12 (source format '{fmt}')"
-    if spec.out_format not in FORMATS:
-        return f"A2 and B11/B13 (output format '{spec.out_format}')"
+            if fmt != RGBA_F32:
+                get_format(fmt)
+    get_format(spec.out_format)
     return None
 
 
@@ -184,26 +187,12 @@ def _packed_layer_ok(ls: LayerSpec) -> bool:
     return ls.has_transform and ls.axis_aligned and _v210_clip(ls)
 
 
-def missing_kernel(spec: ChannelSpec) -> Optional[str]:
-    """The ROADMAP item a structure waits for when the port runs it only
-    through plain code (no CUDA kernel yet), or None when every stage of
-    the structure has its kernel."""
-    reason = _unported(spec)
-    if reason is not None:
-        return reason
-    if spec.out_format != _V210:
-        return f"B11 (pack kernel for output format '{spec.out_format}')"
-    return None
-
-
 def check_structure(spec: ChannelSpec, device: torch.device | str) -> None:
     """Raise NotImplementedError for a structure the port cannot run on
-    ``device``: on CUDA every stage needs its kernel; on the CPU every
-    stage needs a plain version."""
-    on_cuda = torch.device(device).type == "cuda"
-    reason = missing_kernel(spec) if on_cuda else _unported(spec)
+    ``device`` (``missing_kernel``)."""
+    reason = missing_kernel(spec)
     if reason is not None:
-        where = "the GPU" if on_cuda else "PyTorch"
+        where = "the GPU" if torch.device(device).type == "cuda" else "PyTorch"
         raise NotImplementedError(
             f"channel structure not ported to {where} yet: ROADMAP.md {reason}"
         )
@@ -214,8 +203,11 @@ class _Stages(NamedTuple):
 
     v210_unpack: Callable
     planar422_unpack: Callable
+    planar420_unpack: Callable
     warp: Callable
     v210_pack: Callable
+    planar422_pack: Callable
+    planar420_pack: Callable
     yadif_ring: Callable
     yadif_pair: Callable
     packed_composite: Callable
@@ -225,13 +217,15 @@ class _Stages(NamedTuple):
 
 
 _KERNELS = _Stages(
-    kernels.v210_unpack, kernels.planar422_unpack, warp_mod.warp, kernels.v210_pack,
-    yadif.yadif_ring, yadif.yadif_pair, packed_warp.packed_composite, packed_warp.packed_warp,
+    kernels.v210_unpack, kernels.planar422_unpack, kernels.planar420_unpack, warp_mod.warp,
+    kernels.v210_pack, kernels.planar422_pack, kernels.planar420_pack, yadif.yadif_ring,
+    yadif.yadif_pair, packed_warp.packed_composite, packed_warp.packed_warp,
     kernels.combine_pack, rotate_mod.rotate,
 )
 _PLAIN = _Stages(
-    kernels.v210_unpack_plain, kernels.planar422_unpack_plain, warp_mod.warp_plain,
-    kernels.v210_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
+    kernels.v210_unpack_plain, kernels.planar422_unpack_plain, kernels.planar420_unpack_plain,
+    warp_mod.warp_plain, kernels.v210_pack_plain, kernels.planar422_pack_plain,
+    kernels.planar420_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
     packed_warp.packed_composite_plain, packed_warp.packed_warp_plain,
     kernels.combine_pack_plain, rotate_mod.rotate_plain,
 )
@@ -259,6 +253,38 @@ def _fit_channel(frame: torch.Tensor, spec: ChannelSpec) -> torch.Tensor:
     return frame
 
 
+def _unpack_planes(
+    st: _Stages, fmt_name: str, planes, width: int, height: int, col_spec: str,
+    out_col_spec: str, gamma_mode: str = "analytic",
+) -> torch.Tensor:
+    """The planes of one non-v210 source -> linear RGBA (4, H, W): K3 for
+    planar 4:2:2 (8 or 10 bit), B12 for 4:2:0, torch ops for the RGB
+    formats (JAX ``_unpack``)."""
+    if fmt_name in kernels.PLANAR422:
+        return st.planar422_unpack(planes, width, height, col_spec, out_col_spec, fmt_name)
+    if fmt_name in kernels.PLANAR420:
+        return st.planar420_unpack(planes, width, height, col_spec, out_col_spec, fmt_name)
+    loader = kernels.format_loader(fmt_name, col_spec, out_col_spec, planes[0].device, gamma_mode)
+    return fio.to_rgba(get_format(fmt_name), planes, loader, width, height)
+
+
+def _pack_frame(
+    st: _Stages, fmt_name: str, rgb: torch.Tensor, out_col_spec: str,
+    gamma_mode: str = "analytic",
+) -> list:
+    """A linear RGB(A) frame -> the output format's planes: K2 for v210,
+    B11 for planar 4:2:2, B13 for 4:2:0, torch ops for the RGB formats."""
+    if fmt_name == _V210:
+        return [st.v210_pack(rgb, out_col_spec)]
+    if fmt_name in kernels.PLANAR422:
+        return st.planar422_pack(rgb, fmt_name, out_col_spec)
+    if fmt_name in kernels.PLANAR420:
+        return st.planar420_pack(rgb, fmt_name, out_col_spec)
+    _, h, w = rgb.shape
+    saver = kernels.format_saver(fmt_name, out_col_spec, rgb.device, gamma_mode)
+    return fio.from_rgba(get_format(fmt_name), rgb, saver, w, h)
+
+
 def _sources(
     spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset = frozenset()
 ) -> dict:
@@ -266,7 +292,8 @@ def _sources(
     A deinterlaced slot runs yadif over its ring at the params' parity,
     an ``rgba_f32`` slot passes its frame through, all v210 slots (wipe
     masks too) unpack in ONE call (the JAX package's _batch_unpack_slots)
-    and planar 4:2:2 slots one by one (JAX ``_layer_source``).  The slots
+    and every other slot on its own by its format (``_unpack_planes``,
+    JAX ``_layer_source``).  The slots
     of the layers in ``skip`` are left raw: the packed warp or the packed
     composite decodes them."""
     w, h = spec.width, spec.height
@@ -289,8 +316,8 @@ def _sources(
             elif fmt == _V210:
                 v210_slots.append((li, key))
             else:
-                out[(li, key)] = st.planar422_unpack(
-                    lp[key], w, h, spec.col_spec, spec.out_col_spec
+                out[(li, key)] = _unpack_planes(
+                    st, fmt, lp[key], w, h, spec.col_spec, spec.out_col_spec, spec.gamma_mode
                 )
     words = [params["layers"][li][key][0] for li, key in v210_slots]
     for slot, rgba in zip(
@@ -533,12 +560,7 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
             # the run is the stack top: its coverage alpha drove the 'over';
             # the emitted alpha is the top layer's
             composited = _top_alpha_fixup(composited, spec, params, run.end - 1)
-    if spec.out_format == _V210:
-        packed = [st.v210_pack(composited, spec.out_col_spec)]
-    else:
-        out_fmt = get_format(spec.out_format)
-        saver = make_saver(out_fmt.INFO, spec.out_col_spec, spec.gamma_mode, device)
-        packed = fio.from_rgba(out_fmt, composited, saver, spec.width, spec.height)
+    packed = _pack_frame(st, spec.out_format, composited, spec.out_col_spec, spec.gamma_mode)
     return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed
 
 
@@ -610,63 +632,60 @@ def make_unpack_program(
     """Producer-side ToRGBA as its own stage (io.ts:26-114): planes ->
     linear (channels, H, W) float32.  ``channels=3`` emits alpha-free
     frames for opaque wire formats (alpha would be the constant 1), the
-    frames of the 3-channel deinterlace ring.  v210 goes through K1; a
-    yuv422p8 source through K3, sliced to 3 channels where asked (as the
-    JAX package's off-route path does)."""
+    frames of the 3-channel deinterlace ring.  v210 goes through K1; every
+    other format through ``_unpack_planes`` (K3, B12 or torch ops),
+    sliced to 3 channels where asked (as the JAX package's off-route path
+    does)."""
     _analytic_only(gamma_mode)
     if channels not in (3, 4):
         raise ValueError(f"make_unpack_program: channels must be 3 or 4, got {channels}")
+    get_format(fmt_name)
     st = _PLAIN if plain else _KERNELS
-    if fmt_name == _V210:
 
-        def program(planes):
+    def program(planes):
+        if fmt_name == _V210:
             return st.v210_unpack(
                 [planes[0]], width, height, col_spec, out_col_spec, channels
             )[0]
+        return _unpack_planes(st, fmt_name, planes, width, height, col_spec, out_col_spec)[
+            :channels
+        ]
 
-    elif fmt_name in _PLANAR422_8:
-
-        def program(planes):
-            return st.planar422_unpack(planes, width, height, col_spec, out_col_spec)[
-                :channels
-            ]
-
-    else:
-        raise NotImplementedError(
-            f"unpack of '{fmt_name}' not ported yet: ROADMAP.md A2 and B10-B12"
-        )
     return program
 
 
 @lru_cache(maxsize=None)
 def make_pack_program(
-    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic"
+    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic",
+    plain: bool = False,
 ):
     """Consumer-side FromRGBA as its own stage (io.ts:116-179): a linear
-    RGB(A) (C, H, W) frame -> the packed planes."""
+    RGB(A) (C, H, W) frame -> the packed planes (``_pack_frame``: K2, B11,
+    B13 or torch ops)."""
     _analytic_only(gamma_mode)
-    if fmt_name != _V210:
-        raise NotImplementedError(
-            f"pack to '{fmt_name}' not ported yet: ROADMAP.md B11 and B13"
-        )
+    get_format(fmt_name)
+    st = _PLAIN if plain else _KERNELS
 
     def program(rgba):
         if tuple(rgba.shape[-2:]) != (height, width):
             raise ValueError(f"pack program: frame {tuple(rgba.shape)} is not {height}x{width}")
-        return [kernels.v210_pack(rgba, col_spec)]
+        return _pack_frame(st, fmt_name, rgba, col_spec)
 
     return program
 
 
 @lru_cache(maxsize=None)
 def make_interlaced_pack_program(
-    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic"
+    fmt_name: str, width: int, height: int, col_spec: str, gamma_mode: str = "analytic",
+    plain: bool = False,
 ):
     """Pack two field-rate frames into one interlaced packed frame: even
     lines from the top-field frame, odd from the bottom, the functional
     form of the reference consumer's two write passes
-    (macadamConsumer.ts:224-244, v210.ts:126-129)."""
-    pack = make_pack_program(fmt_name, width, height, col_spec, gamma_mode)
+    (macadamConsumer.ts:224-244, v210.ts:126-129).  A 4:2:0 format takes
+    its chroma from the even (top-field) lines (JAX io.py
+    interleave_rgba_fields)."""
+    pack = make_pack_program(fmt_name, width, height, col_spec, gamma_mode, plain)
 
     def program(top_rgba, bottom_rgba):
         return pack(fio.interleave_rgba_fields(top_rgba, bottom_rgba))
@@ -679,7 +698,7 @@ def make_interlaced_word_pack_program(fmt_name: str):
     """Field-pair interlaced output in the PACKED domain, or None.
 
     For a format without vertical chroma subsampling (sub_y == 1: v210,
-    planar 4:2:2) every packed row depends only on its own image row, so
+    planar 4:2:2, RGB) every packed row depends only on its own image row, so
     the interlaced wire frame is a row-parity select over the two field
     ticks' packed planes, equal to interleave_rgba_fields + pack with no
     second encode.  sub_y > 1 formats (4:2:0) return None and keep the
@@ -691,10 +710,12 @@ def make_interlaced_word_pack_program(fmt_name: str):
         outs = []
         for t, b in zip(top_planes, bottom_planes):
             # every sub_y == 1 format packs planes with image rows as the
-            # leading dim
-            rows = torch.arange(t.shape[0], device=t.device)
-            even = (rows % 2 == 0).reshape(-1, *([1] * (t.ndim - 1)))
-            outs.append(torch.where(even, t, b))
+            # leading dim: v210 and planar (H, words | pitch), RGB (H, W, 4);
+            # a row copy, which every sample type has on CUDA (torch.where
+            # has no uint16 kernel there)
+            out = b.clone()
+            out[0::2] = t[0::2]
+            outs.append(out)
         return outs
 
     return program

@@ -48,7 +48,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
-    "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -19,7 +19,7 @@ import torch
 
 from .quant import u16_sat_rte
 
-__all__ = ["ycbcr_to_rgba", "rgba_to_ycbcr"]
+__all__ = ["ycbcr_to_rgba", "rgb_gamut", "rgba_to_ycbcr"]
 
 GammaFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -49,6 +49,20 @@ def ycbcr_to_rgba(
             gm[1, 0] * r + gm[1, 1] * g + gm[1, 2] * b,
             gm[2, 0] * r + gm[2, 1] * g + gm[2, 2] * b,
             torch.ones_like(r),
+        ]
+    )
+
+
+def rgb_gamut(rgba: torch.Tensor, gamut_matrix: torch.Tensor) -> torch.Tensor:
+    """Apply a 3x3 linear gamut matrix to (4, H, W) RGBA, alpha untouched."""
+    r, g, b, a = rgba[0], rgba[1], rgba[2], rgba[3]
+    gm = gamut_matrix
+    return torch.stack(
+        [
+            gm[0, 0] * r + gm[0, 1] * g + gm[0, 2] * b,
+            gm[1, 0] * r + gm[1, 1] * g + gm[1, 2] * b,
+            gm[2, 0] * r + gm[2, 1] * g + gm[2, 2] * b,
+            a,
         ]
     )
 

@@ -17,8 +17,17 @@ Counterpart of phaneron_tpu/ops/pallas_kernels.py.  Each kernel has:
 | v210_unpack        | csrc/v210_unpack.cu          | _make_v210_spatial_unpack (C 3, 4), make_v210_unpack_rgba  |
 | v210_pack          | csrc/v210_pack.cu            | make_v210_pack_rgba                                        |
 | planar422_unpack   | csrc/planar422_unpack.cu     | _make_planar422_spatial_unpack, make_planar422_unpack_rgba |
+| planar422_pack     | csrc/planar422_pack.cu       | make_planar422_pack_rgba                                   |
+| planar420_unpack   | csrc/planar420_unpack.cu     | _make_planar420_spatial_unpack, make_planar420_unpack_rgba |
+| planar420_pack     | csrc/planar420_pack.cu       | make_planar420_pack_rgba                                   |
 | fused_v210         | csrc/fused_v210.cu           | make_fused_v210_program (_make_kernel)                     |
 | combine_pack       | csrc/combine_pack.cu         | make_v210_combine_pack                                     |
+
+The planar wrappers take the format by name (yuv422p8 or yuv422p10le for
+4:2:2, yuv420p or nv12 for 4:2:0) and key their coefficients, sample
+type and pad codes on its INFO.  The RGB formats (rgba8, bgra8) have no
+kernel: ops/io.py decodes and encodes them in torch ops, as the JAX
+package does in XLA.
 
 Every decode gathers gamma'->linear from ops/gamma.py g2l_table; the
 kernels receive the same table on their device (``g2l_table_on``).
@@ -36,9 +45,10 @@ import torch
 from . import colour_maths as cm
 from ._build import library
 from .coeffs import make_loader, make_saver
-from .formats import v210 as v210fmt
-from .formats import yuv422p8 as yuv422p8fmt
+from .colorspace import rgba_to_ycbcr
 from .composite import combine, combine_rgb, mix_frames
+from .formats import get_format
+from .formats import v210 as v210fmt
 from .gamma import g2l_table_on, l2g_constants
 from .io import from_rgba, to_rgba
 
@@ -49,6 +59,17 @@ __all__ = [
     "v210_pack_plain",
     "planar422_unpack",
     "planar422_unpack_plain",
+    "planar422_pack",
+    "planar422_pack_plain",
+    "planar420_unpack",
+    "planar420_unpack_plain",
+    "planar420_pack",
+    "planar420_pack_plain",
+    "PLANAR422",
+    "PLANAR420",
+    "decode_args",
+    "format_loader",
+    "format_saver",
     "fused_v210",
     "fused_v210_plain",
     "combine_pack",
@@ -59,6 +80,8 @@ __all__ = [
 
 MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
 MAX_LAYERS = 8  # layers per combine_pack launch (kMaxLayers in csrc/combine_pack.cu)
+PLANAR422 = ("yuv422p10le", "yuv422p10", "yuv422p", "yuv422p8")  # K3 / B10, B11
+PLANAR420 = ("yuv420p", "nv12")  # B12, B13
 
 
 # ------------------------------------------------------------- helpers
@@ -105,38 +128,81 @@ def _c_floats(values) -> ctypes.Array:
 
 
 @lru_cache(maxsize=None)
-def _decode_coeffs(num_bits: int, black: int, white: int, chroma: int,
-                   col_spec: str, out_col_spec: str) -> ctypes.Array:
-    """col[12], gamut[9] for csrc Decode (phn_common.cuh); its
-    gamma'->linear table is g2l_table_on(col_spec, device)."""
-    col = cm.ycbcr2rgb_matrix(col_spec, num_bits, black, white, chroma)
+def _decode_coeffs(fmt_name: str, col_spec: str, out_col_spec: str) -> ctypes.Array:
+    """col[12], gamut[9] for csrc Decode (phn_common.cuh) of a format's
+    codes; its gamma'->linear table is g2l_table_on(col_spec, device)."""
+    info = get_format(fmt_name).INFO
+    col = cm.ycbcr2rgb_matrix(
+        col_spec, info.num_bits, info.luma_black, info.luma_white, info.chroma_range
+    )
     gamut = cm.rgb2rgb_matrix(col_spec, out_col_spec)
     return _c_floats(np.concatenate([col.ravel(), gamut.ravel()]))
 
 
-def v210_decode_args(col_spec: str, out_col_spec: str, device: torch.device) -> tuple[int, int]:
-    """(coefficient array address, table pointer) of a v210 decode on
-    ``device``: the decode arguments of every kernel reading v210 words."""
-    coeffs = _decode_coeffs(10, 64, 940, 896, col_spec, out_col_spec)
+def decode_args(
+    fmt_name: str, col_spec: str, out_col_spec: str, device: torch.device
+) -> tuple[int, int]:
+    """(coefficient array address, table pointer) of a decode of the
+    format's codes on ``device``."""
+    coeffs = _decode_coeffs(fmt_name, col_spec, out_col_spec)
     return ctypes.addressof(coeffs), g2l_table_on(col_spec, device).data_ptr()
 
 
+def v210_decode_args(col_spec: str, out_col_spec: str, device: torch.device) -> tuple[int, int]:
+    """The decode arguments of every kernel reading v210 words."""
+    return decode_args("v210", col_spec, out_col_spec, device)
+
+
 @lru_cache(maxsize=None)
-def _encode_coeffs(out_col_spec: str) -> ctypes.Array:
-    """col[12], l2g[6] for csrc Encode (phn_common.cuh)."""
-    col = cm.rgb2ycbcr_matrix(out_col_spec, 10, 64, 940, 896)
+def _encode_coeffs(out_col_spec: str, fmt_name: str = "v210") -> ctypes.Array:
+    """col[12], l2g[6] for csrc Encode (phn_common.cuh), sized for the
+    format's bit depth and ranges."""
+    info = get_format(fmt_name).INFO
+    col = cm.rgb2ycbcr_matrix(
+        out_col_spec, info.num_bits, info.luma_black, info.luma_white, info.chroma_range
+    )
     return _c_floats(np.concatenate([col.ravel(), l2g_constants(out_col_spec)]))
 
 
 @lru_cache(maxsize=None)
-def _loader(fmt_name: str, col_spec: str, out_col_spec: str, device: torch.device):
-    info = v210fmt.INFO if fmt_name == "v210" else yuv422p8fmt.INFO
-    return make_loader(info, col_spec, out_col_spec, "analytic", device)
+def format_loader(fmt_name: str, col_spec: str, out_col_spec: str, device: torch.device,
+                  gamma_mode: str = "analytic"):
+    """The format's ToRGBA coefficients on ``device``, built once: what the
+    plain versions and the RGB formats' torch ops decode with."""
+    return make_loader(get_format(fmt_name).INFO, col_spec, out_col_spec, gamma_mode, device)
 
 
 @lru_cache(maxsize=None)
-def _saver(out_col_spec: str, device: torch.device):
-    return make_saver(v210fmt.INFO, out_col_spec, "analytic", device)
+def format_saver(fmt_name: str, out_col_spec: str, device: torch.device, gamma_mode: str = "analytic"):
+    """The format's FromRGBA coefficients on ``device``, built once."""
+    return make_saver(get_format(fmt_name).INFO, out_col_spec, gamma_mode, device)
+
+
+def _planar_format(fmt_name: str, names: tuple[str, ...], who: str):
+    if fmt_name not in names:
+        raise ValueError(f"{who}: format '{fmt_name}' is not one of {names}")
+    return get_format(fmt_name)
+
+
+def _sample_dtype(info) -> torch.dtype:
+    return torch.uint16 if info.num_bits > 8 else torch.uint8
+
+
+def _check_rgb(rgb: torch.Tensor, who: str) -> None:
+    if rgb.ndim != 3 or rgb.shape[0] not in (3, 4):
+        raise ValueError(f"{who}: expected (3|4, H, W), got {tuple(rgb.shape)}")
+
+
+def _planar_codes_plain(fmt, rgb: torch.Tensor, out_col_spec: str) -> list[torch.Tensor]:
+    """The planar packs' plain version, term for term as csrc
+    phn::encode_pair: linear->gamma', the format's encode matrix, rte and
+    saturation, the mask to its bit depth, then the format's pack (chroma
+    subsampling, the pad codes, the sample type).  Alpha is not read."""
+    _, h, w = rgb.shape
+    saver = format_saver(fmt.INFO.name, out_col_spec, rgb.device)
+    mask = (1 << fmt.INFO.num_bits) - 1
+    y, cb, cr = (c & mask for c in rgba_to_ycbcr(rgb, saver.col_matrix, saver.gamma.of))
+    return fmt.pack_codes(y, cb, cr, w, h)
 
 
 # ------------------------------------------------------- K1 v210 unpack
@@ -150,7 +216,7 @@ def v210_unpack_plain(
     linear RGB(A) (channels, H, W) float32."""
     return [
         to_rgba(
-            v210fmt, [w], _loader("v210", col_spec, out_col_spec, w.device), width, height
+            v210fmt, [w], format_loader("v210", col_spec, out_col_spec, w.device), width, height
         )[:channels]
         for w in words
     ]
@@ -204,14 +270,13 @@ v210_unpack.launches = 0
 def v210_pack_plain(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tensor:
     """Plain version of v210_pack."""
     _, h, w = rgb.shape
-    return from_rgba(v210fmt, rgb, _saver(out_col_spec, rgb.device), w, h)[0]
+    return from_rgba(v210fmt, rgb, format_saver("v210", out_col_spec, rgb.device), w, h)[0]
 
 
 def v210_pack(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tensor:
     """Linear RGB(A) (C, H, W) float32, C = 3 or 4 -> v210 words (H,
     pitch_bytes/4) int32.  Alpha is never read; pitch-pad fields are 0."""
-    if rgb.ndim != 3 or rgb.shape[0] not in (3, 4):
-        raise ValueError(f"v210_pack: expected (3|4, H, W), got {tuple(rgb.shape)}")
+    _check_rgb(rgb, "v210_pack")
     if is_cpu(rgb, "v210_pack"):
         return v210_pack_plain(rgb, out_col_spec)
     c, h, w = rgb.shape
@@ -231,43 +296,43 @@ def v210_pack(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tensor:
 v210_pack.launches = 0
 
 
-# ------------------------------------------------- K3 planar 4:2:2 unpack
+# ------------------------------------ K3 / B10 planar 4:2:2 unpack
 
 
 def planar422_unpack_plain(
     planes: Sequence[torch.Tensor], width: int, height: int,
-    col_spec: str = "709", out_col_spec: str = "709",
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "yuv422p8",
 ) -> torch.Tensor:
     """Plain version of planar422_unpack."""
-    loader = _loader("yuv422p8", col_spec, out_col_spec, planes[0].device)
-    return to_rgba(yuv422p8fmt, list(planes), loader, width, height)
+    fmt = _planar_format(fmt_name, PLANAR422, "planar422_unpack")
+    loader = format_loader(fmt_name, col_spec, out_col_spec, planes[0].device)
+    return to_rgba(fmt, list(planes), loader, width, height)
 
 
 def planar422_unpack(
     planes: Sequence[torch.Tensor], width: int, height: int,
-    col_spec: str = "709", out_col_spec: str = "709",
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "yuv422p8",
 ) -> torch.Tensor:
-    """yuv422p8 planes -> linear RGBA (4, H, W) float32.  Planes are
-    uint8 y (H, pitch) and u, v (H, pitch/2), pitch = width rounded up
-    to 8."""
+    """Planar 4:2:2 planes -> linear RGBA (4, H, W) float32.  Planes are
+    y (H, pitch) and u, v (H, pitch/2), pitch = width rounded up to 8:
+    uint8 for yuv422p8, torch.uint16 10-bit codes for yuv422p10le."""
+    fmt = _planar_format(fmt_name, PLANAR422, "planar422_unpack")
     y, u, v = planes
     if is_cpu(y, "planar422_unpack"):
-        return planar422_unpack_plain(planes, width, height, col_spec, out_col_spec)
-    p = yuv422p8fmt.pitch(width)
-    check_arg(y, "planar422_unpack y", y.device, torch.uint8, (height, p), align=1)
-    check_arg(u, "planar422_unpack u", y.device, torch.uint8, (height, p // 2), align=1)
-    check_arg(v, "planar422_unpack v", y.device, torch.uint8, (height, p // 2), align=1)
-    info = yuv422p8fmt.INFO
-    coeffs = _decode_coeffs(
-        info.num_bits, info.luma_black, info.luma_white, info.chroma_range,
-        col_spec, out_col_spec,
-    )
+        return planar422_unpack_plain(planes, width, height, col_spec, out_col_spec, fmt_name)
+    info = fmt.INFO
+    dtype = _sample_dtype(info)
+    p = fmt.pitch(width)
+    align = dtype.itemsize
+    check_arg(y, "planar422_unpack y", y.device, dtype, (height, p), align=align)
+    check_arg(u, "planar422_unpack u", y.device, dtype, (height, p // 2), align=align)
+    check_arg(v, "planar422_unpack v", y.device, dtype, (height, p // 2), align=align)
+    coeffs, g2l = decode_args(fmt_name, col_spec, out_col_spec, y.device)
     out = torch.empty((4, height, width), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         rc = library().phn_planar422_unpack(
             y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            width, height, p, p // 2, ctypes.addressof(coeffs),
-            g2l_table_on(col_spec, y.device).data_ptr(), stream_handle(y.device),
+            width, height, p, p // 2, info.num_bits, coeffs, g2l, stream_handle(y.device),
         )
     check_launch(rc, "planar422_unpack")
     planar422_unpack.launches += 1
@@ -275,6 +340,146 @@ def planar422_unpack(
 
 
 planar422_unpack.launches = 0
+
+
+# ---------------------------------------------- B11 planar 4:2:2 pack
+
+
+def planar422_pack_plain(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") -> list:
+    """Plain version of planar422_pack."""
+    fmt = _planar_format(fmt_name, PLANAR422, "planar422_pack")
+    return _planar_codes_plain(fmt, rgb, out_col_spec)
+
+
+def planar422_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") -> list:
+    """Linear RGB(A) (C, H, W) float32, C = 3 or 4 -> planar 4:2:2 planes
+    [y (H, pitch), u (H, pitch/2), v (H, pitch/2)] of the format's sample
+    type.  Chroma comes from even pixels; the pitch pad and an odd width's
+    missing pixel pack as black luma and null chroma.  Alpha is never
+    read."""
+    fmt = _planar_format(fmt_name, PLANAR422, "planar422_pack")
+    _check_rgb(rgb, "planar422_pack")
+    if is_cpu(rgb, "planar422_pack"):
+        return planar422_pack_plain(rgb, fmt_name, out_col_spec)
+    c, h, w = rgb.shape
+    dev = rgb.device
+    check_arg(rgb, "planar422_pack rgb", dev, torch.float32, (c, h, w))
+    info = fmt.INFO
+    dtype = _sample_dtype(info)
+    p = fmt.pitch(w)
+    y = torch.empty((h, p), dtype=dtype, device=dev)
+    u = torch.empty((h, p // 2), dtype=dtype, device=dev)
+    v = torch.empty((h, p // 2), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().phn_planar422_pack(
+            rgb.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(), w, h, p, p // 2,
+            info.num_bits, info.luma_black,
+            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), stream_handle(dev),
+        )
+    check_launch(rc, "planar422_pack")
+    planar422_pack.launches += 1
+    return [y, u, v]
+
+
+planar422_pack.launches = 0
+
+
+# -------------------------------------------- B12 planar 4:2:0 unpack
+
+
+def planar420_unpack_plain(
+    planes: Sequence[torch.Tensor], width: int, height: int,
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "yuv420p",
+) -> torch.Tensor:
+    """Plain version of planar420_unpack."""
+    fmt = _planar_format(fmt_name, PLANAR420, "planar420_unpack")
+    loader = format_loader(fmt_name, col_spec, out_col_spec, planes[0].device)
+    return to_rgba(fmt, list(planes), loader, width, height)
+
+
+def _chroma_420(fmt_name: str, p: int) -> tuple[int, int]:
+    """(chroma plane pitch, interleaved) of a 4:2:0 format."""
+    return (p, 1) if fmt_name == "nv12" else (p // 2, 0)
+
+
+def planar420_unpack(
+    planes: Sequence[torch.Tensor], width: int, height: int,
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "yuv420p",
+) -> torch.Tensor:
+    """8-bit 4:2:0 planes -> linear RGBA (4, H, W) float32, at any height.
+    yuv420p: y (H, pitch), u, v ((H+1)/2, pitch/2); nv12: y and one
+    interleaved CbCr plane ((H+1)/2, pitch).  Every plane uint8."""
+    fmt = _planar_format(fmt_name, PLANAR420, "planar420_unpack")
+    if is_cpu(planes[0], "planar420_unpack"):
+        return planar420_unpack_plain(planes, width, height, col_spec, out_col_spec, fmt_name)
+    p = fmt.pitch(width)
+    cp, interleaved = _chroma_420(fmt_name, p)
+    h2 = (height + 1) // 2
+    if len(planes) != 3 - interleaved:
+        raise ValueError(f"planar420_unpack: {fmt_name} has {3 - interleaved} planes")
+    dev = planes[0].device
+    check_arg(planes[0], "planar420_unpack y", dev, torch.uint8, (height, p), align=1)
+    for c in planes[1:]:
+        check_arg(c, "planar420_unpack chroma", dev, torch.uint8, (h2, cp), align=1)
+    coeffs, g2l = decode_args(fmt_name, col_spec, out_col_spec, dev)
+    out = torch.empty((4, height, width), dtype=torch.float32, device=dev)
+    c1 = planes[2].data_ptr() if not interleaved else None
+    with torch.cuda.device(dev):
+        rc = library().phn_planar420_unpack(
+            planes[0].data_ptr(), planes[1].data_ptr(), c1, out.data_ptr(),
+            width, height, p, cp, interleaved, coeffs, g2l, stream_handle(dev),
+        )
+    check_launch(rc, "planar420_unpack")
+    planar420_unpack.launches += 1
+    return out
+
+
+planar420_unpack.launches = 0
+
+
+# ---------------------------------------------- B13 planar 4:2:0 pack
+
+
+def planar420_pack_plain(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") -> list:
+    """Plain version of planar420_pack."""
+    fmt = _planar_format(fmt_name, PLANAR420, "planar420_pack")
+    return _planar_codes_plain(fmt, rgb, out_col_spec)
+
+
+def planar420_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") -> list:
+    """Linear RGB(A) (C, H, W) float32, C = 3 or 4 -> 8-bit 4:2:0 planes:
+    yuv420p [y, u, v], nv12 [y, CbCr] (the layouts of planar420_unpack).
+    Chroma comes from the even pixels of even lines (yuv420p.ts:191-201);
+    the pitch pad packs as black luma and null chroma.  Alpha is never
+    read."""
+    fmt = _planar_format(fmt_name, PLANAR420, "planar420_pack")
+    _check_rgb(rgb, "planar420_pack")
+    if is_cpu(rgb, "planar420_pack"):
+        return planar420_pack_plain(rgb, fmt_name, out_col_spec)
+    c, h, w = rgb.shape
+    dev = rgb.device
+    check_arg(rgb, "planar420_pack rgb", dev, torch.float32, (c, h, w))
+    info = fmt.INFO
+    if info.num_bits != 8:
+        raise ValueError(f"planar420_pack: {fmt_name} is not an 8-bit format")
+    p = fmt.pitch(w)
+    cp, interleaved = _chroma_420(fmt_name, p)
+    h2 = (h + 1) // 2
+    planes = [torch.empty((h, p), dtype=torch.uint8, device=dev)]
+    planes += [torch.empty((h2, cp), dtype=torch.uint8, device=dev) for _ in range(2 - interleaved)]
+    c1 = planes[2].data_ptr() if not interleaved else None
+    with torch.cuda.device(dev):
+        rc = library().phn_planar420_pack(
+            rgb.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(), c1, w, h, p, cp,
+            interleaved, info.luma_black,
+            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), stream_handle(dev),
+        )
+    check_launch(rc, "planar420_pack")
+    planar420_pack.launches += 1
+    return planes
+
+
+planar420_pack.launches = 0
 
 
 # ------------------------------------------------ B3 fused v210 program

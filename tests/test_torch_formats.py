@@ -1,5 +1,6 @@
 """Port parity: the v210 and yuv422p8 formats and the to_rgba / from_rgba
-stages of phaneron_tpu_torch against phaneron_tpu on the CPU."""
+stages of phaneron_tpu_torch against phaneron_tpu on the CPU (the
+file-media formats: tests/test_torch_planar.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,5 +102,5 @@ def test_rgba_roundtrip_bit_exact_and_matches_jax(name, width, mode):
 
 def test_unknown_format_raises_keyerror():
     with pytest.raises(KeyError):
-        tget_format("yuv420p")
+        tget_format("yuv444p12le")
     assert tget_format("yuv422p") is tget_format("yuv422p8")

@@ -103,17 +103,17 @@ def test_fused_v210_plain_is_the_staged_top_layer_and_cpu_launches_nothing():
 
 def test_fused_v210_chosen_over_an_unported_lower_layer():
     """JAX picks the fused program before it looks at the lower layers;
-    so does the port: a yuv422p10le layer under a v210 dissolve top (no
-    10-bit planar source in the port yet) runs, and equals JAX's fused
-    program."""
+    so does the port: an off-geometry lower layer (``src_size``, waiting
+    for ROADMAP A3's resize_frame) under a v210 dissolve top runs, and
+    equals JAX's fused program."""
     w = 192
     rng = np.random.default_rng(17)
     a, b, low = (random_words(rng, w, H) for _ in range(3))
     spec = tpipe.ChannelSpec(w, H, "v210", layers=(
-        tpipe.LayerSpec("yuv422p10le", transition="dissolve"),
+        tpipe.LayerSpec("v210", transition="dissolve", src_size=(96, 8)),
         tpipe.LayerSpec("v210", transition="dissolve", src_b_format="v210"),
     ))
-    with pytest.raises(NotImplementedError, match="yuv422p10le"):
+    with pytest.raises(NotImplementedError, match="A3"):
         tpipe.check_structure(spec, "cpu")
     params = params_from_numpy({"layers": [
         {"src": [low], "src_b": [low]}, {"src": [a], "src_b": [b], "mix": np.float32(0.55)},

@@ -170,8 +170,8 @@ def test_build_sources_and_flags():
     names = sorted(p.name for p in _build.sources())
     assert names == [
         "combine_pack.cu", "fused_v210.cu", "packed_composite.cu", "packed_warp.cu",
-        "phn_common.cuh", "planar422_unpack.cu", "rotate.cu", "v210_pack.cu", "v210_unpack.cu",
-        "warp.cu", "yadif.cu",
+        "phn_common.cuh", "planar420_pack.cu", "planar420_unpack.cu", "planar422_pack.cu",
+        "planar422_unpack.cu", "rotate.cu", "v210_pack.cu", "v210_unpack.cu", "warp.cu", "yadif.cu",
     ]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags

@@ -207,10 +207,20 @@ def test_entry_structure_dispatches_to_kernels_on_cuda():
                tpipe.LayerSpec("v210", transition="wipe", has_transform=True,
                                mask_format="yuv422p8", src_b_format="rgba_f32")), "wipe"),
         (_spec(tpipe.LayerSpec("v210"), emit_rgba=True), "emit_rgba"),
+        # the file-media formats: planar outputs (B11, B13), 10-bit 4:2:2
+        # (B10), 4:2:0 (B12) and RGB sources and outputs
+        (_spec(tpipe.LayerSpec("v210"), out_format="yuv422p8"), "B11"),
+        (_spec(tpipe.LayerSpec("yuv422p10le")), "yuv422p10le"),
+        (_spec(tpipe.LayerSpec("nv12")), "nv12"),
+        (_spec(tpipe.LayerSpec("yuv420p", transition="dissolve", has_transform=True,
+                               src_b_format="nv12"),
+               tpipe.LayerSpec("rgba8"), out_format="nv12", emit_rgba=True), "B12, B13"),
+        (_spec(tpipe.LayerSpec("bgra8", transition="wipe", mask_format="rgba"),
+               out_format="bgra8"), "bgra8"),
     ],
 )
 def test_straggler_structures_run_on_cuda(spec, item):
-    """The structures this slice ported have every kernel: they pass
+    """The structures the port has ported have every kernel: they pass
     check_structure on the card and on the CPU."""
     assert tpipe.missing_kernel(spec) is None, item
     tpipe.check_structure(spec, torch.device("cuda"))
@@ -218,23 +228,24 @@ def test_straggler_structures_run_on_cuda(spec, item):
 
 
 @pytest.mark.parametrize(
-    "spec,item,cpu_runs",
+    "spec,item",
     [
-        (_spec(tpipe.LayerSpec("v210"), out_format="yuv422p8"), "B11", True),
-        (_spec(tpipe.LayerSpec("yuv422p10le")), "yuv422p10le", False),
-        (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame", False),
-        (_spec(tpipe.LayerSpec("nv12")), "nv12", False),
+        (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame"),
+        (_spec(tpipe.LayerSpec("v210"), tpipe.LayerSpec("nv12", src_size=(128, 16)),
+               out_format="yuv420p"), "resize_frame"),
     ],
 )
-def test_structures_outside_the_slice_raise_on_cuda(spec, item, cpu_runs):
-    """A structure without a ported kernel (a planar output, a 10-bit or
-    4:2:0 source, an off-geometry source) raises on the card path, naming
-    its ROADMAP item; on the CPU it runs where a plain version exists and
-    raises otherwise."""
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.check_structure(spec, torch.device("cuda"))
-    if cpu_runs:
-        tpipe.check_structure(spec, "cpu")
-    else:
+def test_structures_outside_the_slice_raise_on_cuda(spec, item):
+    """A structure the port has no code for (an off-geometry source, ROADMAP
+    A3) raises on the card path and on the CPU, naming its ROADMAP item."""
+    for device in (torch.device("cuda"), "cpu"):
         with pytest.raises(NotImplementedError, match=item):
+            tpipe.check_structure(spec, device)
+
+
+def test_unknown_format_raises_keyerror():
+    """A format no registry knows fails as JAX's get_format does."""
+    for spec in (_spec(tpipe.LayerSpec("yuv444p12le")),
+                 _spec(tpipe.LayerSpec("v210"), out_format="yuv444p12le")):
+        with pytest.raises(KeyError, match="yuv444p12le"):
             tpipe.check_structure(spec, "cpu")

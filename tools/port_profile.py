@@ -8,8 +8,9 @@ Drives chip_smoke.py's main paths (the interlaced default load, four
 at 1920x1080; the progressive 4-layer frame at 3840x2160 and 1920x1080;
 the playout dissolve at 1920x1080 and 3840x2160; the straggler channels:
 one_rotation and wipe at 3840x2160 and 1920x1080, the rotated
-distinct-matrix dissolve and the emit_rgba frames at 1920x1080) under
-torch.profiler after warm-up, and prints
+distinct-matrix dissolve and the emit_rgba frames at 1920x1080; the
+file-media channel with its two consumer packs at 1920x1080 and
+3840x2160) under torch.profiler after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
@@ -134,6 +135,12 @@ def main() -> int:
     eprog = make_channel_program(espec._replace(emit_rgba=True))
     cs.progressive_animate(torch, eparams, dev, 0.5)
     profile(torch, f"progressive 4-layer frame emit_rgba, {cs.W}x{cs.H}", lambda: eprog(eparams), 20, card)
+    for w, h in ((cs.W, cs.H), (cs.UHD_W, cs.UHD_H)):
+        mspec, mparams = cs.media_spec_params(torch, dev, rng, w, h)
+        media = cs.MediaChannel(mspec, plain=False)
+        cs.media_animate(torch, mparams, dev, 0.5)
+        profile(torch, f"media channel and its rgba8 / nv12 consumer packs, {w}x{h}", lambda: media(mparams),
+                20, card)
     return 0
 
 
