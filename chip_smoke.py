@@ -36,10 +36,18 @@ Run from the repository root:  python3 chip_smoke.py
    and the stage programs of every format against their plain versions:
    make_unpack_program at channels 3 and 4 (max |delta| 0),
    make_pack_program, make_interlaced_pack_program("yuv420p") and
-   make_interlaced_word_pack_program("yuv422p10le") (<= 1 code).
+   make_interlaced_word_pack_program("yuv422p10le") (<= 1 code); then
+   packed_composite's whole-stack and RGBA modes: over (4, H, W)
+   premultiplied RGBA frames (the rgba kind, B16's counterpart) with
+   coverage and top alpha, emits rgba, both and packed, and over v210
+   words with top alpha (B15's), emits rgba and both (<= 2e-4 and <= 1
+   code, expected 0).
 4. Drives each main path through make_channel_program (or the stage
    programs), every launch count set to 0 just before and read just
-   after, each frame's words <= 1 code from the plain path on the card:
+   after, each frame's words <= 1 code from the plain path on the card;
+   the packed composite's launches are also split by mode (source kind,
+   emit, alpha) from the frame program's calls that raised its count, and
+   the pipeline's torch combine and alpha fix-up calls are counted:
    - entry: the entry() structure (a v210 dissolve with an axis-aligned
      DVE under a yuv422p8 layer) at 1920x1080 over 50 frames, mix
      ramping 0 -> 1 and the DVE scale animating 0.90 -> 1.0: one
@@ -70,9 +78,10 @@ Run from the repository root:  python3 chip_smoke.py
      and 1920x1080 (1 v210_unpack, 1 packed_composite emitting rgba, 1
      rotate or warp, 1 combine_pack a frame), a rotated distinct-matrix
      dissolve at 1080p, and two emit_rgba channels at 1080p (the
-     progressive frame: 1 packed_composite emitting both; one_rotation:
-     the torch combine and 1 v210_pack), whose rgba frame must be within
-     2e-4 of the plain path's and carry the top layer's alpha;
+     progressive frame: 1 packed_composite emitting both with the top
+     layer's alpha, no torch combine or fix-up; one_rotation: the torch
+     combine and 1 v210_pack), whose rgba frame must be within 2e-4 of
+     the plain path's and carry the top layer's alpha;
    - media: the file-media channel at 1920x1080 and 3840x2160, 8 frames
      each, its dissolve's mix animating 0 -> 1: a yuv422p10le clip (cut),
      a yuv420p clip under a picture-in-picture DVE dissolving to an nv12
@@ -83,14 +92,36 @@ Run from the repository root:  python3 chip_smoke.py
      ops for the rgba8 decode and the combine, 1 planar422_pack, then 1
      planar420_pack and the rgba8 pack in torch ops; every plane <= 1 code
      from the plain path's, the rgba frame within 2e-4 with the graphic's
-     alpha.
+     alpha;
+   - multibox: the file-media quad split (MIXER 1-n FILL over file clips),
+     8 frames at 1920x1080 and 3840x2160 into v210 with emit_rgba (SDI and
+     a ROUTE tap) and at 1920x1080 into yuv422p10le (a file record), the
+     dissolve's mix animating 0 -> 1: three boxes at scale 0.5 in three
+     quadrants (a yuv422p10le clip; a 1280x720 yuv420p clip, src_size,
+     dissolving to a 1280x720 nv12 clip; an nv12 clip) under the keyed
+     rgba8 graphic at title-safe scale 0.95.  A frame: 1 planar422_unpack
+     (10 bit), 3 planar420_unpack, torch ops for the two resizes and the
+     rgba8 decode, 1 packed_composite (rgba kind, top alpha; emit both
+     into v210, rgba then 1 planar422_pack into yuv422p10le); no warp,
+     combine_pack, v210_pack or torch combine;
+   - progressive_yuv422p10le: the progressive 4-layer frame at 1920x1080
+     into yuv422p10le: 1 packed_composite (v210 words, emit rgba, top
+     alpha) and 1 planar422_pack a frame;
+   - keyed_straggler: the keyed rgba8 graphic over two yuv422p8 -> nv12
+     boxes over a rotated v210 clip, 1920x1080 into v210 with emit_rgba,
+     the boxes' mixes animating 0 -> 1.  A frame: 1 v210_unpack, 1 rotate,
+     2 planar422_unpack, 2 planar420_unpack, 1 packed_composite over the
+     boxes (rgba kind, emit rgba, coverage alpha), 1 warp for the graphic,
+     which stays staged, the torch combine and 1 v210_pack; the rgba
+     frame carries the graphic's own warped alpha.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
    (rgb3) route, and each frame's latency with the card idle before and
    after; then each kernel against its plain version at a main path's
    shapes, K4 and rotate also against torch.nn.functional.grid_sample on
-   the same frames.
+   the same frames; packed_composite also in each whole-stack and rgba
+   mode at a main path's shapes.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -164,6 +195,17 @@ MEDIA_DVE = dict(scale_x=0.5, scale_y=0.5, offset_x=0.2, offset_y=-0.15)  # pict
 FORMAT_NAMES = ("v210", "yuv422p10le", "yuv422p8", "yuv420p", "nv12", "rgba8", "bgra8")
 # the 4:2:0 encode: luma every pixel, two chroma rows every fourth
 OPS_ENCODE_420_PX = 3 * OPS_L2G + 9 + 18 / 4
+OPS_K = 1  # packed composite, rgba kind: k = 1 - alpha of the sampled plane
+
+# the file-media multi-box channel (a quad split of file clips)
+MULTIBOX_FRAMES = 8  # frames per geometry and output
+MULTIBOX_CLIP = (1280, 720)  # L1's clip pair: a 720p H.264 clip and its nv12 successor
+# box -> (offset_x, offset_y) at scale 0.5: transform_matrix maps output
+# to input, so a box moves against the sign of its offset
+QUADRANTS = {"top_left": (0.25, 0.25), "top_right": (-0.25, 0.25), "bottom_left": (0.25, -0.25)}
+# the TPU kernels K5's whole-stack modes stand for
+B15 = "phaneron_tpu/ops/pallas_composite.py:407"
+B16 = "phaneron_tpu/ops/pallas_warp.py:910"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -784,6 +826,19 @@ def phase_stage_program_checks(torch, dev, rng) -> None:
     torch.cuda.synchronize()
 
 
+def check_planes(torch, fmt: str, planes, w: int, h: int, what: str) -> None:
+    """The output planes have the format's shapes and sample types."""
+    from phaneron_tpu_torch.ops.formats import get_format
+    from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
+
+    if fmt == "v210":
+        want = [((h, pitch_bytes(w) // 4), "int32")]
+    else:
+        want = [(tuple(s), str(np.dtype(dt))) for s, dt in get_format(fmt).plane_shapes(w, h)]
+    got = [(tuple(p.shape), str(p.dtype).removeprefix("torch.")) for p in planes]
+    check(got == want, f"{what}: {fmt} planes {got}, expected {want}")
+
+
 def graphic_rgba8(w: int, h: int) -> np.ndarray:
     """A keyed image-sequence lower third, (H, W, 4) rgba8, premultiplied:
     alpha 255 in a band of rows, 128 on the rows at its edges, 0
@@ -854,17 +909,14 @@ def drive_media(torch, media, plain_media, params, dev, frames: int, w: int, h: 
     yuv422p10le, preview and file planes (shapes, types, <= 1 code) and
     the rgba frame (finite, within TOL_RGBA, alpha the graphic's)."""
     from phaneron_tpu_torch.graph.pipeline import make_unpack_program
-    from phaneron_tpu_torch.ops.formats import get_format
 
     top = make_unpack_program("rgba8", w, h, "709", "709", plain=True)(params["layers"][2]["src"])[3]
-    shapes = lambda fmt: [(s, str(dt)) for s, dt in get_format(fmt).plane_shapes(w, h)]
     worst = 0
     for f in range(frames):
         media_animate(torch, params, dev, f / max(frames - 1, 1))
         (out, preview, filed), (ref, ref_preview, ref_file) = media(params), plain_media(params)
         for fmt, planes in (("yuv422p10le", out["packed"]), ("rgba8", preview), ("nv12", filed)):
-            got = [(tuple(p.shape), str(p.dtype).removeprefix("torch.")) for p in planes]
-            check(got == shapes(fmt), f"{what} frame {f}: {fmt} planes {got}")
+            check_planes(torch, fmt, planes, w, h, f"{what} frame {f}")
         d = max(plane_delta(torch, out["packed"], ref["packed"]), plane_delta(torch, preview, ref_preview),
                 plane_delta(torch, filed, ref_file))
         worst = max(worst, d)
@@ -1043,14 +1095,13 @@ def playout_animate(torch, params, dev, t: float) -> None:
 
 
 def drive_frames(torch, program, plain_program, params, animate, frames: int, w: int, h: int,
-                 what: str, alpha=None) -> int:
-    """``frames`` animated frames of a channel program, each checked
-    against the plain program on the card; returns the worst code delta.
+                 what: str, alpha=None, fmt: str = "v210") -> int:
+    """``frames`` animated frames of a channel program into ``fmt``, each
+    checked against the plain program on the card (planes of the
+    format's shapes and types, <= 1 code); returns the worst code delta.
     ``alpha`` (params -> (H, W) plane): an emit_rgba channel, whose frame
     must be finite, within TOL_RGBA of the plain path's and carry that
     alpha, the top layer's."""
-    from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
-
     worst = 0
     for f in range(frames):
         animate(f / max(frames - 1, 1))
@@ -1065,9 +1116,8 @@ def drive_frames(torch, program, plain_program, params, animate, frames: int, w:
             ea = float((rgba[3] - alpha(params)).abs().max())
             check(ea <= TOL_WARP, f"{what} frame {f}: emitted alpha {ea} from the top layer's")
             out, ref = out["packed"], ref["packed"]
-        check(len(out) == 1 and tuple(out[0].shape) == (h, pitch_bytes(w) // 4)
-              and out[0].dtype == torch.int32, f"{what} frame {f}: output {tuple(out[0].shape)} {out[0].dtype}")
-        d = code_delta(torch, out[0], ref[0], w, h)
+        check_planes(torch, fmt, out, w, h, f"{what} frame {f}")
+        d = packed_delta(torch, fmt, out, ref, w, h)
         worst = max(worst, d)
         check(d <= TOL_CODES, f"{what} frame {f}: kernel path {d} codes from the plain path")
     return worst
@@ -1186,6 +1236,164 @@ class InterlacedLoad:
         return outs
 
 
+def multibox_matrices(w: int, h: int) -> list:
+    """The multi-box stack's DVE matrices, bottom to top: three boxes at
+    scale 0.5 (top left, top right, bottom left), then the graphic at
+    title-safe scale 0.95, centred."""
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    boxes = [transform_matrix(w, h, scale_x=0.5, scale_y=0.5, offset_x=ox, offset_y=oy)
+             for ox, oy in QUADRANTS.values()]
+    return boxes + [transform_matrix(w, h, scale_x=0.95, scale_y=0.95)]
+
+
+def check_quadrants(torch, dev, w: int, h: int) -> None:
+    """Each box's warped alpha is 1 inside its own quadrant and 0 inside
+    the other three (each less a one-pixel feather band)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    halves = {"top": slice(1, h // 2 - 1), "bottom": slice(h // 2 + 1, h - 1),
+              "left": slice(1, w // 2 - 1), "right": slice(w // 2 + 1, w - 1)}
+    for name, mat in zip(QUADRANTS, multibox_matrices(w, h)):
+        wy, wx = warp_alpha_vectors(h, w, to_tensor(mat, dev))
+        a = wy[:, None] * wx[None, :]
+        for q in ("top_left", "top_right", "bottom_left", "bottom_right"):
+            inner = a[tuple(halves[p] for p in q.split("_"))]
+            ok = bool((inner == 1.0).all()) if q == name else bool((inner == 0.0).all())
+            check(ok, f"multibox {w}x{h}: the {name} box's alpha in the {q} quadrant")
+
+
+def multibox_spec_params(torch, dev, rng, w: int, h: int, out_format: str = "v210", emit_rgba: bool = True):
+    """The file-media multi-box channel at w x h (MIXER 1-n FILL over file
+    clips, one box per layer): L0 a yuv422p10le clip (seeded random 10-bit
+    planes; ProRes / DNxHR) in the top-left quadrant; L1 a 1280x720 yuv420p
+    clip (the ramp; H.264, src_size) dissolving to a 1280x720 nv12 clip
+    (seeded) under the same matrix, top right; L2 an nv12 clip at channel
+    size (seeded; hardware decode), bottom left; L3 the keyed rgba8 lower
+    third under a title-safe DVE (scale 0.95, centred)."""
+    from phaneron_tpu_torch.graph.convert import params_from_numpy
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import yuv420p
+
+    dve = dict(has_transform=True, axis_aligned=True)
+    spec = ChannelSpec(w, h, out_format, layers=(
+        LayerSpec("yuv422p10le", **dve),
+        LayerSpec("yuv420p", transition="dissolve", src_b_format="nv12", src_size=MULTIBOX_CLIP, **dve),
+        LayerSpec("nv12", **dve),
+        LayerSpec("rgba8", **dve),
+    ), emit_rgba=emit_rgba)
+    mats = multibox_matrices(w, h)
+    params = params_from_numpy({"layers": [
+        {"src": format_planes(rng, "yuv422p10le", w, h), "matrix": mats[0]},
+        {"src": yuv420p.fill_buf(*MULTIBOX_CLIP), "src_b": format_planes(rng, "nv12", *MULTIBOX_CLIP),
+         "matrix": mats[1], "mix": np.float32(0.0)},
+        {"src": format_planes(rng, "nv12", w, h), "matrix": mats[2]},
+        {"src": [graphic_rgba8(w, h)], "matrix": mats[3]},
+    ]}, dev)
+    return spec, params
+
+
+def multibox_top_alpha(torch, spec, params):
+    """The emitted alpha the multi-box channel owes: the graphic's alpha
+    warped by its DVE (plain versions)."""
+    from phaneron_tpu_torch.graph.pipeline import make_unpack_program
+    from phaneron_tpu_torch.ops.warp import warp_plain
+
+    top = params["layers"][-1]
+    graphic = make_unpack_program("rgba8", spec.width, spec.height, "709", "709", plain=True)(top["src"])
+    return warp_plain(graphic, top["matrix"])[3]
+
+
+def keyed_straggler_spec_params(torch, dev, rng, w: int, h: int):
+    """The keyed graphic over a stack with a straggler, v210 out under
+    emit_rgba: L0 the v210 ramp rotated 100 degrees at scale 0.9; L1 and L2
+    yuv422p8 clips (seeded) dissolving to nv12 clips (seeded) under one
+    matrix each, boxes in the top-left and top-right quadrants; L3 the
+    keyed rgba8 lower third under the title-safe DVE.  L1-L2 are one
+    rgba-kind run (coverage alpha); the graphic on top stays staged, so
+    the frame carries its own warped alpha."""
+    from phaneron_tpu_torch.graph.convert import params_from_numpy
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec, LayerSpec
+    from phaneron_tpu_torch.ops.formats import v210
+
+    dve = dict(has_transform=True, axis_aligned=True)
+    box = LayerSpec("yuv422p8", transition="dissolve", src_b_format="nv12", **dve)
+    spec = ChannelSpec(w, h, "v210", layers=(
+        LayerSpec("v210", has_transform=True, axis_aligned=False), box, box, LayerSpec("rgba8", **dve),
+    ), emit_rgba=True)
+    mats = multibox_matrices(w, h)
+    params = params_from_numpy({"layers": [
+        {"src": v210.fill_buf(w, h), "matrix": rotation_matrix(w, h, 100)},
+        *({"src": format_planes(rng, "yuv422p8", w, h), "src_b": format_planes(rng, "nv12", w, h),
+           "matrix": mats[i], "mix": np.float32(0.0)} for i in range(2)),
+        {"src": [graphic_rgba8(w, h)], "matrix": mats[3]},
+    ]}, dev)
+    return spec, params
+
+
+def keyed_straggler_animate(torch, params, dev, t: float) -> None:
+    for lp in params["layers"][1:3]:
+        lp["mix"] = torch.tensor(t, dtype=torch.float32, device=dev)
+
+
+def premultiplied_frames(torch, dev, rng, n: int, w: int, h: int) -> list:
+    """Seeded premultiplied RGBA (4, H, W) float32 frames: alpha in
+    [0, 1], rgb <= alpha."""
+    out = []
+    for _ in range(n):
+        a = rng.random((1, h, w), dtype=np.float32)
+        out.append(torch.from_numpy(np.concatenate([rng.random((3, h, w), dtype=np.float32) * a, a])).to(dev))
+    return out
+
+
+def phase_composite_modes(torch, dev, rng, rec: dict) -> None:
+    """packed_composite's whole-stack and RGBA modes against their plain
+    versions at 1920x1080: the rgba kind (B16's counterpart) over seeded
+    premultiplied RGBA frames under the multi-box matrices (a cut, a
+    dissolve, two cuts) with coverage and top alpha, emits rgba, both and
+    packed; the packed kind with top alpha (B15's) over seeded full-range
+    v210 words (4 dissolve layers), emits rgba and both.  A 'both' launch
+    equals the 'packed' and 'rgba' launches it fuses."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    err = lambda a, b: float((a - b).abs().max())
+    cases = {
+        "rgba": ((premultiplied_frames(torch, dev, rng, 5, W, H), (1, 2, 1, 1),
+                  [to_tensor(m, dev) for m in multibox_matrices(W, H)],
+                  [None, torch.tensor(0.35, device=dev), None, None]), dict(src_kind="rgba")),
+        "packed": (([to_tensor(random_words(rng, W, H), dev) for _ in range(8)], (2, 2, 2, 2),
+                    [to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev)
+                     for i in range(4)],
+                    [torch.tensor(0.4 + 0.05 * i, device=dev) for i in range(4)]),
+                   dict(src_kind="packed", size=(W, H))),
+    }
+    errs = {}  # (src_kind, emit, alpha) -> max |kernel - plain| (codes for words)
+    for kind, (args, kw) in cases.items():
+        for alpha in ("coverage", "top") if kind == "rgba" else ("top",):
+            words = PW.packed_composite(*args, alpha=alpha, **kw)
+            frame = PW.packed_composite(*args, emit="rgba", alpha=alpha, **kw)
+            both = PW.packed_composite(*args, emit="both", alpha=alpha, **kw)
+            check(torch.equal(both[0], words) and torch.equal(both[1], frame),
+                  f"packed_composite {kind} {alpha}: 'both' differs from 'packed' and 'rgba'")
+            check(tuple(frame.shape) == (4, H, W) and bool(torch.isfinite(frame).all()),
+                  f"packed_composite {kind} {alpha}: frame {tuple(frame.shape)}")
+            d = float(code_delta(torch, words, PW.packed_composite_plain(*args, alpha=alpha, **kw), W, H))
+            e = err(frame, PW.packed_composite_plain(*args, emit="rgba", alpha=alpha, **kw))
+            errs[(kind, "rgba", alpha)] = e
+            errs[(kind, "both", alpha)] = max(e, d)
+            if kind == "rgba":
+                errs[(kind, "packed", alpha)] = d
+            print(f"packed_composite ({kind} kind, alpha {alpha}) max |frame - plain| = {e:.3e} "
+                  f"(<= {TOL_RGBA}), words vs plain {d:.0f} codes (<= {TOL_CODES})")
+            check(e <= TOL_RGBA, f"packed_composite {kind} {alpha} frame error {e}")
+            check(d <= TOL_CODES, f"packed_composite {kind} {alpha} code delta {d}")
+    rec["composite_modes"] = errs
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -1225,6 +1433,8 @@ def main() -> int:
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_stage_program_checks(torch, dev, media_rng)
+    multibox_rng = np.random.default_rng(SEED + 6)
+    phase_composite_modes(torch, dev, multibox_rng, rec)
 
     wrappers = {
         "v210_unpack": K.v210_unpack, "warp": warp_mod.warp,
@@ -1236,22 +1446,74 @@ def main() -> int:
         "planar420_pack": K.planar420_pack,
     }
     launches = {k: {} for k in wrappers}
+    mode_launches = {}  # path -> packed_composite launches by (src_kind, emit, alpha)
 
-    def run_path(path: str, per_frame: dict, frames: int, fn) -> None:
+    # the frame program's torch tail, counted per path: the 'over' of
+    # staged layers and the alpha fix-up of a run that holds the top
+    from phaneron_tpu_torch.graph import pipeline as pipe_mod
+
+    tail_calls = {"combine": 0, "_top_alpha_fixup": 0}
+
+    def counted(name: str):
+        fn = getattr(pipe_mod, name)
+
+        def call(*args, **kw):
+            tail_calls[name] += 1
+            return fn(*args, **kw)
+
+        return call
+
+    for name in tail_calls:
+        setattr(pipe_mod, name, counted(name))
+
+    # the packed composite's launches split by mode: each call of the frame
+    # program's that raised the wrapper's one counter, by its (src_kind,
+    # emit, alpha)
+    by_mode_now = {}
+
+    def packed_composite_by_mode(*args, src_kind, emit, alpha, **kw):
+        before = PW.packed_composite.launches
+        out = PW.packed_composite(*args, src_kind=src_kind, emit=emit, alpha=alpha, **kw)
+        if PW.packed_composite.launches > before:
+            mode = (src_kind, emit, alpha)
+            by_mode_now[mode] = by_mode_now.get(mode, 0) + PW.packed_composite.launches - before
+        return out
+
+    pipe_mod._KERNELS = pipe_mod._KERNELS._replace(packed_composite=packed_composite_by_mode)
+
+    def run_path(path: str, per_frame: dict, frames: int, fn, modes: dict | None = None,
+                 tail: dict | None = None) -> None:
         """Drive one main path with every count at 0 just before and read
         just after: each kernel named in ``per_frame`` must have launched
-        exactly that many times a frame, every other kernel not at all."""
+        exactly that many times a frame, every other kernel not at all;
+        packed_composite in exactly the ``modes`` given a frame ((src_kind,
+        emit, alpha) -> launches), and the torch tail calls named in
+        ``tail`` exactly that many times a frame in each of the kernel path
+        and the plain path the frames are checked against."""
         for w in wrappers.values():
             w.launches = 0
+        by_mode_now.clear()
+        for name in tail_calls:
+            tail_calls[name] = 0
         fn()
         torch.cuda.synchronize()
         for k, w in wrappers.items():
             launches[k][path] = w.launches
-        print(f"{path} path launches: { {k: launches[k][path] for k in wrappers} }")
+        mode_launches[path] = dict(by_mode_now)
+        print(f"{path} path launches: { {k: launches[k][path] for k in wrappers} }; packed_composite by "
+              f"mode {mode_launches[path]}; torch tail calls {dict(tail_calls)}")
         for k in wrappers:
             want = per_frame.get(k, 0) * frames
             check(launches[k][path] == want, f"{path}: {k} launched {launches[k][path]} times, "
                                              f"expected {want} over {frames} frames")
+        check(sum(mode_launches[path].values()) == launches["packed_composite"][path],
+              f"{path}: packed_composite launched outside the frame program")
+        want_modes = {m: n * frames for m, n in (modes or {}).items()}
+        check(mode_launches[path] == want_modes, f"{path}: packed_composite modes {mode_launches[path]}, "
+                                                 f"expected {want_modes}")
+        for name, n in (tail or {}).items():
+            check(tail_calls[name] == 2 * n * frames, f"{path}: {name} called {tail_calls[name]} times, "
+                                                      f"expected {n} a frame on each path over {frames} frames")
 
     timing = {}
 
@@ -1290,7 +1552,8 @@ def main() -> int:
             print(f"{path}: {PROG_FRAMES} frames (4 DVE + dissolve layers, 8 v210 sources) in "
                   f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}")
 
-        run_path(path, {"packed_composite": 1}, PROG_FRAMES, progressive_path)
+        run_path(path, {"packed_composite": 1}, PROG_FRAMES, progressive_path,
+                 modes={("packed", "packed", "top"): 1})
         progressive_animate(torch, pparams, dev, 0.5)
         lps = pparams["layers"]
         srcs = [s for lp in lps for s in (lp["src"][0], lp["src_b"][0])]
@@ -1363,7 +1626,8 @@ def main() -> int:
 
     # per period: each tick one packed composite, no staged warp or pack
     run_path("interlaced", {"v210_unpack": N_CHANNELS * N_SOURCES, "yadif_pair": N_CHANNELS * N_SOURCES,
-                            "packed_composite": N_CHANNELS * 2}, PERIODS, interlaced_path)
+                            "packed_composite": N_CHANNELS * 2}, PERIODS, interlaced_path,
+             modes={("rgb3", "packed", "top"): N_CHANNELS * 2})
 
     # -------- phase 7: the in-program ring route on channel 0
     ring_program = make_channel_program(interlaced_spec(deinterlace=True))
@@ -1380,7 +1644,8 @@ def main() -> int:
                 for i in range(4)
             ]})[0])
 
-    run_path("ring_route", {"yadif_ring": N_SOURCES, "packed_composite": 1}, 2, ring_route)
+    run_path("ring_route", {"yadif_ring": N_SOURCES, "packed_composite": 1}, 2, ring_route,
+             modes={("rgb3", "packed", "top"): 1})
     fields = [load.pair(*ring) for ring in rings0]
     for t in (0, 1):
         (via_pair,) = load.program(load.tick_params(ch0, fields, p_last, t))
@@ -1404,11 +1669,15 @@ def main() -> int:
             vspec, vparams = progressive_spec_params(torch, dev, rng, w, h)
             vspec = vspec._replace(emit_rgba=True)
             vanimate = lambda t, p=vparams: progressive_animate(torch, p, dev, t)
-            per_frame = {"packed_composite": 1}  # one 'both' launch: words and frame
+            # one 'both' launch, words and frame with the top layer's alpha
+            per_frame, k5_modes = {"packed_composite": 1}, {("packed", "both", "top"): 1}
+            tail = {"combine": 0, "_top_alpha_fixup": 0}
         else:
             vspec, vparams = straggler_spec_params(torch, dev, w, h, variant, emit_rgba)
             vanimate = lambda t, p=vparams, v=variant, w=w, h=h: straggler_animate(torch, p, dev, w, h, v, t)
             per_frame = dict(straggler_launches[variant])
+            k5_modes = {("packed", "rgba", "coverage"): 1}  # the 3-layer run under the straggler
+            tail = {"combine": int(emit_rgba), "_top_alpha_fixup": 0}
             if emit_rgba:  # the staged emit_rgba tail: torch combine, then K2
                 del per_frame["combine_pack"]
                 per_frame["v210_pack"] = 1
@@ -1424,7 +1693,7 @@ def main() -> int:
             print(f"{path}: {STRAGGLER_FRAMES} frames in {time.perf_counter() - t0:.2f} s, max code delta "
                   f"vs plain path {worst}" + (", rgba and top-layer alpha checked" if emit_rgba else ""))
 
-        run_path(path, per_frame, STRAGGLER_FRAMES, straggler_path)
+        run_path(path, per_frame, STRAGGLER_FRAMES, straggler_path, modes=k5_modes, tail=tail)
         vanimate(0.5)
         timing[path] = time_frame(torch, card, path, vprog, vplain, vparams)
         straggler_args[path] = (vspec, vparams)
@@ -1449,6 +1718,73 @@ def main() -> int:
         media_animate(torch, mparams, dev, 0.5)
         timing[path] = time_frame(torch, card, path, media, plain_media, mparams)
         media_args[(w, h)] = (mparams, media.program(mparams)["rgba"])
+
+    # -------- phase 7d: the file-media multi-box channel, and the progressive
+    # frame into yuv422p10le: whole stacks in one packed composite launch
+    # with the top layer's alpha
+    multibox_args = {}
+    no_tail = {"combine": 0, "_top_alpha_fixup": 0}
+    unpacks = {"planar422_unpack": 1, "planar420_unpack": 3}
+    for w, h, fmt, emit_rgba in ((W, H, "v210", True), (UHD_W, UHD_H, "v210", True), (W, H, "yuv422p10le", False)):
+        check_quadrants(torch, dev, w, h)
+        bspec, bparams = multibox_spec_params(torch, dev, multibox_rng, w, h, fmt, emit_rgba)
+        bprog = make_channel_program(bspec)
+        bplain = make_channel_program(bspec, plain=True)
+        path = f"multibox_{fmt}_{w}x{h}"
+        alpha = (lambda p, a=multibox_top_alpha(torch, bspec, bparams): a) if emit_rgba else None
+        banimate = lambda t, p=bparams: media_animate(torch, p, dev, t)
+
+        def multibox_path():
+            t0 = time.perf_counter()
+            worst = drive_frames(torch, bprog, bplain, bparams, banimate, MULTIBOX_FRAMES, w, h, path,
+                                 alpha=alpha, fmt=fmt)
+            print(f"{path}: {MULTIBOX_FRAMES} frames (yuv422p10le, {MULTIBOX_CLIP[0]}x{MULTIBOX_CLIP[1]} yuv420p -> "
+                  f"nv12 dissolve and nv12 boxes under the rgba8 key) in {time.perf_counter() - t0:.2f} s, max code "
+                  f"delta vs plain "
+                  f"path {worst}" + (", rgba and top-layer alpha checked" if emit_rgba else ""))
+
+        emit = "both" if emit_rgba else "rgba"
+        per_frame = dict(unpacks, packed_composite=1, **({} if emit_rgba else {"planar422_pack": 1}))
+        run_path(path, per_frame, MULTIBOX_FRAMES, multibox_path, modes={("rgba", emit, "top"): 1}, tail=no_tail)
+        banimate(0.5)
+        timing[path] = time_frame(torch, card, path, bprog, bplain, bparams)
+        multibox_args[(w, h, fmt)] = (bspec, bparams)
+
+    pyspec, pyparams = progressive_spec_params(torch, dev, rng, W, H)
+    pyspec = pyspec._replace(out_format="yuv422p10le")
+    pyprog, pyplain = make_channel_program(pyspec), make_channel_program(pyspec, plain=True)
+    path = f"progressive_yuv422p10le_{W}x{H}"
+    pyanimate = lambda t: progressive_animate(torch, pyparams, dev, t)
+
+    def progressive_file_path():
+        worst = drive_frames(torch, pyprog, pyplain, pyparams, pyanimate, PROG_FRAMES, W, H, path,
+                             fmt="yuv422p10le")
+        print(f"{path}: {PROG_FRAMES} frames, max code delta vs plain path {worst}")
+
+    run_path(path, {"packed_composite": 1, "planar422_pack": 1}, PROG_FRAMES, progressive_file_path,
+             modes={("packed", "rgba", "top"): 1}, tail=no_tail)
+    pyanimate(0.5)
+    timing[path] = time_frame(torch, card, path, pyprog, pyplain, pyparams)
+
+    # -------- phase 7e: the keyed graphic over a straggler: an rgba-kind run
+    # under it (coverage alpha), the graphic staged with its own alpha
+    kspec, kparams = keyed_straggler_spec_params(torch, dev, multibox_rng, W, H)
+    kprog, kplain = make_channel_program(kspec), make_channel_program(kspec, plain=True)
+    path = f"keyed_straggler_emit_rgba_{W}x{H}"
+    kanimate = lambda t: keyed_straggler_animate(torch, kparams, dev, t)
+    key_alpha = multibox_top_alpha(torch, kspec, kparams)
+
+    def keyed_path():
+        worst = drive_frames(torch, kprog, kplain, kparams, kanimate, STRAGGLER_FRAMES, W, H, path,
+                             alpha=lambda p: key_alpha)
+        print(f"{path}: {STRAGGLER_FRAMES} frames (rotated v210 clip, two yuv422p8 -> nv12 boxes, the rgba8 "
+              f"key on top), max code delta vs plain path {worst}, rgba and the graphic's alpha checked")
+
+    run_path(path, {"v210_unpack": 1, "rotate": 1, "planar422_unpack": 2, "planar420_unpack": 2,
+                    "packed_composite": 1, "warp": 1, "v210_pack": 1}, STRAGGLER_FRAMES, keyed_path,
+             modes={("rgba", "rgba", "coverage"): 1}, tail={"combine": 1, "_top_alpha_fixup": 0})
+    kanimate(0.5)
+    timing[path] = time_frame(torch, card, path, kprog, kplain, kparams)
 
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []
@@ -1480,12 +1816,15 @@ def main() -> int:
         source and channel, the pair's mix (or wipe blend)."""
         return pixels * (n_mat * per_px + c * (n_src * OPS_WARP_SAMPLE + (OPS_MIX if n_src == 2 else 0)))
 
-    def composite_bytes_ops(cfg, mats, w: int, h: int, packed: bool, emit: str = "packed") -> tuple[float, float]:
+    def composite_bytes_ops(cfg, mats, w: int, h: int, kind: str, emit: str = "packed",
+                            alpha: str = "coverage") -> tuple[float, float]:
         """Least bytes and operations of a packed composite: each source
         texel (or v210 group) the taps reach read once and decoded once,
-        the warps, alphas and 'over' per pixel, then the encode and the
-        words out, and/or the (4, H, W) frame with its coverage alpha."""
+        the warps (all four channels of an rgba source), the alphas and
+        the 'over' per pixel, then the encode and the words out, and/or
+        the (4, H, W) frame with its coverage or top alpha."""
         pixels = w * h
+        channels = 4 if kind == "rgba" else 3
         nbytes = 36 * len(cfg) + 4 * sum(n == 2 for n in cfg)
         ops = 0.0
         if emit != "rgba":
@@ -1493,34 +1832,45 @@ def main() -> int:
             ops += pixels * OPS_ENCODE_PX
         if emit != "packed":
             nbytes += 16 * pixels
-            ops += pixels * OPS_COVER * (len(cfg) - 1)
+            ops += pixels * OPS_COVER * (len(cfg) - 1) if alpha == "coverage" else 0
         for i, (n, m) in enumerate(zip(cfg, mats)):
-            if packed:
+            if kind == "packed":
                 nbytes += n * 16 * warp_source_groups(torch, m, h, w)
                 ops += n * warp_source_texels(torch, m, h, w) * OPS_DECODE_PX
             else:
-                nbytes += n * 12 * warp_source_texels(torch, m, h, w)
-            ops += warp_ops(3, n, pixels) + pixels * (OPS_ALPHA + (3 * OPS_OVER if i else 0))
+                nbytes += n * 4 * channels * warp_source_texels(torch, m, h, w)
+            ops += warp_ops(channels, n, pixels)
+            ops += pixels * ((OPS_K if kind == "rgba" else OPS_ALPHA) + (3 * OPS_OVER if i else 0))
         return nbytes, ops
 
-    def run_args(path: str, start: int, end: int, emit: str):
-        """The packed composite call of a driven path's run [start, end)."""
-        from phaneron_tpu_torch.graph.pipeline import _Run, _packed_composite_args
+    def run_args(spec, params, emit: str, alpha: str, start: int = 0, end: int | None = None):
+        """The packed composite call of a driven path's run [start, end)
+        (default: the whole stack), its rgb3 / rgba sources made by the
+        kernels as the path makes them."""
+        from phaneron_tpu_torch.graph.pipeline import (
+            _KERNELS,
+            _Run,
+            _composite_kind,
+            _packed_composite_args,
+            _sources,
+        )
 
-        vspec, vparams = straggler_args[path]
-        args = _packed_composite_args(vspec, vparams, {}, _Run(start, end, emit, "packed"))
-        return args, dict(src_kind="packed", size=(vspec.width, vspec.height), emit=emit)
+        end = len(spec.layers) if end is None else end
+        kind = _composite_kind(spec.layers[start], params["layers"][start])
+        srcs = {} if kind == "packed" else _sources(spec, params, _KERNELS)
+        args = _packed_composite_args(spec, params, srcs, _Run(start, end, emit, kind, alpha))
+        return args, dict(src_kind=kind, size=(spec.width, spec.height), emit=emit, alpha=alpha)
 
     # name -> (kernel call, plain call, bytes, ops, shape) at a main path's shapes
     call = lambda fn, args, kw=None: (lambda: fn(*args, **(kw or {})))
     r_unpack = rec["v210_unpack"]["rgb3_args"]
     r_pack = (rec["yadif_pair"]["args"][1],)
     rgb3_cfg, rgb3_mats = rec["packed_composite"]["args"][1], rec["packed_composite"]["args"][2]
-    c_bytes, c_ops = composite_bytes_ops(rgb3_cfg, rgb3_mats, W, H, packed=False)
+    c_bytes, c_ops = composite_bytes_ops(rgb3_cfg, rgb3_mats, W, H, "rgb3")
     (uhd_args, uhd_kw) = prog_args[(UHD_W, UHD_H)]
-    u_bytes, u_ops = composite_bytes_ops(uhd_args[1], uhd_args[2], UHD_W, UHD_H, packed=True)
+    u_bytes, u_ops = composite_bytes_ops(uhd_args[1], uhd_args[2], UHD_W, UHD_H, "packed")
     (hd_args, hd_kw) = prog_args[(W, H)]
-    h_bytes, h_ops = composite_bytes_ops(hd_args[1], hd_args[2], W, H, packed=True)
+    h_bytes, h_ops = composite_bytes_ops(hd_args[1], hd_args[2], W, H, "packed")
     f_args = playout_args[(W, H, True)]
     fu_args = playout_args[(UHD_W, UHD_H, True)]
     pw_mat = entry_warp_args[1]
@@ -1598,6 +1948,37 @@ def main() -> int:
     }
     grid_sample = lambda args: (lambda: torch.nn.functional.grid_sample(
         *args, mode="bilinear", padding_mode="zeros", align_corners=False))
+    # packed_composite's whole-stack and rgba modes, a record each: name ->
+    # ((src_kind, emit, alpha; None: any alpha), the TPU kernel it stands
+    # for, the (args, kw) of a main path's launch, its shape)
+    mb = multibox_args[(W, H, "v210")]
+    mb_shape = "4 layers (5 sources) at the multibox 1920x1080 path's shapes"
+    mode_records = {
+        "packed_composite_rgba_both_top": (("rgba", "both", "top"), B16, run_args(*mb, "both", "top"),
+                                           f"rgba kind, emit both, top alpha, {mb_shape} (multibox v210 path)"),
+        "packed_composite_rgba_rgba_top": (("rgba", "rgba", "top"), B16, run_args(*mb, "rgba", "top"),
+                                           f"rgba kind, emit rgba, top alpha, {mb_shape} (multibox "
+                                           "yuv422p10le path)"),
+        "packed_composite_rgba_rgba_coverage": (
+            ("rgba", "rgba", "coverage"), B16, run_args(kspec, kparams, "rgba", "coverage", 1, 3),
+            "rgba kind, emit rgba, coverage alpha, 2 dissolve layers (4 sources) at 1920x1080 (keyed_straggler "
+            "path)"),
+        "packed_composite_rgba_packed": (("rgba", "packed", None), B16, run_args(*mb, "packed", "top"),
+                                         f"rgba kind, emit packed, {mb_shape} (no main path)"),
+        "packed_composite_packed_rgba_top": (("packed", "rgba", "top"), B15, run_args(pyspec, pyparams, "rgba", "top"),
+                                             "v210 words, emit rgba, top alpha, 4 dissolve layers, 1920x1080 "
+                                             "(progressive_yuv422p10le path)"),
+        "packed_composite_packed_both_top": (
+            ("packed", "both", "top"), B15, run_args(*straggler_args[f"progressive_emit_rgba_{W}x{H}"], "both", "top"),
+            "v210 words, emit both, top alpha, 4 dissolve layers, 1920x1080 (progressive emit_rgba path)"),
+    }
+    matches = lambda mode, pat: mode[:2] == pat[:2] and pat[2] in (None, mode[2])
+    by_mode = lambda pat: {path: sum(n for m, n in ml.items() if matches(m, pat)) for path, ml in mode_launches.items()}
+    # the packed composite's own record keeps B7's modes: its launches less
+    # those of the modes with a record of their own
+    launches["packed_composite"] = {
+        path: sum(n for m, n in ml.items() if not any(matches(m, v[0]) for v in mode_records.values()))
+        for path, ml in mode_launches.items()}
     records = []
     for name, (kernel_fn, plain_fn, nbytes, ops, shape) in shapes.items():
         kernel_ms, plain_ms = best_of_two(
@@ -1629,12 +2010,10 @@ def main() -> int:
     ra, rm, rb, rmix, rmb = rec["rotate"]["pair_args"]
     (rwa, rwm, rwb), rwkw = rec["rotate"]["wipe_args"]
     both = lambda a, b: tuple(torch.cat(x) for x in zip(a, b))
-    o_rgba_args, o_rgba_kw = run_args(f"one_rotation_{UHD_W}x{UHD_H}", 0, 3, "rgba")
-    o_rgba = composite_bytes_ops(o_rgba_args[1], o_rgba_args[2], UHD_W, UHD_H, packed=True, emit="rgba")
-    p_both_args, p_both_kw = run_args(f"progressive_emit_rgba_{W}x{H}", 0, 4, "both")
-    p_both = composite_bytes_ops(p_both_args[1], p_both_args[2], W, H, packed=True, emit="both")
+    o_rgba_args, o_rgba_kw = run_args(*straggler_args[f"one_rotation_{UHD_W}x{UHD_H}"], "rgba", "coverage", 0, 3)
+    o_rgba = composite_bytes_ops(o_rgba_args[1], o_rgba_args[2], UHD_W, UHD_H, "packed", emit="rgba")
     r3_args, r3_kw = rec["packed_composite"]["rgb3_emit_args"]
-    r3 = composite_bytes_ops(r3_args[1], r3_args[2], W, H, packed=False, emit="rgba")
+    r3 = composite_bytes_ops(r3_args[1], r3_args[2], W, H, "rgb3", emit="rgba")
     other = {
         "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
                                                 call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
@@ -1664,9 +2043,6 @@ def main() -> int:
         "packed_composite (v210 words, emit rgba, 3 dissolve layers, 3840x2160, one_rotation path)": (
             call(PW.packed_composite, o_rgba_args, o_rgba_kw), call(PW.packed_composite_plain, o_rgba_args, o_rgba_kw),
             *o_rgba),
-        "packed_composite (v210 words, emit both, 4 dissolve layers, 1920x1080, progressive emit_rgba path)": (
-            call(PW.packed_composite, p_both_args, p_both_kw), call(PW.packed_composite_plain, p_both_args, p_both_kw),
-            *p_both),
         "packed_composite (rgb3, emit rgba, 3 dissolve layers, 1920x1080)": (
             call(PW.packed_composite, r3_args, dict(r3_kw, emit="rgba")),
             call(PW.packed_composite_plain, r3_args, dict(r3_kw, emit="rgba")), *r3),
@@ -1698,6 +2074,22 @@ def main() -> int:
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
         modes.setdefault(label.split(" ")[0], []).append(dict(
             shape=label, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+    errs = rec["composite_modes"]
+    for name, (pat, replaces, (args, kw), shape) in mode_records.items():
+        kernel_ms, plain_ms = best_of_two(torch, call(PW.packed_composite, args, kw),
+                                          call(PW.packed_composite_plain, args, kw), dict(batches=5, calls=4))
+        nbytes, ops = composite_bytes_ops(args[1], args[2], W, H, kw["src_kind"], kw["emit"], kw["alpha"])
+        bound_ms, bound_by = bound(nbytes, ops)
+        by_path = by_mode(pat)
+        print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP), library none, "
+              f"launches {sum(by_path.values())}")
+        records.append({
+            "name": name, "route": "cuda", "source": "phaneron_tpu_torch/csrc/packed_composite.cu",
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(e for m, e in errs.items() if matches(m, pat)), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
+        })
     for r in records:
         r["modes"] = modes.get(r["name"], [])
     print(json.dumps({"frames": timing}))

@@ -3,31 +3,42 @@ phaneron_tpu/graph/pipeline.py: ``_channel_frame`` with its kernel
 routes, ``make_channel_program``'s selection of the fused v210 program,
 and the modular stage programs the runtime and the bench drive).
 
-    unpack | yadif ring | rgba_f32 field -> per-layer DVE warp -> dissolve
-           -> N-layer 'over' combine -> colour -> pack
+    unpack [-> resize] | yadif ring | rgba_f32 field -> per-layer DVE warp
+           -> dissolve -> N-layer 'over' combine -> colour -> pack
 
-Routes into a v210 output, in the order they are chosen:
+A source whose geometry differs from the channel's (``src_size``: a
+720p clip in a 1080p channel; an off-size field or ``rgba_f32`` frame)
+unpacks at its own size and is stretch-fit by ``resize_frame`` (torch
+ops; XLA in the JAX package, ``_fit_channel``).
 
-1. **fused v210** (B3, ``kernels.fused_v210``): the top layer is a v210
-   clip without DVE, as a cut or a dissolve.  It decodes opaque, so it
-   covers every lower layer; ``make_channel_program`` picks this route
-   before it looks at the lower layers (JAX ``supported_spec``), so an
-   unported lower layer does not stop it.  Not for ``emit_rgba``.
-2. **packed composite, whole stack** (B7, ``packed_warp.packed_composite``):
+Routes, in the order they are chosen:
+
+1. **fused v210** (B3, ``kernels.fused_v210``): a v210 output whose top
+   layer is a v210 clip without DVE, as a cut or a dissolve.  It decodes
+   opaque, so it covers every lower layer; ``make_channel_program``
+   picks this route before it looks at the lower layers (JAX
+   ``supported_spec``).  Not for ``emit_rgba``.
+2. **packed composite, whole stack** (K5, ``packed_warp.packed_composite``):
    the dispatch plan (``_packed_composite_run``, JAX
    ``_packed_composite_run``) finds the longest contiguous run of at
    least two layers of one kind, each an axis-aligned DVE cut or
    same-matrix dissolve over v210 words decoded at the taps ('packed',
-   the progressive multi-layer channel) or over opaque (3, H, W) frames
-   ('rgb3': deinterlaced fields, ``rgba_f32`` fields).  When that run is
-   the whole stack, one launch makes the frame: words out, or words and
-   the composited frame for ``emit_rgba`` (emit 'both').
+   the progressive multi-layer channel), over opaque (3, H, W) frames
+   ('rgb3': deinterlaced fields, ``rgba_f32`` fields) or over (4, H, W)
+   frames with their own alpha ('rgba': every other source, the
+   file-media multi-box channel; JAX ``_layers_combine_ok``).  When that
+   run is the whole stack, one launch makes the frame with the top
+   layer's alpha (alpha 'top', JAX ``make_composite_program`` and
+   ``make_layers_combine_program``): words into v210 (emit 'packed'),
+   words and the frame under ``emit_rgba`` (emit 'both'), or the frame
+   (emit 'rgba') that the output format's pack takes.
 3. **staged**: each layer on its own, then ``kernels.combine_pack`` (B5)
    'over' black and packs.  A run that spans part of the stack is one
    packed composite launch emitting its RGBA frame with the run's
-   coverage alpha, composited as one layer; the layers around it (the
-   stragglers: a rotation, a wipe, a distinct-matrix dissolve, another
-   source kind) take their own kernels.  A v210 DVE layer (a cut, or a
+   coverage alpha (alpha 'coverage'), composited as one layer; the
+   layers around it (the stragglers: a rotation, a wipe, a
+   distinct-matrix dissolve, another source kind, and an 'rgba' top
+   layer, whose own alpha the frame carries) take their own kernels.  A v210 DVE layer (a cut, or a
    dissolve under one shared or two distinct matrices) decodes at its
    warp taps in one ``packed_warp`` launch (B6) and its slots are not
    unpacked; every other v210 slot of the frame (wipe masks included)
@@ -40,20 +51,25 @@ Routes into a v210 output, in the order they are chosen:
    alpha is the separable warp alpha); other structures pad alpha to 1.
    With ``emit_rgba`` the tail is ``combine`` (torch ops) and K2, and
    the program returns ``{"packed": [...], "rgba": frame}`` whose alpha
-   is the top layer's.
+   is the top layer's (``_top_alpha_fixup`` where a run holds the top).
+   Other outputs take the staged layers, ``combine`` (torch ops) and
+   the output format's pack.
 
-Other outputs take the staged route's layers, ``combine`` (torch ops)
-and the output format's pack: B11 for planar 4:2:2 (8 or 10 bit), B13
-for yuv420p and nv12, torch ops for rgba8 and bgra8.
+The output format's pack (``_pack_frame``): K2 for v210, B11 for planar
+4:2:2 (8 or 10 bit), B13 for yuv420p and nv12, torch ops for rgba8 and
+bgra8.
 
 A wrapper given CPU tensors runs its plain version, so on the CPU the
 whole program is plain PyTorch.  The JAX package picks its TPU kernels
 by VMEM and geometry gates (warp_bucket, warp_fits, packed_warp_fits,
-combine_pack_fits, packed_composite_fits, width % 128 or % 768).  The
-port keys only on correctness conditions: source format, transition,
-transform (axis-aligned or not), ``warp_same_mat`` and output format.
-So at 1080p the port takes B5, B6 and B7 where the JAX package on a TPU
-stays staged; the numbers agree within each contract.  On a CUDA device
+combine_pack_fits, packed_composite_fits, layers_combine_fits, width %
+128 or % 768) and flags (``ENABLE_FUSED_COMPOSITE`` and
+``ENABLE_LAYERS_COMBINE`` are off there).  The port keys only on
+correctness conditions: source format, transition, transform
+(axis-aligned or not), ``warp_same_mat``, the channels of each source
+and the output format.  So at 1080p the port takes B5, B6 and K5 where
+the JAX package on a TPU stays staged; the numbers agree within each
+contract.  On a CUDA device
 a structure without a ported kernel raises NotImplementedError naming
 the ROADMAP item it waits for; it never runs plain code on the card
 unasked.  ``plain=True`` on the channel, unpack, pack and pair-deinterlace
@@ -81,8 +97,9 @@ import torch
 
 from ..ops import io as fio
 from ..ops import kernels, packed_warp, rotate as rotate_mod, warp as warp_mod, yadif
-from ..ops.composite import combine, combine_rgb, mix_frames, wipe_mask
+from ..ops.composite import combine, combine_rgb, mix_frames, transparent, wipe_mask
 from ..ops.formats import get_format
+from ..ops.geometry import resize_frame
 from ..runtime.frame import RGBA_F32
 
 __all__ = [
@@ -157,8 +174,6 @@ def missing_kernel(spec: ChannelSpec) -> Optional[str]:
     on the CPU.  A format the registry does not know raises KeyError, as
     ``get_format`` does in the JAX package."""
     for ls in spec.layers:
-        if ls.src_size is not None:
-            return "A3 (resize_frame for src_size sources)"
         if ls.transition not in _TRANSITIONS:
             return f"A4 (transition '{ls.transition}': not one of {_TRANSITIONS})"
         for _, fmt in _slot_formats(ls):
@@ -243,13 +258,10 @@ def _params_device(params: dict) -> torch.device:
 
 
 def _fit_channel(frame: torch.Tensor, spec: ChannelSpec) -> torch.Tensor:
-    """An already-unpacked frame must have the channel's geometry: the
-    stretch-fit of the JAX package (resize_frame) is not ported."""
+    """Stretch-fit an unpacked frame whose geometry differs from the
+    channel's (JAX ``_fit_channel``)."""
     if tuple(frame.shape[-2:]) != (spec.height, spec.width):
-        raise NotImplementedError(
-            f"source frame {tuple(frame.shape[-2:])} differs from the channel's "
-            f"{(spec.height, spec.width)}: ROADMAP.md A3 (resize_frame)"
-        )
+        return resize_frame(frame, spec.height, spec.width)
     return frame
 
 
@@ -288,43 +300,42 @@ def _pack_frame(
 def _sources(
     spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset = frozenset()
 ) -> dict:
-    """Every source slot of the frame -> {(layer index, slot key): frame}.
-    A deinterlaced slot runs yadif over its ring at the params' parity,
-    an ``rgba_f32`` slot passes its frame through, all v210 slots (wipe
-    masks too) unpack in ONE call (the JAX package's _batch_unpack_slots)
-    and every other slot on its own by its format (``_unpack_planes``,
-    JAX ``_layer_source``).  The slots
+    """Every source slot of the frame -> {(layer index, slot key): frame}
+    at channel geometry.  A deinterlaced slot runs yadif over its ring at
+    the params' parity, an ``rgba_f32`` slot passes its frame through, the
+    v210 slots of one size (wipe masks too) unpack in ONE call (the JAX
+    package's _batch_unpack_slots at channel size) and every other slot
+    on its own by its format (``_unpack_planes``, JAX ``_layer_source``).
+    A layer's ``src_size`` is the size its src and src_b planes unpack at
+    (a wipe mask unpacks at channel size, as in JAX); every frame not at
+    channel geometry is then stretch-fit (``_fit_channel``).  The slots
     of the layers in ``skip`` are left raw: the packed warp or the packed
     composite decodes them."""
-    w, h = spec.width, spec.height
     out = {}
-    v210_slots = []
+    v210_slots: dict[tuple[int, int], list] = {}  # (w, h) -> slots
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
         if li in skip:
             continue
+        own = tuple(ls.src_size or (spec.width, spec.height))
         for key, fmt in _slot_formats(ls):
             ring = lp.get(f"{key}_ring") if ls.deinterlace else None
+            size = (spec.width, spec.height) if key == "mask" else own
             if ring is not None:
                 opaque = ls.src_opaque and ring[0].shape[0] == 4
-                out[(li, key)] = _fit_channel(
-                    st.yadif_ring(ring[0], ring[1], ring[2], lp["parity"], spec.tff,
-                                  opaque=opaque),
-                    spec,
-                )
+                out[(li, key)] = st.yadif_ring(ring[0], ring[1], ring[2], lp["parity"], spec.tff,
+                                               opaque=opaque)
             elif fmt == RGBA_F32:
-                out[(li, key)] = _fit_channel(lp[key], spec)
+                out[(li, key)] = lp[key]
             elif fmt == _V210:
-                v210_slots.append((li, key))
+                v210_slots.setdefault(size, []).append((li, key))
             else:
                 out[(li, key)] = _unpack_planes(
-                    st, fmt, lp[key], w, h, spec.col_spec, spec.out_col_spec, spec.gamma_mode
+                    st, fmt, lp[key], *size, spec.col_spec, spec.out_col_spec, spec.gamma_mode
                 )
-    words = [params["layers"][li][key][0] for li, key in v210_slots]
-    for slot, rgba in zip(
-        v210_slots, st.v210_unpack(words, w, h, spec.col_spec, spec.out_col_spec)
-    ):
-        out[slot] = rgba
-    return out
+    for (w, h), slots in v210_slots.items():
+        words = [params["layers"][li][key][0] for li, key in slots]
+        out.update(zip(slots, st.v210_unpack(words, w, h, spec.col_spec, spec.out_col_spec)))
+    return {slot: _fit_channel(frame, spec) for slot, frame in out.items()}
 
 
 def _with_alpha_one(rgb3: torch.Tensor) -> torch.Tensor:
@@ -361,13 +372,24 @@ def _process_layer_rgb3(
     return (st.warp(rgb, mat), wy, wx)
 
 
+def _slot_kind(ls: LayerSpec, lp: dict, key: str, fmt: str) -> str:
+    """What a slot gives ``_sources`` (at channel geometry, resized where
+    off-size): 'rgb3' an opaque (3, H, W) frame (a 3-channel deinterlace
+    ring, an ``rgba_f32`` field), 'rgba' a (4, H, W) frame (every format
+    unpacks to RGBA; a 4-channel ring or field)."""
+    ring = lp.get(f"{key}_ring") if ls.deinterlace else None
+    frame = ring[0] if ring is not None else lp[key] if fmt == RGBA_F32 else None
+    return "rgb3" if frame is not None and frame.shape[0] == 3 else "rgba"
+
+
 def _composite_kind(ls: LayerSpec, lp: dict) -> Optional[str]:
-    """A layer's source kind for the packed composite (JAX
-    ``_packed_composite_layer_kind``): an axis-aligned DVE cut or
-    same-matrix dissolve over v210 words ('packed', decoded at the taps)
-    or over slots that give opaque (3, H, W) frames ('rgb3': a 3-channel
-    deinterlace ring, an ``rgba_f32`` field); else None."""
-    if not (ls.has_transform and ls.axis_aligned) or ls.src_size is not None:
+    """A layer's source kind for the packed composite: an axis-aligned DVE
+    cut or same-matrix dissolve over v210 words at channel geometry
+    ('packed', decoded at the taps; JAX ``_packed_composite_layer_kind``),
+    or whose slots all give one kind of frame (``_slot_kind``: 'rgb3', JAX
+    ``_packed_composite_layer_kind``; 'rgba', JAX ``_layers_combine_ok``);
+    else None."""
+    if not (ls.has_transform and ls.axis_aligned):
         return None
     if ls.transition not in ("none", "dissolve"):
         return None
@@ -375,35 +397,40 @@ def _composite_kind(ls: LayerSpec, lp: dict) -> Optional[str]:
         return None
     if _packed_layer_ok(ls):
         return "packed"
-
-    def rgb3(key: str, fmt: str) -> bool:
-        ring = lp.get(f"{key}_ring") if ls.deinterlace else None
-        if ring is not None:
-            return ring[0].shape[0] == 3
-        return fmt == RGBA_F32 and lp[key].shape[0] == 3
-
-    return "rgb3" if all(rgb3(key, fmt) for key, fmt in _slot_formats(ls)) else None
+    kinds = {_slot_kind(ls, lp, key, fmt) for key, fmt in _slot_formats(ls)}
+    return kinds.pop() if len(kinds) == 1 else None
 
 
 class _Run(NamedTuple):
     """The packed composite's dispatch plan: layers [start, end), what the
-    launch emits ('packed', 'both' or 'rgba') and the source kind."""
+    launch emits ('packed', 'both' or 'rgba'), the source kind, and the
+    frame's alpha: 'top' for a run that is the whole stack, else the
+    run's 'coverage'."""
 
     start: int
     end: int
     emit: str
     kind: str
+    alpha: str
 
 
 def _packed_composite_run(spec: ChannelSpec, params: dict) -> Optional[_Run]:
     """The longest contiguous run of at least two layers of one composite
     kind (``_composite_kind``; a tie keeps the lowest run), or None (JAX
-    ``_packed_composite_run`` with its correctness conditions only).  A
-    run that is the whole stack into v210 emits 'packed' ('both' under
-    ``emit_rgba``); any other run emits 'rgba', its frame with the run's
-    coverage alpha, and the layers around it stay staged.  A run longer
-    than the kernel's MAX_LAYERS stays staged too."""
+    ``_packed_composite_run`` with its correctness conditions only; the
+    'rgba' kind is JAX's ``_layers_combine_ok``, which takes whole stacks
+    only).  A run that is the whole stack has the top layer's alpha and
+    emits 'packed' into v210 ('both' under ``emit_rgba``), 'rgba' into any
+    other format.  Any other run emits 'rgba' with the run's coverage
+    alpha, which the 'over' onto the layers around it needs, and those
+    layers stay staged.  An 'rgba' top layer over a stack that is not all
+    'rgba' stays staged as well: the frame's alpha is then its own warped
+    alpha plane, which only its own warp gives (``_top_alpha_fixup``
+    gives the separable alpha of an opaque layer).  A run longer than the
+    kernel's MAX_LAYERS stays staged too."""
     kinds = [_composite_kind(ls, lp) for ls, lp in zip(spec.layers, params["layers"])]
+    if kinds and kinds[-1] == "rgba" and any(k != "rgba" for k in kinds):
+        kinds[-1] = None
     best = None
     i, n = 0, len(kinds)
     while i < n:
@@ -419,18 +446,18 @@ def _packed_composite_run(spec: ChannelSpec, params: dict) -> Optional[_Run]:
     if best is None or not 2 <= best[1] - best[0] <= packed_warp.MAX_LAYERS:
         return None
     start, end = best
-    if (start, end) == (0, n) and spec.out_format == _V210:
-        emit = "both" if spec.emit_rgba else "packed"
-    else:
-        emit = "rgba"
-    return _Run(start, end, emit, kinds[start])
+    if (start, end) != (0, n):
+        return _Run(start, end, "rgba", kinds[start], "coverage")
+    if spec.out_format == _V210:
+        return _Run(start, end, "both" if spec.emit_rgba else "packed", kinds[start], "top")
+    return _Run(start, end, "rgba", kinds[start], "top")
 
 
 def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Run) -> tuple:
     """(srcs, layer_cfg, mats, mixes) of the run's packed composite launch
     (JAX ``_dispatch_packed_composite``): the sources are the layers' v210
-    words for the 'packed' kind and their (3, H, W) frames in ``srcs`` for
-    'rgb3'."""
+    words for the 'packed' kind and their frames in ``srcs`` for 'rgb3'
+    and 'rgba'."""
     flat, cfg, mats, mixes = [], [], [], []
     for li in range(run.start, run.end):
         ls, lp = spec.layers[li], params["layers"][li]
@@ -445,11 +472,12 @@ def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Ru
 def _dispatch_packed_composite(
     spec: ChannelSpec, params: dict, srcs: dict, run: _Run, st: _Stages
 ):
-    """One packed composite launch over the run, emitting ``run.emit``."""
+    """One packed composite launch over the run, emitting ``run.emit``
+    with ``run.alpha``."""
     return st.packed_composite(
         *_packed_composite_args(spec, params, srcs, run), spec.out_col_spec,
         src_kind=run.kind, size=(spec.width, spec.height), col_spec=spec.col_spec,
-        emit=run.emit,
+        emit=run.emit, alpha=run.alpha,
     )
 
 
@@ -458,7 +486,9 @@ def _top_alpha_fixup(rgba: torch.Tensor, spec: ChannelSpec, params: dict, top: i
     the packed composite run holds the stack top, its coverage alpha is
     replaced by that layer's separable warp alpha wy x wx (JAX
     ``_top_alpha_fixup``; exact for an axis-aligned warp of the constant-1
-    plane)."""
+    plane, so for the opaque 'rgb3' and 'packed' kinds only).  A run that
+    is the whole stack emits the top alpha itself; this serves a run that
+    holds the top over staged layers."""
     wy, wx = warp_mod.warp_alpha_vectors(spec.height, spec.width, params["layers"][top]["matrix"])
     ch = torch.arange(4, device=rgba.device)[:, None, None]
     return torch.where(ch == 3, (wy[:, None] * wx[None, :])[None], rgba)
@@ -532,12 +562,14 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
     # rgb3 run's slots (rgba_f32 fields, yadif rings) are made here
     b6 = frozenset(li for li, ls in enumerate(spec.layers) if _packed_layer_ok(ls))
     srcs = _sources(spec, params, st, skip=b6)
-    if run is not None and run.emit != "rgba":
+    if run is not None and run.alpha == "top":  # the whole stack in one launch
         out = _dispatch_packed_composite(spec, params, srcs, run, st)
         if run.emit == "packed":
             return [out]
-        words, rgba = out
-        return {"packed": [words], "rgba": _top_alpha_fixup(rgba, spec, params, run.end - 1)}
+        if run.emit == "both":
+            return {"packed": [out[0]], "rgba": out[1]}
+        packed = _pack_frame(st, spec.out_format, out, spec.out_col_spec, spec.gamma_mode)
+        return {"packed": packed, "rgba": out} if spec.emit_rgba else packed
     layers = []
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
         if run is not None and run.start <= li < run.end:
@@ -554,11 +586,10 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
     if any(isinstance(f, tuple) for f in layers):
         composited = _with_alpha_one(combine_rgb(layers))
     else:
-        black = torch.zeros((4, spec.height, spec.width), dtype=torch.float32, device=device)
-        composited = combine([black] + layers)
+        composited = combine([transparent(spec.height, spec.width, device)] + layers)
         if run is not None and run.end == len(spec.layers):
-            # the run is the stack top: its coverage alpha drove the 'over';
-            # the emitted alpha is the top layer's
+            # the run holds the stack top: its coverage alpha drove the
+            # 'over'; the emitted alpha is the top layer's
             composited = _top_alpha_fixup(composited, spec, params, run.end - 1)
     packed = _pack_frame(st, spec.out_format, composited, spec.out_col_spec, spec.gamma_mode)
     return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed

@@ -17,7 +17,13 @@ __all__ = [
     "wipe_mask",
     "mix_frames",
     "wipe_h",
+    "transparent",
 ]
+
+
+def transparent(height: int, width: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Transparent black (4, H, W): the identity of the 'over' operator."""
+    return torch.zeros((4, height, width), dtype=torch.float32, device=device)
 
 
 def _over(out: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Geometric transforms: the 2-D DVE (anchor/fill/rotate/flip).
+"""Geometric transforms: the 2-D DVE (anchor/fill/rotate/flip) and resize.
 
 Counterpart of phaneron_tpu/ops/geometry.py.  The reference samples with
 normalized coordinates, bilinear filtering and transparent-black borders
-(transform.ts:26-59):
+(transform.ts:26-59, resize.ts:24-60):
 
 - the 3x3 homogeneous matrix is built on the host exactly as the
   reference does (transform.ts:119-175);
@@ -11,7 +11,9 @@ normalized coordinates, bilinear filtering and transparent-black borders
   floor and floor+1 with weight frac; a tap outside the frame reads 0.
 
 These are the plain tensor versions.  ``warp_axis_aligned`` is the
-plain version of the CUDA warp kernel in ops/warp.py.
+plain version of the CUDA warp kernel in ops/warp.py.  ``resize_frame``
+(the stretch-fit of an off-geometry source) has no TPU kernel: JAX runs
+it as two separable XLA passes, and so does the port, in torch ops.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ __all__ = [
     "is_axis_aligned",
     "warp_affine",
     "warp_axis_aligned",
+    "resize_frame",
+    "flip_vals",
 ]
 
 
@@ -86,6 +90,19 @@ def transform_matrix(
 def is_axis_aligned(mat: np.ndarray, eps: float = 1e-12) -> bool:
     """True when the warp has no rotation/shear term (separable path)."""
     return abs(float(mat[0, 1])) <= eps and abs(float(mat[1, 0])) <= eps
+
+
+def flip_vals(flip_h: bool, flip_v: bool) -> np.ndarray:
+    """The resize kernel's 4-float flip buffer (resize.ts:85-90)."""
+    return np.array(
+        [
+            1.0 if flip_h else 0.0,
+            -1.0 if flip_h else 1.0,
+            1.0 if flip_v else 0.0,
+            -1.0 if flip_v else 1.0,
+        ],
+        dtype=np.float32,
+    )
 
 
 # --------------------------------------------------------- tensor-side
@@ -168,3 +185,38 @@ def warp_axis_aligned(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     py = mat[1, 1] * _out_coords(h, src.device) + mat[1, 2] + 0.5  # (H,)
     rows = _interp_1d(src, py, dim=1)
     return _interp_1d(rows, px, dim=2)
+
+
+def resize_frame(
+    src: torch.Tensor,
+    out_height: int,
+    out_width: int,
+    scale=1.0,
+    offset_x=0.0,
+    offset_y=0.0,
+    flip=None,
+) -> torch.Tensor:
+    """Resize/scale/flip of a (C, H, W) frame (resize.ts:35-59): posIn =
+    inPos * mul + off, mul and off from ``scale``, the offsets and the
+    4-float ``flip`` buffer (``flip_vals``; default no flip).  The map is
+    axis-aligned, so the sample runs as two separable passes, horizontal
+    then vertical, border zero.  Every quotient divides by a tensor, as
+    ``_out_coords`` does, so the result equals the JAX package's
+    ``resize_frame`` to the bit."""
+    dev = src.device
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    flip = f32(flip_vals(False, False) if flip is None else flip)
+    scale, offset_x, offset_y = f32(scale), f32(offset_x), f32(offset_y)
+
+    def coords(size: int) -> torch.Tensor:
+        x = torch.arange(size, dtype=torch.float32, device=dev)
+        return x / torch.full_like(x, float(size))
+
+    centre_x = (-0.5 - offset_x) / scale + 0.5
+    centre_y = (-0.5 - offset_y) / scale + 0.5
+    off_x = centre_x * flip[1] + flip[0]
+    off_y = centre_y * flip[3] + flip[2]
+    px = coords(out_width) * (flip[1] / scale) + off_x  # (W_out,)
+    py = coords(out_height) * (flip[3] / scale) + off_y  # (H_out,)
+    cols = _interp_1d(src, px, dim=2)
+    return _interp_1d(cols, py, dim=1)

@@ -1,38 +1,47 @@
 """The packed-source warp and the packed composite: DVE layers that read
-v210 words, decoded at each bilinear tap, or opaque 3-channel frames.
+v210 words, decoded at each bilinear tap, opaque 3-channel frames or
+RGBA frames with their own alpha.
 
-Counterpart of phaneron_tpu/ops/pallas_packed_warp.py:
+Counterpart of phaneron_tpu/ops/pallas_packed_warp.py,
+pallas_composite.py and pallas_warp.py's all-layers combine:
 
 | wrapper          | CUDA source               | replaces                                                   |
 |------------------|---------------------------|------------------------------------------------------------|
-| packed_warp      | csrc/packed_warp.cu       | _make_program (make_packed_warp_program, make_packed_warp_pair_program, n_mat 1 and 2) |
-| packed_composite | csrc/packed_composite.cu  | make_packed_composite_program, emit 'packed', 'rgba', 'both', src_kind 'rgb3' and 'packed' |
+| packed_warp      | csrc/packed_warp.cu       | pallas_packed_warp.py _make_program (make_packed_warp_program, make_packed_warp_pair_program, n_mat 1 and 2) |
+| packed_composite | csrc/packed_composite.cu  | pallas_packed_warp.py make_packed_composite_program (emit 'packed', 'rgba', 'both'; src_kind 'rgb3' and 'packed', alpha 'coverage'); pallas_composite.py make_composite_program (src_kind 'packed', alpha 'top'); pallas_warp.py make_layers_combine_program (src_kind 'rgba', alpha 'top') |
 
 ``packed_warp`` decodes one v210 source (or a dissolve pair under one
 shared or two distinct matrices) at the taps of an axis-aligned warp and
 returns linear RGBA; its alpha is the warp of the constant-1 plane.
 ``packed_composite`` runs a run of DVE layers (cuts or same-matrix
 dissolves) in one launch, into v210 words, into the composited RGBA
-frame with the run's coverage alpha (a run that spans part of the
-stack), or both (an ``emit_rgba`` channel), from opaque (3, H, W) float32
+frame, or both (an ``emit_rgba`` channel), from opaque (3, H, W) float32
 sources (``src_kind='rgb3'``, the deinterlaced fields of the interlaced
-default load) or from v210 words (``'packed'``, the progressive
-multi-layer channel).  Each wrapper launches its kernel for CUDA tensors
-and runs its plain version for CPU tensors; ``.launches`` counts kernel
-launches.
+default load), from v210 words (``'packed'``, the progressive
+multi-layer channel) or from (4, H, W) float32 RGBA frames that carry
+their own alpha (``'rgba'``, the file-media multi-box channel).  The
+frame's alpha is the run's coverage (``alpha='coverage'``: a run that
+spans part of the stack, composited with the layers around it) or the
+top layer's (``'top'``: a run that is the whole stack).  Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors; ``.launches`` counts kernel launches.
 
 The plain versions are the staged paths the kernels fuse: the v210
 unpack, the warp (a dissolve pair mixed after the warp), and for the
-composite the separable alpha ``warp_alpha_vectors``, ``combine_rgb``
-and the v210 pack.  The TPU kernels premix a shared-matrix pair before
-one warp, in bf16 hi/lo products, and the composite decodes with a
-polynomial gamma; the port keeps the staged order and the exact decode,
-within 1 code of them (tests/test_torch_packed_warp.py,
-tests/test_torch_packed_source.py).  The TPU gates (``packed_warp_fits``,
-``packed_composite_fits``: widths a multiple of 768, VMEM plans, HD
-padded to 384 groups) are not ported: the kernels take any geometry, so
-at 1080p the port takes these routes where the JAX package on a TPU
-stays staged, with the same numbers within each contract.
+composite the layer's alpha (the separable ``warp_alpha_vectors`` of an
+opaque source, the warped and mixed alpha plane of an RGBA one),
+``combine_rgb`` and the v210 pack.  The TPU kernels premix a
+shared-matrix pair before one warp, in bf16 hi/lo products, and the
+composite decodes with a polynomial gamma; the port keeps the staged
+order and the exact decode, within 1 code of them
+(tests/test_torch_packed_warp.py, tests/test_torch_packed_source.py,
+tests/test_torch_fused_composite.py, tests/test_torch_layers_combine.py).
+The TPU gates (``packed_warp_fits``, ``packed_composite_fits``,
+``composite_supported``, ``layers_combine_fits``: widths a multiple of
+128 or 768, VMEM plans, HD padded to 384 groups) are not ported: the
+kernels take any geometry, so at 1080p the port takes these routes where
+the JAX package on a TPU stays staged, with the same numbers within each
+contract.
 """
 
 from __future__ import annotations
@@ -69,8 +78,9 @@ __all__ = [
 ]
 
 MAX_LAYERS = 8  # layers per launch (kMaxLayers in csrc/packed_composite.cu)
-_KINDS = ("rgb3", "packed")
+_KINDS = ("rgb3", "packed", "rgba")  # kind codes 0, 1, 2 of csrc/packed_composite.cu
 _EMITS = ("packed", "rgba", "both")
+_ALPHAS = ("coverage", "top")
 
 
 def _mat_on(mat, device: torch.device, name: str) -> torch.Tensor:
@@ -145,12 +155,14 @@ packed_warp.launches = 0
 
 
 def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
-                  src_kind: str, size, emit: str) -> tuple[int, int]:
+                  src_kind: str, size, emit: str, alpha: str) -> tuple[int, int]:
     """(height, width) of the layers, after the structural checks."""
     if src_kind not in _KINDS:
         raise ValueError(f"packed_composite: src_kind must be one of {_KINDS}, got {src_kind!r}")
     if emit not in _EMITS:
         raise ValueError(f"packed_composite: emit must be one of {_EMITS}, got {emit!r}")
+    if alpha not in _ALPHAS:
+        raise ValueError(f"packed_composite: alpha must be one of {_ALPHAS}, got {alpha!r}")
     if not layer_cfg or any(n not in (1, 2) for n in layer_cfg):
         raise ValueError(f"packed_composite: layer_cfg entries must be 1 or 2, got {layer_cfg}")
     if len(srcs) != sum(layer_cfg):
@@ -165,19 +177,29 @@ def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, 
         if size is None:
             raise ValueError("packed_composite: packed sources need size=(width, height)")
         return size[1], size[0]
-    if len(shape) != 3 or shape[0] != 3:
-        raise ValueError(f"packed_composite: expected (3, H, W) sources, got {shape}")
+    channels = 4 if src_kind == "rgba" else 3
+    if len(shape) != 3 or shape[0] != channels:
+        raise ValueError(f"packed_composite: expected ({channels}, H, W) sources, got {shape}")
     return shape[1], shape[2]
 
 
-def coverage(layers: Sequence[tuple]) -> torch.Tensor:
-    """The 'over'-accumulated alpha of (rgb, wy, wx) layers, bottom to top:
-    a = a*(1 - a_m) + a_m from a_0, a_m = wy[:, None] * wx, i.e.
-    1 - prod(1 - a_m) (pallas_packed_warp.py make_packed_composite_program,
-    emit 'rgba')."""
+def _layer_alpha(layer) -> torch.Tensor:
+    """A layer's (H, W) alpha: wy[:, None] * wx of an (rgb, wy, wx) tuple,
+    channel 3 of a (4, H, W) frame."""
+    if isinstance(layer, tuple):
+        _, wy, wx = layer
+        return wy[:, None] * wx[None, :]
+    return layer[3]
+
+
+def coverage(layers: Sequence) -> torch.Tensor:
+    """The 'over'-accumulated alpha of layers, bottom to top, each an (rgb,
+    wy, wx) tuple or a (4, H, W) frame (``_layer_alpha``): a = a*(1 - a_m)
+    + a_m from a_0, i.e. 1 - prod(1 - a_m) (pallas_packed_warp.py
+    make_packed_composite_program, emit 'rgba')."""
     cover = None
-    for _, wy, wx in layers:
-        a = wy[:, None] * wx[None, :]
+    for layer in layers:
+        a = _layer_alpha(layer)
         cover = a if cover is None else cover * (1.0 - a) + a
     return cover
 
@@ -185,49 +207,54 @@ def coverage(layers: Sequence[tuple]) -> torch.Tensor:
 def packed_composite_plain(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-    emit: str = "packed",
+    emit: str = "packed", alpha: str = "coverage",
 ):
     """Plain version of packed_composite: [v210_unpack_plain (3 ch) ->] the
-    staged warp -> combine_rgb -> v210 pack path, and for the rgba emits
-    the frame (combine_rgb, coverage)."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit)
+    staged warp (all four channels for 'rgba' sources) -> combine_rgb ->
+    v210 pack path, and for the rgba emits the frame (combine_rgb, then
+    ``coverage`` or the top layer's alpha)."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
     if src_kind == "packed":
         srcs = v210_unpack_plain(srcs, w, h, col_spec, out_col_spec, channels=3)
     layers, s = [], 0
     for n, mat, mix in zip(layer_cfg, mats, mixes):
-        rgb = warp_plain(srcs[s], mat) if n == 1 else warp_plain(srcs[s], mat, srcs[s + 1], mix)
-        layers.append((rgb, *warp_alpha_vectors(h, w, mat)))
+        v = warp_plain(srcs[s], mat) if n == 1 else warp_plain(srcs[s], mat, srcs[s + 1], mix)
+        layers.append(v if src_kind == "rgba" else (v, *warp_alpha_vectors(h, w, mat)))
         s += n
     rgb = combine_rgb(layers)
     words = v210_pack_plain(rgb, out_col_spec) if emit != "rgba" else None
     if emit == "packed":
         return words
-    rgba = torch.cat([rgb, coverage(layers)[None]])
+    a = _layer_alpha(layers[-1]) if alpha == "top" else coverage(layers)
+    rgba = torch.cat([rgb, a[None]])
     return rgba if emit == "rgba" else (words, rgba)
 
 
 def packed_composite(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-    emit: str = "packed",
+    emit: str = "packed", alpha: str = "coverage",
 ):
     """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32
     (``emit='packed'``), the composited (4, H, W) float32 frame
-    (``'rgba'``: RGB over black and the run's coverage alpha, see
-    ``coverage``), or (words, frame) (``'both'``).
+    (``'rgba'``: RGB over black, alpha the run's coverage, see
+    ``coverage``, or with ``alpha='top'`` the top layer's), or (words,
+    frame) (``'both'``).
 
     ``src_kind='rgb3'``: opaque (3, H, W) float32 sources.  ``'packed'``:
     v210 words (H, pitch_bytes/4) int32 of a ``size=(width, height)``
     frame, decoded (``col_spec`` -> ``out_col_spec``) at each tap.
+    ``'rgba'``: (4, H, W) float32 premultiplied RGBA sources.
     ``layer_cfg[m]`` is layer m's source count (1 a cut, 2 a dissolve
     pair); ``srcs`` lists them flat.  ``mats[m]`` is its (3, 3) matrix
     (only m00, m02, m11, m12 are read), ``mixes[m]`` its mix (a 0-d
-    tensor or float; None for a cut).  Each layer's alpha is its separable
-    warp alpha; the bottom layer composites over black."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit)
+    tensor or float; None for a cut).  A layer's alpha is its separable
+    warp alpha (opaque sources) or its warped, mixed alpha plane
+    ('rgba'); the bottom layer composites over black."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
     if is_cpu(srcs[0], "packed_composite"):
         return packed_composite_plain(
-            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec, emit
+            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec, emit, alpha
         )
     if len(layer_cfg) > MAX_LAYERS:
         raise ValueError(f"packed_composite: at most {MAX_LAYERS} layers per launch")
@@ -238,7 +265,7 @@ def packed_composite(
         if packed:
             check_arg(s, "packed_composite words", dev, torch.int32, (h, groups * 4), align=16)
         else:
-            check_arg(s, "packed_composite src", dev, torch.float32, (3, h, w))
+            check_arg(s, "packed_composite src", dev, torch.float32, tuple(srcs[0].shape))
     mats = [_mat_on(m, dev, "packed_composite mat") for m in mats]
     mixes = [None if n == 1 else _check_mix(x, dev) for n, x in zip(layer_cfg, mixes)]
     words = rgba = None
@@ -254,8 +281,9 @@ def packed_composite(
     with torch.cuda.device(dev):
         rc = library().phn_packed_composite(
             ctypes.addressof(src_p), ctypes.addressof(mat_p), ctypes.addressof(mix_p),
-            ctypes.addressof(n_src), len(layer_cfg), int(packed), ptr(words), ptr(rgba), w, h,
-            groups, dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+            ctypes.addressof(n_src), len(layer_cfg), _KINDS.index(src_kind), ptr(words), ptr(rgba),
+            w, h, groups, dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)),
+            int(alpha == "top"), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")
     packed_composite.launches += 1

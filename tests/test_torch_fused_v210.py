@@ -103,20 +103,22 @@ def test_fused_v210_plain_is_the_staged_top_layer_and_cpu_launches_nothing():
 
 def test_fused_v210_chosen_over_an_unported_lower_layer():
     """JAX picks the fused program before it looks at the lower layers;
-    so does the port: an off-geometry lower layer (``src_size``, waiting
-    for ROADMAP A3's resize_frame) under a v210 dissolve top runs, and
-    equals JAX's fused program."""
+    so does the port: under a v210 dissolve top, the frame equals JAX's
+    fused program whatever the lower layer is.  The lower layer runs: an
+    off-geometry v210 dissolve (``src_size``, unpacked at 96x8 and
+    resized) on its own is within 1 code of JAX's XLA path."""
     w = 192
     rng = np.random.default_rng(17)
-    a, b, low = (random_words(rng, w, H) for _ in range(3))
+    a, b = (random_words(rng, w, H) for _ in range(2))
+    low = random_words(rng, 96, 8)
     spec = tpipe.ChannelSpec(w, H, "v210", layers=(
         tpipe.LayerSpec("v210", transition="dissolve", src_size=(96, 8)),
         tpipe.LayerSpec("v210", transition="dissolve", src_b_format="v210"),
     ))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tpipe.check_structure(spec, "cpu")
+    tpipe.check_structure(spec, "cpu")
+    low_params = {"src": [low], "src_b": [np.roll(low, 5, axis=1)], "mix": np.float32(0.3)}
     params = params_from_numpy({"layers": [
-        {"src": [low], "src_b": [low]}, {"src": [a], "src_b": [b], "mix": np.float32(0.55)},
+        low_params, {"src": [a], "src_b": [b], "mix": np.float32(0.55)},
     ]}, "cpu")
     (got,) = tpipe.make_channel_program(spec)(params)
     jfused = make_fused_v210_program(w, H, transition="dissolve", interpret=True)
@@ -124,6 +126,13 @@ def test_fused_v210_chosen_over_an_unported_lower_layer():
     assert words_to_numpy(got).tobytes() == want.tobytes()
     (plain,) = tpipe.make_channel_program(spec, plain=True)(params)
     assert torch.equal(plain, got)
+    # the lower layer on its own
+    jlow = jpipe.ChannelSpec(w, H, "v210", layers=(jpipe.LayerSpec("v210", transition="dissolve",
+                                                                   src_size=(96, 8)),))
+    low_spec = spec_from_fields(jlow._asdict())
+    assert not tpipe._fused_v210_ok(low_spec)
+    (got_low,) = tpipe.make_channel_program(low_spec)(params_from_numpy({"layers": [low_params]}, "cpu"))
+    assert max_code_delta(words_to_numpy(got_low), _jax_xla(jlow, {"layers": [low_params]}), w, H) <= 1
     # a DVE on the top layer, or a non-v210 top, is not the fused program
     for top in (tpipe.LayerSpec("v210", has_transform=True), tpipe.LayerSpec("yuv422p8"),
                 tpipe.LayerSpec("v210", deinterlace=True)):

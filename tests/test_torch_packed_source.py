@@ -120,7 +120,7 @@ def test_packed_plain_versions_are_unpack_then_warp_and_cpu_launches_nothing():
     with pytest.raises(ValueError, match="size"):
         PW.packed_composite([a, b], (2,), [m], [mix], src_kind="packed")
     with pytest.raises(ValueError, match="src_kind"):
-        PW.packed_composite([a, b], (2,), [m], [mix], src_kind="rgba")
+        PW.packed_composite([a, b], (2,), [m], [mix], src_kind="yuv")
 
 
 # ------------------------------------------- B7 and the progressive frame
@@ -164,7 +164,7 @@ def test_progressive_frame_and_packed_composite_within_one_code_of_jax():
     assert packed_composite_fits(H, W, bucket, 4, src_kind="packed")
     tspec = spec_from_fields(_progressive(False)._asdict())
     tparams = params_from_numpy(_progressive_params(words, lambda w: w), "cpu")
-    assert tpipe._packed_composite_run(tspec, tparams) == (0, 4, "packed", "packed")
+    assert tpipe._packed_composite_run(tspec, tparams) == (0, 4, "packed", "packed", "top")
     (got,) = tpipe.make_channel_program(tspec)(tparams)
     got = words_to_numpy(got)
     want = _jax_run(spec, _progressive_params(words, words_to_planes))

@@ -135,11 +135,11 @@ def test_channel_program_runs_whole_stack_rgb3_runs_as_one_composite(layers, fus
     assert (run is not None) == fused
     (got,) = tpipe.make_channel_program(spec)(params)
     if fused:
-        assert run == (0, len(layers), "packed", "rgb3")
+        assert run == (0, len(layers), "packed", "rgb3", "top")
         args = tpipe._packed_composite_args(spec, params, srcs, run)
         assert args[1] == tuple(2 if ls.transition == "dissolve" else 1 for ls in layers)
         assert torch.equal(got, PW.packed_composite_plain(*args))
-    # 4-channel sources take the staged route
+    # a dissolve over a 4-channel and a 3-channel frame is no composite kind
     four = {"layers": [dict(lp, src=torch.cat([lp["src"], torch.ones_like(lp["src"][:1])]))
                        for lp in params["layers"]]}
     assert tpipe._packed_composite_run(spec, four) is None

@@ -217,11 +217,16 @@ def test_entry_structure_dispatches_to_kernels_on_cuda():
                tpipe.LayerSpec("rgba8"), out_format="nv12", emit_rgba=True), "B12, B13"),
         (_spec(tpipe.LayerSpec("bgra8", transition="wipe", mask_format="rgba"),
                out_format="bgra8"), "bgra8"),
+        # off-geometry sources (A3: unpacked at their own size, resize_frame)
+        (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame"),
+        (_spec(tpipe.LayerSpec("v210"), tpipe.LayerSpec("nv12", src_size=(128, 16)),
+               out_format="yuv420p"), "resize_frame"),
     ],
 )
 def test_straggler_structures_run_on_cuda(spec, item):
     """The structures the port has ported have every kernel: they pass
-    check_structure on the card and on the CPU."""
+    check_structure on the card and on the CPU, off-geometry sources
+    (``src_size``) among them."""
     assert tpipe.missing_kernel(spec) is None, item
     tpipe.check_structure(spec, torch.device("cuda"))
     tpipe.check_structure(spec, "cpu")
@@ -230,14 +235,13 @@ def test_straggler_structures_run_on_cuda(spec, item):
 @pytest.mark.parametrize(
     "spec,item",
     [
-        (_spec(tpipe.LayerSpec("v210", src_size=(128, 16))), "resize_frame"),
-        (_spec(tpipe.LayerSpec("v210"), tpipe.LayerSpec("nv12", src_size=(128, 16)),
-               out_format="yuv420p"), "resize_frame"),
+        (_spec(tpipe.LayerSpec("v210", transition="push")), "A4"),
     ],
 )
 def test_structures_outside_the_slice_raise_on_cuda(spec, item):
-    """A structure the port has no code for (an off-geometry source, ROADMAP
-    A3) raises on the card path and on the CPU, naming its ROADMAP item."""
+    """A structure the port has no code for (a transition outside
+    none / dissolve / wipe, ROADMAP A4) raises on the card path and on the
+    CPU, naming its ROADMAP item."""
     for device in (torch.device("cuda"), "cpu"):
         with pytest.raises(NotImplementedError, match=item):
             tpipe.check_structure(spec, device)

@@ -38,8 +38,8 @@ from phaneron_tpu_torch.graph.convert import params_from_numpy, spec_from_fields
 from phaneron_tpu_torch.ops import kernels as K
 from phaneron_tpu_torch.ops import packed_warp as PW
 from phaneron_tpu_torch.ops.rotate import rotate
-from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
-from torch_parity import max_code_delta, v210_codes, words_to_planes
+from phaneron_tpu_torch.ops.warp import warp_alpha_vectors, warp_plain
+from torch_parity import graphic_rgba8, max_code_delta, v210_codes, words_to_planes
 
 torch.set_num_threads(1)
 
@@ -76,8 +76,15 @@ def _layer(kind: str, pallas: bool) -> jpipe.LayerSpec:
     dissolve, 'rot' a rotated v210 cut, 'wipe' a v210 wipe with DVE
     (src, src_b and mask v210), 'cut' an axis-aligned v210 cut, 'rotpair'
     a rotated dissolve under two distinct matrices, 'f32' an opaque
-    (3, H, W) float32 dissolve (the rgb3 kind)."""
+    (3, H, W) float32 dissolve (the rgb3 kind); and of the file-media
+    multi-box channel (the rgba kind): 'y422' a yuv422p8 DVE dissolve to
+    an nv12 clip, 'rgba8' the keyed rgba8 lower third as a DVE cut."""
     dve = dict(has_transform=True, axis_aligned=True)
+    if kind == "y422":
+        return jpipe.LayerSpec("yuv422p8", transition="dissolve", src_b_format="nv12",
+                               warp_bucket=BUCKET if pallas else -1, **dve)
+    if kind == "rgba8":
+        return jpipe.LayerSpec("rgba8", warp_bucket=bucket_of(TOP) if pallas else -1, **dve)
     if kind == "diss":
         return jpipe.LayerSpec("v210", transition="dissolve", src_b_format="v210",
                                warp_bucket=BUCKET if pallas else -1, **dve)
@@ -98,8 +105,8 @@ def _layer(kind: str, pallas: bool) -> jpipe.LayerSpec:
                            rot_bucket_b=code(ROT_B))
 
 
-def _spec(kinds, pallas: bool, emit_rgba: bool = False) -> jpipe.ChannelSpec:
-    return jpipe.ChannelSpec(W, H, "v210", layers=tuple(_layer(k, pallas) for k in kinds),
+def _spec(kinds, pallas: bool, emit_rgba: bool = False, out_format: str = "v210") -> jpipe.ChannelSpec:
+    return jpipe.ChannelSpec(W, H, out_format, layers=tuple(_layer(k, pallas) for k in kinds),
                              pallas_stages=pallas, emit_rgba=emit_rgba)
 
 
@@ -114,6 +121,11 @@ def _params(kinds) -> dict:
         if kind in ("diss", "f32"):
             src = words if kind == "diss" else lambda: rng.random((3, H, W), dtype=np.float32)
             layers.append({"src": src(), "src_b": src(), "matrix": MATS[i], "mix": MIXES[i]})
+        elif kind == "y422":
+            layers.append({"src": jget_format("yuv422p8").fill_buf(W, H),
+                           "src_b": jget_format("nv12").fill_buf(W, H), "matrix": MATS[i], "mix": MIXES[i]})
+        elif kind == "rgba8":
+            layers.append({"src": [graphic_rgba8(W, H)], "matrix": TOP})
         elif kind == "rot":
             layers.append({"src": [SMOOTH], "matrix": ROT})
         elif kind == "cut":
@@ -131,14 +143,14 @@ def _jax_params(params: dict, pallas: bool) -> dict:
     (4, H, G) planes for the Pallas path (what its packed kinds read)."""
     def leaf(v):
         if isinstance(v, list):
-            return [jnp.asarray(words_to_planes(p) if pallas else p) for p in v]
+            return [jnp.asarray(words_to_planes(p) if pallas and p.dtype == np.uint32 else p) for p in v]
         return jnp.asarray(v)
 
     return {"layers": [{k: leaf(v) for k, v in lp.items()} for lp in params["layers"]]}
 
 
-def _port(kinds, emit_rgba: bool = False):
-    spec = spec_from_fields(_spec(kinds, False, emit_rgba)._asdict())
+def _port(kinds, emit_rgba: bool = False, out_format: str = "v210"):
+    spec = spec_from_fields(_spec(kinds, False, emit_rgba, out_format)._asdict())
     return spec, params_from_numpy(_params(kinds), "cpu")
 
 
@@ -165,26 +177,47 @@ ODD_CUT = ("diss", "diss", "diss", "cut")
 
 
 @pytest.mark.parametrize("kinds,emit_rgba,want", [
-    (ONE_ROTATION, False, (0, 3, "rgba", "packed")),
-    (WIPE, False, (0, 3, "rgba", "packed")),
-    (ROTATED_PAIR, False, (0, 3, "rgba", "packed")),
-    (("rot", "diss", "diss", "diss"), False, (1, 4, "rgba", "packed")),  # straggler at the bottom
-    (("diss", "diss", "rot", "diss", "diss"), False, (0, 2, "rgba", "packed")),  # a tie keeps the first
-    (ODD_CUT, False, (0, 4, "packed", "packed")),
-    (ODD_CUT, True, (0, 4, "both", "packed")),  # emit_rgba over a whole stack
-    (ONE_ROTATION, True, (0, 3, "rgba", "packed")),
-    (("f32", "f32", "diss", "diss", "diss"), False, (2, 5, "rgba", "packed")),  # the longer run
-    (("f32", "f32", "diss", "diss"), False, (0, 2, "rgba", "rgb3")),  # a tie across kinds
+    (ONE_ROTATION, False, (0, 3, "rgba", "packed", "coverage")),
+    (WIPE, False, (0, 3, "rgba", "packed", "coverage")),
+    (ROTATED_PAIR, False, (0, 3, "rgba", "packed", "coverage")),
+    (("rot", "diss", "diss", "diss"), False, (1, 4, "rgba", "packed", "coverage")),  # straggler at the bottom
+    (("diss", "diss", "rot", "diss", "diss"), False, (0, 2, "rgba", "packed", "coverage")),  # a tie keeps the first
+    (ODD_CUT, False, (0, 4, "packed", "packed", "top")),
+    (ODD_CUT, True, (0, 4, "both", "packed", "top")),  # emit_rgba over a whole stack
+    (ONE_ROTATION, True, (0, 3, "rgba", "packed", "coverage")),
+    (("f32", "f32", "diss", "diss", "diss"), False, (2, 5, "rgba", "packed", "coverage")),  # the longer run
+    (("f32", "f32", "diss", "diss"), False, (0, 2, "rgba", "rgb3", "coverage")),  # a tie across kinds
     (("diss", "rot", "diss"), False, None),  # no run of two
+    # the rgba kind (sources with their own alpha), held to _layers_combine_ok
+    (("y422", "rgba8"), False, (0, 2, "packed", "rgba", "top")),
+    (("y422", "y422", "rgba8"), True, (0, 3, "both", "rgba", "top")),
+    # the rgba top over stragglers stays staged: its own alpha is the frame's
+    (("rot", "y422", "rgba8"), False, None),
+    (("rot", "y422", "y422", "rgba8"), False, (1, 3, "rgba", "rgba", "coverage")),
+    (("diss", "y422", "rgba8"), True, None),
+    (("y422", "rgba8", "rot"), False, (0, 2, "rgba", "rgba", "coverage")),
+    (("diss", "diss", "y422", "y422"), False, (0, 2, "rgba", "packed", "coverage")),  # a tie across kinds
+    (("y422", "y422", "diss", "diss", "diss"), False, (2, 5, "rgba", "packed", "coverage")),
 ])
-def test_dispatch_plan_equals_jax(kinds, emit_rgba, want):
-    """The port's plan equals JAX's _packed_composite_run (pallas_stages,
-    every gate passing at this geometry) on the straggler stacks."""
+def test_dispatch_plan_equals_jax(kinds, emit_rgba, want, monkeypatch):
+    """The port's plan against JAX's (pallas_stages, every gate passing at
+    this geometry): a 'packed' or 'rgb3' run equals _packed_composite_run;
+    an 'rgba' run, which JAX has no kind for, is the whole stack exactly
+    when JAX's _layers_combine_ok takes the stack (its all-layers combine,
+    flag on).  The alpha is the top layer's exactly for a whole stack."""
+    monkeypatch.setattr(jpipe, "ENABLE_LAYERS_COMBINE", True)
     spec, params = _port(kinds, emit_rgba)
     run = tpipe._packed_composite_run(spec, params)
-    jrun = jpipe._packed_composite_run(_spec(kinds, True, emit_rgba), _jax_params(_params(kinds), True))
-    assert jrun == want
+    jspec = _spec(kinds, True, emit_rgba)
+    jrun = jpipe._packed_composite_run(jspec, _jax_params(_params(kinds), True))
     assert (None if run is None else tuple(run)) == want
+    if want is None or want[3] != "rgba":
+        assert jrun == (None if want is None else want[:4])
+    else:
+        assert jrun is None
+        assert jpipe._layers_combine_ok(jspec) == (want[:2] == (0, len(kinds)))
+    if run is not None:
+        assert (run.alpha == "top") == ((run.start, run.end) == (0, len(kinds)))
 
 
 # ------------------------------------------------------- the B7 emits
@@ -205,7 +238,7 @@ def test_packed_composite_emits_match_jax(kind, emit):
     within 1 code; the frame's RGB packs to the 'packed' emit's words."""
     kinds = RUN if kind == "packed" else ("f32", "f32")
     spec, params = _port(kinds)
-    run = tpipe._Run(0, 2, emit, kind)
+    run = tpipe._Run(0, 2, emit, kind, "coverage")
     srcs = {} if kind == "packed" else {
         (li, key): params["layers"][li][key] for li in range(2) for key in ("src", "src_b")}
     args = tpipe._packed_composite_args(spec, params, srcs, run)
@@ -306,3 +339,35 @@ def test_straggler_frame_matches_both_jax_paths(kinds, emit_rgba):
             alpha = rotate(torch.ones((4, H, W)), top)[3]
         assert torch.equal(rgba[3], alpha)
         assert torch.equal(K.v210_pack(rgba), out["packed"][0])
+
+
+KEYED = [("rot", "y422", "rgba8"), ("diss", "y422", "rgba8"), ("rot", "y422", "y422", "rgba8")]
+
+
+@pytest.mark.parametrize("out_format,emit_rgba", [("v210", True), ("rgba8", False)])
+@pytest.mark.parametrize("kinds", KEYED)
+def test_keyed_top_over_stragglers_keeps_its_alpha(kinds, out_format, emit_rgba):
+    """The keyed rgba8 graphic on top of a stack with a straggler below (a
+    rotation; a v210 DVE box, which the packed warp decodes) stays staged,
+    whether an rgba-kind run composites the layers under it (coverage
+    alpha) or none does: the emitted frame's alpha is the graphic's own
+    warped alpha plane.  Against JAX's XLA path within 1 code (v210) or 1
+    byte (rgba8 out, which writes alpha 255, rgba8.ts:94-97); the rgba
+    emit within 2e-4, its alpha the graphic's warp to the bit."""
+    spec, params = _port(kinds, emit_rgba, out_format)
+    run = tpipe._packed_composite_run(spec, params)
+    assert run is None or (run.end < len(kinds) and run.alpha == "coverage")
+    out = tpipe.make_channel_program(spec)(params)
+    want = jpipe.make_channel_program(_spec(kinds, False, emit_rgba, out_format))(
+        _jax_params(_params(kinds), False))
+    if out_format == "rgba8":
+        (got,), (jwant,) = out, want
+        assert tuple(got.shape) == (H, W, 4) and got.dtype == torch.uint8
+        assert np.abs(got.numpy().astype(np.int64) - np.asarray(jwant).astype(np.int64)).max() <= 1
+        return
+    everywhere = np.ones((H, W), bool)
+    assert _code_deltas(words_to_numpy(out["packed"][0]), np.asarray(want["packed"][0]), everywhere).max() <= 1
+    assert np.abs(out["rgba"].numpy() - np.asarray(want["rgba"])).max() <= TOL_RGBA
+    top = params["layers"][-1]
+    graphic = tpipe.make_unpack_program("rgba8", W, H, "709", "709")(top["src"])
+    assert torch.equal(out["rgba"][3], warp_plain(graphic, top["matrix"])[3])

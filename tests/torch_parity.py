@@ -37,6 +37,21 @@ def max_code_delta(a: np.ndarray, b: np.ndarray, width: int, height: int) -> int
     )
 
 
+def graphic_rgba8(width: int, height: int) -> np.ndarray:
+    """(H, W, 4) rgba8 keyed lower third, premultiplied (chip_smoke.py
+    graphic_rgba8): alpha 255 in a band of rows, 128 on its edge rows, 0
+    elsewhere."""
+    alpha = np.zeros(height, np.float64)
+    top, bottom = int(0.7 * height), int(0.85 * height)
+    alpha[top:bottom] = 255.0
+    alpha[[top - 1, bottom]] = 128.0
+    colour = np.stack(np.broadcast_arrays(np.linspace(20, 235, width)[None, :], 160.0, 60.0), -1)
+    px = np.zeros((height, width, 4), np.uint8)
+    px[..., :3] = np.round(colour * alpha[:, None, None] / 255.0)
+    px[..., 3] = alpha[:, None]
+    return px
+
+
 def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Distance in float32 ulps (same-sign finite values)."""
     ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)

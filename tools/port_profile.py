@@ -10,7 +10,11 @@ the playout dissolve at 1920x1080 and 3840x2160; the straggler channels:
 one_rotation and wipe at 3840x2160 and 1920x1080, the rotated
 distinct-matrix dissolve and the emit_rgba frames at 1920x1080; the
 file-media channel with its two consumer packs at 1920x1080 and
-3840x2160) under torch.profiler after warm-up, and prints
+3840x2160; the file-media multi-box channel into v210 with emit_rgba at
+1920x1080 and 3840x2160 and into yuv422p10le at 1920x1080; the
+progressive 4-layer frame into yuv422p10le at 1920x1080; the keyed
+graphic over two boxes and a rotation, emit_rgba, at 1920x1080) under
+torch.profiler after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
@@ -141,6 +145,22 @@ def main() -> int:
         cs.media_animate(torch, mparams, dev, 0.5)
         profile(torch, f"media channel and its rgba8 / nv12 consumer packs, {w}x{h}", lambda: media(mparams),
                 20, card)
+    for w, h, fmt, emit_rgba in ((cs.W, cs.H, "v210", True), (cs.UHD_W, cs.UHD_H, "v210", True),
+                                 (cs.W, cs.H, "yuv422p10le", False)):
+        bspec, bparams = cs.multibox_spec_params(torch, dev, rng, w, h, fmt, emit_rgba)
+        bprog = make_channel_program(bspec)
+        cs.media_animate(torch, bparams, dev, 0.5)
+        profile(torch, f"multibox into {fmt}{' emit_rgba' if emit_rgba else ''}, {w}x{h}", lambda: bprog(bparams),
+                20, card)
+    yspec, yparams = cs.progressive_spec_params(torch, dev, rng, cs.W, cs.H)
+    yprog = make_channel_program(yspec._replace(out_format="yuv422p10le"))
+    cs.progressive_animate(torch, yparams, dev, 0.5)
+    profile(torch, f"progressive 4-layer frame into yuv422p10le, {cs.W}x{cs.H}", lambda: yprog(yparams), 20, card)
+    kspec, kparams = cs.keyed_straggler_spec_params(torch, dev, rng, cs.W, cs.H)
+    kprog = make_channel_program(kspec)
+    cs.keyed_straggler_animate(torch, kparams, dev, 0.5)
+    profile(torch, f"keyed graphic over two boxes and a rotation, emit_rgba, {cs.W}x{cs.H}", lambda: kprog(kparams),
+            20, card)
     return 0
 
 
