@@ -26,6 +26,12 @@ Run from the repository root:  python3 chip_smoke.py
    pairs under one matrix or two, C 4 and 3, at 25, 100 and -7 degrees)
    and K4's wipe and distinct-matrix pairs <= 5e-5, packed_composite's
    rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code; then
+   packed_composite's v210 decode window at its edges (flips, minifying
+   boxes at scale 0.5 and 0.25, offsets past the frame edge, 1918 wide;
+   emits packed, both and rgba; 0 codes and max |delta| 0 expected), with
+   the (tile, source) pairs each took on the window and direct branches
+   (the 0.25 box must reach the direct branch, the flips and the
+   progressive matrices must stay on the window); then
    the planar kernels of the file-media formats at 1920x1080, 1918x1080
    (a pitch pad) and 1920x1081 (an odd height), on seeded full-range
    random planes (10-bit codes in [0, 1023]) and the fill_buf ramps:
@@ -119,9 +125,14 @@ Run from the repository root:  python3 chip_smoke.py
    frames), the progressive frame also on the staged K1 (3 ch) + K5
    (rgb3) route, and each frame's latency with the card idle before and
    after; then each kernel against its plain version at a main path's
-   shapes, K4 and rotate also against torch.nn.functional.grid_sample on
-   the same frames; packed_composite also in each whole-stack and rgba
-   mode at a main path's shapes.
+   shapes (the kernel's and the library call's device time: calls
+   captured into a CUDA graph and replayed between events; the plain
+   version's eagerly), K4 and rotate also against
+   torch.nn.functional.grid_sample on the same frames; packed_composite
+   also in each whole-stack and rgba mode at a main path's shapes; K1 and
+   K5 over v210 words also on the rolled fill_buf ramps (coherent content,
+   beside the random words); and packed_composite's window/direct counts
+   at every timed v210 shape, none of which may leave the window.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -221,6 +232,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log: str) -> list:
+    """ptxas's resource lines (-Xptxas -v), each after the kernel it
+    describes: '<kernel>: Used N registers, ..., S bytes smem' (static
+    shared memory; a dynamic window is the launch's own) and its spills."""
+    import re
+
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            try:  # demangled where binutils is there; the mangled name names the kernel too
+                kernel = subprocess.run(["c++filt", kernel], capture_output=True, text=True,
+                                        timeout=10).stdout.strip() or kernel
+            except (OSError, subprocess.SubprocessError):
+                pass
+        elif "registers" in line or "spill" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def time_ms(torch, fn, batches: int = 7, calls: int = 10, warmup: int = 3) -> float:
     """Median over ``batches`` of the mean ms per call of ``calls``
     back-to-back fn() calls between two CUDA events, after warm-up.  The
@@ -255,12 +287,42 @@ def latency_ms(torch, fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, batches: int = 7, calls: int = 10, warmup: int = 3) -> float:
+    """Median over ``batches`` of the device ms per call: ``calls`` fn()
+    calls captured once into a CUDA graph (each wrapper launches on the
+    current stream, which the capture owns) and replayed between two CUDA
+    events, so the host's cost of a wrapper call (tens of microseconds of
+    Python) does not hide a kernel shorter than it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def best_of_two(torch, kernel_fn, plain_fn, plain_kw=None) -> tuple[float, float]:
-    """Kernel and plain ms, the better of two runs each, in turns."""
+    """Kernel ms (device time, device_ms) and plain ms (time_ms: many
+    small torch ops, host and device), the better of two runs each, in
+    turns."""
     plain_kw = plain_kw or {}
-    ms = [time_ms(torch, kernel_fn)]
+    ms = [device_ms(torch, kernel_fn)]
     pms = [time_ms(torch, plain_fn, **plain_kw)]
-    ms.append(time_ms(torch, kernel_fn))
+    ms.append(device_ms(torch, kernel_fn))
     pms.append(time_ms(torch, plain_fn, **plain_kw))
     return min(ms), min(pms)
 
@@ -643,6 +705,76 @@ def phase_packed_source_kernels(torch, dev, rng, rec: dict) -> None:
           f"the card = {d5_staged} (a record)")
     check(d5 <= TOL_CODES, f"combine_pack code delta {d5}")
     rec["combine_pack"] = dict(max_abs_err=float(d5))
+    torch.cuda.synchronize()
+
+
+def k5_branches(torch, dev, args, kw) -> list:
+    """[window, direct]: the (tile, source) pairs of one packed composite
+    launch that sampled a shared-memory decode window and straight from
+    the words."""
+    from phaneron_tpu_torch.ops import packed_warp as PW
+
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    PW.packed_composite(*args, branches=counts, **kw)
+    return counts.tolist()
+
+
+def phase_window_edges(torch, dev, rng, rec: dict) -> None:
+    """K5's v210 decode window at its edges, against packed_composite_plain
+    from seeded full-range random words at 1920x1080: flips, a minifying
+    box at scale 0.5 and at 0.25 (windows 2x and 4x the tile per axis, too
+    large for shared memory: the direct branch), offsets past the frame
+    edge, and the progressive matrices and a flip at 1918x1080 (a pitch
+    pad); each as 4 dissolve layers and as dissolves between cuts, emits
+    packed, both (top alpha) and rgba (coverage); 0 codes and max |delta|
+    0 expected, <= 1 code and <= 2e-4 held."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    err = lambda a, b: float((a - b).abs().max())
+    mixes = [torch.tensor(0.3 + 0.1 * i, device=dev) for i in range(4)]
+    quads = list(QUADRANTS.values()) + [(-0.25, -0.25)]
+    cases = {  # label -> (width, matrices, whether every tile must sample a window)
+        "flip_h": (W, [dict(flip_h=True, scale_x=0.9, scale_y=0.9, offset_x=0.03 - 0.01 * i) for i in range(4)], True),
+        "flip_hv": (W, [dict(flip_h=True, flip_v=True, scale_x=1.3, scale_y=0.8)] * 4, True),
+        "minify_0.5": (W, [dict(scale_x=0.5, scale_y=0.5, offset_x=ox, offset_y=oy) for ox, oy in quads], False),
+        # the tiles outside the box sample an empty window
+        "minify_0.25": (W, [dict(scale_x=0.25, scale_y=0.25, offset_x=0.1 * i) for i in range(4)], False),
+        "off_frame": (W, [dict(scale_x=0.7, scale_y=0.6, offset_x=0.45),
+                          dict(scale_x=0.9, scale_y=0.9, offset_x=-0.3, offset_y=0.4), dict(offset_x=1.5),
+                          dict(scale_x=1.2, offset_y=-0.7)], False),
+        "progressive_1918": (1918, [dict(scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i) for i in range(4)],
+                             True),
+        "flip_1918": (1918, [dict(flip_h=True, scale_x=0.9, scale_y=0.9)] * 4, True),
+    }
+    srcs = {w: [to_tensor(random_words(rng, w, H), dev) for _ in range(8)] for w in (W, 1918)}
+    d_max, e_max, branches = 0, 0.0, {}
+    for label, (w, kws, window_only) in cases.items():
+        mats = [to_tensor(transform_matrix(w, H, **kw), dev) for kw in kws]
+        counts = [0, 0]
+        for cfg in ((2, 2, 2, 2), (2, 1, 2, 1)):
+            args = (srcs[w][:sum(cfg)], cfg, mats, [m if n == 2 else None for n, m in zip(cfg, mixes)])
+            for emit, alpha in (("packed", "top"), ("both", "top"), ("rgba", "coverage")):
+                kw = dict(src_kind="packed", size=(w, H), emit=emit, alpha=alpha)
+                got, want = PW.packed_composite(*args, **kw), PW.packed_composite_plain(*args, **kw)
+                if emit != "rgba":
+                    d_max = max(d_max, code_delta(torch, got if emit == "packed" else got[0],
+                                                  want if emit == "packed" else want[0], w, H))
+                if emit != "packed":
+                    e_max = max(e_max, err(got if emit == "rgba" else got[1], want if emit == "rgba" else want[1]))
+            counts = [a + b for a, b in zip(counts, k5_branches(torch, dev, args, dict(src_kind="packed", size=(w, H))))]
+        branches[label] = counts
+        check(not window_only or counts[1] == 0,
+              f"packed_composite {label}: window/direct {counts}, every tile expected on the window branch")
+    print(f"packed_composite window edges (flip, minify 0.5 / 0.25, off frame, 1918 wide) max code delta vs "
+          f"plain = {d_max} (<= {TOL_CODES}), frames max |delta| = {e_max:.3e} (<= {TOL_RGBA}); window/direct "
+          f"(tile, source) pairs {branches}")
+    check(branches["minify_0.25"][1] > 0, "packed_composite: the minifying box did not reach the direct branch")
+    check(d_max <= TOL_CODES, f"packed_composite window edges code delta {d_max}")
+    check(e_max <= TOL_RGBA, f"packed_composite window edges frame error {e_max}")
+    rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(d_max))
+    rec["packed_composite"]["rgba_max_abs_err"] = max(rec["packed_composite"]["rgba_max_abs_err"], e_max)
     torch.cuda.synchronize()
 
 
@@ -1420,9 +1552,8 @@ def main() -> int:
     _build.library()
     info = _build.build_info()
     print(f"build: {'compiled' if info.compiled else 'loaded'} {info.path.name} in {info.seconds:.2f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for line in ptxas_lines(info.log):
+        print("  ptxas:", line)
 
     # -------- phase 3: kernels against their plain versions
     rng = np.random.default_rng(SEED)
@@ -1430,6 +1561,7 @@ def main() -> int:
     phase_interlaced_kernels(torch, dev, rng, rec)
     phase_packed_source_kernels(torch, dev, rng, rec)
     phase_straggler_kernels(torch, dev, rng, rec)
+    phase_window_edges(torch, dev, np.random.default_rng(SEED + 7), rec)
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_stage_program_checks(torch, dev, media_rng)
@@ -1987,9 +2119,9 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, ops)
         library_ms = None
         if name == "warp":
-            library_ms = time_ms(torch, grid_sample(rec["warp"]["library_args"]))
+            library_ms = device_ms(torch, grid_sample(rec["warp"]["library_args"]))
         elif name == "rotate":
-            library_ms = time_ms(torch, grid_sample(rot_lib))
+            library_ms = device_ms(torch, grid_sample(rot_lib))
         print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP)"
               + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else "")
@@ -2014,10 +2146,22 @@ def main() -> int:
     o_rgba = composite_bytes_ops(o_rgba_args[1], o_rgba_args[2], UHD_W, UHD_H, "packed", emit="rgba")
     r3_args, r3_kw = rec["packed_composite"]["rgb3_emit_args"]
     r3 = composite_bytes_ops(r3_args[1], r3_args[2], W, H, "rgb3", emit="rgba")
+    # coherent content beside the random words: the fill_buf ramp rolled
+    # by whole groups, one roll per source (the gamma'->linear gathers of
+    # neighbouring pixels then hit neighbouring table cells, as on video)
+    ramps = lambda w, h, n: [to_tensor(np.roll(v210fmt.fill_buf(w, h)[0], 4 * 11 * (k + 1), axis=1), dev)
+                             for k in range(n)]
+    k1_ramp, k1_ramps = ([fill], W, H, "709", "709", 3), (ramps(W, H, 2), W, H)
+    uhd_ramp_args, hd_ramp_args = (ramps(UHD_W, UHD_H, 8), *uhd_args[1:]), (ramps(W, H, 8), *hd_args[1:])
     other = {
         "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
                                                 call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
                                                 2 * (words_bytes + rgba), 2 * OPS_DECODE_PX * px),
+        "v210_unpack (1 source, 3 channels, the fill_buf ramp)": (
+            call(K.v210_unpack, k1_ramp), call(K.v210_unpack_plain, k1_ramp), words_bytes + rgb, OPS_DECODE_PX * px),
+        "v210_unpack (2 sources, 4 channels, rolled fill_buf ramps)": (
+            call(K.v210_unpack, k1_ramps), call(K.v210_unpack_plain, k1_ramps), 2 * (words_bytes + rgba),
+            2 * OPS_DECODE_PX * px),
         "v210_pack ((4, H, W) in)": (call(K.v210_pack, rec["v210_pack"]["args"]),
                                      call(K.v210_pack_plain, rec["v210_pack"]["args"]),
                                      rgb + words_bytes, OPS_ENCODE_PX * px),
@@ -2052,6 +2196,12 @@ def main() -> int:
         "packed_composite (v210 words, 4 dissolve layers, 1920x1080, progressive path)": (
             call(PW.packed_composite, hd_args, hd_kw), call(PW.packed_composite_plain, hd_args, hd_kw),
             h_bytes, h_ops),
+        "packed_composite (v210 words, 4 dissolve layers, 3840x2160, rolled fill_buf ramps)": (
+            call(PW.packed_composite, uhd_ramp_args, uhd_kw), call(PW.packed_composite_plain, uhd_ramp_args, uhd_kw),
+            u_bytes, u_ops),
+        "packed_composite (v210 words, 4 dissolve layers, 1920x1080, rolled fill_buf ramps)": (
+            call(PW.packed_composite, hd_ramp_args, hd_kw), call(PW.packed_composite_plain, hd_ramp_args, hd_kw),
+            h_bytes, h_ops),
         "fused_v210 (v210 dissolve, 3840x2160, playout path)": (
             call(K.fused_v210, fu_args), call(K.fused_v210_plain, fu_args),
             3 * UHD_H * pitch_bytes(UHD_W) + 4,
@@ -2069,7 +2219,7 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, ops)
         extra = ""
         if library:
-            extra = f", grid_sample {time_ms(torch, grid_sample(library[0])):.4f} ms (the same sources, no mix)"
+            extra = f", grid_sample {device_ms(torch, grid_sample(library[0])):.4f} ms (the same sources, no mix)"
         print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
         modes.setdefault(label.split(" ")[0], []).append(dict(
@@ -2090,7 +2240,24 @@ def main() -> int:
             "max_abs_err": max(e for m, e in errs.items() if matches(m, pat)), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
         })
+    # K5's v210 tiles by branch at every timed shape of the packed kind: a
+    # main path's shape must decode each source window once (no direct tile)
+    k5_shapes = {
+        "progressive 3840x2160 (the record)": (uhd_args, uhd_kw),
+        "progressive 3840x2160, ramps": (uhd_ramp_args, uhd_kw),
+        "progressive 1920x1080": (hd_args, hd_kw),
+        "progressive 1920x1080, ramps": (hd_ramp_args, hd_kw),
+        "one_rotation run 3840x2160 (emit rgba, coverage)": (o_rgba_args, o_rgba_kw),
+        "progressive_yuv422p10le 1920x1080 (emit rgba, top)": mode_records["packed_composite_packed_rgba_top"][2],
+        "progressive emit_rgba 1920x1080 (emit both, top)": mode_records["packed_composite_packed_both_top"][2],
+    }
+    window_direct = {label: k5_branches(torch, dev, *ak) for label, ak in k5_shapes.items()}
+    print(f"packed_composite v210 window/direct (tile, source) pairs per timed shape: {window_direct}")
+    for label, (_, direct) in window_direct.items():
+        check(direct == 0, f"packed_composite at {label}: {direct} (tile, source) pairs off the window branch")
     for r in records:
+        if r["name"] == "packed_composite":
+            r["window_direct"] = window_direct
         r["modes"] = modes.get(r["name"], [])
     print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))

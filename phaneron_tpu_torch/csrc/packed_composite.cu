@@ -2,8 +2,8 @@
 // under one axis-aligned matrix, 'over' composited bottom to top, in one
 // launch, emitting v210 words ('packed'), the composited frame ('rgba') or
 // both.  Sources are opaque (3, H, W) float32 frames (kind rgb3), v210
-// words decoded at each bilinear tap (kind packed), or (4, H, W) float32
-// RGBA frames that carry their own alpha (kind rgba).
+// words (kind packed), or (4, H, W) float32 RGBA frames that carry their
+// own alpha (kind rgba).
 //
 // Replaces three TPU kernels:
 // - phaneron_tpu/ops/pallas_packed_warp.py:make_packed_composite_program
@@ -22,9 +22,10 @@
 // of the staged plain path (ops/packed_warp.py packed_composite_plain =
 // [v210_unpack_plain, 3 channels,] warp_plain, warp_alpha_vectors,
 // combine_rgb, coverage, v210_pack_plain):
-//   v_m = warp(a) * mix + warp(b) * (1 - mix)       (phn::sample, or
-//                                                    phn::sample_v210 for words;
-//                                                    all four channels for rgba)
+//   v_m = warp(a) * mix + warp(b) * (1 - mix)       (phn::sample, all four
+//                                                    channels for rgba; for
+//                                                    words phn::sample_window,
+//                                                    or phn::sample_v210)
 //   alpha_m = wy[y] * wx[x]                         (the separable warp alpha of
 //                                                    an opaque source), or
 //   alpha_m = v_m.a                                 (kind rgba)
@@ -43,28 +44,57 @@
 // the port keeps the staged order and the exact decode, which its plain
 // version and tests share.
 //
-// Bound: device-memory bytes.  Each source texel (or v210 word) the
-// layers' matrices reach is read once (neighbouring pixels' taps share
-// cache lines, so L1 and L2 serve the overlap) and 16/6 bytes of words (16
-// bytes of frame for the rgba emit) are written per pixel; no intermediate
-// frame, alpha plane or composite
-// touches device memory, where the staged path writes and re-reads a
-// decoded and a warped frame per source and the composite.  In the packed
-// kind every tap is decoded where it is used: 4 taps x 2 sources x 4
-// layers = 32 decodes per output pixel for the 4-layer dissolve frame,
-// against 1 per source pixel in K1, which keeps the kernel well away from
-// its bound (decoding each block's source window once into shared memory
-// is ROADMAP's first speed item).  Design: a block covers 192
-// pixels of one row (32 v210 groups).  Each thread composites one pixel in
-// registers, then phn::encode_pack_block encodes and packs the row
-// segment.  Matrices and mixes are read from device memory, so animating
-// them needs no host synchronisation.
+// Bound: for v210 words, float32 operations (the decode of each source
+// texel the matrices reach, about 50 operations, and three gamma'->linear
+// gathers, which the operation count takes as loads); for frames,
+// device-memory bytes (each source texel read once, 16/6 bytes of words
+// or 16 bytes of frame written per pixel).  No intermediate frame, alpha
+// plane or composite touches device memory.  On the H100 the v210 kind
+// runs far from that bound: with no decode at all it keeps about 58 % of
+// its time (sampling four taps of eight sources from the windows,
+// compositing, encoding), and the decode's gathers from the 256 KB table,
+// through an L1 that shares the SM's 256 KB with shared memory, are the
+// largest part of the rest (tools/kernel_variants.py; PERF.md).
+//
+// Design, frames: one thread a pixel of one row (frames_kernel).  v210
+// words (words_kernel): a block covers a tile of kPixelsPerBlock columns
+// (32 groups) by kTileRows rows, each thread one column's composite of
+// the tile's rows in registers while the layers go by, and decodes each
+// source once per tile, as the TPU kernel decodes its VMEM row window once
+// per block (pallas_packed_warp.py decode_window): from the layer's
+// matrix, read from device memory so animating it needs no host
+// synchronisation, the block works out the window of groups and rows the
+// tile's taps reach (phn::tile_window), decodes a layer's one or two
+// sources into shared memory together (one 16-byte load and six decodes a
+// group), and samples every tap from there.  At the progressive frame's
+// scale-0.9 matrices that is about 2 decodes per source and output pixel,
+// where decoding each tap took 4.  Tiles of 4 rows, four blocks an SM and
+// 37 KB of windows a block measured faster than taller tiles, which
+// decode less but keep fewer blocks and leave L1 less room for the table
+// (tools/kernel_variants.py).  A window larger than kWindowTexels (a box
+// below about scale 0.8, m00 above 1.2; at scale 0.5 and below every tap
+// reads texels of its own, so a window would save nothing) is sampled
+// straight from the words in the same launch, each tap decoded where it
+// is used: the choice is keyed on the tile's geometry.
+// Then phn::encode_pack_block encodes and packs each row of the tile.
 #include "phn_common.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 8;
 constexpr int kMaxSrcs = 2 * kMaxLayers;
+// v210 words: output rows per tile, the decoded texels a window may hold
+// (3 float32 planes), and the blocks an SM keeps (registers and shared
+// memory for four, the rest of the SM's 256 KB left to L1, where the
+// gamma'->linear table's gathers hit)
+constexpr int kTileRows = 4;
+constexpr int kWindowTexels = 1536;
+constexpr int kBlocksPerSm = 4;
+// two windows (a dissolve pair's), three float32 planes each, within the
+// 48 KB a block gets without raising its limit (the static encode buffers
+// and row taps come on top)
+constexpr int kSmemBytes = 2 * 3 * kWindowTexels * static_cast<int>(sizeof(float));
+static_assert(kSmemBytes <= 44 * 1024, "the windows need cudaFuncAttributeMaxDynamicSharedMemorySize");
 
 struct Layers {
   const void* src[kMaxSrcs];  // bottom..top, n_src per layer
@@ -79,25 +109,29 @@ constexpr int kRgb3 = 0;
 constexpr int kPacked = 1;
 constexpr int kRgba = 2;
 
-// One source's linear RGB (kind rgba: RGBA) at the taps
+// One frame's linear RGB (kind rgba: RGBA) at the taps
 template <int kKind>
-__device__ __forceinline__ void sample_src(const void* src, const phn::Taps& tp,
-                                           const phn::Decode& d, int width, int height,
-                                           int groups, float v[4]) {
-  if (kKind == kPacked) {
-    phn::sample_v210(static_cast<const int4*>(src), groups, d, tp, v);
-  } else {
-    const size_t plane = static_cast<size_t>(width) * height;
-    const float* s = static_cast<const float*>(src);
+__device__ __forceinline__ void sample_frame(const void* src, const phn::Taps& tp, int width,
+                                             int height, float v[4]) {
+  const size_t plane = static_cast<size_t>(width) * height;
+  const float* s = static_cast<const float*>(src);
 #pragma unroll
-    for (int c = 0; c < (kKind == kRgba ? 4 : 3); ++c) v[c] = phn::sample(s + c * plane, width, tp);
-  }
+  for (int c = 0; c < (kKind == kRgba ? 4 : 3); ++c) v[c] = phn::sample(s + c * plane, width, tp);
 }
 
+// The separable alpha of an opaque source's warp at the taps, warp(ones):
+// (row-weight sum) x (column-weight sum), ops/warp.py warp_alpha_vectors
+__device__ __forceinline__ float warp_alpha(const phn::AxisTap& tx, const phn::AxisTap& ty) {
+  const float wy = (ty.v0 ? 1.0f - ty.f : 0.0f) + (ty.v1 ? ty.f : 0.0f);
+  const float wx = (tx.v0 ? 1.0f - tx.f : 0.0f) + (tx.v1 ? tx.f : 0.0f);
+  return wy * wx;
+}
+
+// Frames (kinds rgb3, rgba): one thread a pixel of one row, each tap read
+// from device memory
 template <int kKind>
-__global__ void packed_composite_kernel(Layers L, int4* __restrict__ words,
-                                        float* __restrict__ rgba, phn::Decode d, phn::Encode e,
-                                        int width, int height, int groups, int top_alpha) {
+__global__ void frames_kernel(Layers L, int4* __restrict__ words, float* __restrict__ rgba,
+                              phn::Encode e, int width, int height, int groups, int top_alpha) {
   constexpr int kCh = kKind == kRgba ? 4 : 3;
   const int row = blockIdx.y;
   const int x = blockIdx.x * phn::kPixelsPerBlock + threadIdx.x;
@@ -108,19 +142,17 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words,
     for (int m = 0; m < L.n_layers; ++m) {
       const phn::Taps tp = phn::axis_taps(L.mat[m], x, row, width, height);
       float v[4];
-      sample_src<kKind>(L.src[s], tp, d, width, height, groups, v);
+      sample_frame<kKind>(L.src[s], tp, width, height, v);
       if (L.n_src[m] == 2) {
         const float mx = *L.mix[m];
         float vb[4];
-        sample_src<kKind>(L.src[s + 1], tp, d, width, height, groups, vb);
+        sample_frame<kKind>(L.src[s + 1], tp, width, height, vb);
 #pragma unroll
         for (int c = 0; c < kCh; ++c) v[c] = v[c] * mx + vb[c] * (1.0f - mx);
       }
       if (kKind == kRgba) {
         a = v[3];
       } else {
-        // warp(ones): (row-weight sum) x (column-weight sum), ops/warp.py
-        // warp_alpha_vectors
         const float wy = (tp.vy0 ? 1.0f - tp.fy : 0.0f) + (tp.vy1 ? tp.fy : 0.0f);
         const float wx = (tp.vx0 ? 1.0f - tp.fx : 0.0f) + (tp.vx1 ? tp.fx : 0.0f);
         a = wy * wx;
@@ -142,6 +174,97 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words,
   if (words != nullptr) phn::encode_pack_block(e, out, x, width, row, groups, words);
 }
 
+// v210 words (kind packed): a tile of kPixelsPerBlock columns by kTileRows
+// rows a block, each thread one column's composite of the tile's rows.
+// A layer's sources (a cut's one, a dissolve pair's two) are decoded
+// together, each into its window when the windows fit (sampled straight
+// from the words otherwise); then each row samples them, mixes and
+// composites.  branches (may be null): window[0] and direct[1] counts, one
+// per tile and source.  An SM keeps kBlocksPerSm blocks.
+__global__ void __launch_bounds__(phn::kPixelsPerBlock, kBlocksPerSm)
+    words_kernel(const __grid_constant__ Layers L, int4* __restrict__ words,
+                 float* __restrict__ rgba, const __grid_constant__ phn::Decode d,
+                 const __grid_constant__ phn::Encode e, int width, int height, int groups,
+                 int top_alpha, unsigned long long* branches) {
+  extern __shared__ float windows[];  // a layer's two windows, kWindowTexels x 3 planes each
+  __shared__ phn::AxisTap row_taps[kTileRows];  // the layer's taps of the tile's rows
+  const int x_lo = blockIdx.x * phn::kPixelsPerBlock;
+  const int x = x_lo + threadIdx.x;
+  const int y_lo = blockIdx.y * kTileRows;
+  const int rows = min(kTileRows, height - y_lo);
+  const bool col = x < width;
+  float out[kTileRows][3] = {}, cover[kTileRows] = {};
+  phn::AxisTap tx{};
+  int s = 0;
+  for (int m = 0; m < L.n_layers; ++m) {
+    const float* mat = L.mat[m];
+    const int n = L.n_src[m];
+    const int4* a = static_cast<const int4*>(L.src[s]);
+    const int4* b = static_cast<const int4*>(L.src[s + n - 1]);
+    s += n;
+    tx = phn::axis_tap(mat[0], mat[2], x, width);
+    // one decision for the whole block, from the tile's geometry
+    const phn::Window win = phn::tile_window(mat, x_lo, min(x_lo + phn::kPixelsPerBlock, width) - 1,
+                                             y_lo, y_lo + rows - 1, width, height);
+    const bool windowed = win.texels() <= kWindowTexels;
+    if (branches != nullptr && threadIdx.x == 0)
+      atomicAdd(branches + (windowed ? 0 : 1), static_cast<unsigned long long>(n));
+    float* win_b = windows + 3 * kWindowTexels;
+    __syncthreads();  // the previous layer's windows and row taps are read
+    if (threadIdx.x < rows)
+      row_taps[threadIdx.x] = phn::axis_tap(mat[4], mat[5], y_lo + threadIdx.x, height);
+    if (windowed) {
+      phn::decode_window(a, groups, d, win, windows);
+      if (n == 2) phn::decode_window(b, groups, d, win, win_b);
+    }
+    __syncthreads();
+    const float mx = n == 2 ? *L.mix[m] : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      if (r >= rows || !col) continue;
+      const phn::Taps tp = phn::taps_of(tx, row_taps[r]);
+      float v[3];
+      if (windowed) {
+        phn::sample_window(windows, win, tp, v);
+      } else {
+        phn::sample_v210(a, groups, d, tp, v);
+      }
+      if (n == 2) {
+        float vb[3];
+        if (windowed) {
+          phn::sample_window(win_b, win, tp, vb);
+        } else {
+          phn::sample_v210(b, groups, d, tp, vb);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = v[c] * mx + vb[c] * (1.0f - mx);
+      }
+      const float al = warp_alpha(tx, row_taps[r]);
+      const float k = 1.0f - al;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[r][c] = m == 0 ? v[c] : out[r][c] * k + v[c];
+      cover[r] = m == 0 ? al : cover[r] * k + al;
+    }
+  }
+  // tx and the row taps are the top layer's
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) {
+    if (r >= rows) break;
+    const int row = y_lo + r;
+    if (rgba != nullptr && col) {
+      const size_t plane = static_cast<size_t>(width) * height;
+      const size_t o = static_cast<size_t>(row) * width + x;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[r][c];
+      rgba[3 * plane + o] = top_alpha ? warp_alpha(tx, row_taps[r]) : cover[r];
+    }
+    if (words != nullptr) {
+      if (r > 0) __syncthreads();  // the previous row's codes are packed
+      phn::encode_pack_block(e, out[r], x, width, row, groups, words);
+    }
+  }
+}
+
 }  // namespace
 
 // srcs: n_srcs sources, bottom..top: (3, height, width) float32 frames
@@ -154,12 +277,15 @@ __global__ void packed_composite_kernel(Layers L, int4* __restrict__ words,
 // top_alpha: the frame's alpha is the top layer's (1) or the run's
 // coverage (0).  dec_coeffs: col[12], gamut[9] and g2l, the gamma'->linear
 // table in device memory (read for kind 1 only); enc_coeffs: col[12],
-// l2g[6].  Returns cudaGetLastError().
+// l2g[6].  branches: null, or two uint64 in device memory to which kind 1
+// adds the (tile, source) pairs sampled from a shared-memory window [0]
+// and straight from the words [1].  Returns the first CUDA error.
 extern "C" int phn_packed_composite(const void* const* srcs, const void* const* mats,
                                     const void* const* mixes, const int* n_src, int n_layers,
                                     int kind, void* words, void* rgba, int width, int height,
                                     int groups, const float* dec_coeffs, const float* g2l,
-                                    const float* enc_coeffs, int top_alpha, void* stream) {
+                                    const float* enc_coeffs, int top_alpha, void* branches,
+                                    void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
   if (kind != kRgb3 && kind != kPacked && kind != kRgba)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -177,22 +303,22 @@ extern "C" int phn_packed_composite(const void* const* srcs, const void* const* 
     L.mix[m] = static_cast<const float*>(mixes[m]);
     for (int r = 0; r < n_src[m]; ++r, ++s) L.src[s] = srcs[s];
   }
-  const phn::Decode d = kind == kPacked ? phn::decode_from(dec_coeffs, g2l) : phn::Decode{};
   const phn::Encode e = phn::encode_from(enc_coeffs);
-  const dim3 block(phn::kPixelsPerBlock);
-  const dim3 grid((groups + phn::kGroupsPerBlock - 1) / phn::kGroupsPerBlock, height);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int4* w = static_cast<int4*>(words);
   float* f = static_cast<float*>(rgba);
+  const dim3 block(phn::kPixelsPerBlock);
+  const int blocks_x = (groups + phn::kGroupsPerBlock - 1) / phn::kGroupsPerBlock;
   if (kind == kPacked) {
-    packed_composite_kernel<kPacked><<<grid, block, 0, st>>>(L, w, f, d, e, width, height, groups,
-                                                             top_alpha);
+    words_kernel<<<dim3(blocks_x, (height + kTileRows - 1) / kTileRows), block, kSmemBytes, st>>>(
+        L, w, f, phn::decode_from(dec_coeffs, g2l), e, width, height, groups, top_alpha,
+        static_cast<unsigned long long*>(branches));
   } else if (kind == kRgba) {
-    packed_composite_kernel<kRgba><<<grid, block, 0, st>>>(L, w, f, d, e, width, height, groups,
-                                                           top_alpha);
+    frames_kernel<kRgba><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups,
+                                                                 top_alpha);
   } else {
-    packed_composite_kernel<kRgb3><<<grid, block, 0, st>>>(L, w, f, d, e, width, height, groups,
-                                                           top_alpha);
+    frames_kernel<kRgb3><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups,
+                                                                 top_alpha);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // Shared device helpers for the channel-frame kernels: OpenCL-style
 // rounding, the transfer functions, the YCbCr decode and encode, the v210
 // word fields and group packing, the axis-aligned bilinear taps, the
-// block-wide encode + pack of a row segment and the planar pixel-pair
-// decode and encode.
+// decode window of a v210 source, the block-wide encode + pack of a row
+// segment and the planar pixel-pair decode and encode.
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
@@ -98,6 +98,27 @@ __device__ __forceinline__ void v210_fields(const int4& w, int p, unsigned& y, u
   cr &= kField;
 }
 
+// v210_fields for a pixel index p that differs between the lanes of a
+// warp: the word and shift of each field come from constants indexed by p
+// (luma words 0,1,1,2,3,3 at shifts 10,0,20,10,0,20; Cb of pair k in word
+// k at shift 10k; Cr in words 0,2,3 at shifts 20,0,10), so the lanes do not
+// diverge into the six cases.  The same fields as v210_fields.
+__device__ __forceinline__ unsigned word_of(const int4& w, unsigned i) {
+  const unsigned lo = i & 1u ? w.y : w.x, hi = i & 1u ? w.w : w.z;
+  return i & 2u ? hi : lo;
+}
+
+__device__ __forceinline__ void v210_fields_lane(const int4& w, int p, unsigned& y, unsigned& cb,
+                                                 unsigned& cr) {
+  const unsigned k = static_cast<unsigned>(p) >> 1;
+  y = word_of(w, (0xF94u >> (2 * p)) & 3u) >> ((0x2805500Au >> (5 * p)) & 31u);
+  cb = word_of(w, k) >> (10u * k);
+  cr = word_of(w, (0x38u >> (2 * k)) & 3u) >> ((0x2814u >> (5 * k)) & 31u);
+  y &= kField;
+  cb &= kField;
+  cr &= kField;
+}
+
 // Linear RGB of pixel p of the group whose words are w: the decode every
 // v210 kernel runs (K1, the fused v210 program, the packed warp and the
 // packed composite)
@@ -147,24 +168,39 @@ struct Taps {
   bool vx0, vx1, vy0, vy1;
 };
 
+// The texel coordinate of output index i along one axis (scale m, offset
+// off, `size` pixels): (m * (i/size - 0.5) + off + 0.5) * size - 0.5.
+// Every step rounds monotonically, so it is monotonic in i.
+__device__ __forceinline__ float tap_coord(float m, float off, int i, float size) {
+  const float c = static_cast<float>(i) / size - 0.5f;
+  return (m * c + off + 0.5f) * size - 0.5f;
+}
+
+// One axis of the taps: floor and floor+1 of tap_coord, weight frac
+struct AxisTap {
+  int i0;
+  float f;
+  bool v0, v1;
+};
+
+__device__ __forceinline__ AxisTap axis_tap(float m, float off, int i, int size) {
+  const float p = tap_coord(m, off, i, static_cast<float>(size));
+  const float fl = floorf(p);
+  AxisTap a;
+  a.f = p - fl;
+  a.i0 = static_cast<int>(fl);
+  a.v0 = a.i0 >= 0 && a.i0 < size;
+  a.v1 = a.i0 + 1 >= 0 && a.i0 + 1 < size;
+  return a;
+}
+
+__device__ __forceinline__ Taps taps_of(const AxisTap& ax, const AxisTap& ay) {
+  return Taps{ax.i0, ay.i0, ax.f, ay.f, ax.v0, ax.v1, ay.v0, ay.v1};
+}
+
 __device__ __forceinline__ Taps axis_taps(const float* mat, int x, int y, int width,
                                           int height) {
-  const float fw = static_cast<float>(width), fh = static_cast<float>(height);
-  const float ix = static_cast<float>(x) / fw - 0.5f;
-  const float iy = static_cast<float>(y) / fh - 0.5f;
-  const float px = (mat[0] * ix + mat[2] + 0.5f) * fw - 0.5f;
-  const float py = (mat[4] * iy + mat[5] + 0.5f) * fh - 0.5f;
-  const float flx = floorf(px), fly = floorf(py);
-  Taps t;
-  t.fx = px - flx;
-  t.fy = py - fly;
-  t.x0 = static_cast<int>(flx);
-  t.y0 = static_cast<int>(fly);
-  t.vx0 = t.x0 >= 0 && t.x0 < width;
-  t.vx1 = t.x0 + 1 >= 0 && t.x0 + 1 < width;
-  t.vy0 = t.y0 >= 0 && t.y0 < height;
-  t.vy1 = t.y0 + 1 >= 0 && t.y0 + 1 < height;
-  return t;
+  return taps_of(axis_tap(mat[0], mat[2], x, width), axis_tap(mat[4], mat[5], y, height));
 }
 
 // The bilinear value at the taps from the four texel values v00 (x0, y0),
@@ -206,6 +242,84 @@ __device__ __forceinline__ void sample_v210(const int4* __restrict__ words, int 
   if (t.vx1 && t.vy1) v210_texel(words, groups, t.x0 + 1, t.y0 + 1, d, v[3]);
 #pragma unroll
   for (int c = 0; c < 3; ++c) out[c] = bilerp(t, v[0][c], v[1][c], v[2][c], v[3][c]);
+}
+
+// ---- the decode window: a v210 source decoded once per block
+//
+// The taps of a tile of output pixels under one axis-aligned matrix reach
+// a rectangle of the source.  A block decodes the v210 groups that cover
+// it into shared memory once, then samples every tap from there, instead
+// of decoding each tap where it is used (sample_v210).
+
+// Whole groups [g0, g0 + groups) by rows [r0, r0 + rows) of a source;
+// empty (0 texels) when no tap of the tile lands inside the frame
+struct Window {
+  int g0, groups, r0, rows;
+  __device__ int cols() const { return 6 * groups; }
+  __device__ int texels() const { return 6 * groups * rows; }
+};
+
+// The texels [first, last] one axis's valid taps reach for output indices
+// [lo, hi]: tap_coord is monotonic, so the ends bound the floors in
+// between; taps are floor and floor + 1, clipped to the frame.
+__device__ __forceinline__ void window_span(float m, float off, int lo, int hi, int size,
+                                            int& first, int& last) {
+  const float fs = static_cast<float>(size);
+  const float a = floorf(tap_coord(m, off, lo, fs)), b = floorf(tap_coord(m, off, hi, fs));
+  const float f = fmaxf(fminf(a, b), 0.0f), l = fminf(fmaxf(a, b) + 1.0f, fs - 1.0f);
+  first = f <= l ? static_cast<int>(f) : 0;
+  last = f <= l ? static_cast<int>(l) : -1;
+}
+
+// The window of output columns [x_lo, x_hi] x rows [y_lo, y_hi] under mat
+__device__ __forceinline__ Window tile_window(const float* mat, int x_lo, int x_hi, int y_lo,
+                                              int y_hi, int width, int height) {
+  int x0, x1, y0, y1;
+  window_span(mat[0], mat[2], x_lo, x_hi, width, x0, x1);
+  window_span(mat[4], mat[5], y_lo, y_hi, height, y0, y1);
+  if (x1 < x0 || y1 < y0) return Window{0, 0, 0, 0};
+  return Window{x0 / 6, x1 / 6 - x0 / 6 + 1, y0, y1 - y0 + 1};
+}
+
+// Decode window w of a v210 source into smem, channel planes of w.rows x
+// w.cols floats (group i of the window, row-major, at texels 6i .. 6i +
+// 5): each thread takes groups in turn, one 16-byte load and its six
+// pixels with decode_v210 (the values K1 writes for them).  A group past
+// the frame width decodes its pad, which no valid tap reads.
+__device__ __forceinline__ void decode_window(const int4* __restrict__ words, int groups,
+                                              const Decode& d, const Window& w,
+                                              float* __restrict__ smem) {
+  const int plane = w.texels(), n = w.groups * w.rows;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / w.groups;
+    const int4 q = __ldg(words + static_cast<size_t>(w.r0 + r) * groups + w.g0 + i - r * w.groups);
+    float* s = smem + 6 * i;
+#pragma unroll
+    for (int p = 0; p < 6; ++p) {
+      float rgb[3];
+      decode_v210(d, q, p, rgb);
+      s[p] = rgb[0];
+      s[plane + p] = rgb[1];
+      s[2 * plane + p] = rgb[2];
+    }
+  }
+}
+
+// Linear RGB at the taps from a decoded window that holds every valid tap
+// (tile_window of a tile holding the pixel): the same texel values and
+// bilerp as sample_v210.
+__device__ __forceinline__ void sample_window(const float* __restrict__ smem, const Window& w,
+                                              const Taps& t, float out[3]) {
+  const int cols = w.cols(), plane = w.texels();
+  const int o = (t.y0 - w.r0) * cols + t.x0 - 6 * w.g0;
+  const bool v00 = t.vx0 && t.vy0, v01 = t.vx0 && t.vy1, v10 = t.vx1 && t.vy0,
+             v11 = t.vx1 && t.vy1;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* s = smem + c * plane;
+    out[c] = bilerp(t, v00 ? s[o] : 0.0f, v01 ? s[o + cols] : 0.0f, v10 ? s[o + 1] : 0.0f,
+                    v11 ? s[o + cols + 1] : 0.0f);
+  }
 }
 
 // Row segments of the kernels that encode one pixel per thread: a block

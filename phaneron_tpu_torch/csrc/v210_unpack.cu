@@ -11,44 +11,56 @@
 //
 // Bound: device-memory bytes.  Per pixel it reads 16/6 bytes of words and
 // writes 16 bytes of RGBA (12 of RGB with C = 3); the arithmetic (two
-// matrices and three gathers from the gamma'->linear table, which stays
-// in L1/L2) is far below the card's rate.  Design: one thread per 6-pixel group
-// reads its four words with a single 16-byte load and gathers the fields
-// directly in registers, where the TPU kernel needed phase planes and
-// one-hot MXU deinterleaves.  Threads of a warp cover neighbouring
-// groups, so the word loads are fully coalesced; each output row is
-// written by consecutive threads, 24 bytes apart.
+// matrices and three gathers from the gamma'->linear table) is below the
+// card's rate.  The stores set the time of the first design, one thread
+// per 6-pixel group storing six pixels 24 bytes apart from each lane: with
+// a constant decode it ran nearly as long as whole, and without stores a
+// third of it (tools/kernel_variants.py; PERF.md).  Design: one
+// thread per output pixel.  A block covers kPixelsPerBlock pixels (32
+// groups) of kRows rows, so a 1080p or UHD row is whole blocks; the six
+// threads of a group load its four words with one 16-byte load each (one
+// request per warp: the lanes share lines) and take their own fields with
+// phn::v210_fields_lane, without diverging on the pixel's place in the
+// group.  Each channel plane is then written by consecutive threads on
+// consecutive floats, a whole 128-byte line per warp.  Now the stores run
+// near the bound, and on full-range random words the table gathers (whose
+// cells then differ from lane to lane) take the larger part of the time.
 #include "phn_common.cuh"
 
 namespace {
 
 constexpr int kMaxSrcs = 8;
+constexpr int kRows = 4;  // rows per block
 
 struct Sources {
   const int4* words[kMaxSrcs];
   float* out[kMaxSrcs];
 };
 
-__global__ void v210_unpack_kernel(Sources s, phn::Decode d, int width, int height,
-                                   int groups, int channels) {
-  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y;
-  const int x0 = gi * 6;
-  if (gi >= groups || x0 >= width) return;
-
-  const int4 w = s.words[blockIdx.z][static_cast<size_t>(row) * groups + gi];
+__global__ void __launch_bounds__(phn::kPixelsPerBlock)
+    v210_unpack_kernel(const __grid_constant__ Sources s, const __grid_constant__ phn::Decode d,
+                       int width, int height, int groups, int channels) {
+  const int t = threadIdx.x;
+  const int x = blockIdx.x * phn::kPixelsPerBlock + t;
+  if (x >= width) return;
+  const int g = blockIdx.x * phn::kGroupsPerBlock + t / 6, p = t % 6;
+  const int4* words = s.words[blockIdx.z];
+  float* out = s.out[blockIdx.z];
   const size_t plane = static_cast<size_t>(width) * height;
-  float* o = s.out[blockIdx.z] + static_cast<size_t>(row) * width;
 #pragma unroll
-  for (int p = 0; p < 6; ++p) {
-    const int x = x0 + p;
-    if (x >= width) break;
+  for (int r = 0; r < kRows; ++r) {
+    const int row = blockIdx.y * kRows + r;
+    if (row >= height) break;
+    const int4 w = __ldg(words + static_cast<size_t>(row) * groups + g);
+    unsigned y, cb, cr;
+    phn::v210_fields_lane(w, p, y, cb, cr);
     float rgb[3];
-    phn::decode_v210(d, w, p, rgb);
-    o[x] = rgb[0];
-    o[plane + x] = rgb[1];
-    o[2 * plane + x] = rgb[2];
-    if (channels == 4) o[3 * plane + x] = 1.0f;
+    phn::decode(d, static_cast<float>(y), static_cast<float>(cb), static_cast<float>(cr), rgb);
+    float* o = out + static_cast<size_t>(row) * width + x;
+    o[0] = rgb[0];
+    o[plane] = rgb[1];
+    o[2 * plane] = rgb[2];
+    if (channels == 4) o[3 * plane] = 1.0f;
   }
 }
 
@@ -68,8 +80,9 @@ extern "C" int phn_v210_unpack(const void* const* words, void* const* outs, int 
     s.words[i] = static_cast<const int4*>(words[i]);
     s.out[i] = static_cast<float*>(outs[i]);
   }
-  const dim3 block(128);
-  const dim3 grid((groups + block.x - 1) / block.x, height, n_srcs);
+  const dim3 block(phn::kPixelsPerBlock);
+  const dim3 grid((width + phn::kPixelsPerBlock - 1) / phn::kPixelsPerBlock,
+                  (height + kRows - 1) / kRows, n_srcs);
   v210_unpack_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       s, phn::decode_from(coeffs, g2l), width, height, groups, channels);
   return static_cast<int>(cudaGetLastError());

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
+    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),

@@ -1,6 +1,7 @@
 """The packed-source warp and the packed composite: DVE layers that read
-v210 words, decoded at each bilinear tap, opaque 3-channel frames or
-RGBA frames with their own alpha.
+v210 words (the warp decodes each bilinear tap; the composite decodes
+each tile's source window once), opaque 3-channel frames or RGBA frames
+with their own alpha.
 
 Counterpart of phaneron_tpu/ops/pallas_packed_warp.py,
 pallas_composite.py and pallas_warp.py's all-layers combine:
@@ -233,7 +234,7 @@ def packed_composite_plain(
 def packed_composite(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-    emit: str = "packed", alpha: str = "coverage",
+    emit: str = "packed", alpha: str = "coverage", branches: torch.Tensor | None = None,
 ):
     """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32
     (``emit='packed'``), the composited (4, H, W) float32 frame
@@ -243,14 +244,21 @@ def packed_composite(
 
     ``src_kind='rgb3'``: opaque (3, H, W) float32 sources.  ``'packed'``:
     v210 words (H, pitch_bytes/4) int32 of a ``size=(width, height)``
-    frame, decoded (``col_spec`` -> ``out_col_spec``) at each tap.
+    frame, decoded (``col_spec`` -> ``out_col_spec``) as K1 decodes them.
     ``'rgba'``: (4, H, W) float32 premultiplied RGBA sources.
     ``layer_cfg[m]`` is layer m's source count (1 a cut, 2 a dissolve
     pair); ``srcs`` lists them flat.  ``mats[m]`` is its (3, 3) matrix
     (only m00, m02, m11, m12 are read), ``mixes[m]`` its mix (a 0-d
     tensor or float; None for a cut).  A layer's alpha is its separable
     warp alpha (opaque sources) or its warped, mixed alpha plane
-    ('rgba'); the bottom layer composites over black."""
+    ('rgba'); the bottom layer composites over black.
+
+    The kernel decodes v210 sources once per tile of the output, from a
+    shared-memory window of the groups the tile's taps reach, and samples
+    a window too large for it straight from the words.  ``branches``, a
+    (2,) int64 tensor on the sources' device, gets the (tile, source) pairs
+    of each branch added: [window, direct] (for 'packed' sources; a
+    measurement hook, read by chip_smoke.py)."""
     h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
     if is_cpu(srcs[0], "packed_composite"):
         return packed_composite_plain(
@@ -277,13 +285,15 @@ def packed_composite(
     src_p, mat_p, mix_p = ptrs(srcs), ptrs(mats), ptrs(mixes)
     n_src = (ctypes.c_int * len(layer_cfg))(*layer_cfg)
     dec, g2l = v210_decode_args(col_spec, out_col_spec, dev) if packed else (None, None)
+    if branches is not None:
+        check_arg(branches, "packed_composite branches", dev, torch.int64, (2,), align=8)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         rc = library().phn_packed_composite(
             ctypes.addressof(src_p), ctypes.addressof(mat_p), ctypes.addressof(mix_p),
             ctypes.addressof(n_src), len(layer_cfg), _KINDS.index(src_kind), ptr(words), ptr(rgba),
             w, h, groups, dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)),
-            int(alpha == "top"), stream_handle(dev),
+            int(alpha == "top"), ptr(branches), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")
     packed_composite.launches += 1

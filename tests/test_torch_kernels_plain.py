@@ -52,10 +52,11 @@ def test_v210_unpack_matches_batch_kernel():
         assert np.abs(a.numpy() - np.asarray(b)).max() <= TOL_UNPACK
 
 
-@pytest.mark.parametrize("width", [100, 1280])
+@pytest.mark.parametrize("width", [100, 1270, 1280])
 def test_v210_unpack_matches_phase_kernel(width):
-    """K1 at widths with a pitch pad: 100 takes the phase kernel
-    (pallas_kernels.py:465), 1280 the spatial kernel."""
+    """K1 at widths with a pitch pad: 100 and 1270 (which ends mid-group
+    and mid-block of the CUDA kernel's 192-pixel tiles) take the phase
+    kernel (pallas_kernels.py:465), 1280 the spatial kernel."""
     h = 16
     rng = np.random.default_rng(width)
     for src in (random_words(rng, width, h), V210.fill_buf(width, h)[0]):

@@ -21,6 +21,7 @@ import torch
 
 from phaneron_tpu.graph import pipeline as jpipe
 from phaneron_tpu.ops.geometry import transform_matrix, warp_axis_aligned
+from phaneron_tpu.ops.pallas_kernels import planes_to_words
 from phaneron_tpu.ops.pallas_packed_warp import (
     make_packed_composite_program,
     make_packed_warp_pair_program,
@@ -176,6 +177,42 @@ def test_progressive_frame_and_packed_composite_within_one_code_of_jax():
     kernel = PW.packed_composite([_t(w) for w in words], (2, 2, 2, 2), [_t(m) for m in MATS],
                                  [torch.tensor(x) for x in MIXES], src_kind="packed", size=(W, H))
     assert words_to_numpy(kernel).tobytes() == got.tobytes()
+
+
+# Matrices whose decode windows (csrc/packed_composite.cu) have edges: a
+# dissolve layer and a cut layer each
+EDGE_MATS = {
+    # a negative m00: the window spans both tile ends the other way round
+    "flip": [transform_matrix(W, H, flip_h=True, scale_x=0.9, scale_y=0.9, offset_x=0.03),
+             transform_matrix(W, H, flip_h=True, flip_v=True, scale_x=1.3, scale_y=0.8)],
+    # minification: about 2x and 4x the tile per axis in the window
+    "minify": [transform_matrix(W, H, scale_x=0.5, scale_y=0.5, offset_x=0.25, offset_y=0.25),
+               transform_matrix(W, H, scale_x=0.25, scale_y=0.25, offset_x=-0.1)],
+    # offsets that leave the frame: windows clipped to it
+    "off_frame": [transform_matrix(W, H, scale_x=0.7, scale_y=0.6, offset_x=0.45),
+                  transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=-0.3, offset_y=0.4)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_MATS))
+def test_packed_composite_window_edges_within_one_code_of_jax(case):
+    """The plain version chip_smoke.py holds K5's window and direct
+    branches to, against make_packed_composite_program(src_kind='packed')
+    in interpret mode, under a flip, minification and offsets past the
+    frame edge: a dissolve under one matrix and a cut under the other,
+    over random words."""
+    mats = [m.astype(np.float32) for m in EDGE_MATS[case]]
+    srcs = _sources(len(case), 3)
+    bucket = bucket_of(*mats)
+    assert packed_composite_fits(H, W, bucket, 2, src_kind="packed")
+    prog = make_packed_composite_program(H, W, bucket, (2, 1), src_kind="packed", interpret=True,
+                                         poly_gamma=jpipe.PACKED_POLY_GAMMA)
+    want = planes_to_words(prog([jnp.asarray(words_to_planes(s)) for s in srcs],
+                                jnp.stack([jnp.asarray(m) for m in mats]),
+                                jnp.asarray([MIXES[0], 1.0], jnp.float32)))
+    got = PW.packed_composite_plain([_t(s) for s in srcs], (2, 1), [_t(m) for m in mats],
+                                    [torch.tensor(MIXES[0]), None], src_kind="packed", size=(W, H))
+    assert max_code_delta(words_to_numpy(got), np.asarray(want), W, H) <= 1
 
 
 # --------------------------------------------------------------- routes
