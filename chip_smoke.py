@@ -16,8 +16,11 @@ Run from the repository root:  python3 chip_smoke.py
    inputs and pack(unpack(fill_buf)) == fill_buf bit-exact (also at
    widths with a pitch pad), warp (4 and 3 channels, single and pair)
    <= 5e-5, yadif_ring and yadif_pair on seeded random opaque rings (C 3
-   and 4, opaque, tff and bff, both parities) max |delta| == 0; then, to
-   <= 1 code (expected 0), packed_composite over (3, H, W) frames and over
+   and 4, opaque, tff and bff, with and without skip_spatial, both
+   parities; at 1920x1080, 1920x1081 and 1918x1080, and every ring of 1-5
+   rows by 1-7 columns) max |delta| == 0, packed_composite over (3, H, W)
+   frames (the interlaced tick; emits packed, rgba and both) 0 codes and
+   max |delta| 0; then, to <= 1 code (expected 0), packed_composite over
    v210 words, fused_v210 (cut and dissolve, also at 1280 wide),
    combine_pack (4-channel and (rgb, wy, wx) layers) and packed_warp
    (single, shared-matrix pair, distinct-matrix pair, max |delta| 0), and
@@ -26,9 +29,10 @@ Run from the repository root:  python3 chip_smoke.py
    pairs under one matrix or two, C 4 and 3, at 25, 100 and -7 degrees)
    and K4's wipe and distinct-matrix pairs <= 5e-5, packed_composite's
    rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code; then
-   packed_composite's v210 decode window at its edges (flips, minifying
-   boxes at scale 0.5 and 0.25, offsets past the frame edge, 1918 wide;
-   emits packed, both and rgba; 0 codes and max |delta| 0 expected), with
+   packed_composite's shared-memory windows at their edges, over v210
+   words and over rgb3 frames (flips, minifying boxes at scale 0.5 and
+   0.25, offsets past the frame edge, 1918 wide; emits packed, both and
+   rgba; v210: 0 codes and max |delta| 0 expected, rgb3: held to 0), with
    the (tile, source) pairs each took on the window and direct branches
    (the 0.25 box must reach the direct branch, the flips and the
    progressive matrices must stay on the window); then
@@ -132,7 +136,8 @@ Run from the repository root:  python3 chip_smoke.py
    also in each whole-stack and rgba mode at a main path's shapes; K1 and
    K5 over v210 words also on the rolled fill_buf ramps (coherent content,
    beside the random words); and packed_composite's window/direct counts
-   at every timed v210 shape, none of which may leave the window.
+   at every timed v210 and rgb3 shape, none of which may leave the
+   window.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -563,29 +568,50 @@ def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
     print(f"grid_sample vs plain warp max |delta| = {e_gs:.3e} (a record: the library's own rounding)")
     rec["warp"]["library_args"] = (gs_in, gs_grid)
 
-    # yadif ring and pair: seeded random opaque rings
+    # yadif ring and pair: seeded random opaque rings, with and without
+    # the spatial check; then the tile edges of the pair kernel
     ey = 0.0
     cases = 0
-    for channels, opaque in ((3, False), (4, False), (4, True)):
-        ring = [torch.from_numpy(rng.random((channels, H, W), dtype=np.float32)).to(dev) for _ in range(3)]
+
+    def yadif_cases(ring, opaque, tffs=(True, False), skips=(False, True)):
+        nonlocal ey, cases
+        for tff in tffs:
+            for skip in skips:
+                kw = dict(skip_spatial=skip, opaque=opaque)
+                for parity in (0, 1):
+                    par = torch.tensor(parity, dtype=torch.int32, device=dev)
+                    ey = max(ey, err(Y.yadif_ring(*ring, par, tff, **kw), Y.yadif_ring_plain(*ring, parity, tff, **kw)))
+                    cases += 1
+                got, want = Y.yadif_pair(*ring, tff, **kw), Y.yadif_pair_plain(*ring, tff, **kw)
+                ey = max(ey, max(err(g, w) for g, w in zip(got, want)))
+                cases += 1
+
+    def yadif_ring_of(r, channels, h, w):
+        ring = [torch.from_numpy(r.random((channels, h, w), dtype=np.float32)).to(dev) for _ in range(3)]
         if channels == 4:
             for f in ring:
                 f[3] = 1.0
-        for tff in (True, False):
-            for parity in (0, 1):
-                par = torch.tensor(parity, dtype=torch.int32, device=dev)
-                ey = max(ey, err(Y.yadif_ring(*ring, par, tff, opaque=opaque),
-                                 Y.yadif_ring_plain(*ring, parity, tff, opaque=opaque)))
-                cases += 1
-            got = Y.yadif_pair(*ring, tff, opaque=opaque)
-            want = Y.yadif_pair_plain(*ring, tff, opaque=opaque)
-            ey = max(ey, max(err(g, w) for g, w in zip(got, want)))
-            cases += 1
+        return ring
+
+    for channels, opaque in ((3, False), (4, False), (4, True)):
+        ring = yadif_ring_of(rng, channels, H, W)
+        yadif_cases(ring, opaque)
         if channels == 3:
             rec["yadif_ring"] = dict(args=(*ring, torch.tensor(1, dtype=torch.int32, device=dev), TFF))
             rec["yadif_pair"] = dict(args=(*ring, TFF))
-    print(f"yadif_ring / yadif_pair max |kernel - plain| = {ey} over {cases} cases "
-          "(C 3 and 4, opaque, tff and bff, both parities; == 0)")
+    # heights and widths off the pair kernel's 64 x 32 tiles and its 16-byte
+    # rows, and rings down to one row and one column (their own seed, so
+    # the later phases keep their inputs)
+    edge_rng = np.random.default_rng(SEED + 8)
+    for h, w in ((1081, W), (H, 1918)):
+        for channels, opaque in ((3, False), (4, False), (4, True)):
+            yadif_cases(yadif_ring_of(edge_rng, channels, h, w), opaque)
+    for i, (h, w) in enumerate((h, w) for h in range(1, 6) for w in range(1, 8)):
+        channels, opaque = ((3, False), (4, False), (4, True))[i % 3]
+        yadif_cases(yadif_ring_of(edge_rng, channels, h, w), opaque, tffs=(i % 2 == 0,))
+    print(f"yadif_ring / yadif_pair max |kernel - plain| = {ey} over {cases} cases (C 3 and 4, opaque, tff "
+          "and bff, skip_spatial, both parities; 1920x1080, 1920x1081, 1918x1080 and every ring of 1-5 rows "
+          "by 1-7 columns; == 0)")
     check(ey == 0.0, f"yadif kernels differ from their plain versions by {ey}")
     rec["yadif_ring"]["max_abs_err"] = ey
     rec["yadif_pair"]["max_abs_err"] = ey
@@ -605,11 +631,18 @@ def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
         dict(), dict(scale_x=0.7, scale_y=0.6, offset_x=0.45))]
     mixes = [torch.tensor(0.2 + 0.15 * i, device=dev) for i in range(4)]
     d5 = d_staged = 0
+    e5 = 0.0
     for cfg, mats in (((2, 2, 2, 2), tick_mats), ((2, 1, 2, 1), odd_mats)):
         mx = [m if n == 2 else None for n, m in zip(cfg, mixes)]
         args = (srcs[:sum(cfg)], cfg, mats, mx)
         got = packed_composite(*args)
         d5 = max(d5, code_delta(torch, got, packed_composite_plain(*args), W, H))
+        for emit in ("both", "rgba"):
+            frame, want = packed_composite(*args, emit=emit), packed_composite_plain(*args, emit=emit)
+            if emit == "both":
+                d5 = max(d5, code_delta(torch, frame[0], want[0], W, H))
+                frame, want = frame[1], want[1]
+            e5 = max(e5, err(frame, want))
         layers, s = [], 0
         for n, mat, m in zip(cfg, mats, mx):
             rgb = warp(srcs[s], mat) if n == 1 else warp(srcs[s], mat, srcs[s + 1], m)
@@ -618,9 +651,9 @@ def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
         d_staged = max(d_staged, code_delta(torch, got, K.v210_pack(combine_rgb(layers)), W, H))
         if cfg == (2, 2, 2, 2):
             rec["packed_composite"] = dict(args=args)
-    print(f"packed_composite max code delta vs plain = {d5} (<= {TOL_CODES}); vs K4 + combine_rgb "
-          f"+ K2 on the card = {d_staged} (a record)")
-    check(d5 <= TOL_CODES, f"packed_composite code delta {d5}")
+    print(f"packed_composite (rgb3) max code delta vs plain = {d5} (== 0), rgba and both frames max |delta| = "
+          f"{e5} (== 0); vs K4 + combine_rgb + K2 on the card = {d_staged} (a record)")
+    check(d5 == 0 and e5 == 0.0, f"packed_composite (rgb3): {d5} codes, frame error {e5}")
     rec["packed_composite"]["max_abs_err"] = float(d5)
     torch.cuda.synchronize()
 
@@ -720,14 +753,17 @@ def k5_branches(torch, dev, args, kw) -> list:
 
 
 def phase_window_edges(torch, dev, rng, rec: dict) -> None:
-    """K5's v210 decode window at its edges, against packed_composite_plain
-    from seeded full-range random words at 1920x1080: flips, a minifying
-    box at scale 0.5 and at 0.25 (windows 2x and 4x the tile per axis, too
-    large for shared memory: the direct branch), offsets past the frame
-    edge, and the progressive matrices and a flip at 1918x1080 (a pitch
-    pad); each as 4 dissolve layers and as dissolves between cuts, emits
-    packed, both (top alpha) and rgba (coverage); 0 codes and max |delta|
-    0 expected, <= 1 code and <= 2e-4 held."""
+    """K5's shared-memory windows at their edges, against
+    packed_composite_plain at 1920x1080, over seeded full-range random
+    words (v210 kind: decode windows) and seeded random (3, H, W) frames
+    (rgb3 kind: copied windows): flips, a minifying box at scale 0.5 and
+    at 0.25 (windows 2x and 4x the tile per axis, too large for shared
+    memory: the direct branch), offsets past the frame edge, and the
+    progressive matrices and a flip at 1918x1080 (a pitch pad, and frame
+    rows that are not 16-byte aligned); each as 4 dissolve layers and as
+    dissolves between cuts, emits packed, both (top alpha) and rgba
+    (coverage).  v210: 0 codes and max |delta| 0 expected, <= 1 code and
+    <= 2e-4 held; rgb3: 0 codes and max |delta| 0 held."""
     from phaneron_tpu_torch.graph.convert import to_tensor
     from phaneron_tpu_torch.ops import packed_warp as PW
     from phaneron_tpu_torch.ops.geometry import transform_matrix
@@ -748,33 +784,44 @@ def phase_window_edges(torch, dev, rng, rec: dict) -> None:
                              True),
         "flip_1918": (1918, [dict(flip_h=True, scale_x=0.9, scale_y=0.9)] * 4, True),
     }
-    srcs = {w: [to_tensor(random_words(rng, w, H), dev) for _ in range(8)] for w in (W, 1918)}
-    d_max, e_max, branches = 0, 0.0, {}
+    srcs = {("packed", w): [to_tensor(random_words(rng, w, H), dev) for _ in range(8)] for w in (W, 1918)}
+    srcs.update({("rgb3", w): [torch.from_numpy(rng.random((3, H, w), dtype=np.float32)).to(dev) for _ in range(8)]
+                 for w in (W, 1918)})
+    d_max = {"packed": 0, "rgb3": 0}
+    e_max = {"packed": 0.0, "rgb3": 0.0}
+    branches = {"packed": {}, "rgb3": {}}
     for label, (w, kws, window_only) in cases.items():
         mats = [to_tensor(transform_matrix(w, H, **kw), dev) for kw in kws]
-        counts = [0, 0]
-        for cfg in ((2, 2, 2, 2), (2, 1, 2, 1)):
-            args = (srcs[w][:sum(cfg)], cfg, mats, [m if n == 2 else None for n, m in zip(cfg, mixes)])
-            for emit, alpha in (("packed", "top"), ("both", "top"), ("rgba", "coverage")):
-                kw = dict(src_kind="packed", size=(w, H), emit=emit, alpha=alpha)
-                got, want = PW.packed_composite(*args, **kw), PW.packed_composite_plain(*args, **kw)
-                if emit != "rgba":
-                    d_max = max(d_max, code_delta(torch, got if emit == "packed" else got[0],
-                                                  want if emit == "packed" else want[0], w, H))
-                if emit != "packed":
-                    e_max = max(e_max, err(got if emit == "rgba" else got[1], want if emit == "rgba" else want[1]))
-            counts = [a + b for a, b in zip(counts, k5_branches(torch, dev, args, dict(src_kind="packed", size=(w, H))))]
-        branches[label] = counts
-        check(not window_only or counts[1] == 0,
-              f"packed_composite {label}: window/direct {counts}, every tile expected on the window branch")
-    print(f"packed_composite window edges (flip, minify 0.5 / 0.25, off frame, 1918 wide) max code delta vs "
-          f"plain = {d_max} (<= {TOL_CODES}), frames max |delta| = {e_max:.3e} (<= {TOL_RGBA}); window/direct "
-          f"(tile, source) pairs {branches}")
-    check(branches["minify_0.25"][1] > 0, "packed_composite: the minifying box did not reach the direct branch")
-    check(d_max <= TOL_CODES, f"packed_composite window edges code delta {d_max}")
-    check(e_max <= TOL_RGBA, f"packed_composite window edges frame error {e_max}")
-    rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(d_max))
-    rec["packed_composite"]["rgba_max_abs_err"] = max(rec["packed_composite"]["rgba_max_abs_err"], e_max)
+        for kind in ("packed", "rgb3"):
+            counts = [0, 0]
+            for cfg in ((2, 2, 2, 2), (2, 1, 2, 1)):
+                args = (srcs[kind, w][:sum(cfg)], cfg, mats, [m if n == 2 else None for n, m in zip(cfg, mixes)])
+                for emit, alpha in (("packed", "top"), ("both", "top"), ("rgba", "coverage")):
+                    kw = dict(src_kind=kind, size=(w, H), emit=emit, alpha=alpha)
+                    got, want = PW.packed_composite(*args, **kw), PW.packed_composite_plain(*args, **kw)
+                    if emit != "rgba":
+                        d_max[kind] = max(d_max[kind], code_delta(torch, got if emit == "packed" else got[0],
+                                                                  want if emit == "packed" else want[0], w, H))
+                    if emit != "packed":
+                        e_max[kind] = max(e_max[kind], err(got if emit == "rgba" else got[1],
+                                                           want if emit == "rgba" else want[1]))
+                counts = [a + b for a, b in zip(counts, k5_branches(torch, dev, args, dict(src_kind=kind, size=(w, H))))]
+            branches[kind][label] = counts
+            check(not window_only or counts[1] == 0,
+                  f"packed_composite {kind} {label}: window/direct {counts}, every tile expected on the window branch")
+    print(f"packed_composite window edges (flip, minify 0.5 / 0.25, off frame, 1918 wide): v210 words max code "
+          f"delta vs plain = {d_max['packed']} (<= {TOL_CODES}), frames max |delta| = {e_max['packed']:.3e} (<= "
+          f"{TOL_RGBA}); rgb3 frames {d_max['rgb3']} codes, frames max |delta| = {e_max['rgb3']:.3e} (== 0); "
+          f"window/direct (tile, source) pairs {branches}")
+    for kind in ("packed", "rgb3"):
+        check(branches[kind]["minify_0.25"][1] > 0, f"packed_composite {kind}: the minifying box did not reach the "
+                                                    "direct branch")
+    check(d_max["packed"] <= TOL_CODES, f"packed_composite window edges code delta {d_max['packed']}")
+    check(e_max["packed"] <= TOL_RGBA, f"packed_composite window edges frame error {e_max['packed']}")
+    check(d_max["rgb3"] == 0 and e_max["rgb3"] == 0.0,
+          f"packed_composite rgb3 window edges: {d_max['rgb3']} codes, frame error {e_max['rgb3']}")
+    rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(max(d_max.values())))
+    rec["packed_composite"]["rgba_max_abs_err"] = max(rec["packed_composite"]["rgba_max_abs_err"], *e_max.values())
     torch.cuda.synchronize()
 
 
@@ -2240,9 +2287,12 @@ def main() -> int:
             "max_abs_err": max(e for m, e in errs.items() if matches(m, pat)), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape,
         })
-    # K5's v210 tiles by branch at every timed shape of the packed kind: a
-    # main path's shape must decode each source window once (no direct tile)
+    # K5's tiles by branch at every timed shape of the packed and rgb3
+    # kinds: a main path's shape must bring each source window in once (no
+    # direct tile)
     k5_shapes = {
+        "interlaced tick 1920x1080 (rgb3)": (rec["packed_composite"]["args"], {}),
+        "rgb3 3 dissolve layers 1920x1080 (emit rgba)": (r3_args, r3_kw),
         "progressive 3840x2160 (the record)": (uhd_args, uhd_kw),
         "progressive 3840x2160, ramps": (uhd_ramp_args, uhd_kw),
         "progressive 1920x1080": (hd_args, hd_kw),
@@ -2252,7 +2302,7 @@ def main() -> int:
         "progressive emit_rgba 1920x1080 (emit both, top)": mode_records["packed_composite_packed_both_top"][2],
     }
     window_direct = {label: k5_branches(torch, dev, *ak) for label, ak in k5_shapes.items()}
-    print(f"packed_composite v210 window/direct (tile, source) pairs per timed shape: {window_direct}")
+    print(f"packed_composite window/direct (tile, source) pairs per timed shape: {window_direct}")
     for label, (_, direct) in window_direct.items():
         check(direct == 0, f"packed_composite at {label}: {direct} (tile, source) pairs off the window branch")
     for r in records:

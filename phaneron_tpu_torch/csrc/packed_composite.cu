@@ -22,10 +22,11 @@
 // of the staged plain path (ops/packed_warp.py packed_composite_plain =
 // [v210_unpack_plain, 3 channels,] warp_plain, warp_alpha_vectors,
 // combine_rgb, coverage, v210_pack_plain):
-//   v_m = warp(a) * mix + warp(b) * (1 - mix)       (phn::sample, all four
-//                                                    channels for rgba; for
-//                                                    words phn::sample_window,
-//                                                    or phn::sample_v210)
+//   v_m = warp(a) * mix + warp(b) * (1 - mix)       (phn::sample_window, or
+//                                                    phn::sample / sample_v210
+//                                                    on the direct branch; for
+//                                                    rgba phn::sample, all four
+//                                                    channels)
 //   alpha_m = wy[y] * wx[x]                         (the separable warp alpha of
 //                                                    an opaque source), or
 //   alpha_m = v_m.a                                 (kind rgba)
@@ -56,27 +57,34 @@
 // through an L1 that shares the SM's 256 KB with shared memory, are the
 // largest part of the rest (tools/kernel_variants.py; PERF.md).
 //
-// Design, frames: one thread a pixel of one row (frames_kernel).  v210
-// words (words_kernel): a block covers a tile of kPixelsPerBlock columns
-// (32 groups) by kTileRows rows, each thread one column's composite of
-// the tile's rows in registers while the layers go by, and decodes each
-// source once per tile, as the TPU kernel decodes its VMEM row window once
-// per block (pallas_packed_warp.py decode_window): from the layer's
-// matrix, read from device memory so animating it needs no host
-// synchronisation, the block works out the window of groups and rows the
-// tile's taps reach (phn::tile_window), decodes a layer's one or two
-// sources into shared memory together (one 16-byte load and six decodes a
-// group), and samples every tap from there.  At the progressive frame's
-// scale-0.9 matrices that is about 2 decodes per source and output pixel,
-// where decoding each tap took 4.  Tiles of 4 rows, four blocks an SM and
-// 37 KB of windows a block measured faster than taller tiles, which
-// decode less but keep fewer blocks and leave L1 less room for the table
-// (tools/kernel_variants.py).  A window larger than kWindowTexels (a box
-// below about scale 0.8, m00 above 1.2; at scale 0.5 and below every tap
-// reads texels of its own, so a window would save nothing) is sampled
-// straight from the words in the same launch, each tap decoded where it
-// is used: the choice is keyed on the tile's geometry.
-// Then phn::encode_pack_block encodes and packs each row of the tile.
+// Design.  Kinds packed and rgb3: a block covers a tile of
+// kPixelsPerBlock columns (32 groups) by a few rows, each thread a
+// column's composites in registers while the layers go by, and each
+// source is brought into shared memory once a tile, as the TPU kernel
+// brings its VMEM row window in once a block (pallas_packed_warp.py
+// decode_window): from the layer's matrix, read from device memory so
+// animating it needs no host synchronisation, the texels and rows the
+// taps reach (phn::tile_window), a layer's one or two sources together;
+// every tap is then sampled from there.
+// - v210 words (words_kernel): the block decodes its tile's window (one
+//   16-byte load and six decodes a group): at the progressive frame's
+//   scale-0.9 matrices about 2 decodes per source and output pixel, where
+//   decoding each tap took 4.  Tiles of 4 rows, four blocks an SM and 37
+//   KB of windows a block measured faster than taller tiles, which decode
+//   less but keep fewer blocks and leave L1 less room for the table.
+// - rgb3 frames (frame_tile_kernel, below): 192 x 6 tiles, the window
+//   copied with cp.async, 16 bytes a lane (a window starts on a multiple
+//   of 4 texels), the next layer's while this one is sampled; a tile whose
+//   taps all lie inside the frame samples without bilerp's selects.
+// A window larger than the kind's limit (a box below about scale 0.8, m00
+// above 1.2; at scale 0.5 and below every tap reads texels of its own, so
+// a window would save nothing) is sampled straight from device memory in
+// the same launch, each tap read (and decoded) where it is used: the
+// choice is keyed on the tile's geometry.
+// Kind rgba (frames_kernel): one thread a pixel of one row, each tap read
+// from device memory.
+// Then the v210 encode packs each output row (phn::encode_pack_block, or
+// frame_tile_kernel's encode_pack_tile for a whole tile).
 #include "phn_common.cuh"
 
 namespace {
@@ -95,6 +103,13 @@ constexpr int kBlocksPerSm = 4;
 // and row taps come on top)
 constexpr int kSmemBytes = 2 * 3 * kWindowTexels * static_cast<int>(sizeof(float));
 static_assert(kSmemBytes <= 44 * 1024, "the windows need cudaFuncAttributeMaxDynamicSharedMemorySize");
+// rgb3 frames: the block's rows of threads, the rows of a tile each thread
+// composites, the texels a window may hold (3 float32 planes), and the
+// blocks an SM keeps
+constexpr int kFrameThreadRows = 2;
+constexpr int kFrameRowsPerThread = 3;
+constexpr int kFrameWindowTexels = 1792;
+constexpr int kFrameBlocksPerSm = 2;
 
 struct Layers {
   const void* src[kMaxSrcs];  // bottom..top, n_src per layer
@@ -205,7 +220,7 @@ __global__ void __launch_bounds__(phn::kPixelsPerBlock, kBlocksPerSm)
     tx = phn::axis_tap(mat[0], mat[2], x, width);
     // one decision for the whole block, from the tile's geometry
     const phn::Window win = phn::tile_window(mat, x_lo, min(x_lo + phn::kPixelsPerBlock, width) - 1,
-                                             y_lo, y_lo + rows - 1, width, height);
+                                             y_lo, y_lo + rows - 1, width, height, 6);
     const bool windowed = win.texels() <= kWindowTexels;
     if (branches != nullptr && threadIdx.x == 0)
       atomicAdd(branches + (windowed ? 0 : 1), static_cast<unsigned long long>(n));
@@ -265,6 +280,235 @@ __global__ void __launch_bounds__(phn::kPixelsPerBlock, kBlocksPerSm)
   }
 }
 
+// rgb3 frames (frame_tile_kernel): a block of kPixelsPerBlock x
+// kFrameThreadRows threads covers a tile of kFrameRowsPerThread times as
+// many rows, each thread the pixels of its column (their x taps shared),
+// so the layer loop keeps a few composites in registers and its code
+// small.  The block works out every layer's window and row taps once a
+// tile, copies a layer's one or two sources into shared memory together
+// with cp.async (16 bytes a lane; each warp one source, one plane and
+// every other window row) while it samples the layer before, passes one
+// barrier a layer, and encodes its rows behind one more.  Shapes that
+// measured slower on the H100 (tools/kernel_variants.py, PERF.md): a
+// 192-thread block unrolled over 4 rows (its loop, 2,576 instructions
+// with the three sampling paths, ten times the row kernel's), a window a
+// warp, one block walking a column of tiles, one row a thread, and
+// copies two layers ahead.  What is left of its time is the copies' L2
+// traffic beside the sampling, the encode, and the layer loop's own work.
+constexpr int kFrameThreads = phn::kPixelsPerBlock * kFrameThreadRows;
+constexpr int kFrameTileRows = kFrameThreadRows * kFrameRowsPerThread;
+constexpr int kLayerFloats = 2 * 3 * kFrameWindowTexels;  // a layer's two windows
+constexpr int kFrameSmemBytes = 2 * kLayerFloats * static_cast<int>(sizeof(float));
+static_assert(kFrameThreads == 2 * 3 * 2 * 32 && kFrameTileRows * phn::kGroupsPerBlock <= kFrameThreads,
+              "frame_tile_kernel gives each warp a source, a plane and a row parity to copy");
+
+// A layer's window in a tile: where its taps land, whether it fits in
+// shared memory, whether every tap of the tile lies inside the frame, and
+// the window's first texel in a frame plane
+struct TileLayer {
+  phn::Window win;
+  bool windowed, inside;
+  size_t first;
+  float m00, m02, mix;  // the layer's x scale and offset, and its mix (0 for a cut)
+};
+
+// A tile row's taps under one layer, and its offset in the layer's window
+struct TileRow {
+  phn::AxisTap ty;
+  int off;  // (ty.i0 - win.r0) * win.cols
+};
+
+// The v210 words of the tile's rows (phn::encode_pack_block for a tile of
+// kFrameTileRows rows): each thread encodes its pixels (a pixel past the
+// frame width packs as zero) into the code buffers, one barrier, then
+// kGroupsPerBlock threads a row write its groups' words.
+__device__ __forceinline__ void encode_pack_tile(const phn::Encode& e,
+                                                 const float (&rgb)[kFrameRowsPerThread][3], int x,
+                                                 int width, int y_lo, int r_lo, int height,
+                                                 int groups, int4* __restrict__ words) {
+  __shared__ unsigned ys[kFrameTileRows][phn::kPixelsPerBlock];
+  __shared__ unsigned cb[kFrameTileRows][phn::kPixelsPerBlock / 2];
+  __shared__ unsigned cr[kFrameTileRows][phn::kPixelsPerBlock / 2];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kFrameRowsPerThread; ++j) {
+    unsigned yc = 0, cbc = 0, crc = 0;
+    if (x < width && y_lo + r_lo + j < height) {
+      const float rp = phn::l2g(e.g, rgb[j][0]);
+      const float gp = phn::l2g(e.g, rgb[j][1]);
+      const float bp = phn::l2g(e.g, rgb[j][2]);
+      yc = static_cast<unsigned>(phn::encode_row(e, 0, rp, gp, bp)) & phn::kField;
+      if ((x & 1) == 0) {
+        cbc = static_cast<unsigned>(phn::encode_row(e, 1, rp, gp, bp)) & phn::kField;
+        crc = static_cast<unsigned>(phn::encode_row(e, 2, rp, gp, bp)) & phn::kField;
+      }
+    }
+    ys[r_lo + j][t] = yc;
+    if ((t & 1) == 0) {
+      cb[r_lo + j][t / 2] = cbc;
+      cr[r_lo + j][t / 2] = crc;
+    }
+  }
+  __syncthreads();
+  const int tid = threadIdx.y * phn::kPixelsPerBlock + t;
+  const int r = tid / phn::kGroupsPerBlock, g = tid - r * phn::kGroupsPerBlock;
+  const int gi = blockIdx.x * phn::kGroupsPerBlock + g;
+  if (r >= kFrameTileRows || gi >= groups || y_lo + r >= height) return;
+  words[static_cast<size_t>(y_lo + r) * groups + gi] =
+      phn::v210_group(ys[r] + 6 * g, cb[r] + 3 * g, cr[r] + 3 * g);
+}
+
+// One plane at taps that all lie in the window, s at the (x0, y0) texel:
+// bilerp's expressions without its selects
+__device__ __forceinline__ float lerp_inside(const float* __restrict__ s, int cols, float fx,
+                                             float fy) {
+  const float c0 = s[0] * (1.0f - fy) + s[cols] * fy;
+  const float c1 = s[1] * (1.0f - fy) + s[cols + 1] * fy;
+  return c0 * (1.0f - fx) + c1 * fx;
+}
+
+// rgb3 frames: see above.  A layer's windows are sampled when they fit,
+// without bilerp's selects when every tap of the tile lies inside the
+// frame; a tile whose window does not fit samples straight from the
+// frames.  branches (may be null): window[0] and direct[1] counts, one per
+// tile and source.
+__global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
+    frame_tile_kernel(const __grid_constant__ Layers L, int4* __restrict__ words,
+                      float* __restrict__ rgba, const __grid_constant__ phn::Encode e, int width,
+                      int height, int groups, int top_alpha, unsigned long long* branches) {
+  extern __shared__ __align__(16) float windows[];  // two layers' windows
+  __shared__ TileLayer layers[kMaxLayers];
+  __shared__ TileRow tile_rows[kMaxLayers][kFrameTileRows];
+  const int tid = threadIdx.y * phn::kPixelsPerBlock + threadIdx.x;
+  const int x_lo = blockIdx.x * phn::kPixelsPerBlock, x = x_lo + threadIdx.x;
+  const int y_lo = blockIdx.y * kFrameTileRows;
+  const int r_lo = threadIdx.y * kFrameRowsPerThread;  // this thread's first row in the tile
+  const int x_hi = min(x_lo + phn::kPixelsPerBlock, width) - 1;
+  const int y_hi = min(y_lo + kFrameTileRows, height) - 1;
+  // every layer's window and row offsets, once for the block
+  if (tid < L.n_layers) {
+    const float* mat = L.mat[tid];
+    TileLayer t;
+    t.win = phn::tile_window(mat, x_lo, x_hi, y_lo, y_hi, width, height, 4);
+    t.windowed = t.win.texels() <= kFrameWindowTexels;
+    t.inside = phn::span_inside(mat[0], mat[2], x_lo, x_hi, width) &&
+               phn::span_inside(mat[4], mat[5], y_lo, y_hi, height);
+    t.first = static_cast<size_t>(t.win.r0) * width + t.win.c0;
+    t.m00 = mat[0];
+    t.m02 = mat[2];
+    t.mix = L.n_src[tid] == 2 ? *L.mix[tid] : 0.0f;
+    layers[tid] = t;
+    if (branches != nullptr)
+      atomicAdd(branches + (t.windowed ? 0 : 1), static_cast<unsigned long long>(L.n_src[tid]));
+  }
+  __syncthreads();
+  if (tid < L.n_layers * kFrameTileRows) {
+    const int m = tid / kFrameTileRows, r = tid - m * kFrameTileRows;
+    TileRow tr;
+    tr.ty = phn::axis_tap(L.mat[m][4], L.mat[m][5], y_lo + r, height);
+    tr.off = (tr.ty.i0 - layers[m].win.r0) * layers[m].win.cols;
+    tile_rows[m][r] = tr;
+  }
+  // this warp's share of every copy: a source, a plane, every other row,
+  // 16 bytes a lane from column 4 * lane (a frame whose rows are not
+  // 16-byte aligned is copied a texel a lane)
+  const int warp = tid >> 5, lane4 = 4 * (tid & 31);
+  const int copy_src = warp / 6, copy_c = (warp >> 1) % 3, copy_r = warp & 1;
+  const size_t copy_plane = copy_c * static_cast<size_t>(width) * height;
+  const size_t row_step = 2 * static_cast<size_t>(width);
+  const auto copy = [&](int m, int s, float* buf) {
+    const TileLayer t = layers[m];
+    if (t.windowed && copy_src < L.n_src[m]) {
+      const float* src = static_cast<const float*>(L.src[s + copy_src]);
+      const float* g = src + copy_plane + t.first + copy_r * static_cast<size_t>(width);
+      float* d = buf + copy_src * 3 * kFrameWindowTexels + copy_c * t.win.texels() + copy_r * t.win.cols;
+      if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const int chunks = (t.win.cols - lane4 + 127) >> 7;  // this lane's 16-byte chunks a row
+        g += lane4;
+        d += lane4;
+#pragma unroll 1
+        for (int r = copy_r; r < t.win.rows; r += 2, g += row_step, d += 2 * t.win.cols) {
+#pragma unroll 1
+          for (int k = 0; k < chunks; ++k) phn::cp_async16(d + 128 * k, g + 128 * k);
+        }
+      } else {
+        for (int r = copy_r; r < t.win.rows; r += 2, g += row_step, d += 2 * t.win.cols) {
+          for (int k = lane4 / 4; k < t.win.cols && t.win.c0 + k < width; k += 32) phn::cp_async4(d + k, g + k);
+        }
+      }
+    }
+    phn::cp_async_commit();
+  };
+  copy(0, 0, windows);
+  float out[kFrameRowsPerThread][3] = {}, cover[kFrameRowsPerThread] = {};
+  phn::AxisTap tx{};
+  int s = 0;
+  for (int m = 0; m < L.n_layers; ++m) {
+    const int n = L.n_src[m];
+    phn::cp_async_wait<0>();
+    // layer m's windows are in, and every thread is done with layer m - 1's
+    __syncthreads();
+    if (m + 1 < L.n_layers) {
+      copy(m + 1, s + n, windows + ((m + 1) & 1) * kLayerFloats);
+    }
+    const TileLayer t = layers[m];
+    tx = phn::axis_tap(t.m00, t.m02, x, width);
+    const float* win_a = windows + (m & 1) * kLayerFloats;
+    const float* win_b = win_a + 3 * kFrameWindowTexels;
+    const float mx = t.mix;
+#pragma unroll
+    for (int j = 0; j < kFrameRowsPerThread; ++j) {
+      if (x >= width || y_lo + r_lo + j >= height) continue;
+      const TileRow tr = tile_rows[m][r_lo + j];
+      const phn::Taps tp = phn::taps_of(tx, tr.ty);
+      float v[3], vb[3];
+      if (t.inside && t.windowed) {
+        const int o = tr.off + tx.i0 - t.win.c0, plane = t.win.texels(), cols = t.win.cols;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = lerp_inside(win_a + c * plane + o, cols, tx.f, tr.ty.f);
+        if (n == 2) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) vb[c] = lerp_inside(win_b + c * plane + o, cols, tx.f, tr.ty.f);
+        }
+      } else if (t.windowed) {
+        phn::sample_window(win_a, t.win, tp, v);
+        if (n == 2) phn::sample_window(win_b, t.win, tp, vb);
+      } else {
+        float v4[4];
+        sample_frame<kRgb3>(L.src[s], tp, width, height, v4);
+        for (int c = 0; c < 3; ++c) v[c] = v4[c];
+        if (n == 2) {
+          sample_frame<kRgb3>(L.src[s + 1], tp, width, height, v4);
+          for (int c = 0; c < 3; ++c) vb[c] = v4[c];
+        }
+      }
+      if (n == 2) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[c] = v[c] * mx + vb[c] * (1.0f - mx);
+      }
+      const float al = warp_alpha(tx, tr.ty);
+      const float k = 1.0f - al;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[j][c] = m == 0 ? v[c] : out[j][c] * k + v[c];
+      cover[j] = m == 0 ? al : cover[j] * k + al;
+    }
+    s += n;
+  }
+  // tx and the row taps are the top layer's
+#pragma unroll
+  for (int j = 0; j < kFrameRowsPerThread; ++j) {
+    const int row = y_lo + r_lo + j;
+    if (rgba != nullptr && x < width && row < height) {
+      const size_t plane = static_cast<size_t>(width) * height;
+      const size_t o = static_cast<size_t>(row) * width + x;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[j][c];
+      rgba[3 * plane + o] = top_alpha ? warp_alpha(tx, tile_rows[L.n_layers - 1][r_lo + j].ty) : cover[j];
+    }
+  }
+  if (words != nullptr) encode_pack_tile(e, out, x, width, y_lo, r_lo, height, groups, words);
+}
+
 }  // namespace
 
 // srcs: n_srcs sources, bottom..top: (3, height, width) float32 frames
@@ -317,8 +561,12 @@ extern "C" int phn_packed_composite(const void* const* srcs, const void* const* 
     frames_kernel<kRgba><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups,
                                                                  top_alpha);
   } else {
-    frames_kernel<kRgb3><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups,
-                                                                 top_alpha);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        frame_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFrameSmemBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    frame_tile_kernel<<<dim3(blocks_x, (height + kFrameTileRows - 1) / kFrameTileRows),
+                        dim3(phn::kPixelsPerBlock, kFrameThreadRows), kFrameSmemBytes, st>>>(
+        L, w, f, e, width, height, groups, top_alpha, static_cast<unsigned long long*>(branches));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -136,6 +136,28 @@ __device__ __forceinline__ void v210_texel(const int4* __restrict__ words, int g
   decode_v210(d, w, x % 6, rgb);
 }
 
+// ---- asynchronous copies from device memory into shared memory (cp.async):
+// a thread issues them, commits them as a group, and waits until at most
+// kPending of its groups are in flight; a barrier then shows every
+// thread's copies to the block.  16-byte copies need both addresses
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 // One code row of the encode matrix, rounded and saturated
 __device__ __forceinline__ int encode_row(const Encode& e, int c, float rp, float gp,
                                           float bp) {
@@ -244,19 +266,21 @@ __device__ __forceinline__ void sample_v210(const int4* __restrict__ words, int 
   for (int c = 0; c < 3; ++c) out[c] = bilerp(t, v[0][c], v[1][c], v[2][c], v[3][c]);
 }
 
-// ---- the decode window: a v210 source decoded once per block
+// ---- source windows: the texels a tile's taps reach, in shared memory
 //
 // The taps of a tile of output pixels under one axis-aligned matrix reach
-// a rectangle of the source.  A block decodes the v210 groups that cover
-// it into shared memory once, then samples every tap from there, instead
-// of decoding each tap where it is used (sample_v210).
+// a rectangle of the source.  A block copies (frames) or decodes (v210
+// words) the texels that cover it into shared memory once, then samples
+// every tap from there, instead of reading (and decoding) each tap where
+// it is used (sample, sample_v210).
 
-// Whole groups [g0, g0 + groups) by rows [r0, r0 + rows) of a source;
-// empty (0 texels) when no tap of the tile lands inside the frame
+// Texel columns [c0, c0 + cols) by rows [r0, r0 + rows) of a source, c0
+// and cols multiples of the window's alignment (6 for v210 words: whole
+// groups; 4 for float32 frames: 16-byte copies); empty (0 texels) when no
+// tap of the tile lands inside the frame
 struct Window {
-  int g0, groups, r0, rows;
-  __device__ int cols() const { return 6 * groups; }
-  __device__ int texels() const { return 6 * groups * rows; }
+  int c0, cols, r0, rows;
+  __device__ int texels() const { return cols * rows; }
 };
 
 // The texels [first, last] one axis's valid taps reach for output indices
@@ -271,28 +295,30 @@ __device__ __forceinline__ void window_span(float m, float off, int lo, int hi, 
   last = f <= l ? static_cast<int>(l) : -1;
 }
 
-// The window of output columns [x_lo, x_hi] x rows [y_lo, y_hi] under mat
+// The window of output columns [x_lo, x_hi] x rows [y_lo, y_hi] under mat,
+// its columns whole multiples of align from a multiple of align
 __device__ __forceinline__ Window tile_window(const float* mat, int x_lo, int x_hi, int y_lo,
-                                              int y_hi, int width, int height) {
+                                              int y_hi, int width, int height, int align) {
   int x0, x1, y0, y1;
   window_span(mat[0], mat[2], x_lo, x_hi, width, x0, x1);
   window_span(mat[4], mat[5], y_lo, y_hi, height, y0, y1);
   if (x1 < x0 || y1 < y0) return Window{0, 0, 0, 0};
-  return Window{x0 / 6, x1 / 6 - x0 / 6 + 1, y0, y1 - y0 + 1};
+  return Window{x0 / align * align, (x1 / align - x0 / align + 1) * align, y0, y1 - y0 + 1};
 }
 
-// Decode window w of a v210 source into smem, channel planes of w.rows x
-// w.cols floats (group i of the window, row-major, at texels 6i .. 6i +
-// 5): each thread takes groups in turn, one 16-byte load and its six
-// pixels with decode_v210 (the values K1 writes for them).  A group past
-// the frame width decodes its pad, which no valid tap reads.
+// Decode window w (6-aligned) of a v210 source into smem, channel planes
+// of w.rows x w.cols floats (group i of the window, row-major, at texels
+// 6i .. 6i + 5): each thread takes groups in turn, one 16-byte load and
+// its six pixels with decode_v210 (the values K1 writes for them).  A
+// group past the frame width decodes its pad, which no valid tap reads.
 __device__ __forceinline__ void decode_window(const int4* __restrict__ words, int groups,
                                               const Decode& d, const Window& w,
                                               float* __restrict__ smem) {
-  const int plane = w.texels(), n = w.groups * w.rows;
+  const int plane = w.texels(), wg = w.cols / 6, n = wg * w.rows;
+  const int4* first = words + static_cast<size_t>(w.r0) * groups + w.c0 / 6;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / w.groups;
-    const int4 q = __ldg(words + static_cast<size_t>(w.r0 + r) * groups + w.g0 + i - r * w.groups);
+    const int r = i / wg;
+    const int4 q = __ldg(first + static_cast<size_t>(r) * groups + i - r * wg);
     float* s = smem + 6 * i;
 #pragma unroll
     for (int p = 0; p < 6; ++p) {
@@ -305,13 +331,22 @@ __device__ __forceinline__ void decode_window(const int4* __restrict__ words, in
   }
 }
 
-// Linear RGB at the taps from a decoded window that holds every valid tap
+// Whether every tap of output indices [lo, hi] along one axis lies inside
+// the frame: the floors of the ends at or past 0, their floor + 1 at or
+// before size - 1 (tap_coord is monotonic)
+__device__ __forceinline__ bool span_inside(float m, float off, int lo, int hi, int size) {
+  const float fs = static_cast<float>(size);
+  const float a = floorf(tap_coord(m, off, lo, fs)), b = floorf(tap_coord(m, off, hi, fs));
+  return fminf(a, b) >= 0.0f && fmaxf(a, b) + 1.0f <= fs - 1.0f;
+}
+
+// Linear RGB at the taps from a window that holds every valid tap
 // (tile_window of a tile holding the pixel): the same texel values and
-// bilerp as sample_v210.
+// bilerp as sample_v210 and sample.
 __device__ __forceinline__ void sample_window(const float* __restrict__ smem, const Window& w,
                                               const Taps& t, float out[3]) {
-  const int cols = w.cols(), plane = w.texels();
-  const int o = (t.y0 - w.r0) * cols + t.x0 - 6 * w.g0;
+  const int cols = w.cols, plane = w.texels();
+  const int o = (t.y0 - w.r0) * cols + t.x0 - w.c0;
   const bool v00 = t.vx0 && t.vy0, v01 = t.vx0 && t.vy1, v10 = t.vx1 && t.vy0,
              v11 = t.vx1 && t.vy1;
 #pragma unroll

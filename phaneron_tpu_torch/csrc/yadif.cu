@@ -25,15 +25,19 @@
 // and writes two: 124 MB, 37 us.  The arithmetic (~70 flops per
 // predicted sample) is far below the card's float32 rate.
 //
-// Design: one thread per output pixel gathers its taps directly with
-// clamped row and column indices.  The TPU kernel's field-planar lane
-// slices, window DMAs and pl.when edge strips exist for VMEM; here the
-// first and last rows, where the clamp crosses field planes, are just
-// clamped indices.  Neighbouring threads read neighbouring columns, so
-// the 14 spatial and 12 temporal taps of a warp come from a few cached
-// lines, and each ring plane reaches device memory about once per row
-// band.  The pair kernel writes a kept row to one output and a predicted
-// row to the other, so one ring read serves both field ticks.
+// Design.  The ring kernel: one thread per output pixel gathers its taps
+// straight from device memory with clamped row and column indices (26
+// taps a channel, each a clamp and a 64-bit address).  The pair kernel,
+// the default load's (32 launches a 1080i50 period of four channels),
+// stages tiles instead: a block copies the ring rows and columns its
+// taps reach into shared memory once, clamping at the frame's edges as it
+// copies, and each thread walks down one column keeping the rows its next
+// output row reuses in registers, so a tap is a shared-memory read at a
+// constant offset (see the pair kernel below).  The TPU kernel's
+// field-planar lane slices, window DMAs and pl.when edge strips exist for
+// VMEM; here the staged rows' clamp plays their part.  The pair writes a
+// kept row to one output and a predicted row to the other, so one ring
+// read serves both field ticks.
 #include "phn_common.cuh"
 
 namespace {
@@ -47,15 +51,9 @@ __device__ __forceinline__ int col_of(int x, int width) { return min(max(x, 0), 
 
 // _spatial_from_taps: a..g are the line-above taps at x-3..x+3, h..n the
 // line below (yadifCl.ts:34-62)
-__device__ __forceinline__ float spatial_pred(const float* up, const float* dn, int x,
-                                              int width) {
-  const float a = up[col_of(x - 3, width)], b = up[col_of(x - 2, width)];
-  const float c = up[col_of(x - 1, width)], d = up[x], e = up[col_of(x + 1, width)];
-  const float f = up[col_of(x + 2, width)], g = up[col_of(x + 3, width)];
-  const float h = dn[col_of(x - 3, width)], i = dn[col_of(x - 2, width)];
-  const float j = dn[col_of(x - 1, width)], k = dn[x], l = dn[col_of(x + 1, width)];
-  const float m = dn[col_of(x + 2, width)], n = dn[col_of(x + 3, width)];
-
+__device__ __forceinline__ float spatial_from_taps(float a, float b, float c, float d, float e,
+                                                   float f, float g, float h, float i, float j,
+                                                   float k, float l, float m, float n) {
   float pred = (d + k) / 2.0f;
   float score = fabsf(c - j) + fabsf(d - k) + fabsf(e - l);
 
@@ -78,6 +76,18 @@ __device__ __forceinline__ float spatial_pred(const float* up, const float* dn, 
   const bool cmp4 = cmp3 && (s4 < score);
   pred = cmp4 ? (f + i) / 2.0f : pred;
   return pred;
+}
+
+// The spatial prediction at column x from the clamped taps of the rows
+// above (up) and below (dn)
+__device__ __forceinline__ float spatial_pred(const float* up, const float* dn, int x,
+                                              int width) {
+  return spatial_from_taps(up[col_of(x - 3, width)], up[col_of(x - 2, width)],
+                           up[col_of(x - 1, width)], up[x], up[col_of(x + 1, width)],
+                           up[col_of(x + 2, width)], up[col_of(x + 3, width)],
+                           dn[col_of(x - 3, width)], dn[col_of(x - 2, width)],
+                           dn[col_of(x - 1, width)], dn[x], dn[col_of(x + 1, width)],
+                           dn[col_of(x + 2, width)], dn[col_of(x + 3, width)]);
 }
 
 // _temporal_clamp (yadifCl.ts:72-103)
@@ -165,17 +175,150 @@ __global__ void yadif_ring_kernel(const float* __restrict__ prev,
   yadif_pixel(prev, cur, next, out, f, x, y, (y % 2) == par, (par ^ tff) == 0);
 }
 
-__global__ void yadif_pair_kernel(const float* __restrict__ prev,
-                                  const float* __restrict__ cur,
-                                  const float* __restrict__ next, float* __restrict__ out0,
-                                  float* __restrict__ out1, Frame f, int tff) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= f.width || y >= f.height) return;
-  // row y is kept at parity y % 2 and predicted at the other parity
-  const int kept = y % 2, predicted = 1 - kept;
-  yadif_pixel(prev, cur, next, kept ? out1 : out0, f, x, y, true, false);
-  yadif_pixel(prev, cur, next, kept ? out0 : out1, f, x, y, false, (predicted ^ tff) == 0);
+// ---- the pair kernel: staged tiles
+//
+// A block owns kPairCols columns x kPairRows rows of both outputs.  For one
+// channel plane at a time it stages into shared memory the ring rows its
+// taps reach, y_lo-2 .. y_lo+kPairRows+1, each clamped to the frame once as
+// it is copied: cur with kHalo columns on each side (its taps reach
+// x-3..x+3, clamped at the frame's side edges as they are copied), prev and
+// next at the tile's own columns.  The copies are cp.async, 16 bytes a
+// thread where the row is 16-byte aligned and the 4 columns lie inside the
+// frame, else 4 bytes a column; the next plane's copy goes into the second
+// buffer while this plane is computed.  Each thread then walks kPairWalk
+// rows of one column, keeping the taps of rows y-2..y+2 in registers (seven
+// columns of cur, one of prev and of next), and reads one new row of each
+// from shared memory a step.  Alpha (C = 4) is copied from device memory.
+constexpr int kPairCols = 64;
+constexpr int kPairRowGroups = 4;
+constexpr int kPairWalk = 8;
+constexpr int kPairBlocksPerSm = 3;
+constexpr int kPairThreads = kPairCols * kPairRowGroups;
+constexpr int kPairRows = kPairRowGroups * kPairWalk;
+constexpr int kHalo = 4;  // 3 taps, rounded up to 16 bytes
+constexpr int kCurCols = kPairCols + 2 * kHalo;
+constexpr int kStageRows = kPairRows + 4;
+constexpr int kCurFloats = kStageRows * kCurCols;
+constexpr int kSideFloats = kStageRows * kPairCols;  // prev's, and next's
+constexpr int kPlaneFloats = kCurFloats + 2 * kSideFloats;
+constexpr int kPairSmemBytes = 2 * kPlaneFloats * static_cast<int>(sizeof(float));
+
+// Copy rows y_lo-2 .. y_lo+kPairRows+1 of one channel plane of the ring
+// into buf: cur (kStageRows x kCurCols from column x_lo-kHalo), then prev
+// and next (kStageRows x kPairCols from x_lo).  vec: every row starts
+// 16-byte aligned.
+__device__ __forceinline__ void stage_plane(const float* prev, const float* cur,
+                                            const float* next, float* buf, int x_lo, int y_lo,
+                                            int width, int height, bool vec) {
+  constexpr int kCurChunks = kCurCols / 4, kSideChunks = kPairCols / 4;
+  constexpr int kRowChunks = kCurChunks + 2 * kSideChunks;
+  const int tid = threadIdx.y * kPairCols + threadIdx.x;
+  for (int i = tid; i < kStageRows * kRowChunks; i += kPairThreads) {
+    const int r = i / kRowChunks;
+    int k = i - r * kRowChunks;
+    const float* src = cur;
+    float* dst = buf + r * kCurCols + 4 * k;
+    int x = x_lo - kHalo + 4 * k;
+    if (k >= kCurChunks) {
+      k -= kCurChunks;
+      const bool nx = k >= kSideChunks;
+      k -= nx ? kSideChunks : 0;
+      src = nx ? next : prev;
+      dst = buf + kCurFloats + (nx ? kSideFloats : 0) + r * kPairCols + 4 * k;
+      x = x_lo + 4 * k;
+    }
+    const float* row = src + static_cast<size_t>(min(max(y_lo - 2 + r, 0), height - 1)) * width;
+    if (vec && x >= 0 && x + 4 <= width) {
+      phn::cp_async16(dst, row + x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) phn::cp_async4(dst + e, row + col_of(x + e, width));
+    }
+  }
+}
+
+// Both outputs of one channel plane (at offset off) for this thread's
+// column x and rows y0 .. y0+kPairWalk-1, from the staged plane in buf
+__device__ __forceinline__ void pair_plane(const float* buf, float* __restrict__ out0,
+                                           float* __restrict__ out1, size_t off, int x, int y0,
+                                           const Frame& f, int tff) {
+  // local row 0 of this thread is frame row y0 - 2
+  const float* cs = buf + threadIdx.y * kPairWalk * kCurCols + kHalo + threadIdx.x;
+  const float* ps = buf + kCurFloats + threadIdx.y * kPairWalk * kPairCols + threadIdx.x;
+  const float* ns = ps + kSideFloats;
+  float c[5][7], p[5], n[5];  // rows y-2..y+2; cur's at x-3..x+3
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int d = 0; d < 7; ++d) c[r + 1][d] = cs[r * kCurCols + d - 3];
+    p[r + 1] = ps[r * kPairCols];
+    n[r + 1] = ns[r * kPairCols];
+  }
+#pragma unroll
+  for (int s = 0; s < kPairWalk; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int d = 0; d < 7; ++d) c[r][d] = c[r + 1][d];
+      p[r] = p[r + 1];
+      n[r] = n[r + 1];
+    }
+#pragma unroll
+    for (int d = 0; d < 7; ++d) c[4][d] = cs[(s + 4) * kCurCols + d - 3];
+    p[4] = ps[(s + 4) * kPairCols];
+    n[4] = ns[(s + 4) * kPairCols];
+    const int y = y0 + s;
+    if (x >= f.width || y >= f.height) continue;
+    const float spatial = spatial_from_taps(c[1][0], c[1][1], c[1][2], c[1][3], c[1][4], c[1][5],
+                                            c[1][6], c[3][0], c[3][1], c[3][2], c[3][3], c[3][4],
+                                            c[3][5], c[3][6]);
+    // row y is kept at parity y % 2 and predicted at the other parity
+    const int kept = y & 1;
+    const bool is_second = ((1 - kept) ^ tff) == 0;
+    const float pred = temporal_clamp(
+        p[1], p[3], is_second ? c[0][3] : p[0], is_second ? c[2][3] : p[2],
+        is_second ? c[4][3] : p[4], c[1][3], c[3][3], is_second ? n[0] : c[0][3],
+        is_second ? n[2] : c[2][3], is_second ? n[4] : c[4][3], n[1], n[3], spatial,
+        f.skip_spatial);
+    const size_t o = off + static_cast<size_t>(y) * f.width + x;
+    (kept ? out1 : out0)[o] = c[2][3];
+    (kept ? out0 : out1)[o] = pred;
+  }
+}
+
+__global__ void __launch_bounds__(kPairThreads, kPairBlocksPerSm)
+    yadif_pair_kernel(const float* __restrict__ prev, const float* __restrict__ cur,
+                      const float* __restrict__ next, float* __restrict__ out0,
+                      float* __restrict__ out1, Frame f, int tff, int vec) {
+  extern __shared__ __align__(16) float stage[];  // two planes' buffers
+  const int x_lo = blockIdx.x * kPairCols, y_lo = blockIdx.y * kPairRows;
+  const int x = x_lo + threadIdx.x, y0 = y_lo + threadIdx.y * kPairWalk;
+  const size_t plane = static_cast<size_t>(f.width) * f.height;
+  stage_plane(prev, cur, next, stage, x_lo, y_lo, f.width, f.height, vec);
+  phn::cp_async_commit();
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    if (c < 2) {
+      const size_t o = (c + 1) * plane;
+      stage_plane(prev + o, cur + o, next + o, stage + ((c + 1) & 1) * kPlaneFloats, x_lo, y_lo,
+                  f.width, f.height, vec);
+      phn::cp_async_commit();
+      phn::cp_async_wait<1>();
+    } else {
+      phn::cp_async_wait<0>();
+    }
+    __syncthreads();  // plane c is staged
+    pair_plane(stage + (c & 1) * kPlaneFloats, out0, out1, c * plane, x, y0, f, tff);
+    __syncthreads();  // its buffer is free for plane c + 2
+  }
+  if (f.channels == 4 && x < f.width) {
+    for (int s = 0; s < kPairWalk && y0 + s < f.height; ++s) {
+      const size_t o = 3 * plane + static_cast<size_t>(y0 + s) * f.width + x;
+      const float a = f.opaque ? 1.0f : cur[o];
+      out0[o] = a;
+      out1[o] = a;
+    }
+  }
 }
 
 const dim3 kBlock(32, 8);
@@ -209,10 +352,17 @@ extern "C" int phn_yadif_pair(const void* prev, const void* cur, const void* nex
                               void* out1, int channels, int height, int width, int tff,
                               int skip_spatial, int opaque, void* stream) {
   if (!valid(channels, height, width)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      yadif_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPairSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const Frame f{channels, height, width, skip_spatial != 0, opaque != 0};
-  yadif_pair_kernel<<<grid_of(height, width), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int vec = width % 4 == 0 && aligned(prev) && aligned(cur) && aligned(next);
+  const dim3 grid((width + kPairCols - 1) / kPairCols, (height + kPairRows - 1) / kPairRows);
+  yadif_pair_kernel<<<grid, dim3(kPairCols, kPairRowGroups), kPairSmemBytes,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(prev), static_cast<const float*>(cur),
       static_cast<const float*>(next), static_cast<float*>(out0), static_cast<float*>(out1), f,
-      tff != 0);
+      tff != 0, vec);
   return static_cast<int>(cudaGetLastError());
 }

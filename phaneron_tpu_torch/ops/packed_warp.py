@@ -253,12 +253,13 @@ def packed_composite(
     warp alpha (opaque sources) or its warped, mixed alpha plane
     ('rgba'); the bottom layer composites over black.
 
-    The kernel decodes v210 sources once per tile of the output, from a
-    shared-memory window of the groups the tile's taps reach, and samples
-    a window too large for it straight from the words.  ``branches``, a
+    The kernel brings v210 and rgb3 sources into shared memory once per
+    tile of the output (a window of the texels the tile's taps reach,
+    decoded from the words or copied from the frames), and samples a
+    window too large for it straight from device memory.  ``branches``, a
     (2,) int64 tensor on the sources' device, gets the (tile, source) pairs
-    of each branch added: [window, direct] (for 'packed' sources; a
-    measurement hook, read by chip_smoke.py)."""
+    of each branch added: [window, direct] (for 'packed' and 'rgb3'
+    sources; a measurement hook, read by chip_smoke.py)."""
     h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
     if is_cpu(srcs[0], "packed_composite"):
         return packed_composite_plain(

@@ -215,6 +215,26 @@ def test_packed_composite_window_edges_within_one_code_of_jax(case):
     assert max_code_delta(words_to_numpy(got), np.asarray(want), W, H) <= 1
 
 
+@pytest.mark.parametrize("case", sorted(EDGE_MATS))
+def test_packed_composite_rgb3_window_edges_within_one_code_of_jax(case):
+    """The rgb3 kind's plain version, which chip_smoke.py holds its copied
+    windows and direct branch to, against
+    make_packed_composite_program(src_kind='rgb3') in interpret mode under
+    the same edge matrices: a dissolve under one and a cut under the other,
+    over random (3, H, W) frames."""
+    mats = [m.astype(np.float32) for m in EDGE_MATS[case]]
+    rng = np.random.default_rng(len(case) + 50)
+    srcs = [rng.random((3, H, W), dtype=np.float32) for _ in range(3)]
+    bucket = bucket_of(*mats)
+    assert packed_composite_fits(H, W, bucket, 2, src_kind="rgb3")
+    prog = make_packed_composite_program(H, W, bucket, (2, 1), src_kind="rgb3", interpret=True)
+    want = planes_to_words(prog([jnp.asarray(s) for s in srcs], jnp.stack([jnp.asarray(m) for m in mats]),
+                                jnp.asarray([MIXES[0], 1.0], jnp.float32)))
+    got = PW.packed_composite_plain([_t(s) for s in srcs], (2, 1), [_t(m) for m in mats],
+                                    [torch.tensor(MIXES[0]), None])
+    assert max_code_delta(words_to_numpy(got), np.asarray(want), W, H) <= 1
+
+
 # --------------------------------------------------------------- routes
 
 

@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from phaneron_tpu.ops.pallas_yadif import make_yadif_pair_program, make_yadif_ring_program
+from phaneron_tpu.ops.pallas_yadif import (
+    make_yadif_pair_program,
+    make_yadif_ring_program,
+    yadif_pair_fits,
+)
 from phaneron_tpu.ops.yadif import yadif_frame as jax_yadif_frame
 from phaneron_tpu_torch.graph import pipeline as tpipe
 from phaneron_tpu_torch.ops import _build
@@ -145,3 +149,39 @@ def test_cpu_wrappers_launch_nothing_and_refuse_other_devices():
         ty.yadif_pair(*meta, True)
     with pytest.raises(ValueError, match="3\\|4"):
         ty.yadif_ring(*(f[:2] for f in frames), 0, True)
+
+
+# The pair kernel's tile edges (csrc/yadif.cu stages 64 x 32 tiles of
+# 16-byte rows, clamping rows and columns as it copies): rings down to one
+# row and one column, and heights and widths off the tiles and off 4
+# columns (1918 is the odd width chip_smoke.py holds the kernel to)
+EDGE_SIZES = [(1, 1), (1, 7), (2, 3), (3, 5), (4, 2), (5, 7), (5, 1), (33, 70), (6, 1918)]
+
+
+@pytest.mark.parametrize("h,w", EDGE_SIZES)
+def test_pair_plain_equals_jax_yadif_frame_at_tile_edges(h, w):
+    """yadif_pair_plain, which chip_smoke.py holds the pair kernel to at
+    these geometries, against JAX's yadif_frame at both parities, tff and
+    bff, with and without the spatial check; C 3, 4 and 4 opaque in turn."""
+    channels, opaque = ((3, False), (4, False), (4, True))[(h + w) % 3]
+    frames = _ring(h * 31 + w, channels, h, w, opaque=opaque)
+    for tff in (True, False):
+        for skip in (False, True):
+            pair = ty.yadif_pair_plain(*_torch(frames), tff, skip_spatial=skip, opaque=opaque)
+            for parity, got in enumerate(pair):
+                want = np.asarray(_jax_yadif(*_jax(frames), jnp.int32(parity), tff, skip))
+                assert tuple(got.shape) == (channels, h, w)
+                np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h,w,tff,channels", [(32, 128, True, 3), (48, 128, False, 4)])
+def test_pair_plain_equals_pallas_pair_kernel_skip_spatial(h, w, tff, channels):
+    """With skip_spatial, at the smallest geometries yadif_pair_fits admits."""
+    assert yadif_pair_fits(h, w, channels)
+    frames = _ring(41 + h, channels, h, w)
+    o0, o1 = make_yadif_pair_program(h, w, tff, skip_spatial=True, interpret=True, channels=channels)(
+        *_jax(frames)
+    )
+    g0, g1 = ty.yadif_pair(*_torch(frames), tff, skip_spatial=True)
+    np.testing.assert_array_equal(g0.numpy(), np.asarray(o0))
+    np.testing.assert_array_equal(g1.numpy(), np.asarray(o1))

@@ -1,26 +1,51 @@
 #!/usr/bin/env python3
-"""Timed variants of two kernels on one card, to tell what sets their time.
+"""Timed variants of the hand-written kernels on one card, to tell what
+sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3]
 
-- K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded random
-  words and on the fill_buf ramp: tools/k1_variants.cu in its two thread
-  mappings (one thread per group, as before its redesign; one thread per
-  pixel, as csrc/v210_unpack.cu), each whole, with its stores only (a
-  constant decode), its decode only (no stores) and without the
+- k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
+  random words and on the fill_buf ramp: tools/k1_variants.cu in its two
+  thread mappings (one thread per group, as before its redesign; one
+  thread per pixel, as csrc/v210_unpack.cu), each whole, with its stores
+  only (a constant decode), its decode only (no stores) and without the
   gamma'->linear gather.  The whole variants must equal
   v210_unpack_plain.
-- K5 over v210 words (bench.py's progressive 4-layer frame at 3840x2160
-  and 1920x1080, chip_smoke.py's sources; and on rolled ramps alone):
-  csrc/packed_composite.cu built with other tile rows, window sizes and
-  blocks per SM (VARIANTS), each held to packed_composite_plain (0
-  codes, max |delta| 0) and timed beside the built source; and, timed
-  only (their frames are wrong on purpose), the built source without the
-  gamma'->linear gather, without the window's decode (its words stored
-  as they are) and with one tap a channel in place of the bilinear
-  sample (DIAGNOSTICS).
+- k5: K5 over v210 words (bench.py's progressive 4-layer frame at
+  3840x2160 and 1920x1080, chip_smoke.py's sources; and on rolled ramps
+  alone): csrc/packed_composite.cu built with other tile rows, window
+  sizes and blocks per SM (K5_VARIANTS), each held to
+  packed_composite_plain (0 codes, max |delta| 0) and timed beside the
+  built source; and, timed only (their frames are wrong on purpose), the
+  built source without the gamma'->linear gather, without the window's
+  decode (its words stored as they are) and with one tap a channel in
+  place of the bilinear sample (K5_DIAGNOSTICS).
+- yadif: yadif_pair on chip_smoke.py's 3-channel 1920x1080 ring (tff),
+  the default load's shape.  The old mapping (tools/yadif_variants.cu:
+  one thread a pixel, clamped gathers from device memory) whole, with
+  its stores only, its loads with trivial arithmetic, its full
+  arithmetic on taps made from the pixel's position, and its taps read
+  without clamps; the new mapping (csrc/yadif.cu, staged tiles) built
+  with other tile shapes (YADIF_VARIANTS) and, timed only, without the
+  staging copies, without the arithmetic (the taps summed) and with one
+  staging buffer (no overlap of the next plane's copy)
+  (YADIF_DIAGNOSTICS).  The whole variants must equal yadif_pair_plain
+  (max |delta| 0), and so at bff, with skip_spatial, 4 channels and
+  opaque, and at 1918x1081.
+- rgb3: K5 over (3, H, W) frames, chip_smoke.py's interlaced tick (4
+  dissolve layers, 8 seeded random sources, scale-0.9 matrices) at
+  1920x1080.  The tile kernel (csrc/packed_composite.cu
+  frame_tile_kernel) built with other rows a thread, window sizes and
+  blocks per SM (RGB3_VARIANTS), and the old
+  mapping (frames_kernel, one thread a pixel of one row, every tap
+  gathered from device memory), each held to packed_composite_plain (0
+  codes; max |delta| 0 on the frame); and, timed only, the old mapping
+  with its taps replaced by constants, and the tile kernel without the
+  windows' copies, without its all-taps-inside path, without the copies
+  and the sampling, without the encode, and with one tap a channel
+  (RGB3_DIAGNOSTICS).
 
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
@@ -29,6 +54,7 @@ Builds go to build/variants/.  Exits 1 when a variant disagrees.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -37,92 +63,183 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "phaneron_tpu_torch" / "csrc"
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# K5 variants: name -> (tile rows, window texels, blocks per SM); two
-# windows of 3 float32 a texel must stay within the kernel's 44 KB
-VARIANTS = {"R5_W1776_B3": (5, 1776, 3), "R4_W1536_B5": (4, 1536, 5), "R3_W1344_B5": (3, 1344, 5)}
-# K5 with a part taken out, timed only: name -> (line of phn_common.cuh, its stand-in)
-DIAGNOSTICS = {
+SECTIONS = ("k1", "k5", "yadif", "rgb3")
+# K5 over words: name -> {constant: value}; two windows of 3 float32 a
+# texel must stay within the kernel's shared memory
+K5_VARIANTS = {
+    "R5_W1776_B3": dict(kTileRows=5, kWindowTexels=1776, kBlocksPerSm=3),
+    "R4_W1536_B5": dict(kTileRows=4, kWindowTexels=1536, kBlocksPerSm=5),
+    "R3_W1344_B5": dict(kTileRows=3, kWindowTexels=1344, kBlocksPerSm=5),
+}
+# a part taken out, timed only: name -> (line of phn_common.cuh, its stand-in)
+ONE_TAP = ("""    out[c] = bilerp(t, v00 ? s[o] : 0.0f, v01 ? s[o + cols] : 0.0f, v10 ? s[o + 1] : 0.0f,
+                    v11 ? s[o + cols + 1] : 0.0f);""", "    out[c] = v00 ? s[o] : 0.0f;")
+K5_DIAGNOSTICS = {
     "no gather": ("    lin[c] = g2l(d.g2l, gam);", "    lin[c] = gam;"),
     "no decode": ("      decode_v210(d, q, p, rgb);",
                   "      rgb[0] = rgb[1] = rgb[2] = __int_as_float(q.x + p);"),
-    "one tap": ("""    out[c] = bilerp(t, v00 ? s[o] : 0.0f, v01 ? s[o + cols] : 0.0f, v10 ? s[o + 1] : 0.0f,
-                    v11 ? s[o + cols + 1] : 0.0f);""", "    out[c] = v00 ? s[o] : 0.0f;"),
+    "one tap": ONE_TAP,
 }
-K1_PARTS = ("whole", "stores only", "decode only", "no gather")
+# yadif_pair's staged tiles: name -> {constant: value}
+YADIF_VARIANTS = {
+    "C64_G4_W8_B3": dict(kPairCols=64, kPairRowGroups=4, kPairWalk=8, kPairBlocksPerSm=3),
+    "C128_G2_W8_B3": dict(kPairCols=128, kPairRowGroups=2, kPairWalk=8, kPairBlocksPerSm=3),
+    "C32_G8_W4_B4": dict(kPairCols=32, kPairRowGroups=8, kPairWalk=4, kPairBlocksPerSm=4),
+    "C64_G4_W4_B4": dict(kPairCols=64, kPairRowGroups=4, kPairWalk=4, kPairBlocksPerSm=4),
+    "C64_G2_W16_B3": dict(kPairCols=64, kPairRowGroups=2, kPairWalk=16, kPairBlocksPerSm=3),
+    "C128_G4_W4_B2": dict(kPairCols=128, kPairRowGroups=4, kPairWalk=4, kPairBlocksPerSm=2),
+}
+YADIF_SUM = ("    const float pred = temporal_clamp(", "    const float pred = c[1][0] + c[1][1] + c[1][2] + "
+             "c[1][4] + c[1][5] + c[1][6] + c[3][0] + c[3][1] + c[3][2] + c[3][4] + c[3][5] + c[3][6] + "
+             "p[0] + p[1] + p[2] + p[3] + p[4] + n[0] + n[1] + n[2] + n[3] + n[4] + spatial;\n"
+             "    if (false) temporal_clamp(")
+YADIF_DIAGNOSTICS = {  # name -> [(line of csrc/yadif.cu, its stand-in), ...]
+    "no staging": [("      phn::cp_async16(dst, row + x);", "      (void)dst;"),
+                   ("      for (int e = 0; e < 4; ++e) phn::cp_async4(dst + e, row + col_of(x + e, width));",
+                    "      for (int e = 0; e < 0; ++e) {}")],
+    "no arithmetic": [("    const float spatial = spatial_from_taps(", "    const float spatial = c[0][3] + c[4][3]; if (false) spatial_from_taps("),
+                      YADIF_SUM],
+    "one buffer": [("      phn::cp_async_wait<1>();", "      phn::cp_async_wait<0>();")],
+}
+YADIF_OLD_PARTS = ("whole", "stores only", "loads, trivial arithmetic", "arithmetic, no loads",
+                   "taps without clamps")
+# K5 over rgb3 frames: the tile kernel's constants, and the old mapping
+RGB3_VARIANTS = {
+    "R3_W1792_B2": dict(kFrameRowsPerThread=3, kFrameWindowTexels=1792, kFrameBlocksPerSm=2),
+    "R2_W1344_B3": dict(kFrameRowsPerThread=2, kFrameWindowTexels=1344, kFrameBlocksPerSm=3),
+    "R4_W2240_B2": dict(kFrameRowsPerThread=4, kFrameWindowTexels=2240, kFrameBlocksPerSm=2),
+    "R1_W896_B3": dict(kFrameRowsPerThread=1, kFrameWindowTexels=896, kFrameBlocksPerSm=3),
+}
+ONE_TAP_INSIDE = ("""  const float c0 = s[0] * (1.0f - fy) + s[cols] * fy;
+  const float c1 = s[1] * (1.0f - fy) + s[cols + 1] * fy;
+  return c0 * (1.0f - fx) + c1 * fx;""", "  return s[0];")
+OLD_RGB3 = ("""    frame_tile_kernel<<<dim3(blocks_x, (height + kFrameTileRows - 1) / kFrameTileRows),
+                        dim3(phn::kPixelsPerBlock, kFrameThreadRows), kFrameSmemBytes, st>>>(
+        L, w, f, e, width, height, groups, top_alpha, static_cast<unsigned long long*>(branches));""",
+            "    frames_kernel<kRgb3><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups, "
+            "top_alpha);")
+RGB3_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
+    "old mapping": {"packed_composite.cu": [OLD_RGB3]},
+    "old mapping, no taps": {"packed_composite.cu": [OLD_RGB3, (
+        "  for (int c = 0; c < (kKind == kRgba ? 4 : 3); ++c) v[c] = phn::sample(s + c * plane, width, tp);",
+        "  for (int c = 0; c < (kKind == kRgba ? 4 : 3); ++c) v[c] = tp.fx * 0.5f + 0.125f * c;")]},
+    "no window copy": {"packed_composite.cu": [("phn::cp_async16(d + 128 * k, g + 128 * k);", "(void)d;")]},
+    "no all-valid path": {"packed_composite.cu": [("      if (t.inside && t.windowed) {", "      if (false) {")]},
+    "no copy, no sampling": {"packed_composite.cu": [
+        ("phn::cp_async16(d + 128 * k, g + 128 * k);", "(void)d;"),
+        ("  const float c0 = s[0] * (1.0f - fy) + s[cols] * fy;\n  const float c1 = s[1] * (1.0f - fy) + s[cols + 1] * fy;\n"
+         "  return c0 * (1.0f - fx) + c1 * fx;", "  return fx + s[0];")]},
+    "no encode": {"packed_composite.cu": [
+        ("  if (words != nullptr) encode_pack_tile(e, out, x, width, y_lo, r_lo, height, groups, words);",
+         "  if (words != nullptr && out[0][0] == -1.0f) words[0].x = 1;")]},
+    "one tap": {"phn_common.cuh": [ONE_TAP], "packed_composite.cu": [ONE_TAP_INSIDE]},
+}
+HELD_RGB3 = ("old mapping",)  # a diagnostic whose output must still equal the plain version
 
 
-def build(out: Path) -> dict:
-    """Every variant library, one nvcc each, all at once: name -> path."""
+def set_consts(text: str, consts: dict) -> str:
+    for const, value in consts.items():
+        head = f"constexpr int {const} = "
+        i = text.index(head) + len(head)
+        text = text[:i] + str(value) + text[text.index(";", i):]
+    return text
+
+
+def edited_copy(out: Path, cu: str, consts: dict, edits: dict) -> Path:
+    """csrc/<cu> and phn_common.cuh written into ``out`` with the
+    constants set and each (line, stand-in) of ``edits[file]`` applied."""
+    out.mkdir(parents=True, exist_ok=True)
+    for name in (cu, "phn_common.cuh"):
+        text = (CSRC / name).read_text()
+        if name == cu:
+            text = set_consts(text, consts)
+        for old, new in edits.get(name, ()):
+            if old not in text:
+                raise RuntimeError(f"kernel_variants: {name} no longer has the line {old!r}")
+            text = text.replace(old, new)
+        (out / name).write_text(text)
+    return out / cu
+
+
+def build(out: Path, sections) -> dict:
+    """Every variant library of the chosen sections, one nvcc each, all at
+    once: name -> path."""
     from phaneron_tpu_torch.ops import _build
 
-    csrc = ROOT / "phaneron_tpu_torch" / "csrc"
-    src = (csrc / "packed_composite.cu").read_text()
-    common = (csrc / "phn_common.cuh").read_text()
-    jobs = {"k1": (ROOT / "tools" / "k1_variants.cu", out / "k1_variants.so")}
-    builds = {name: (consts, None) for name, consts in VARIANTS.items()}
-    builds.update({name: (None, change) for name, change in DIAGNOSTICS.items()})
-    for name, (consts, change) in builds.items():
-        d = out / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        if change is not None and change[0] not in common:
-            raise RuntimeError(f"kernel_variants: phn_common.cuh no longer has the line {name} replaces")
-        (d / "phn_common.cuh").write_text(common if change is None else common.replace(*change))
-        text = src
-        for const, value in zip(("kTileRows", "kWindowTexels", "kBlocksPerSm"), consts or ()):
-            head = f"constexpr int {const} = "
-            i = text.index(head) + len(head)
-            text = text[:i] + str(value) + text[text.index(";", i):]
-        (d / "packed_composite.cu").write_text(text)
-        jobs[name] = (d / "packed_composite.cu", d / "lib.so")
-    procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, (cu, so) in jobs.items()}
+    jobs = {}
+    if "k1" in sections:
+        jobs["k1"] = ROOT / "tools" / "k1_variants.cu"
+    if "yadif" in sections:
+        jobs["yadif old"] = ROOT / "tools" / "yadif_variants.cu"
+    slug = lambda name: name.replace(" ", "_").replace(",", "")
+    for section, cu, variants, diagnostics in (
+            ("k5", "packed_composite.cu", K5_VARIANTS,
+             {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
+            ("yadif", "yadif.cu", YADIF_VARIANTS, {n: {"yadif.cu": e} for n, e in YADIF_DIAGNOSTICS.items()}),
+            ("rgb3", "packed_composite.cu", RGB3_VARIANTS, RGB3_DIAGNOSTICS)):
+        if section not in sections:
+            continue
+        for name, consts in variants.items():
+            jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, consts, {})
+        for name, edits in diagnostics.items():
+            jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, {}, edits)
+    procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(cu.with_suffix(".so")),
+                                     str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, cu in jobs.items()}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         for line in cs.ptxas_lines(log):
             print(f"  ptxas {name}: {line}")
-    return {name: so for name, (_, so) in jobs.items()}
+    return {name: cu.with_suffix(".so") for name, cu in jobs.items()}
 
 
-class K5Lib:
-    """A variant library in the shape the packed_composite wrapper calls."""
+class Lib:
+    """A variant library in the shape a wrapper calls: its one exported
+    function, bound as ops/_build.py binds the built library's."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, fn_name: str):
         from phaneron_tpu_torch.ops import _build
 
-        fn = ctypes.CDLL(str(path)).phn_packed_composite
-        fn.argtypes = list(_build._SIGNATURES["phn_packed_composite"])
+        fn = getattr(ctypes.CDLL(str(path)), fn_name)
+        fn.argtypes = list(_build._SIGNATURES[fn_name])
         fn.restype = ctypes.c_int
-        self.phn_packed_composite = fn
+        setattr(self, fn_name, fn)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
-        return 1
-    from phaneron_tpu_torch.graph.convert import to_tensor
+def timed(torch, module, libs: dict, call, check) -> dict:
+    """name -> device ms of call() with module.library swapped for each
+    library in turn (the built source first and last, the better of the
+    two kept); check(name) runs the variant once and returns False if it
+    disagrees."""
     from phaneron_tpu_torch.ops import _build
+
+    times, bad = {}, []
+    try:
+        for name, lib in list(libs.items()) + [("built", libs["built"])]:
+            module.library = lambda lib=lib: lib
+            if not check(name):
+                bad.append(name)
+            ms = cs.device_ms(torch, call, batches=5, calls=5)
+            print(f"  {name}: {ms:.4f} ms", flush=True)
+            times[name] = min(ms, times.get(name, ms))
+    finally:
+        module.library = _build.library
+    return times, bad
+
+
+def section_k1(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
     from phaneron_tpu_torch.ops import kernels as K
-    from phaneron_tpu_torch.ops import packed_warp as PW
     from phaneron_tpu_torch.ops.formats import v210
 
-    dev = torch.device("cuda", 0)
-    card = cs.card_line()
-    print(card)
-    libs = build(ROOT / "build" / "variants")
-    rng = np.random.default_rng(cs.SEED)
-    W, H, UW, UH = cs.W, cs.H, cs.UHD_W, cs.UHD_H
-    bad = []
-
-    # ---- K1: mappings x parts, random words and the ramp
+    W, H, bad = cs.W, cs.H, []
     k1 = ctypes.CDLL(str(libs["k1"]))
     k1.k1_variant.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p] * 3
@@ -134,7 +251,7 @@ def main() -> int:
         plain = K.v210_unpack_plain([words], W, H, channels=3)[0]
         for mapping, mapping_name in enumerate(("one thread per group", "one thread per pixel")):
             times = []
-            for part, part_name in enumerate(K1_PARTS):
+            for part, part_name in enumerate(("whole", "stores only", "decode only", "no gather")):
                 call = lambda: k1.k1_variant(mapping, part, words.data_ptr(), out.data_ptr(), W, H, groups, coeffs,
                                              g2l, torch.cuda.current_stream(dev).cuda_stream)
                 if part == 0:
@@ -144,10 +261,17 @@ def main() -> int:
                         bad.append(f"K1 {mapping_name} on {content}")
                 times.append(f"{part_name} {cs.device_ms(torch, call, calls=20):.4f}")
             print(f"K1 1920x1080, 3 channels, {content}, {mapping_name} on {card}: ms " + "; ".join(times))
+    return bad
 
-    # ---- K5 over v210 words: the variants beside the built source
-    cases = {}
-    for w, h in ((UW, UH), (W, H)):
+
+def section_k5(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.formats import v210
+
+    cases, bad = {}, []
+    for w, h in ((cs.UHD_W, cs.UHD_H), (cs.W, cs.H)):
         _, params = cs.progressive_spec_params(torch, dev, rng, w, h)
         lps = params["layers"]
         args = ([s for lp in lps for s in (lp["src"][0], lp["src_b"][0])], (2, 2, 2, 2),
@@ -155,25 +279,120 @@ def main() -> int:
         ramps = [to_tensor(np.roll(v210.fill_buf(w, h)[0], 4 * 11 * (k + 1), axis=1), dev) for k in range(8)]
         cases[f"{w}x{h}, ramps and random words"] = (args, (w, h))
         cases[f"{w}x{h}, ramps"] = ((ramps, *args[1:]), (w, h))
-    k5 = {"built": _build.library(), **{name: K5Lib(libs[name]) for name in (*VARIANTS, *DIAGNOSTICS)}}
-    try:
-        for label, (args, size) in cases.items():
-            kw = dict(src_kind="packed", size=size, emit="both", alpha="top")
-            want = PW.packed_composite_plain(*args, **kw)
-            times = {}
-            for name, lib in list(k5.items()) + [("built", k5["built"])]:  # the built source first and last
-                PW.library = lambda lib=lib: lib
-                got = PW.packed_composite(*args, **kw)
-                if name not in DIAGNOSTICS and (cs.code_delta(torch, got[0], want[0], *size)
-                                                or not torch.equal(got[1], want[1])):
-                    bad.append(f"K5 {name} at {label}")
-                ms = cs.device_ms(torch, lambda: PW.packed_composite(*args, src_kind="packed", size=size),
-                                  batches=5, calls=5)
-                times[name] = min(ms, times.get(name, ms))
-            print(f"K5 v210 words, 4 dissolve layers, {label} on {card}: ms "
-                  + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
-    finally:
-        PW.library = _build.library
+    k5 = {"built": _build.library(), **{n: Lib(libs[f"k5 {n}"], "phn_packed_composite")
+                                        for n in (*K5_VARIANTS, *K5_DIAGNOSTICS)}}
+    for label, (args, size) in cases.items():
+        kw = dict(src_kind="packed", size=size, emit="both", alpha="top")
+        want = PW.packed_composite_plain(*args, **kw)
+
+        def check(name):
+            got = PW.packed_composite(*args, **kw)
+            return name in K5_DIAGNOSTICS or not (cs.code_delta(torch, got[0], want[0], *size)
+                                                  or not torch.equal(got[1], want[1]))
+
+        times, wrong = timed(torch, PW, k5, lambda: PW.packed_composite(*args, src_kind="packed", size=size), check)
+        bad += [f"K5 {n} at {label}" for n in wrong]
+        print(f"K5 v210 words, 4 dissolve layers, {label} on {card}: ms "
+              + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
+    return bad
+
+
+def section_yadif(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import yadif as Y
+
+    W, H, bad = cs.W, cs.H, []
+    ring = [torch.from_numpy(rng.random((3, H, W), dtype=np.float32)).to(dev) for _ in range(3)]
+    # the old mapping's parts
+    old = ctypes.CDLL(str(libs["yadif old"])).yadif_old_pair
+    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_yadif_pair"])
+    out0, out1 = torch.empty_like(ring[0]), torch.empty_like(ring[0])
+    want = Y.yadif_pair_plain(*ring, cs.TFF)
+    times = []
+    for part, part_name in enumerate(YADIF_OLD_PARTS):
+        call = lambda: old(part, *(f.data_ptr() for f in ring), out0.data_ptr(), out1.data_ptr(), 3, H, W,
+                           int(cs.TFF), 0, 0, torch.cuda.current_stream(dev).cuda_stream)
+        if part == 0:
+            out0.zero_()
+            out1.zero_()
+            call()
+            if not (torch.equal(out0, want[0]) and torch.equal(out1, want[1])):
+                bad.append("yadif_pair old mapping")
+        times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+    print(f"yadif_pair 3 ch 1920x1080, old mapping (one thread a pixel, clamped gathers) on {card}: ms "
+          + "; ".join(times))
+    # the new mapping: tile shapes and parts taken out
+    lib = {"built": _build.library(), **{n: Lib(libs[f"yadif {n}"], "phn_yadif_pair")
+                                         for n in (*YADIF_VARIANTS, *YADIF_DIAGNOSTICS)}}
+    odd = [torch.from_numpy(rng.random((4, 1081, 1918), dtype=np.float32)).to(dev) for _ in range(3)]
+    for f in odd:
+        f[3] = 1.0
+
+    def check(name):
+        if name in YADIF_DIAGNOSTICS:
+            return True
+        for frames, tff, kw in ((ring, cs.TFF, {}), (ring, not cs.TFF, dict(skip_spatial=True)),
+                                (odd, cs.TFF, {}), (odd, not cs.TFF, dict(opaque=True))):
+            got, exp = Y.yadif_pair(*frames, tff, **kw), Y.yadif_pair_plain(*frames, tff, **kw)
+            if not all(torch.equal(g, e) for g, e in zip(got, exp)):
+                return False
+        return True
+
+    times, wrong = timed(torch, Y, lib, lambda: Y.yadif_pair(*ring, cs.TFF), check)
+    bad += [f"yadif_pair {n}" for n in wrong]
+    print(f"yadif_pair 3 ch 1920x1080, new mapping (staged tiles) on {card}: ms "
+          + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
+    return bad
+
+
+def section_rgb3(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    W, H = cs.W, cs.H
+    srcs = [torch.from_numpy(rng.random((3, H, W), dtype=np.float32)).to(dev) for _ in range(8)]
+    mats = [to_tensor(transform_matrix(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i), dev)
+            for i in range(4)]
+    mixes = [torch.tensor(0.2 + 0.15 * i, device=dev) for i in range(4)]
+    args = (srcs, (2, 2, 2, 2), mats, mixes)
+    want = PW.packed_composite_plain(*args, emit="both")
+    lib = {"built": _build.library(), **{n: Lib(libs[f"rgb3 {n}"], "phn_packed_composite")
+                                         for n in (*RGB3_VARIANTS, *RGB3_DIAGNOSTICS)}}
+
+    def check(name):
+        if name in RGB3_DIAGNOSTICS and name not in HELD_RGB3:
+            return True
+        got = PW.packed_composite(*args, emit="both")
+        return cs.code_delta(torch, got[0], want[0], W, H) == 0 and torch.equal(got[1], want[1])
+
+    times, bad = timed(torch, PW, lib, lambda: PW.packed_composite(*args), check)
+    print(f"K5 rgb3, 4 dissolve layers, 8 sources, 1920x1080 (the interlaced tick) on {card}: ms "
+          + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
+    return [f"K5 rgb3 {n}" for n in bad]
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", default=",".join(SECTIONS), help="comma-separated sections: " + ", ".join(SECTIONS))
+    sections = [s for s in parser.parse_args().only.split(",") if s]
+    if set(sections) - set(SECTIONS):
+        parser.error(f"unknown sections {sorted(set(sections) - set(SECTIONS))}")
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(card)
+    libs = build(ROOT / "build" / "variants", sections)
+    rng = np.random.default_rng(cs.SEED)
+    run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3}
+    bad = []
+    for section in sections:
+        bad += run[section](torch, dev, rng, libs, card)
     print(f"variants that disagree with the plain version: {bad or 'none'}")
     return 1 if bad else 0
 
