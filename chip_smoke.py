@@ -21,7 +21,9 @@ Run from the repository root:  python3 chip_smoke.py
    rows by 1-7 columns) max |delta| == 0, packed_composite over (3, H, W)
    frames (the interlaced tick; emits packed, rgba and both) 0 codes and
    max |delta| 0; then, to <= 1 code (expected 0), packed_composite over
-   v210 words, fused_v210 (cut and dissolve, also at 1280 wide),
+   v210 words, fused_v210 (cut and dissolve at mixes 0, 0.35, 0.37 and
+   1, at 1920x1080, 3840x2160, 1918x1080, 1280x720, 1280x16, 200x7 and
+   every width 1-13 at 3 rows; the cut also == K1 + K2 on the card),
    combine_pack (4-channel and (rgb, wy, wx) layers) and packed_warp
    (single, shared-matrix pair, distinct-matrix pair, max |delta| 0), and
    each fused kernel's delta against the staged kernels it replaces (a
@@ -35,7 +37,13 @@ Run from the repository root:  python3 chip_smoke.py
    rgba; v210: 0 codes and max |delta| 0 expected, rgb3: held to 0), with
    the (tile, source) pairs each took on the window and direct branches
    (the 0.25 box must reach the direct branch, the flips and the
-   progressive matrices must stay on the window); then
+   progressive matrices must stay on the window); then rotate's
+   shared-memory windows at their edges (single, dissolve and wipe pairs
+   under one matrix or two, C 3 and 4, at 0, 45, 90, 100, 180 and 270
+   degrees, scales 0.25, 0.9 and 2 and two offsets past the frame, at 1x1,
+   7x5, 1918x1081, 1917x1079 and 3840x2160: max |delta| 0), each launch's
+   window/direct (tile, source) counts equal to ops/rotate.py
+   window_counts' and both branches taken; then
    the planar kernels of the file-media formats at 1920x1080, 1918x1080
    (a pitch pad) and 1920x1081 (an odd height), on seeded full-range
    random planes (10-bit codes in [0, 1023]) and the fill_buf ramps:
@@ -57,7 +65,8 @@ Run from the repository root:  python3 chip_smoke.py
    after, each frame's words <= 1 code from the plain path on the card;
    the packed composite's launches are also split by mode (source kind,
    emit, alpha) from the frame program's calls that raised its count, and
-   the pipeline's torch combine and alpha fix-up calls are counted:
+   the pipeline's torch combine and alpha fix-up calls are counted, and
+   no frame may build fused_v210's transfer corrections:
    - entry: the entry() structure (a v210 dissolve with an axis-aligned
      DVE under a yuv422p8 layer) at 1920x1080 over 50 frames, mix
      ramping 0 -> 1 and the DVE scale animating 0.90 -> 1.0: one
@@ -68,8 +77,8 @@ Run from the repository root:  python3 chip_smoke.py
      exactly one packed_composite launch a frame and no v210_unpack,
      warp, combine_pack, v210_pack or packed_warp;
    - playout: one v210 clip as a cut, and a dissolve between two clips
-     with the mix animating, at 1920x1080 and 3840x2160: one fused_v210
-     launch a frame;
+     with the mix animating, at 1920x1080 and 3840x2160, the program's
+     prepare() called first: one fused_v210 launch a frame;
    - stage_programs: the producer unpack and consumer pack stage programs
      round-trip the fill_buf ramp bit for bit (v210_unpack, v210_pack);
    - interlaced: the default load, four 1080i50 channels as bench.py
@@ -133,11 +142,11 @@ Run from the repository root:  python3 chip_smoke.py
    captured into a CUDA graph and replayed between events; the plain
    version's eagerly), K4 and rotate also against
    torch.nn.functional.grid_sample on the same frames; packed_composite
-   also in each whole-stack and rgba mode at a main path's shapes; K1 and
-   K5 over v210 words also on the rolled fill_buf ramps (coherent content,
-   beside the random words); and packed_composite's window/direct counts
-   at every timed v210 and rgb3 shape, none of which may leave the
-   window.
+   also in each whole-stack and rgba mode at a main path's shapes; K1,
+   K5 over v210 words and fused_v210 (the UHD dissolve) also on the rolled
+   fill_buf ramps (coherent content, beside the random words); rotate
+   also at 0 degrees; and packed_composite's and rotate's window/direct
+   counts at every timed shape, none of which may leave the window.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -699,17 +708,23 @@ def phase_packed_source_kernels(torch, dev, rng, rec: dict) -> None:
     check(d7 <= TOL_CODES, f"packed_composite (packed) code delta {d7}")
     rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(d7))
 
-    # fused v210: cut and dissolve, and a width with a partial group and a pitch pad
+    # fused v210: cut and dissolve at the main paths' sizes, a pitch pad
+    # (1918), 720p, widths with a partial group and a pitch pad (1280; 200,
+    # whose last 192-pixel segment ends in a partial group and pad groups)
+    # and every width 1-13 at 3 rows; mixes 0, 1, 0.37 and 0.35
     d3 = d3_staged = 0
-    for w, h in ((W, H), (1280, 16)):
-        x, y = (words(w, h), words(w, h)) if w != W else (a, fill)
-        for args in ((x, w, h), (x, w, h, y, mix)):
+    sizes = [(W, H), (UHD_W, UHD_H), (1918, H), (1280, 720), (1280, 16), (200, 7)] + [(w, 3) for w in range(1, 14)]
+    for w, h in sizes:
+        x, y = (words(w, h), words(w, h)) if (w, h) != (W, H) else (a, fill)
+        for args in [(x, w, h)] + [(x, w, h, y, torch.tensor(m, device=dev)) for m in (0.0, 1.0, 0.37)] + [
+                (x, w, h, y, mix)]:
             got = K.fused_v210(*args)
             d3 = max(d3, delta(got, K.fused_v210_plain(*args), w, h))
         d3_staged = max(d3_staged, delta(K.fused_v210(x, w, h), K.v210_pack(K.v210_unpack([x], w, h)[0]), w, h))
     print(f"fused_v210 max code delta vs plain = {d3} (<= {TOL_CODES}); cut vs K1 + K2 on the card "
-          f"= {d3_staged} (a record)")
+          f"= {d3_staged} (== 0), at {', '.join(f'{w}x{h}' for w, h in sizes)}")
     check(d3 <= TOL_CODES, f"fused_v210 code delta {d3}")
+    check(d3_staged == 0, f"fused_v210 cut {d3_staged} codes from K1 + K2 on the card")
     rec["fused_v210"] = dict(max_abs_err=float(d3))
 
     # packed warp: single, shared-matrix pair, distinct-matrix pair
@@ -822,6 +837,77 @@ def phase_window_edges(torch, dev, rng, rec: dict) -> None:
           f"packed_composite rgb3 window edges: {d_max['rgb3']} codes, frame error {e_max['rgb3']}")
     rec["packed_composite"]["max_abs_err"] = max(rec["packed_composite"]["max_abs_err"], float(max(d_max.values())))
     rec["packed_composite"]["rgba_max_abs_err"] = max(rec["packed_composite"]["rgba_max_abs_err"], *e_max.values())
+    torch.cuda.synchronize()
+
+
+def rotate_branches(torch, dev, args, kw) -> list:
+    """[window, direct]: the (tile, source) pairs of one rotate launch
+    that sampled a shared-memory window and straight from the frame."""
+    from phaneron_tpu_torch.ops import rotate as R
+
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    R.rotate(*args, branches=counts, **kw)
+    return counts.tolist()
+
+
+def phase_rotate_edges(torch, dev, rng, rec: dict) -> None:
+    """rotate's shared-memory windows at their edges, against rotate_plain:
+    single, dissolve pair (one shared matrix or two) and wipe pair (one
+    matrix or two), C 3 and 4, at 0, 45, 90, 100, 180 and 270 degrees and
+    scales 0.25, 0.9 and 2, and two offsets past the frame, at 1x1, 7x5,
+    1918x1081, 1917x1079 (an odd width: single-texel copies) and 3840x2160
+    (seeded random frames and masks).  Every case
+    max |delta| 0; each launch's window/direct (tile, source) counts must
+    equal those ops/rotate.py window_counts gives, and both branches must
+    be taken."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import rotate as R
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    mix = torch.tensor(0.37, device=dev)
+    worst, counts, cases = 0.0, {}, 0
+    for w, h in ((1, 1), (7, 5), (1918, 1081), (1917, 1079), (UHD_W, UHD_H)):
+        frames = {c: [torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev) for _ in range(2)]
+                  for c in (3, 4)}
+        mask = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        mats = {f"{deg} deg x{s}": dict(rotate=deg / 360.0, scale_x=s, scale_y=s)
+                for deg in (0, 45, 90, 100, 180, 270) for s in (0.25, 0.9, 2.0)}
+        mats["100 deg x0.9 offset (1.3, -0.2)"] = dict(rotate=100 / 360.0, scale_x=0.9, scale_y=0.9, offset_x=1.3,
+                                                       offset_y=-0.2)
+        mats["30 deg x1.1 offset (-0.7, 0.9)"] = dict(rotate=30 / 360.0, scale_x=1.1, scale_y=1.1, offset_x=-0.7,
+                                                      offset_y=0.9)
+        per_size = {}
+        for label, kw_m in mats.items():
+            m = to_tensor(transform_matrix(w, h, **kw_m), dev)
+            mb = to_tensor(transform_matrix(w, h, **dict(kw_m, rotate=kw_m["rotate"] + 30 / 360.0,
+                                                         scale_x=0.8 * kw_m["scale_x"], offset_x=0.05)), dev)
+            single = R.window_counts(m, w, h, False)
+            pair_m, pair_mb = R.window_counts(m, w, h, True), R.window_counts(mb, w, h, True)
+            total = [0, 0]
+            for c in (3, 4):
+                a, b = frames[c]
+                for args, kw, expect in (((a, m), {}, single),
+                                         ((a, m, b, mix), {}, [2 * x for x in pair_m]),
+                                         ((a, m, b, mix, mb), {}, [x + y for x, y in zip(pair_m, pair_mb)]),
+                                         ((a, m, b), dict(mask=mask), [2 * x for x in pair_m]),
+                                         ((a, m, b), dict(mat_b=mb, mask=mask), [x + y for x, y in zip(pair_m, pair_mb)])):
+                    got, want = R.rotate(*args, **kw), R.rotate_plain(*args, **kw)
+                    worst = max(worst, float((got - want).abs().max()))
+                    branches = rotate_branches(torch, dev, args, kw)
+                    check(branches == expect, f"rotate {w}x{h} {label} C {c}: window/direct {branches}, "
+                                              f"window_counts gives {expect}")
+                    total = [x + y for x, y in zip(total, branches)]
+                    cases += 1
+            per_size[label] = total
+        counts[f"{w}x{h}"] = per_size
+    print(f"rotate window edges: {cases} cases (single, dissolve and wipe pairs under one matrix or two, C 3 and 4; "
+          f"0/45/90/100/180/270 degrees at scales 0.25/0.9/2 and two offsets past the frame; 1x1, 7x5, 1918x1081, "
+          f"1917x1079, 3840x2160) max |kernel - plain| = {worst:.3e} (== 0); window/direct (tile, source) pairs per case, "
+          f"summed over modes and C, equal to window_counts': {counts}")
+    check(worst == 0.0, f"rotate window edges differ from the plain version by {worst}")
+    taken = [sum(v[i] for per in counts.values() for v in per.values()) for i in (0, 1)]
+    check(min(taken) > 0, f"rotate window edges: window/direct pairs {taken}, both branches expected")
+    rec["rotate"]["window_edges"] = counts
     torch.cuda.synchronize()
 
 
@@ -1609,6 +1695,7 @@ def main() -> int:
     phase_packed_source_kernels(torch, dev, rng, rec)
     phase_straggler_kernels(torch, dev, rng, rec)
     phase_window_edges(torch, dev, np.random.default_rng(SEED + 7), rec)
+    phase_rotate_edges(torch, dev, np.random.default_rng(SEED + 8), rec)
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_stage_program_checks(torch, dev, media_rng)
@@ -1674,8 +1761,11 @@ def main() -> int:
         by_mode_now.clear()
         for name in tail_calls:
             tail_calls[name] = 0
+        tables = K.fused_v210_corrections_on.launches
         fn()
         torch.cuda.synchronize()
+        check(K.fused_v210_corrections_on.launches == tables,
+              f"{path}: a frame built fused_v210's transfer corrections (the program's prepare() builds them)")
         for k, w in wrappers.items():
             launches[k][path] = w.launches
         mode_launches[path] = dict(by_mode_now)
@@ -1749,6 +1839,7 @@ def main() -> int:
             sspec, sparams = playout_spec_params(torch, dev, rng, w, h, dissolve)
             sprog = make_channel_program(sspec)
             splain = make_channel_program(sspec, plain=True)
+            sprog.prepare(dev)
             path = f"playout_{'dissolve' if dissolve else 'cut'}_{w}x{h}"
 
             def playout_path():
@@ -2200,6 +2291,9 @@ def main() -> int:
                              for k in range(n)]
     k1_ramp, k1_ramps = ([fill], W, H, "709", "709", 3), (ramps(W, H, 2), W, H)
     uhd_ramp_args, hd_ramp_args = (ramps(UHD_W, UHD_H, 8), *uhd_args[1:]), (ramps(W, H, 8), *hd_args[1:])
+    fu_ramps = ramps(UHD_W, UHD_H, 2)
+    fu_ramp_args = (fu_ramps[0], UHD_W, UHD_H, fu_ramps[1], fu_args[4])
+    rot0_args = (rot_args[0], to_tensor(rotation_matrix(UHD_W, UHD_H, 0), dev))
     other = {
         "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
                                                 call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
@@ -2253,6 +2347,14 @@ def main() -> int:
             call(K.fused_v210, fu_args), call(K.fused_v210_plain, fu_args),
             3 * UHD_H * pitch_bytes(UHD_W) + 4,
             UHD_W * UHD_H * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX)),
+        "fused_v210 (v210 dissolve, 3840x2160, two rolled fill_buf ramps)": (
+            call(K.fused_v210, fu_ramp_args), call(K.fused_v210_plain, fu_ramp_args),
+            3 * UHD_H * pitch_bytes(UHD_W) + 4,
+            UHD_W * UHD_H * (2 * OPS_DECODE_PX + 3 * OPS_MIX + OPS_ENCODE_PX)),
+        "rotate (RGBA cut at 0 degrees, 3840x2160)": (
+            call(R.rotate, rot0_args), call(R.rotate_plain, rot0_args),
+            16 * affine_source_texels(torch, rot0_args[1], UHD_H, UHD_W) + 16 * UHD_W * UHD_H + 36,
+            warp_ops(4, 1, UHD_W * UHD_H, per_px=OPS_AFFINE_PX), affine_grid_args(torch, [rot0_args[0]], rot0_args[1])),
         "planar422_unpack (yuv422p10le, 4 channels, 1920x1080, media path)": (
             call(K.planar422_unpack, p10_args), call(K.planar422_unpack_plain, p10_args),
             2 * 2 * planar_px + rgba, OPS_DECODE_PX * px),
@@ -2305,9 +2407,22 @@ def main() -> int:
     print(f"packed_composite window/direct (tile, source) pairs per timed shape: {window_direct}")
     for label, (_, direct) in window_direct.items():
         check(direct == 0, f"packed_composite at {label}: {direct} (tile, source) pairs off the window branch")
+    # rotate's tiles by branch at every timed shape: none may leave the window
+    rotate_shapes = {
+        "RGBA cut at 100 degrees, 3840x2160 (the record)": (rot_args, {}),
+        "RGBA cut at 0 degrees, 3840x2160": (rot0_args, {}),
+        "dissolve pair, two matrices, 1920x1080": (rec["rotate"]["pair_args"], {}),
+        "wipe pair, one matrix, 1920x1080": rec["rotate"]["wipe_args"],
+    }
+    rotate_window_direct = {label: rotate_branches(torch, dev, *ak) for label, ak in rotate_shapes.items()}
+    print(f"rotate window/direct (tile, source) pairs per timed shape: {rotate_window_direct}")
+    for label, (_, direct) in rotate_window_direct.items():
+        check(direct == 0, f"rotate at {label}: {direct} (tile, source) pairs off the window branch")
     for r in records:
         if r["name"] == "packed_composite":
             r["window_direct"] = window_direct
+        if r["name"] == "rotate":
+            r["window_direct"] = rotate_window_direct
         r["modes"] = modes.get(r["name"], [])
     print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))

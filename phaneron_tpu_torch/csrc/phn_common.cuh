@@ -139,11 +139,16 @@ __device__ __forceinline__ void v210_texel(const int4* __restrict__ words, int g
 // ---- asynchronous copies from device memory into shared memory (cp.async):
 // a thread issues them, commits them as a group, and waits until at most
 // kPending of its groups are in flight; a barrier then shows every
-// thread's copies to the block.  16-byte copies need both addresses
-// 16-byte aligned.
+// thread's copies to the block.  16- and 8-byte copies need both addresses
+// aligned to their size.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -156,6 +161,32 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// ---- persistent kernels: as many blocks as one wave of the device holds
+constexpr int kMaxDevices = 16;
+
+// The blocks of `kernel` (threads a block, smem bytes of dynamic shared
+// memory) that the current device holds at once, the kernel's dynamic
+// shared-memory limit raised to smem: worked out at the first call on a
+// device and kept in cache (the caller's own, one slot a device), so a
+// launch costs the host no driver queries after the first.  0 on an
+// error, which *err then holds.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, int smem, int (&cache)[kMaxDevices],
+                           cudaError_t* err) {
+  int device = 0;
+  *err = cudaGetDevice(&device);
+  if (*err != cudaSuccess) return 0;
+  if (device < kMaxDevices && cache[device] > 0) return cache[device];
+  int sms = 0, per_sm = 0;
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess) *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (*err != cudaSuccess) return 0;
+  const int blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (device < kMaxDevices) cache[device] = blocks;
+  return blocks;
 }
 
 // One code row of the encode matrix, rounded and saturated

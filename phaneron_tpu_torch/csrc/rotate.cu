@@ -26,27 +26,83 @@
 // is one launch.
 //
 // Bound: device-memory bytes.  Each output pixel reads four taps of each
-// source and writes 4 bytes per channel; neighbouring threads' taps share
-// cache lines along the rotated rows, so L1 and L2 serve the overlap and
-// device memory sees about one read of each source texel the matrix
-// reaches.  Design: one thread per output pixel gathers directly; matrices,
-// mix and mask are read from device memory, so animating them needs no
-// host synchronisation.
+// source channel and writes 4 bytes per channel; device memory need see
+// only one read of each source texel the matrix reaches.  The first design
+// gathered every tap from device memory with one thread a pixel and a warp
+// a run of 32 pixels of one output row: under a rotation near 90 degrees
+// those 32 pixels' taps run down a source column, so each of a pixel's 16
+// tap loads touched 32 cache lines a warp (tools/kernel_variants.py
+// rotate; PERF.md).  Design: persistent blocks walk output tiles of 32
+// columns by kTileH rows (kPairTileH for a pair, whose tiles hold two
+// windows).  affine_taps rounds monotonically in x for fixed y and in y
+// for fixed x, so the taps of a tile's four corner pixels bound every tap
+// floor in it: the window of source texels they span, clipped to the
+// frame, holds every valid tap of the tile (ops/rotate.py affine_window is
+// its plain version).  A block copies each source's window, every channel
+// plane, into shared memory with cp.async, texel pairs where frame rows
+// allow (a single warp while it samples the tile before; a pair, whose two
+// windows take twice the memory, after it, in one buffer and so with more
+// blocks an SM), then samples every tap of the tile from there; each window's row pitch keeps the lanes of a warp,
+// which walk down a window column under a rotation near 90 degrees, in
+// distinct banks.  A window larger than the launch's window texels (a
+// strong minify, a shear) leaves its source to the direct gather for that
+// tile, in the same launch; a source whose taps all fall outside the
+// frame in a tile is +0 there and is not sampled.  Matrices, mix and mask
+// are read from device memory, so animating them needs no host
+// synchronisation.
 #include "phn_common.cuh"
+
+// The tile and window sizes, which ops/rotate.py owns (TILE_H,
+// WINDOW_TEXELS, COPY_TEXELS) and ops/_build.py passes as defines
+#if !defined(PHN_ROTATE_TILE_H) || !defined(PHN_ROTATE_PAIR_TILE_H) || \
+    !defined(PHN_ROTATE_WINDOW_TEXELS) || !defined(PHN_ROTATE_PAIR_WINDOW_TEXELS) || \
+    !defined(PHN_ROTATE_COPY_TEXELS)
+#error "build with ops/_build.py nvcc_flags(): the PHN_ROTATE_* defines come from ops/rotate.py"
+#endif
 
 namespace {
 
-// Taps of output pixel (x, y) under the affine matrix mat (3, 3).  The
-// tap index is clamped to [-2, size] before the integer conversion, which
-// keeps every validity flag and keeps the conversion defined for positions
-// far off the frame.
-__device__ __forceinline__ phn::Taps affine_taps(const float* mat, int x, int y, int width,
+constexpr int kTileW = 32;  // output tile columns: a warp's row (ops/rotate.py TILE_W)
+constexpr int kThreadRows = 8;  // block rows; a thread takes its column's pixels kThreadRows apart
+constexpr int kThreads = kTileW * kThreadRows;
+constexpr int kTileH = PHN_ROTATE_TILE_H;  // output tile rows of a single warp
+constexpr int kWindowTexels = PHN_ROTATE_WINDOW_TEXELS;  // shared-memory texels of a single warp's window a channel
+constexpr int kPairTileH = PHN_ROTATE_PAIR_TILE_H;  // the same for a pair, whose tiles hold two windows
+constexpr int kPairWindowTexels = PHN_ROTATE_PAIR_WINDOW_TEXELS;
+constexpr int kPairBuffers = 1;  // 2: copy the next tile's windows while sampling; 1: after (pairs)
+constexpr int kSingleBuffers = 2;  // the same for a single warp
+constexpr int kCopyTexels = PHN_ROTATE_COPY_TEXELS;  // texels a copy moves where frame rows allow (8-byte cp.async), else 1
+static_assert(kCopyTexels == 1 || kCopyTexels == 2, "a copy moves one texel or a pair");
+static_assert(kTileW == 32 && kTileH % kThreadRows == 0 && kPairTileH % kThreadRows == 0,
+              "a warp is one row of a tile");
+
+// The tile rows and window texels of a launch: a single warp or a pair
+template <bool kPair>
+struct Shape {
+  static constexpr int kH = kPair ? kPairTileH : kTileH;
+  static constexpr int kTexels = kPair ? kPairWindowTexels : kWindowTexels;
+  static constexpr int kSources = kPair ? 2 : 1;
+  static constexpr int kBuffers = kPair ? kPairBuffers : kSingleBuffers;
+};
+
+// One matrix's rows as the kernel reads them, kept in registers
+struct Mat {
+  float m00, m01, m02, m10, m11, m12;
+};
+
+__device__ __forceinline__ Mat load_mat(const float* m) {
+  return Mat{__ldg(m), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3), __ldg(m + 4), __ldg(m + 5)};
+}
+
+// Taps of the output pixel at ix = x / W - 0.5, iy = y / H - 0.5 under the
+// affine matrix m.  The tap index is clamped to [-2, size] before the
+// integer conversion, which keeps every validity flag and keeps the
+// conversion defined for positions far off the frame.
+__device__ __forceinline__ phn::Taps affine_taps(const Mat& m, float ix, float iy, int width,
                                                  int height) {
   const float fw = static_cast<float>(width), fh = static_cast<float>(height);
-  const float ix = static_cast<float>(x) / fw - 0.5f;
-  const float iy = static_cast<float>(y) / fh - 0.5f;
-  const float px = mat[0] * ix + mat[1] * iy + mat[2] + 0.5f;
-  const float py = mat[3] * ix + mat[4] * iy + mat[5] + 0.5f;
+  const float px = m.m00 * ix + m.m01 * iy + m.m02 + 0.5f;
+  const float py = m.m10 * ix + m.m11 * iy + m.m12 + 0.5f;
   const float u = px * fw - 0.5f;
   const float v = py * fh - 0.5f;
   const float flx = floorf(u), fly = floorf(v);
@@ -62,47 +118,266 @@ __device__ __forceinline__ phn::Taps affine_taps(const float* mat, int x, int y,
   return t;
 }
 
-// One (H, W) plane at the taps: lerp along x (top and bottom rows), then
-// along y.  Only valid texels are read; an invalid tap counts as 0.
-__device__ __forceinline__ float sample_affine(const float* __restrict__ s, int width,
-                                               const phn::Taps& t) {
-  const float* r0 = s + static_cast<ptrdiff_t>(t.y0) * width;
-  const float* r1 = r0 + width;
-  const float v00 = t.vx0 && t.vy0 ? r0[t.x0] : 0.0f;
-  const float v10 = t.vx1 && t.vy0 ? r0[t.x0 + 1] : 0.0f;
-  const float v01 = t.vx0 && t.vy1 ? r1[t.x0] : 0.0f;
-  const float v11 = t.vx1 && t.vy1 ? r1[t.x0 + 1] : 0.0f;
+// x / size - 0.5: the centred coordinate of output index i
+__device__ __forceinline__ float centred(int i, int size) {
+  return static_cast<float>(i) / static_cast<float>(size) - 0.5f;
+}
+
+// The bilinear value from the four texels of the taps, reading only valid
+// ones: s[o] the texel (x0, y0), s[o + pitch] the texel (x0, y0 + 1) (in
+// the frame or its window); lerp along x (top and bottom rows), then y.
+__device__ __forceinline__ float lerp_taps(const float* __restrict__ s, int o, int pitch,
+                                           const phn::Taps& t) {
+  const float v00 = t.vx0 && t.vy0 ? s[o] : 0.0f;
+  const float v10 = t.vx1 && t.vy0 ? s[o + 1] : 0.0f;
+  const float v01 = t.vx0 && t.vy1 ? s[o + pitch] : 0.0f;
+  const float v11 = t.vx1 && t.vy1 ? s[o + pitch + 1] : 0.0f;
   const float top = v00 * (1.0f - t.fx) + v10 * t.fx;
   const float bot = v01 * (1.0f - t.fx) + v11 * t.fx;
   return top * (1.0f - t.fy) + bot * t.fy;
 }
 
-__global__ void rotate_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                              const float* __restrict__ mat, const float* __restrict__ mat_b,
-                              const float* __restrict__ mix, const float* __restrict__ mask,
-                              float* __restrict__ out, int channels, int height, int width) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+// A source's window in a tile: texel columns [c0, c0 + cols) by rows
+// [r0, r0 + rows) at row pitch `pitch`, copied `unit` texels at a time,
+// and whether it fits in the launch's window texels (else the tile samples
+// the source from device memory); empty (rows 0) when no tap of the tile
+// lands inside the frame, and then zero when every texel coordinate of
+// the tile is finite: each sample is 0 * (1 - f) + 0 * f = +0 exactly, so
+// the tile skips it.  magic: ceil(2^32 / (cols / unit)), which divides a
+// copy's index in the window by the copies a row.
+//
+// Where frame rows have an even width, a window starts at an even column,
+// has an even width and pitch, and copies texel pairs with 8-byte copies;
+// its pitch is 2 more than a multiple of 4, so that lanes walking down a
+// window column fall in 16 banks at least.  Otherwise it copies single
+// texels and its pitch is odd (32 banks).
+struct Window {
+  int c0, r0, cols, rows, pitch, unit, fits, zero;
+  unsigned long long magic;
+};
 
-  const phn::Taps t = affine_taps(mat, x, y, width, height);
-  const phn::Taps tb = b != nullptr ? affine_taps(mat_b, x, y, width, height) : t;
-  const size_t plane = static_cast<size_t>(width) * height;
-  const size_t o = static_cast<size_t>(y) * width + x;
-  float m = 1.0f;
-  if (mask != nullptr) {
-    m = mask[o];
-  } else if (b != nullptr) {
-    m = *mix;
+// The source windows of the tile (x_lo, y_lo) of kH rows, for warp 0 of
+// the block: lanes 0-3 take the taps of the tile's four corner pixels under
+// ma, lanes 4-7 under mb, whose floors bound every tap floor in the tile
+// (each step of affine_taps rounds monotonically in x for fixed y and in y
+// for fixed x); a window spans them and their floors + 1, clipped to the
+// frame (ops/rotate.py affine_window).  It fits when its rows times its
+// pitch are at most kTexels (ops/rotate.py window_counts).  Lane 0 returns source a's window, lane 4
+// source b's.
+template <int kH, int kTexels>
+__device__ __forceinline__ Window tile_window(const Mat& ma, const Mat& mb, int x_lo, int y_lo,
+                                              int width, int height) {
+  const int lane = threadIdx.x;
+  const int x_hi = min(x_lo + kTileW, width) - 1, y_hi = min(y_lo + kH, height) - 1;
+  const bool b = lane & 4;
+  const phn::Taps t = affine_taps(b ? mb : ma, centred(lane & 1 ? x_hi : x_lo, width),
+                                  centred(lane & 2 ? y_hi : y_lo, height), width, height);
+  int x_min = t.x0, x_max = t.x0, y_min = t.y0, y_max = t.y0;
+  // the corners' coordinates finite: then every pixel's, between them, is
+  const unsigned finite = __ballot_sync(0xffffffffu, isfinite(t.fx) && isfinite(t.fy));
+#pragma unroll
+  for (int k = 1; k <= 2; k <<= 1) {  // over the four corner lanes of a source
+    x_min = min(x_min, __shfl_xor_sync(0xffffffffu, x_min, k));
+    x_max = max(x_max, __shfl_xor_sync(0xffffffffu, x_max, k));
+    y_min = min(y_min, __shfl_xor_sync(0xffffffffu, y_min, k));
+    y_max = max(y_max, __shfl_xor_sync(0xffffffffu, y_max, k));
   }
-  for (int c = 0; c < channels; ++c) {
-    float v = sample_affine(a + c * plane, width, t);
-    if (b != nullptr) {
-      const float vb = sample_affine(b + c * plane, width, tb);
-      v = mask != nullptr ? vb * m + v * (1.0f - m) : v * m + vb * (1.0f - m);
+  const int x_first = max(x_min, 0), x_last = min(x_max + 1, width - 1);
+  const int y_first = max(y_min, 0), y_last = min(y_max + 1, height - 1);
+  if (x_first > x_last || y_first > y_last)
+    return Window{0, 0, 1, 0, 1, 1, 1, ((finite >> (lane & 4)) & 15u) == 15u, 1ull << 32};
+  const int unit = kCopyTexels == 2 && (width & 1) == 0 ? 2 : 1;
+  const int c0 = unit == 2 ? x_first & ~1 : x_first;
+  const int cols = unit == 2 ? (x_last + 2 - c0) & ~1 : x_last - x_first + 1;
+  const int pitch = unit == 2 ? (cols & 2 ? cols : cols + 2) : cols | 1;
+  const int rows = y_last - y_first + 1;
+  // ceil(2^32 / copies a row) from above, within 2^-23 of it: exact
+  // division of indices below 2^23 (a window has fewer)
+  const float magic = __fdiv_ru(4294967296.0f, static_cast<float>(cols / unit));
+  return Window{c0, y_first, cols, rows, pitch, unit, rows * pitch <= kTexels, 0,
+                static_cast<unsigned long long>(magic)};
+}
+
+// Issue the copies of window w of every channel plane of src into smem
+// (plane c at c * kTexels): the block's threads take its copies (w.unit
+// texels each) in row-major order, a copy's channels one after another
+template <int kCh, int kTexels>
+__device__ __forceinline__ void copy_window(const float* __restrict__ src, const Window& w,
+                                            float* __restrict__ smem, int width, size_t plane) {
+  if (!w.fits) return;
+  const int per_row = w.cols / w.unit, n = w.rows * per_row;
+  for (int e = threadIdx.y * kTileW + threadIdx.x; e < n; e += kThreads) {
+    const int r = static_cast<int>((static_cast<unsigned long long>(e) * w.magic) >> 32);
+    const int c = (e - r * per_row) * w.unit;
+    const float* g = src + static_cast<size_t>(w.r0 + r) * width + w.c0 + c;
+    float* d = smem + r * w.pitch + c;
+    if (w.unit == 2) {
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) phn::cp_async8(d + ch * kTexels, g + ch * plane);
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < kCh; ++ch) phn::cp_async4(d + ch * kTexels, g + ch * plane);
     }
-    out[c * plane + o] = v;
   }
+}
+
+// Channel c of a source at the taps, from its window (kWin) or from the
+// frame in device memory
+template <bool kWin, int kTexels>
+__device__ __forceinline__ float sample(const float* __restrict__ src,
+                                        const float* __restrict__ smem, const Window& w, int c,
+                                        int width, size_t plane, const phn::Taps& t) {
+  if (kWin)
+    return lerp_taps(smem + c * kTexels, (t.y0 - w.r0) * w.pitch + t.x0 - w.c0, w.pitch, t);
+  return lerp_taps(src + c * plane, t.y0 * width + t.x0, width, t);
+}
+
+// A thread's pixels of the tile (x_lo, y_lo): column x_lo + threadIdx.x,
+// rows y_lo + threadIdx.y + kThreadRows * r; a source sampled from its
+// window (kWinA, kWinB) or from the frame
+template <int kCh, bool kPair, bool kWinA, bool kWinB>
+__device__ __forceinline__ void sample_tile(const float* __restrict__ a, const float* __restrict__ b,
+                                            const float* __restrict__ mix,
+                                            const float* __restrict__ mask, float* __restrict__ out,
+                                            int height, int width, const Mat& ma, const Mat& mb,
+                                            bool same_mat, const float* __restrict__ win_a,
+                                            const float* __restrict__ win_b, const Window& wa,
+                                            const Window& wb, int x_lo, int y_lo) {
+  using S = Shape<kPair>;
+  const int x = x_lo + threadIdx.x;
+  if (x >= width) return;
+  const size_t plane = static_cast<size_t>(width) * height;
+  const float ix = centred(x, width);
+#pragma unroll
+  for (int r = 0; r < S::kH / kThreadRows; ++r) {
+    const int y = y_lo + threadIdx.y + kThreadRows * r;
+    if (y >= height) break;
+    const float iy = centred(y, height);
+    const size_t o = static_cast<size_t>(y) * width + x;
+    if (!kPair) {
+      if (wa.zero) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) out[c * plane + o] = 0.0f;
+        continue;
+      }
+      const phn::Taps ta = affine_taps(ma, ix, iy, width, height);
+#pragma unroll
+      for (int c = 0; c < kCh; ++c)
+        out[c * plane + o] = sample<kWinA, S::kTexels>(a, win_a, wa, c, width, plane, ta);
+      continue;
+    }
+    phn::Taps ta{}, tb{};
+    if (!wa.zero) ta = affine_taps(ma, ix, iy, width, height);
+    if (!wb.zero) tb = same_mat ? ta : affine_taps(mb, ix, iy, width, height);
+    const float m = mask != nullptr ? mask[o] : *mix;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      const float v = wa.zero ? 0.0f : sample<kWinA, S::kTexels>(a, win_a, wa, c, width, plane, ta);
+      const float vb = wb.zero ? 0.0f : sample<kWinB, S::kTexels>(b, win_b, wb, c, width, plane, tb);
+      out[c * plane + o] = mask != nullptr ? vb * m + v * (1.0f - m) : v * m + vb * (1.0f - m);
+    }
+  }
+}
+
+// Persistent blocks, each walking the output tiles blockIdx.x, blockIdx.x
+// + gridDim.x, ...; with two buffers a tile's windows are copied while the
+// block samples the tile before it, with one after that tile is sampled
+// (a second barrier); warp 0 works out the windows of the tile after next
+// (three descriptor slots).  b null: a single warp
+// (kPair false); mat_b == mat: a pair under one matrix.  branches (may be
+// null): window[0] and direct[1] counts, one per tile and source.
+template <int kCh, bool kPair>
+__global__ void __launch_bounds__(kThreads)
+    rotate_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ mat, const float* __restrict__ mat_b,
+                  const float* __restrict__ mix, const float* __restrict__ mask,
+                  float* __restrict__ out, int height, int width,
+                  unsigned long long* __restrict__ branches) {
+  using S = Shape<kPair>;
+  extern __shared__ float windows[];  // [buffer][source][channel][S::kTexels]
+  __shared__ Window desc[3][2];  // [tile slot][source]
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int n_tiles = tiles_x * ((height + S::kH - 1) / S::kH);
+  constexpr int kBuffer = S::kSources * kCh * S::kTexels;
+  const size_t plane = static_cast<size_t>(width) * height;
+  const bool same_mat = mat_b == mat;
+  const Mat ma = load_mat(mat), mb = load_mat(mat_b);
+
+  // warp 0: the windows of the k-th tile of this block into its slot
+  auto describe = [&](int k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    if (threadIdx.y != 0 || tile >= n_tiles) return;
+    const Window w = tile_window<S::kH, S::kTexels>(ma, mb, (tile % tiles_x) * kTileW,
+                                                    (tile / tiles_x) * S::kH, width, height);
+    if (threadIdx.x == 0 || (kPair && threadIdx.x == 4)) {
+      desc[k % 3][threadIdx.x >> 2] = w;
+      if (branches != nullptr) atomicAdd(branches + (w.fits ? 0 : 1), 1ull);
+    }
+  };
+  // every thread: its share of the k-th tile's window copies
+  auto copy = [&](int k) {
+    if (blockIdx.x + k * gridDim.x >= n_tiles) return;
+    float* buf = windows + (k % S::kBuffers) * kBuffer;
+    copy_window<kCh, S::kTexels>(a, desc[k % 3][0], buf, width, plane);
+    if (kPair) copy_window<kCh, S::kTexels>(b, desc[k % 3][1], buf + kCh * S::kTexels, width, plane);
+  };
+
+  describe(0);
+  describe(1);
+  __syncthreads();
+  copy(0);
+  phn::cp_async_commit();
+  for (int k = 0;; ++k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    if (tile >= n_tiles) break;
+    phn::cp_async_wait<0>();
+    __syncthreads();  // tile k's windows are in, tile k - 1 is sampled, slot k + 1 is described
+    if (S::kBuffers == 2) {
+      copy(k + 1);
+      phn::cp_async_commit();
+    }
+    describe(k + 2);
+    const Window wa = desc[k % 3][0], wb = desc[k % 3][kPair ? 1 : 0];
+    const float* sa = windows + (k % S::kBuffers) * kBuffer;
+    const float* sb = sa + kCh * S::kTexels;
+    const int x_lo = (tile % tiles_x) * kTileW, y_lo = (tile / tiles_x) * S::kH;
+    if (wa.fits && (!kPair || wb.fits)) {
+      sample_tile<kCh, kPair, true, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                          wa, wb, x_lo, y_lo);
+    } else if (wa.fits) {
+      sample_tile<kCh, kPair, true, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                           wa, wb, x_lo, y_lo);
+    } else if (kPair && wb.fits) {
+      sample_tile<kCh, kPair, false, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                           wa, wb, x_lo, y_lo);
+    } else {
+      sample_tile<kCh, kPair, false, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa,
+                                            sb, wa, wb, x_lo, y_lo);
+    }
+    if (S::kBuffers == 1) {  // the one buffer is free once every warp has sampled it
+      __syncthreads();
+      copy(k + 1);
+      phn::cp_async_commit();
+    }
+  }
+}
+
+template <int kCh, bool kPair>
+int launch(const float* a, const float* b, const float* mat, const float* mat_b, const float* mix,
+           const float* mask, float* out, int height, int width, unsigned long long* branches,
+           cudaStream_t st) {
+  using S = Shape<kPair>;
+  const int smem = S::kBuffers * S::kSources * kCh * S::kTexels * static_cast<int>(sizeof(float));
+  const auto kernel = rotate_kernel<kCh, kPair>;
+  static int resident[phn::kMaxDevices];
+  cudaError_t err;
+  const int wave = phn::resident_blocks(kernel, kThreads, smem, resident, &err);
+  if (wave == 0) return static_cast<int>(err);
+  const int n_tiles = ((width + kTileW - 1) / kTileW) * ((height + S::kH - 1) / S::kH);
+  const int blocks = min(n_tiles, wave);
+  kernel<<<blocks, dim3(kTileW, kThreadRows), smem, st>>>(a, b, mat, mat_b, mix, mask, out, height, width,
+                                                          branches);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -110,19 +385,26 @@ __global__ void rotate_kernel(const float* __restrict__ a, const float* __restri
 // a, b: (channels, height, width) float32 (b null for a single warp);
 // mat, mat_b: (3, 3) float32 (mat_b null: b under mat); mix: one float32
 // (dissolve); mask: (height, width) float32 (wipe; null for a dissolve);
-// out: like a.  Returns cudaGetLastError().
+// out: like a; branches: null, or two uint64 in device memory to which the
+// (tile, source) pairs sampled from a window and straight from device
+// memory are added.  Returns cudaGetLastError().
 extern "C" int phn_rotate(const void* a, const void* b, const void* mat, const void* mat_b,
                           const void* mix, const void* mask, void* out, int channels,
-                          int height, int width, void* stream) {
+                          int height, int width, void* branches, void* stream) {
   if (b != nullptr && (mix == nullptr) == (mask == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  rotate_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(mat),
-      static_cast<const float*>(mat_b != nullptr ? mat_b : mat),
-      static_cast<const float*>(mix), static_cast<const float*>(mask),
-      static_cast<float*>(out), channels, height, width);
-  return static_cast<int>(cudaGetLastError());
+  if (channels != 3 && channels != 4) return static_cast<int>(cudaErrorInvalidValue);
+  const auto fa = static_cast<const float*>(a), fb = static_cast<const float*>(b);
+  const auto fm = static_cast<const float*>(mat);
+  const auto fmb = mat_b != nullptr ? static_cast<const float*>(mat_b) : fm;
+  const auto fmix = static_cast<const float*>(mix), fmask = static_cast<const float*>(mask);
+  const auto o = static_cast<float*>(out);
+  const auto br = static_cast<unsigned long long*>(branches);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b != nullptr) {
+    return channels == 4 ? launch<4, true>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st)
+                         : launch<3, true>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st);
+  }
+  return channels == 4 ? launch<4, false>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st)
+                       : launch<3, false>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st);
 }

@@ -617,6 +617,12 @@ def _fused_v210_program(spec: ChannelSpec, plain: bool):
             return [fused(top["src"][0], spec.width, spec.height, top["src_b"][0], top["mix"], **kw)]
         return [fused(top["src"][0], spec.width, spec.height, **kw)]
 
+    def prepare(device) -> None:
+        device = torch.device(device)
+        if not plain and device.type == "cuda":
+            kernels.fused_v210_corrections_on(spec.col_spec, spec.out_col_spec, device)
+
+    program.prepare = prepare
     return program
 
 
@@ -630,13 +636,17 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     (route 1), whatever its lower layers; every other structure is
     checked (``check_structure``) and runs ``_channel_frame``.
     ``plain=True`` runs the plain version of every kernel stage instead
-    (the on-card reference)."""
+    (the on-card reference).  ``program.prepare(device)`` does the
+    one-time device work of the structure before its first frame (the
+    fused v210 kernel's transfer corrections), so that no frame hides a
+    launch or a host wait; frames run without it too."""
     if _fused_v210_ok(spec):
         return _fused_v210_program(spec, plain)
 
     def program(params: dict) -> list:
         return _channel_frame(spec, params, plain)
 
+    program.prepare = lambda device: None
     return program
 
 

@@ -12,6 +12,8 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: nvcc would
 otherwise contract ``a*b + c`` into one fused multiply-add, which rounds
 differently from the plain PyTorch versions and the JAX reference.
 Division and ``powf`` stay IEEE / full precision (no fast-math).
+``nvcc_flags()`` adds the -D defines of the constants a kernel shares
+with its plain version (ops/rotate.py ``nvcc_defines``).
 
 Importing this module builds nothing, so the package imports cleanly on
 a machine without nvcc.
@@ -30,7 +32,7 @@ from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
-__all__ = ["library", "build_dir", "sources", "NVCC_FLAGS", "BuildInfo", "build_info"]
+__all__ = ["library", "build_dir", "sources", "NVCC_FLAGS", "nvcc_flags", "BuildInfo", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,11 +55,12 @@ _SIGNATURES = {
     "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
-    "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "phn_fused_v210_corrections": (_P, _P, _P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
@@ -81,6 +84,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS and the defines every source is built with."""
+    from .rotate import nvcc_defines
+
+    return NVCC_FLAGS + nvcc_defines()
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -95,7 +105,7 @@ def _nvcc() -> str:
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -114,14 +124,14 @@ def _run(cmd: list[str], what: str) -> str:
 
 def _compile(out: Path, srcs: list[Path]) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc, flags = _nvcc(), nvcc_flags()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
         cus = [p for p in srcs if p.suffix == ".cu"]
         objs = [str(Path(tmp_dir) / f"{p.stem}.o") for p in cus]
         # one nvcc per source, all at once
         with ThreadPoolExecutor(max_workers=len(cus)) as pool:
             logs = list(pool.map(
-                lambda po: _run([nvcc, *NVCC_FLAGS, "-c", "-o", po[1], str(po[0])], po[0].name),
+                lambda po: _run([nvcc, *flags, "-c", "-o", po[1], str(po[0])], po[0].name),
                 zip(cus, objs),
             ))
         tmp = str(Path(tmp_dir) / out.name)

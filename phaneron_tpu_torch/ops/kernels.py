@@ -49,7 +49,7 @@ from .colorspace import rgba_to_ycbcr
 from .composite import combine, combine_rgb, mix_frames
 from .formats import get_format
 from .formats import v210 as v210fmt
-from .gamma import g2l_table_on, l2g_constants
+from .gamma import INV_LUT_MAX, g2l_table_on, l2g_constants
 from .io import from_rgba, to_rgba
 
 __all__ = [
@@ -491,6 +491,48 @@ def _check_mix(mix, device: torch.device) -> torch.Tensor:
     return mix
 
 
+@lru_cache(maxsize=None)
+def _g2l_consts(col_spec: str) -> ctypes.Array:
+    """inv_max, thr, inv_delta, a1, inv_alpha, inv_gamma: the float32
+    constants of ops/gamma.py g2l_table's expressions."""
+    p = cm.COLOUR_SPECS[col_spec]
+    return _c_floats([INV_LUT_MAX, p.beta * p.delta, 1.0 / p.delta, p.alpha - 1.0, 1.0 / p.alpha, 1.0 / p.gamma])
+
+
+@lru_cache(maxsize=None)
+def fused_v210_corrections_on(col_spec: str, out_col_spec: str, device: torch.device) -> torch.Tensor:
+    """The fused v210 kernel's transfer corrections on ``device``: 2 x
+    65536 int8, at each table index the difference between the bits of
+    the exact value and of the kernel's two-instruction approximation of
+    it, for linear->gamma' of out_col_spec (powf, which every encode kernel
+    runs) and gamma'->linear of col_spec (``g2l_table``, which every decode
+    kernel gathers from), computed there by the kernel library
+    (csrc/fused_v210.cu phn_fused_v210_corrections).  So the kernel's
+    transfers equal K1's and K2's to the bit.  Built once per device and
+    pair of col_specs, by one launch (counted in
+    ``fused_v210_corrections_on.launches``) and a host wait for its check;
+    raises if a difference does not fit a byte.  A channel program's
+    ``prepare(device)`` (graph/pipeline.py) calls it before the first
+    frame."""
+    corr = torch.empty(2 * 65536, dtype=torch.int8, device=device)
+    bad = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = library().phn_fused_v210_corrections(
+            corr.data_ptr(), bad.data_ptr(), ctypes.addressof(_encode_coeffs(out_col_spec)),
+            g2l_table_on(col_spec, device).data_ptr(), ctypes.addressof(_g2l_consts(col_spec)),
+            stream_handle(device),
+        )
+        check_launch(rc, "fused_v210 corrections")
+        fused_v210_corrections_on.launches += 1
+        if int(bad.item()):
+            raise RuntimeError(f"fused_v210: {int(bad.item())} transfer corrections of {col_spec} -> "
+                               f"{out_col_spec} do not fit a byte")
+    return corr
+
+
+fused_v210_corrections_on.launches = 0
+
+
 def fused_v210_plain(
     words: torch.Tensor, width: int, height: int, words_b: torch.Tensor | None = None,
     mix=None, col_spec: str = "709", out_col_spec: str = "709",
@@ -514,7 +556,15 @@ def fused_v210(
     the second clip and ``mix``, a 0-d tensor or float) -> the channel's
     v210 output words, decode -> dissolve words*mix + words_b*(1-mix) ->
     'over' black -> encode.  The opaque top layer covers every lower
-    layer, so they are not read (JAX ``supported_spec``)."""
+    layer, so they are not read (JAX ``supported_spec``).
+
+    The kernel reads its transfer corrections from
+    ``fused_v210_corrections_on``.  Unless they were built before (a
+    channel program's ``prepare(device)``), the first call on a device for
+    a pair of col_specs builds them: one more launch, counted in
+    ``fused_v210_corrections_on.launches`` and not in
+    ``fused_v210.launches``, and a host wait, so that call cannot run
+    inside a CUDA-graph capture."""
     if (words_b is None) != (mix is None):
         raise ValueError("fused_v210: words_b and mix go together")
     if is_cpu(words, "fused_v210"):
@@ -533,7 +583,9 @@ def fused_v210(
     with torch.cuda.device(dev):
         rc = library().phn_fused_v210(
             words.data_ptr(), b_ptr, mix_ptr, out.data_ptr(), width, height, groups,
-            coeffs, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+            coeffs, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)),
+            ctypes.addressof(_g2l_consts(col_spec)),
+            fused_v210_corrections_on(col_spec, out_col_spec, dev).data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "fused_v210")
     fused_v210.launches += 1

@@ -105,10 +105,11 @@ def warp(
 
 
 def launch_pair(
-    name: str, entry: str, src: torch.Tensor, mat, src_b, mix, mat_b, mask
+    name: str, entry: str, src: torch.Tensor, mat, src_b, mix, mat_b, mask, extra: tuple = ()
 ) -> torch.Tensor:
     """Check the CUDA arguments of a pair kernel (csrc/warp.cu phn_warp,
-    csrc/rotate.cu phn_rotate: one C interface), launch ``entry`` on the
+    csrc/rotate.cu phn_rotate: one C interface, to which ``entry`` may add
+    the arguments ``extra`` before the stream), launch ``entry`` on the
     current stream and return its output."""
     dev = src.device
     c, h, w = src.shape
@@ -133,7 +134,7 @@ def launch_pair(
     with torch.cuda.device(dev):
         rc = getattr(library(), entry)(
             src.data_ptr(), ptrs["b"], mat.data_ptr(), ptrs["mat_b"], ptrs["mix"], ptrs["mask"],
-            out.data_ptr(), c, h, w, stream_handle(dev),
+            out.data_ptr(), c, h, w, *extra, stream_handle(dev),
         )
     check_launch(rc, name)
     return out

@@ -54,12 +54,14 @@ def _jax_xla(spec, params):
 
 
 @pytest.mark.parametrize("transition", ["none", "dissolve"])
-@pytest.mark.parametrize("width", [1280, 192])
+@pytest.mark.parametrize("width", [1280, 192, 200])
 def test_fused_v210_exact_against_jax(width, transition):
     """A v210 cut or dissolve without DVE, full-range random words: the
-    port's channel program (B3) equals make_fused_v210_program word for
-    word, and the JAX XLA path exactly for a cut, within 1 code for a
-    dissolve (1280: a partial last group and a pitch pad; 192: neither)."""
+    port's channel program (B3) and fused_v210's plain version equal
+    make_fused_v210_program word for word, and the JAX XLA path exactly for
+    a cut, within 1 code for a dissolve (1280: a partial last group and a
+    pitch pad; 192: neither; 200: the last 192-pixel segment of a row, the
+    kernel's block, holds a partial group and six pad groups)."""
     rng = np.random.default_rng(width)
     a, b = random_words(rng, width, H), random_words(rng, width, H)
     mix = np.float32(0.3)
@@ -79,6 +81,8 @@ def test_fused_v210_exact_against_jax(width, transition):
     (got,) = tpipe.make_channel_program(tspec)(params_from_numpy({"layers": [lp]}, "cpu"))
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     assert words_to_numpy(got).tobytes() == want.tobytes()
+    plain = K.fused_v210_plain(_w(a), width, H, *((_w(b), torch.tensor(mix)) if dissolve else ()))
+    assert words_to_numpy(plain).tobytes() == want.tobytes()
     xla = _jax_xla(spec, {"layers": [lp]})
     assert max_code_delta(words_to_numpy(got), xla, width, H) <= (1 if dissolve else 0)
 
@@ -99,6 +103,33 @@ def test_fused_v210_plain_is_the_staged_top_layer_and_cpu_launches_nothing():
         K.fused_v210(a, w, H, b)
     with pytest.raises(ValueError, match="no kernel for device"):
         K.fused_v210(torch.empty(a.shape, dtype=torch.int32, device="meta"), w, H)
+
+
+@pytest.mark.parametrize("col_spec", sorted(K.cm.COLOUR_SPECS))
+def test_fused_v210_decode_has_no_cb_in_r_and_no_cr_in_b(col_spec):
+    """csrc/fused_v210.cu leaves out R''s Cb term and B''s Cr term and
+    refuses coefficients where they are not zero: every colour spec's
+    v210 decode matrix has them +-0."""
+    col = np.frombuffer(K._decode_coeffs("v210", col_spec, col_spec), dtype=np.float32)[:12]
+    assert col[1] == 0.0 and col[10] == 0.0
+    assert col[2] != 0.0 and col[9] != 0.0
+
+
+def test_channel_program_prepare_builds_nothing_on_the_cpu():
+    """A channel program's prepare(device) builds the fused v210 kernel's
+    transfer corrections on a CUDA device only: on the CPU (and for the
+    plain program, and for a structure without the fused kernel) it
+    launches and builds nothing."""
+    fused = tpipe.ChannelSpec(64, H, "v210", layers=(tpipe.LayerSpec("v210"),))
+    staged = tpipe.ChannelSpec(64, H, "v210", layers=(tpipe.LayerSpec("yuv422p8"),))
+    assert tpipe._fused_v210_ok(fused) and not tpipe._fused_v210_ok(staged)
+    before = K.fused_v210_corrections_on.launches
+    for spec in (fused, staged):
+        for plain in (False, True):
+            assert tpipe.make_channel_program(spec, plain=plain).prepare("cpu") is None
+    assert K.fused_v210_corrections_on.launches == before
+    assert K.fused_v210_corrections_on.cache_info().currsize == 0
+    assert _build._load.cache_info().currsize == 0
 
 
 def test_fused_v210_chosen_over_an_unported_lower_layer():

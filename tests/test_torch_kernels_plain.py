@@ -174,7 +174,7 @@ def test_build_sources_and_flags():
         "phn_common.cuh", "planar420_pack.cu", "planar420_unpack.cu", "planar422_pack.cu",
         "planar422_unpack.cu", "rotate.cu", "v210_pack.cu", "v210_unpack.cu", "warp.cu", "yadif.cu",
     ]
-    flags = " ".join(_build.NVCC_FLAGS)
+    flags = " ".join(_build.nvcc_flags())
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build._load.cache_info().currsize == 0

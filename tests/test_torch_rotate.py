@@ -22,7 +22,11 @@ Contracts:
   tests/test_pallas_warp.py:38; 1e-6 separates the Pallas pair from its
   own two single warps only).
 - ``wipe_mask``, ``wipe_h`` and ``combine_masked`` equal JAX's bit for
-  bit."""
+  bit.
+- ``affine_window``, the plain version of the rotate kernel's source
+  window of an output tile, holds every valid tap of every pixel of the
+  tile for any affine matrix (300 seeded draws), and its tensor form
+  equals its form one tile at a time."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +38,8 @@ from phaneron_tpu.ops.geometry import transform_matrix, warp_affine, warp_axis_a
 from phaneron_tpu.ops.pallas_rotate import make_rotate_program, rot_bucket_of, rotate_fits
 from phaneron_tpu.ops.pallas_warp import bucket_of, make_warp_pair_program, make_wipe_pair_program
 from phaneron_tpu_torch.ops import composite as tcomp
-from phaneron_tpu_torch.ops.rotate import rotate, rotate_plain
+from phaneron_tpu_torch.ops import geometry as tgeom
+from phaneron_tpu_torch.ops.rotate import affine_window, rotate, rotate_plain
 from phaneron_tpu_torch.ops.warp import warp, warp_plain
 
 torch.set_num_threads(1)
@@ -175,6 +180,126 @@ def test_rotate_axis_aligned_matrix_matches_jax_kernel_and_the_separable_warp():
     got = rotate(_t(a), _t(m)).numpy()
     assert np.abs(got - _jax_rotate(a, m)).max() < 1e-4
     assert np.abs(got - warp(_t(a), _t(m)).numpy()).max() <= 1e-6
+
+
+def _drawn_matrix(w, h, angle, sx, sy, shear, flip_h, flip_v, ox, oy) -> np.ndarray:
+    """A DVE matrix (rotation, scale, flips, offsets) followed by a shear
+    of the output coordinates, float32."""
+    m = tgeom.transform_matrix(w, h, flip_h=flip_h, flip_v=flip_v, scale_x=sx, scale_y=sy,
+                               offset_x=ox, offset_y=oy, rotate=angle / 360.0)
+    return (m @ np.array([[1.0, shear, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])).astype(np.float32)
+
+
+def _tile_taps(m: torch.Tensor, w: int, h: int, x_lo: int, x_hi: int, y_lo: int, y_hi: int) -> list:
+    """(x, y) int64 tensors of the tile's four taps a pixel, each tap where
+    it lies inside the frame, as warp_affine computes them."""
+    ix = tgeom._out_coords(w, "cpu")[x_lo:x_hi + 1][None, :]
+    iy = tgeom._out_coords(h, "cpu")[y_lo:y_hi + 1][:, None]
+    x0, _ = tgeom._bilinear_setup(m[0, 0] * ix + m[0, 1] * iy + m[0, 2] + 0.5, w)
+    y0, _ = tgeom._bilinear_setup(m[1, 0] * ix + m[1, 1] * iy + m[1, 2] + 0.5, h)
+    taps = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x, y = x0 + dx, y0 + dy
+            valid = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            taps.append((x[valid], y[valid]))
+    return taps
+
+
+def test_affine_window_holds_every_valid_tap():
+    """Taps are monotonic in x for fixed y and in y for fixed x, so the
+    window of the tile's four corner pixels (floors and floors + 1,
+    clipped to the frame) holds every valid tap of every pixel of the tile,
+    under rotations, scales 0.1-4, shears, flips and offsets past the
+    frame; a tile with a valid tap has a window that is not empty.  300
+    seeded draws of frame size, matrix and tile."""
+    rng = np.random.default_rng(20261017)
+    for draw in range(300):
+        w, h = int(rng.integers(1, 97)), int(rng.integers(1, 65))
+        angle, shear = rng.uniform(-360.0, 360.0), rng.uniform(-2.0, 2.0)
+        sx, sy = rng.uniform(0.1, 4.0, size=2)
+        flip_h, flip_v = (bool(f) for f in rng.integers(0, 2, size=2))
+        ox, oy = rng.uniform(-2.0, 2.0, size=2)
+        m = torch.from_numpy(_drawn_matrix(w, h, angle, sx, sy, shear, flip_h, flip_v, ox, oy))
+        x_lo, y_lo = int(rng.uniform() * (w - 1)), int(rng.uniform() * (h - 1))
+        x_hi, y_hi = min(x_lo + int(rng.integers(1, 49)), w) - 1, min(y_lo + int(rng.integers(1, 33)), h) - 1
+        x_first, x_last, y_first, y_last = (int(v) for v in affine_window(m, x_lo, x_hi, y_lo, y_hi, w, h))
+        for x, y in _tile_taps(m, w, h, x_lo, x_hi, y_lo, y_hi):
+            if x.numel():
+                where = f"draw {draw}: {w}x{h}, tile x {x_lo}-{x_hi} y {y_lo}-{y_hi}"
+                assert x_first <= int(x.min()) and int(x.max()) <= x_last, where
+                assert y_first <= int(y.min()) and int(y.max()) <= y_last, where
+
+
+@pytest.mark.parametrize("angle,scale", [(100, 0.9), (45, 0.25), (0, 2.0), (270, 0.9)])
+def test_affine_window_of_tiles_in_a_tensor_equals_one_tile_at_a_time(angle, scale):
+    """The tile bounds as tensors (one window a tile, as chip_smoke counts
+    the kernel's window and direct tiles) give each tile's own window;
+    the windows of the 32x16 tiles of a frame cover every valid tap."""
+    w, h = 200, 72
+    m = torch.from_numpy(_drawn_matrix(w, h, angle, scale, scale, 0.0, False, False, 0.1, -0.05))
+    xl = torch.arange(0, w, 32)
+    yl = torch.arange(0, h, 16)[:, None]
+    xh, yh = torch.clamp(xl + 31, max=w - 1), torch.clamp(yl + 15, max=h - 1)
+    wins = affine_window(m, xl, xh, yl, yh, w, h)
+    assert all(tuple(v.shape) == (yl.numel(), xl.numel()) for v in wins)
+    for j in range(yl.numel()):
+        for i in range(xl.numel()):
+            one = affine_window(m, int(xl[i]), int(xh[i]), int(yl[j]), int(yh[j, 0]), w, h)
+            assert [int(v[j, i]) for v in wins] == [int(v) for v in one]
+            for x, y in _tile_taps(m, w, h, int(xl[i]), int(xh[i]), int(yl[j]), int(yh[j, 0])):
+                if x.numel():
+                    assert int(one[0]) <= int(x.min()) and int(x.max()) <= int(one[1])
+                    assert int(one[2]) <= int(y.min()) and int(y.max()) <= int(one[3])
+
+
+def test_rotate_kernel_is_built_with_the_plain_sides_tile_and_window_sizes():
+    """csrc/rotate.cu takes its tile and window sizes from the -D defines
+    that ops/rotate.py makes of TILE_H, WINDOW_TEXELS and COPY_TEXELS, and
+    the build passes them (nothing is compiled here)."""
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import rotate as R
+
+    defines = dict(f[2:].split("=") for f in _build.nvcc_flags() if f.startswith("-DPHN_ROTATE_"))
+    assert defines == {"PHN_ROTATE_TILE_H": str(R.TILE_H[False]), "PHN_ROTATE_PAIR_TILE_H": str(R.TILE_H[True]),
+                       "PHN_ROTATE_WINDOW_TEXELS": str(R.WINDOW_TEXELS[False]),
+                       "PHN_ROTATE_PAIR_WINDOW_TEXELS": str(R.WINDOW_TEXELS[True]),
+                       "PHN_ROTATE_COPY_TEXELS": str(R.COPY_TEXELS)}
+    src = (_build.CSRC / "rotate.cu").read_text()
+    for name in defines:
+        assert f"= {name};" in src
+
+
+@pytest.mark.parametrize("w,h,angle,scale,pair", [
+    (200, 72, 100, 0.9, False), (200, 72, 100, 0.9, True), (201, 73, 45, 0.25, False),
+    (64, 48, 0, 2.0, True), (96, 40, 270, 0.1, False),
+])
+def test_window_counts_equal_the_windows_of_each_tile(w, h, angle, scale, pair):
+    """window_counts, the plain version of the kernel's choice between a
+    tile's window and the direct gather, equals that choice made one tile
+    at a time from affine_window and the pitch rule; every tile is
+    counted once."""
+    from phaneron_tpu_torch.ops import rotate as R
+
+    m = torch.from_numpy(_drawn_matrix(w, h, angle, scale, scale, 0.0, False, False, 0.1, -0.05))
+    th = R.TILE_H[pair]
+    fits = direct = 0
+    for y_lo in range(0, h, th):
+        for x_lo in range(0, w, R.TILE_W):
+            x0, x1, y0, y1 = (int(v) for v in affine_window(m, x_lo, min(x_lo + R.TILE_W, w) - 1, y_lo,
+                                                            min(y_lo + th, h) - 1, w, h))
+            if x0 > x1 or y0 > y1:
+                texels = 0
+            elif w % 2 == 0 and R.COPY_TEXELS == 2:
+                cols = x1 + 1 - (x0 & ~1)
+                cols += cols & 1
+                texels = (y1 - y0 + 1) * (cols if cols % 4 == 2 else cols + 2)
+            else:
+                texels = (y1 - y0 + 1) * ((x1 - x0 + 1) | 1)
+            fits += texels <= R.WINDOW_TEXELS[pair]
+            direct += texels > R.WINDOW_TEXELS[pair]
+    assert R.window_counts(m, w, h, pair) == [fits, direct]
+    assert fits + direct == -(-w // R.TILE_W) * -(-h // th)
 
 
 # ------------------------------------------------------------------- B4

@@ -4,7 +4,7 @@ sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3]
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate]
 
 - k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
   random words and on the fill_buf ramp: tools/k1_variants.cu in its two
@@ -47,6 +47,42 @@ Run from the repository root on a machine with a CUDA GPU:
   and the sampling, without the encode, and with one tap a channel
   (RGB3_DIAGNOSTICS).
 
+- b3: the fused v210 program (chip_smoke.py's playout dissolve: the
+  fill_buf ramp into seeded random words, mix 0.5; and two rolled ramps)
+  at 3840x2160 and 1920x1080.  tools/b3_variants.cu: the old mapping (one
+  thread a 6-pixel group, a loop over its pixels that breaks at the frame
+  width, linear->gamma' by powf) whole, with its stores only (no loads,
+  decode or encode), without the gamma'->linear gather (the table index
+  scaled instead), without the powf (the linear segment for every code)
+  and without the width break for full groups; one thread a pixel with
+  the block encode; the old mapping with linear->gamma' gathered from a
+  float table of its 65536 values; and one thread a pixel with the built
+  kernel's corrected transfers, in persistent 192x5 blocks with the
+  corrections in shared memory and in 192x2 and 192x4 blocks reading
+  them through L1.  csrc/fused_v210.cu (the transfers from MUFU
+  approximations and shared-memory corrections) built with other rows a
+  tile and with the warp's choice of gather or approximation forced
+  either way (B3_VARIANTS), with powf in place of the corrected
+  linear->gamma', without the width break and with R''s Cb and B''s Cr
+  terms kept (held), and, timed only, without gamma'->linear, without the
+  corrections and without the word loads (B3_DIAGNOSTICS).  The old
+  mapping whole and without its break, the other designs, and every
+  B3_VARIANTS and held build must be <= 1 code from fused_v210_plain.
+- rotate: B14 on seeded random RGBA frames, a cut at 0, 45, 100 and 180
+  degrees (scale 0.9) at 3840x2160 and chip_smoke.py's two-matrix
+  dissolve pair (100 and 95 degrees) at 1920x1080.
+  tools/rotate_variants.cu: the old mapping (one thread a pixel, every
+  tap gathered from device memory, a warp 32 pixels of a row) whole, with
+  its stores only, with each tap's value made from its position in place
+  of its load, and whole in 16x16 blocks whose warps cover 8x4 pixels.
+  csrc/rotate.cu (shared-memory source windows a tile) built with 4-byte
+  copies, other tiles and window sizes (ROTATE_VARIANTS) and without the
+  windows (every tile on the direct gather), and, timed only, without the
+  windows' copies and with one tap a channel (ROTATE_DIAGNOSTICS); with
+  the window/direct (tile, source) counts of the built source.  The old
+  mapping whole in both blocks, every ROTATE_VARIANTS build and the
+  direct-only build must equal rotate_plain (max |delta| 0).
+
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
 Builds go to build/variants/.  Exits 1 when a variant disagrees.
@@ -68,7 +104,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SECTIONS = ("k1", "k5", "yadif", "rgb3")
+SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate")
 # K5 over words: name -> {constant: value}; two windows of 3 float32 a
 # texel must stay within the kernel's shared memory
 K5_VARIANTS = {
@@ -140,6 +176,55 @@ RGB3_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
     "one tap": {"phn_common.cuh": [ONE_TAP], "packed_composite.cu": [ONE_TAP_INSIDE]},
 }
 HELD_RGB3 = ("old mapping",)  # a diagnostic whose output must still equal the plain version
+# B3, the fused v210 program: rows a tile (one block an SM), the span of
+# indices a warp gathers, and parts changed or taken out
+B3_VARIANTS = {"rows 24": dict(kRows=24), "always the approximation": dict(kGatherSpan=-1),
+               "always the gather": dict(kGatherSpan=65536)}
+B3_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
+    "powf": {"fused_v210.cu": [(f"      const float {c}p = l2g_corrected(e.g, l2g_corr, rgb[{i}]);",
+                                f"      const float {c}p = phn::l2g(e.g, rgb[{i}]);") for i, c in enumerate("rgb")]},
+    "no break": {"fused_v210.cu": [("      if (gi * 6 + p >= width) break;",
+                                    "      if (gi * 6 + 6 > width && gi * 6 + p >= width) break;")]},
+    "dense decode": {"fused_v210.cu": [("  if (c == 0) return d.col[0] * yf + d.col[2] * vf + d.col[3];\n"
+                                        "  if (c == 2) return d.col[8] * yf + d.col[9] * uf + d.col[11];\n", "")]},
+    "no g2l": {"fused_v210.cu": [("    lin[c] = kGather ? __ldg(d.g2l + i) : moved(g2l_approx(g, i), corr, i);",
+                                  "    lin[c] = static_cast<float>(i);")]},
+    "no corrections": {"fused_v210.cu": [("  return __int_as_float(__float_as_int(approx) + corr[i]);",
+                                          "  return approx;")]},
+    "no word loads": {"fused_v210.cu": [
+        ("    const int4 wa = __ldg(a + at);", "    const int4 wa = make_int4(at, gi, row, gi * 977);"),
+        ("    const int4 wb = b != nullptr ? __ldg(b + at) : wa;", "    const int4 wb = make_int4(gi * 613, row, gi, at);")]},
+}
+HELD_B3 = ("powf", "no break", "dense decode")
+B3_PARTS = ("old mapping: whole", "old: stores only", "old: no gather", "old: no powf", "old: no break",
+            "a thread a pixel", "old, l2g from a float table",
+            "a thread a pixel, corrected transfers, 5 rows, corrections in shared memory",
+            "a thread a pixel, corrected transfers, 2 rows, corrections through L1",
+            "a thread a pixel, corrected transfers, 4 rows, corrections through L1")
+B3_PARTS_HELD = (0, 4, 5, 6, 7, 8, 9)
+# B14 rotate: tile, block rows and window size; parts taken out
+ROTATE_VARIANTS = {
+    "4-byte copies": dict(kCopyTexels=1),
+    "window 2176": dict(kWindowTexels=2176),
+    "tile 32x32": dict(kTileH=32, kWindowTexels=2816),
+    "tile 32x16": dict(kTileH=16, kWindowTexels=1536),
+    "pair tile 32x8": dict(kPairTileH=8, kPairWindowTexels=1024),
+    "pair two buffers": dict(kPairBuffers=2),
+    "one buffer": dict(kSingleBuffers=1),
+}
+ROTATE_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
+    "direct only": {"rotate.cu": [("  return Window{c0, y_first, cols, rows, pitch, unit, rows * pitch <= kTexels, 0,",
+                                   "  return Window{c0, y_first, cols, rows, pitch, unit, false, 0,")]},
+    "no window copy": {"rotate.cu": [("  for (int e = threadIdx.y * kTileW + threadIdx.x; e < n; e += kThreads) {",
+                                      "  for (int e = threadIdx.y * kTileW + threadIdx.x; e < 0; e += kThreads) {")]},
+    "one tap": {"rotate.cu": [("  const float top = v00 * (1.0f - t.fx) + v10 * t.fx;\n"
+                               "  const float bot = v01 * (1.0f - t.fx) + v11 * t.fx;\n"
+                               "  return top * (1.0f - t.fy) + bot * t.fy;",
+                               "  return t.vx0 && t.vy0 ? s[o] : 0.0f;")]},
+}
+HELD_ROTATE = ("direct only",)
+ROTATE_OLD_PARTS = ("whole", "stores only", "taps from the position", "whole, 16x16 blocks of 8x4 warps")
+ROTATE_OLD_HELD = (0, 3)
 
 
 def set_consts(text: str, consts: dict) -> str:
@@ -176,19 +261,25 @@ def build(out: Path, sections) -> dict:
         jobs["k1"] = ROOT / "tools" / "k1_variants.cu"
     if "yadif" in sections:
         jobs["yadif old"] = ROOT / "tools" / "yadif_variants.cu"
+    if "b3" in sections:
+        jobs["b3 old"] = ROOT / "tools" / "b3_variants.cu"
+    if "rotate" in sections:
+        jobs["rotate old"] = ROOT / "tools" / "rotate_variants.cu"
     slug = lambda name: name.replace(" ", "_").replace(",", "")
     for section, cu, variants, diagnostics in (
             ("k5", "packed_composite.cu", K5_VARIANTS,
              {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
             ("yadif", "yadif.cu", YADIF_VARIANTS, {n: {"yadif.cu": e} for n, e in YADIF_DIAGNOSTICS.items()}),
-            ("rgb3", "packed_composite.cu", RGB3_VARIANTS, RGB3_DIAGNOSTICS)):
+            ("rgb3", "packed_composite.cu", RGB3_VARIANTS, RGB3_DIAGNOSTICS),
+            ("b3", "fused_v210.cu", B3_VARIANTS, B3_DIAGNOSTICS),
+            ("rotate", "rotate.cu", ROTATE_VARIANTS, ROTATE_DIAGNOSTICS)):
         if section not in sections:
             continue
         for name, consts in variants.items():
             jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, consts, {})
         for name, edits in diagnostics.items():
             jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, {}, edits)
-    procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(cu.with_suffix(".so")),
+    procs = {name: subprocess.Popen([_build._nvcc(), *_build.nvcc_flags(), "-shared", "-o", str(cu.with_suffix(".so")),
                                      str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, cu in jobs.items()}
     for name, proc in procs.items():
@@ -373,6 +464,112 @@ def section_rgb3(torch, dev, rng, libs, card) -> list:
     return [f"K5 rgb3 {n}" for n in bad]
 
 
+def section_b3(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import v210
+
+    variants = ctypes.CDLL(str(libs["b3 old"]))
+    old = variants.b3_variant
+    old.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+    variants.b3_l2g_table.argtypes = [ctypes.c_void_p] * 3
+    lut = torch.empty(65536, dtype=torch.float32, device=dev)
+    variants.b3_l2g_table(lut.data_ptr(), ctypes.addressof(K._encode_coeffs("709")),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    corr = K.fused_v210_corrections_on("709", "709", dev)
+    g2l_consts = ctypes.addressof(K._g2l_consts("709"))
+    for name, c in (("linear->gamma'", corr.view(2, 65536)[0]), ("gamma'->linear", corr.view(2, 65536)[1])):
+        print(f"{name} corrections (709): largest |difference| {int(c.abs().max())} ulp, at "
+              f"{int((c != 0).sum())} of 65536 indices")
+    lib = {"built": _build.library(), **{n: Lib(libs[f"b3 {n}"], "phn_fused_v210")
+                                         for n in (*B3_VARIANTS, *B3_DIAGNOSTICS)}}
+    mix, bad = torch.tensor([0.5], device=dev), []
+    for w, h in ((cs.UHD_W, cs.UHD_H), (cs.W, cs.H)):
+        ramp = v210.fill_buf(w, h)[0]
+        rolled = [to_tensor(np.roll(ramp, 4 * 11 * (k + 1), axis=1), dev) for k in range(2)]
+        for content, (xa, xb) in (("the fill_buf ramp into random words (the record)",
+                                   (to_tensor(ramp, dev), to_tensor(cs.random_words(rng, w, h), dev))),
+                                  ("two rolled ramps", rolled)):
+            args = (xa, w, h, xb, mix)
+            want = K.fused_v210_plain(*args)
+            coeffs, g2l = K.v210_decode_args("709", "709", dev)
+            enc = ctypes.addressof(K._encode_coeffs("709"))
+            out = torch.empty_like(want)
+            times = []
+            for part, part_name in enumerate(B3_PARTS):
+                call = lambda: old(part, xa.data_ptr(), xb.data_ptr(), mix.data_ptr(), out.data_ptr(), w, h,
+                                   v210.pitch(w) // 6, coeffs, g2l, enc, lut.data_ptr(), g2l_consts, corr.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+                if part in B3_PARTS_HELD:
+                    out.zero_()
+                    rc = call()
+                    if rc or cs.code_delta(torch, out, want, w, h) > cs.TOL_CODES:
+                        bad.append(f"B3 {part_name}, {w}x{h}, {content} (rc {rc})")
+                times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+            print(f"fused_v210 dissolve {w}x{h}, {content}, tools/b3_variants.cu on {card}: ms " + "; ".join(times))
+
+            def check(name):
+                return (name in B3_DIAGNOSTICS and name not in HELD_B3) or \
+                    cs.code_delta(torch, K.fused_v210(*args), want, w, h) <= cs.TOL_CODES
+
+            new, wrong = timed(torch, K, lib, lambda: K.fused_v210(*args), check)
+            bad += [f"B3 {n}, {w}x{h}, {content}" for n in wrong]
+            print(f"fused_v210 dissolve {w}x{h}, {content}, csrc/fused_v210.cu on {card}: ms "
+                  + "; ".join(f"{n} {t:.4f}" for n, t in new.items()))
+    return bad
+
+
+def section_rotate(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import rotate as R
+    from phaneron_tpu_torch.ops import warp as warp_mod
+
+    old = ctypes.CDLL(str(libs["rotate old"])).rotate_old_mapping
+    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_warp"])
+    lib = {"built": _build.library(), **{n: Lib(libs[f"rotate {n}"], "phn_rotate")
+                                         for n in (*ROTATE_VARIANTS, *ROTATE_DIAGNOSTICS)}}
+    frame = lambda w, h: torch.from_numpy(rng.random((4, h, w), dtype=np.float32)).to(dev)
+    uhd = frame(cs.UHD_W, cs.UHD_H)
+    cases = {f"RGBA cut at {deg} degrees, scale 0.9, 3840x2160":
+             (uhd, to_tensor(cs.rotation_matrix(cs.UHD_W, cs.UHD_H, deg), dev)) for deg in (0, 45, 100, 180)}
+    cases["RGBA dissolve pair, two matrices, 100 and 95 degrees, 1920x1080"] = (
+        frame(cs.W, cs.H), to_tensor(cs.rotation_matrix(cs.W, cs.H, 100), dev), frame(cs.W, cs.H),
+        torch.tensor([0.35], device=dev), to_tensor(cs.rotation_matrix(cs.W, cs.H, 95, 0.85), dev))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    bad = []
+    for label, args in cases.items():
+        a, m, b, mix, mb = (*args, None, None, None)[:5]
+        c, h, w = a.shape
+        want = R.rotate_plain(*args)
+        same = lambda got: float((got - want).abs().max()) == 0.0
+        out = torch.empty_like(want)
+        times = []
+        for part, part_name in enumerate(ROTATE_OLD_PARTS):
+            call = lambda: old(part, a.data_ptr(), ptr(b), m.data_ptr(), ptr(mb), ptr(mix), None, out.data_ptr(),
+                               c, h, w, torch.cuda.current_stream(dev).cuda_stream)
+            if part in ROTATE_OLD_HELD:
+                out.zero_()
+                call()
+                if not same(out):
+                    bad.append(f"rotate old mapping {part_name}, {label}")
+            times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+        print(f"rotate {label}, old mapping (a thread a pixel, direct gathers) on {card}: ms " + "; ".join(times))
+
+        def check(name):
+            return (name in ROTATE_DIAGNOSTICS and name not in HELD_ROTATE) or same(R.rotate(*args))
+
+        new, wrong = timed(torch, warp_mod, lib, lambda: R.rotate(*args), check)
+        bad += [f"rotate {n}, {label}" for n in wrong]
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        R.rotate(*args, branches=counts)
+        print(f"rotate {label}, new mapping (shared-memory windows) on {card}: ms "
+              + "; ".join(f"{n} {t:.4f}" for n, t in new.items())
+              + f"; window/direct (tile, source) pairs of the built source {counts.tolist()}")
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -389,7 +586,8 @@ def main() -> int:
     print(card)
     libs = build(ROOT / "build" / "variants", sections)
     rng = np.random.default_rng(cs.SEED)
-    run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3}
+    run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3, "b3": section_b3,
+           "rotate": section_rotate}
     bad = []
     for section in sections:
         bad += run[section](torch, dev, rng, libs, card)
