@@ -43,7 +43,15 @@ Run from the repository root:  python3 chip_smoke.py
    degrees, scales 0.25, 0.9 and 2 and two offsets past the frame, at 1x1,
    7x5, 1918x1081, 1917x1079 and 3840x2160: max |delta| 0), each launch's
    window/direct (tile, source) counts equal to ops/rotate.py
-   window_counts' and both branches taken; then
+   window_counts' and both branches taken; then K4 and B6's decoded
+   windows at their edges (K4 single, dissolve and wipe pairs under one
+   matrix or two, C 3 and 4; B6 single, shared-matrix and distinct-matrix
+   pairs; flips, the media picture in picture, minifying boxes at scale
+   0.25 and 0.3 that reach B6's direct branch, a magnifying box, offsets
+   that put whole tiles off the frame; at 1x1 to 13x7, 1280x720,
+   1918x1080, 1920x1080 and 3840x2160: max |delta| 0), each B6 launch's
+   window/direct counts equal to ops/packed_warp.py warp_window_counts',
+   both branches taken; then
    the planar kernels of the file-media formats at 1920x1080, 1918x1080
    (a pitch pad) and 1920x1081 (an odd height), on seeded full-range
    random planes (10-bit codes in [0, 1023]) and the fill_buf ramps:
@@ -145,8 +153,11 @@ Run from the repository root:  python3 chip_smoke.py
    also in each whole-stack and rgba mode at a main path's shapes; K1,
    K5 over v210 words and fused_v210 (the UHD dissolve) also on the rolled
    fill_buf ramps (coherent content, beside the random words); rotate
-   also at 0 degrees; and packed_composite's and rotate's window/direct
-   counts at every timed shape, none of which may leave the window.
+   also at 0 degrees; K4 also at the media picture in picture and the UHD
+   wipe frame's shape, B6 under two matrices; and packed_composite's,
+   rotate's and B6's window/direct counts at every timed shape (for B6
+   the entry pair, alone and under two matrices), none of which may leave
+   the window.
 
 Prints one JSON line of per-kernel records (bound_ms: the least bytes
 the function must move over 3.35 TB/s, or its float32 operations,
@@ -908,6 +919,102 @@ def phase_rotate_edges(torch, dev, rng, rec: dict) -> None:
     taken = [sum(v[i] for per in counts.values() for v in per.values()) for i in (0, 1)]
     check(min(taken) > 0, f"rotate window edges: window/direct pairs {taken}, both branches expected")
     rec["rotate"]["window_edges"] = counts
+    torch.cuda.synchronize()
+
+
+def packed_warp_branches(torch, dev, args) -> list:
+    """[window, direct]: the (tile, source) pairs of one packed warp
+    launch that sampled a decoded shared-memory window and decoded each
+    tap from the words."""
+    from phaneron_tpu_torch.ops import packed_warp as PW
+
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    PW.packed_warp(*args, branches=counts)
+    return counts.tolist()
+
+
+# matrices at the axis-aligned windows' edges: label -> transform_matrix
+# keywords (the frame's own size); the minifying boxes' windows exceed
+# B6's limit (the direct branch), the offsets put whole tiles off the
+# frame (B6's sources +0, not decoded)
+AXIS_EDGE_MATS = {
+    "x0.9": dict(scale_x=0.9, scale_y=0.9, offset_x=0.02),
+    "flip_h": dict(flip_h=True, scale_x=0.9, scale_y=0.9, offset_x=0.03),
+    "flip_hv": dict(flip_h=True, flip_v=True, scale_x=1.3, scale_y=0.8),
+    "pip_0.5": MEDIA_DVE,
+    "minify_0.25": dict(scale_x=0.25, scale_y=0.25, offset_x=0.1),
+    "minify_0.3_x2": dict(scale_x=0.3, scale_y=2.0, offset_y=-0.1),
+    "magnify_2": dict(scale_x=2.0, scale_y=2.0, offset_x=-0.2),
+    "off_frame": dict(scale_x=0.9, scale_y=0.9, offset_x=1.5),
+    "off_frame_part": dict(scale_x=0.7, scale_y=0.6, offset_x=0.45, offset_y=-0.4),
+}
+AXIS_EDGE_SIZES = ((1, 1), (1, 7), (13, 1), (2, 3), (5, 2), (4, 4), (7, 5), (13, 7), (1280, 720),
+                   (1918, H), (W, H), (UHD_W, UHD_H))
+
+
+def phase_axis_warp_edges(torch, dev, rng, rec: dict) -> None:
+    """K4 and B6's decoded windows at their edges, against warp_plain and
+    packed_warp_plain on seeded random frames, masks and words: every
+    matrix of AXIS_EDGE_MATS (flips, the media picture in picture,
+    minifying boxes whose windows exceed B6's limit, a magnifying box,
+    offsets that put whole tiles off the frame) at every size of
+    AXIS_EDGE_SIZES (1x1 to 13x7, 1280x720, 1918x1080, 1920x1080,
+    3840x2160); K4 single, dissolve and wipe pairs under one matrix or
+    two, C 3 and 4; B6 single, shared-matrix and distinct-matrix pairs.
+    Every case max |delta| 0; each B6 launch's window/direct (tile,
+    source) counts must equal those of ops/packed_warp.py
+    warp_window_counts, and both its branches must be taken."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops import warp as warp_mod
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    mix = torch.tensor(0.37, device=dev)
+    worst = {"warp": 0.0, "packed_warp": 0.0}
+    taken, direct_at = [0, 0], set()
+    cases = {"warp": 0, "packed_warp": 0}
+    for w, h in AXIS_EDGE_SIZES:
+        frames = {c: [torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev) for _ in range(2)]
+                  for c in (3, 4)}
+        mask = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        words = [to_tensor(random_words(rng, w, h), dev) for _ in range(2)]
+        for label, kw_m in AXIS_EDGE_MATS.items():
+            m = to_tensor(transform_matrix(w, h, **kw_m), dev)
+            mb = to_tensor(transform_matrix(w, h, **dict(kw_m, scale_x=0.8 * kw_m.get("scale_x", 1.0),
+                                                              offset_y=kw_m.get("offset_y", 0.0) + 0.05)), dev)
+            for c in (3, 4):
+                a, b = frames[c]
+                for args, kw in (((a, m), {}), ((a, m, b, mix), {}), ((a, m, b, mix, mb), {}),
+                                 ((a, m, b), dict(mask=mask)), ((a, m, b), dict(mat_b=mb, mask=mask))):
+                    got, want = warp_mod.warp(*args, **kw), warp_mod.warp_plain(*args, **kw)
+                    worst["warp"] = max(worst["warp"], float((got - want).abs().max()))
+                    cases["warp"] += 1
+            pw_single = PW.warp_window_counts(m, w, h)
+            pw_b = PW.warp_window_counts(mb, w, h)
+            for args, expect in (((words[0], m, w, h), pw_single),
+                                 ((words[0], m, w, h, words[1], mix), [2 * x for x in pw_single]),
+                                 ((words[0], m, w, h, words[1], mix, mb), [x + y for x, y in zip(pw_single, pw_b)])):
+                got, want = PW.packed_warp(*args), PW.packed_warp_plain(*args)
+                worst["packed_warp"] = max(worst["packed_warp"], float((got - want).abs().max()))
+                branches = packed_warp_branches(torch, dev, args)
+                check(branches == expect, f"packed_warp {w}x{h} {label}: window/direct {branches}, "
+                                          f"warp_window_counts gives {expect}")
+                taken = [x + y for x, y in zip(taken, branches)]
+                if branches[1]:
+                    direct_at.add(label)
+                cases["packed_warp"] += 1
+    sizes = ", ".join(f"{w}x{h}" for w, h in AXIS_EDGE_SIZES)
+    for name in ("warp", "packed_warp"):
+        counted = (f"; window/direct (tile, source) pairs {taken}, equal to the plain mirror's launch by launch; "
+                   f"direct branch at {sorted(direct_at)}") if name == "packed_warp" else ""
+        print(f"{name} window edges: {cases[name]} cases ({', '.join(AXIS_EDGE_MATS)} at {sizes}) max |kernel - "
+              f"plain| = {worst[name]:.3e} (== 0){counted}")
+        check(worst[name] == 0.0, f"{name} window edges differ from the plain version by {worst[name]}")
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], worst[name])
+        rec[name]["window_edges"] = dict(cases=cases[name])
+    check(min(taken) > 0, f"packed_warp window edges: window/direct pairs {taken}, both branches expected")
+    check("minify_0.25" in direct_at, "packed_warp: the 0.25 box did not reach the direct branch")
+    rec["packed_warp"]["window_edges"]["window_direct"] = taken
     torch.cuda.synchronize()
 
 
@@ -1675,6 +1782,7 @@ def main() -> int:
     from phaneron_tpu_torch.ops import yadif as Y
     from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
     from phaneron_tpu_torch.ops.formats.yuv422p8 import pitch as y422_pitch
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1696,6 +1804,7 @@ def main() -> int:
     phase_straggler_kernels(torch, dev, rng, rec)
     phase_window_edges(torch, dev, np.random.default_rng(SEED + 7), rec)
     phase_rotate_edges(torch, dev, np.random.default_rng(SEED + 8), rec)
+    phase_axis_warp_edges(torch, dev, np.random.default_rng(SEED + 9), rec)
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_stage_program_checks(torch, dev, media_rng)
@@ -2294,6 +2403,15 @@ def main() -> int:
     fu_ramps = ramps(UHD_W, UHD_H, 2)
     fu_ramp_args = (fu_ramps[0], UHD_W, UHD_H, fu_ramps[1], fu_args[4])
     rot0_args = (rot_args[0], to_tensor(rotation_matrix(UHD_W, UHD_H, 0), dev))
+    # K4 at the media channel's picture in picture (its two sources as the
+    # path unpacks them) and at the UHD wipe frame's top layer; B6 under
+    # two matrices (the entry pair's sources)
+    pip_args = (K.planar420_unpack(*y420_args), m_lps[1]["matrix"], K.planar420_unpack(*nv12_args),
+                m_lps[1]["mix"])
+    w_top = straggler_args[f"wipe_{UHD_W}x{UHD_H}"][1]["layers"][3]
+    uwipe_srcs = K.v210_unpack([w_top["src"][0], w_top["src_b"][0], w_top["mask"][0]], UHD_W, UHD_H)
+    uwipe_args, uwipe_kw = (uwipe_srcs[0], w_top["matrix"], uwipe_srcs[1]), dict(mask=uwipe_srcs[2][0].contiguous())
+    pw_distinct = (*entry_warp_args, to_tensor(transform_matrix(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05), dev))
     other = {
         "v210_unpack (2 sources, 4 channels)": (call(K.v210_unpack, rec["v210_unpack"]["args"]),
                                                 call(K.v210_unpack_plain, rec["v210_unpack"]["args"]),
@@ -2316,6 +2434,19 @@ def main() -> int:
             call(warp_mod.warp, rec["warp"]["distinct_args"]), call(warp_mod.warp_plain, rec["warp"]["distinct_args"]),
             16 * (warp_source_texels(torch, dm, H, W) + warp_source_texels(torch, dmb, H, W)) + rgba + 72 + 4,
             warp_ops(4, 2, n_mat=2), both(grid_sample_args(torch, [da], dm), grid_sample_args(torch, [db], dmb))),
+        "warp (4-channel picture in picture, scale 0.5, dissolve, 1920x1080, media path)": (
+            call(warp_mod.warp, pip_args), call(warp_mod.warp_plain, pip_args),
+            2 * 16 * warp_source_texels(torch, pip_args[1], H, W) + rgba + 36 + 4, warp_ops(4, 2),
+            grid_sample_args(torch, [pip_args[0], pip_args[2]], pip_args[1])),
+        "warp (4-channel wipe pair, one matrix, 3840x2160, wipe path)": (
+            call(warp_mod.warp, uwipe_args, uwipe_kw), call(warp_mod.warp_plain, uwipe_args, uwipe_kw),
+            2 * 16 * warp_source_texels(torch, uwipe_args[1], UHD_H, UHD_W) + 20 * UHD_W * UHD_H + 36,
+            warp_ops(4, 2, UHD_W * UHD_H), grid_sample_args(torch, [uwipe_args[0], uwipe_args[2]], uwipe_args[1])),
+        "packed_warp (v210 dissolve pair, two matrices, 1920x1080)": (
+            call(PW.packed_warp, pw_distinct), call(PW.packed_warp_plain, pw_distinct),
+            16 * (warp_source_groups(torch, pw_mat, H, W) + warp_source_groups(torch, pw_distinct[6], H, W)) + rgba
+            + 72 + 4, OPS_DECODE_PX * (warp_source_texels(torch, pw_mat, H, W)
+                                       + warp_source_texels(torch, pw_distinct[6], H, W)) + warp_ops(4, 2, n_mat=2)),
         "rotate (4-channel dissolve pair, two matrices, 100 and 95 degrees, 1920x1080)": (
             call(R.rotate, rec["rotate"]["pair_args"]), call(R.rotate_plain, rec["rotate"]["pair_args"]),
             16 * (affine_source_texels(torch, rm, H, W) + affine_source_texels(torch, rmb, H, W)) + rgba + 72 + 4,
@@ -2418,11 +2549,27 @@ def main() -> int:
     print(f"rotate window/direct (tile, source) pairs per timed shape: {rotate_window_direct}")
     for label, (_, direct) in rotate_window_direct.items():
         check(direct == 0, f"rotate at {label}: {direct} (tile, source) pairs off the window branch")
+    # B6's tiles by branch at every timed shape: none may leave the window,
+    # and each count must equal the plain mirror's
+    pw_shapes = {"entry pair 1920x1080 (the record)": entry_warp_args,
+                 "dissolve pair, two matrices, 1920x1080": pw_distinct}
+    pw_window_direct = {}
+    for label, args in pw_shapes.items():
+        got = packed_warp_branches(torch, dev, args)
+        mats = [args[1], args[6] if len(args) > 6 else args[1]]
+        expect = [sum(x) for x in zip(*(PW.warp_window_counts(m, W, H) for m in mats))]
+        check(got == expect, f"packed_warp at {label}: window/direct {got}, warp_window_counts gives {expect}")
+        pw_window_direct[label] = got
+    print(f"packed_warp window/direct (tile, source) pairs per timed shape: {pw_window_direct}")
+    for label, (_, direct) in pw_window_direct.items():
+        check(direct == 0, f"packed_warp at {label}: {direct} (tile, source) pairs off the window branch")
     for r in records:
         if r["name"] == "packed_composite":
             r["window_direct"] = window_direct
         if r["name"] == "rotate":
             r["window_direct"] = rotate_window_direct
+        if r["name"] == "packed_warp":
+            r["window_direct"] = pw_window_direct
         r["modes"] = modes.get(r["name"], [])
     print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))

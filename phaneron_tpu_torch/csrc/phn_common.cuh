@@ -314,27 +314,46 @@ struct Window {
   __device__ int texels() const { return cols * rows; }
 };
 
-// The texels [first, last] one axis's valid taps reach for output indices
-// [lo, hi]: tap_coord is monotonic, so the ends bound the floors in
-// between; taps are floor and floor + 1, clipped to the frame.
-__device__ __forceinline__ void window_span(float m, float off, int lo, int hi, int size,
-                                            int& first, int& last) {
-  const float fs = static_cast<float>(size);
-  const float a = floorf(tap_coord(m, off, lo, fs)), b = floorf(tap_coord(m, off, hi, fs));
-  const float f = fmaxf(fminf(a, b), 0.0f), l = fminf(fmaxf(a, b) + 1.0f, fs - 1.0f);
-  first = f <= l ? static_cast<int>(f) : 0;
-  last = f <= l ? static_cast<int>(l) : -1;
+// The window and the inside test of a tile from the floors of its end
+// texel coordinates along each axis (xa, xb: its first and last columns';
+// ya, yb: its rows'): the window tile_window gives (columns whole
+// multiples of align from a multiple of align) and span_inside's answer
+// for both axes, on the same floats
+struct Span {
+  Window win;
+  bool inside;
+};
+
+__device__ __forceinline__ Span span_of(float xa, float xb, float ya, float yb, int width,
+                                        int height, int align) {
+  const float fw = static_cast<float>(width), fh = static_cast<float>(height);
+  const float xf = fmaxf(fminf(xa, xb), 0.0f), xl = fminf(fmaxf(xa, xb) + 1.0f, fw - 1.0f);
+  const float yf = fmaxf(fminf(ya, yb), 0.0f), yl = fminf(fmaxf(ya, yb) + 1.0f, fh - 1.0f);
+  Span s;
+  if (xf <= xl && yf <= yl) {
+    const int x0 = static_cast<int>(xf), x1 = static_cast<int>(xl), y0 = static_cast<int>(yf);
+    s.win = Window{x0 / align * align, (x1 / align - x0 / align + 1) * align, y0,
+                   static_cast<int>(yl) - y0 + 1};
+  } else {
+    s.win = Window{0, 0, 0, 0};
+  }
+  s.inside = fminf(xa, xb) >= 0.0f && fmaxf(xa, xb) + 1.0f <= fw - 1.0f && fminf(ya, yb) >= 0.0f &&
+             fmaxf(ya, yb) + 1.0f <= fh - 1.0f;
+  return s;
 }
 
-// The window of output columns [x_lo, x_hi] x rows [y_lo, y_hi] under mat,
-// its columns whole multiples of align from a multiple of align
+// The window of output columns [x_lo, x_hi] x rows [y_lo, y_hi] under mat
+// (the texels the valid taps reach: tap_coord is monotonic, so the ends
+// bound the floors in between; taps are floor and floor + 1, clipped to
+// the frame), its columns whole multiples of align from a multiple of
+// align
 __device__ __forceinline__ Window tile_window(const float* mat, int x_lo, int x_hi, int y_lo,
                                               int y_hi, int width, int height, int align) {
-  int x0, x1, y0, y1;
-  window_span(mat[0], mat[2], x_lo, x_hi, width, x0, x1);
-  window_span(mat[4], mat[5], y_lo, y_hi, height, y0, y1);
-  if (x1 < x0 || y1 < y0) return Window{0, 0, 0, 0};
-  return Window{x0 / align * align, (x1 / align - x0 / align + 1) * align, y0, y1 - y0 + 1};
+  const float fw = static_cast<float>(width), fh = static_cast<float>(height);
+  return span_of(floorf(tap_coord(mat[0], mat[2], x_lo, fw)), floorf(tap_coord(mat[0], mat[2], x_hi, fw)),
+                 floorf(tap_coord(mat[4], mat[5], y_lo, fh)), floorf(tap_coord(mat[4], mat[5], y_hi, fh)),
+                 width, height, align)
+      .win;
 }
 
 // Decode window w (6-aligned) of a v210 source into smem, channel planes

@@ -26,59 +26,90 @@
 // threads overlap, so L1 and L2 serve most of them and device memory sees
 // about one read of each source.  Design: one thread per output pixel
 // gathers its taps directly (no scale buckets, DMA windows or one-hot MXU
-// weights), and the matrices, mix and mask are read from device memory, so
-// animating them needs no host synchronisation.
+// weights).  The channel count and the mode are template constants, so
+// every channel's taps of both sources are loaded before any is blended.
+// On the H100 this beats shared-memory windows of each tile's source
+// texels (tools/warp_windows.cu) at every shape timed, 1080p and UHD
+// (tools/kernel_variants.py k4; PERF.md).  The matrices, mix and mask are
+// read from device memory, so animating them needs no host
+// synchronisation.
 #include "phn_common.cuh"
 
 namespace {
 
-__global__ void warp_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                            const float* __restrict__ mat, const float* __restrict__ mat_b,
-                            const float* __restrict__ mix, const float* __restrict__ mask,
-                            float* __restrict__ out, int channels, int height, int width) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+constexpr int kBlockW = 32;  // threads: a warp's row of pixels
+constexpr int kBlockH = 8;  // by kBlockH rows
+constexpr int kSingle = 0, kDissolve = 1, kWipe = 2;  // modes
 
-  const phn::Taps t = phn::axis_taps(mat, x, y, width, height);
-  const phn::Taps tb = b != nullptr ? phn::axis_taps(mat_b, x, y, width, height) : t;
+template <int kCh, int kMode>
+__global__ void __launch_bounds__(kBlockW * kBlockH)
+    warp_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ mat, const float* __restrict__ mat_b,
+                const float* __restrict__ mix, const float* __restrict__ mask,
+                float* __restrict__ out, int height, int width) {
+  const int x = blockIdx.x * kBlockW + threadIdx.x;
+  const int y = blockIdx.y * kBlockH + threadIdx.y;
+  if (x >= width || y >= height) return;
   const size_t plane = static_cast<size_t>(width) * height;
   const size_t o = static_cast<size_t>(y) * width + x;
-  // dissolve: weights (mix, 1 - mix); wipe: (1 - m, m), summed b first
-  float m = 1.0f;
-  if (mask != nullptr) {
-    m = mask[o];
-  } else if (b != nullptr) {
-    m = *mix;
+  const phn::Taps t = phn::axis_taps(mat, x, y, width, height);
+  float v[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) v[c] = phn::sample(a + c * plane, width, t);
+  if (kMode == kSingle) {
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) out[c * plane + o] = v[c];
+    return;
   }
-  for (int c = 0; c < channels; ++c) {
-    float v = phn::sample(a + c * plane, width, t);
-    if (b != nullptr) {
-      const float vb = phn::sample(b + c * plane, width, tb);
-      v = mask != nullptr ? vb * m + v * (1.0f - m) : v * m + vb * (1.0f - m);
-    }
-    out[c * plane + o] = v;
+  const phn::Taps tb = phn::axis_taps(mat_b, x, y, width, height);
+  float vb[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) vb[c] = phn::sample(b + c * plane, width, tb);
+  // dissolve: weights (mix, 1 - mix); wipe: (1 - m, m), summed b first
+  const float m = kMode == kWipe ? mask[o] : *mix;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c)
+    out[c * plane + o] = kMode == kWipe ? vb[c] * m + v[c] * (1.0f - m) : v[c] * m + vb[c] * (1.0f - m);
+}
+
+template <int kCh>
+void launch(int mode, const float* a, const float* b, const float* mat, const float* mat_b,
+            const float* mix, const float* mask, float* out, int height, int width,
+            cudaStream_t st) {
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid((width + kBlockW - 1) / kBlockW, (height + kBlockH - 1) / kBlockH);
+  if (mode == kSingle) {
+    warp_kernel<kCh, kSingle><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
+  } else if (mode == kDissolve) {
+    warp_kernel<kCh, kDissolve><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
+  } else {
+    warp_kernel<kCh, kWipe><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
   }
 }
 
 }  // namespace
 
-// a, b: (channels, height, width) float32 (b null for a single warp);
-// mat, mat_b: (3, 3) float32 (mat_b null: b under mat); mix: one float32
-// (dissolve); mask: (height, width) float32 (wipe; null for a dissolve);
-// out: like a.  Returns cudaGetLastError().
+// a, b: (channels, height, width) float32, channels 3 or 4 (b null for a
+// single warp); mat, mat_b: (3, 3) float32 (mat_b null: b under mat); mix:
+// one float32 (dissolve); mask: (height, width) float32 (wipe; null for a
+// dissolve); out: like a.  Returns cudaGetLastError().
 extern "C" int phn_warp(const void* a, const void* b, const void* mat, const void* mat_b,
                         const void* mix, const void* mask, void* out, int channels, int height,
                         int width, void* stream) {
   if (b != nullptr && (mix == nullptr) == (mask == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  warp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(mat),
-      static_cast<const float*>(mat_b != nullptr ? mat_b : mat),
-      static_cast<const float*>(mix), static_cast<const float*>(mask),
-      static_cast<float*>(out), channels, height, width);
+  if (channels != 3 && channels != 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int mode = b == nullptr ? kSingle : (mask != nullptr ? kWipe : kDissolve);
+  const auto fa = static_cast<const float*>(a), fb = static_cast<const float*>(b);
+  const auto fm = static_cast<const float*>(mat);
+  const auto fmb = mat_b != nullptr ? static_cast<const float*>(mat_b) : fm;
+  const auto fmix = static_cast<const float*>(mix), fmask = static_cast<const float*>(mask);
+  const auto o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (channels == 4) {
+    launch<4>(mode, fa, fb, fm, fmb, fmix, fmask, o, height, width, st);
+  } else {
+    launch<3>(mode, fa, fb, fm, fmb, fmix, fmask, o, height, width, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,8 @@ otherwise contract ``a*b + c`` into one fused multiply-add, which rounds
 differently from the plain PyTorch versions and the JAX reference.
 Division and ``powf`` stay IEEE / full precision (no fast-math).
 ``nvcc_flags()`` adds the -D defines of the constants a kernel shares
-with its plain version (ops/rotate.py ``nvcc_defines``).
+with its plain version (``nvcc_defines`` of ops/rotate.py and
+ops/packed_warp.py).
 
 Importing this module builds nothing, so the package imports cleanly on
 a machine without nvcc.
@@ -62,7 +63,7 @@ _SIGNATURES = {
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "phn_fused_v210_corrections": (_P, _P, _P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
-    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -86,9 +87,9 @@ def sources() -> list[Path]:
 
 def nvcc_flags() -> tuple:
     """NVCC_FLAGS and the defines every source is built with."""
-    from .rotate import nvcc_defines
+    from . import packed_warp, rotate
 
-    return NVCC_FLAGS + nvcc_defines()
+    return NVCC_FLAGS + rotate.nvcc_defines() + packed_warp.nvcc_defines()
 
 
 def _nvcc() -> str:

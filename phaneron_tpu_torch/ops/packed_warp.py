@@ -13,7 +13,12 @@ pallas_composite.py and pallas_warp.py's all-layers combine:
 
 ``packed_warp`` decodes one v210 source (or a dissolve pair under one
 shared or two distinct matrices) at the taps of an axis-aligned warp and
-returns linear RGBA; its alpha is the warp of the constant-1 plane.
+returns linear RGBA; its alpha is the warp of the constant-1 plane.  Its
+kernel decodes each output tile's source window once into shared memory
+(``warp_window_counts`` is the plain version of its choice between a
+window and decoding each tap from the words); the tile rows and window
+size live here (WARP_TILE_ROWS, WARP_WINDOW_TEXELS) and reach nvcc as -D
+defines (``nvcc_defines``).
 ``packed_composite`` runs a run of DVE layers (cuts or same-matrix
 dissolves) in one launch, into v210 words, into the composited RGBA
 frame, or both (an ``emit_rgba`` channel), from opaque (3, H, W) float32
@@ -76,12 +81,83 @@ __all__ = [
     "packed_composite_plain",
     "coverage",
     "MAX_LAYERS",
+    "axis_window",
+    "warp_window_counts",
+    "nvcc_defines",
 ]
 
 MAX_LAYERS = 8  # layers per launch (kMaxLayers in csrc/packed_composite.cu)
 _KINDS = ("rgb3", "packed", "rgba")  # kind codes 0, 1, 2 of csrc/packed_composite.cu
 _EMITS = ("packed", "rgba", "both")
 _ALPHAS = ("coverage", "top")
+# csrc/packed_warp.cu's output tiles are WARP_TILE_W columns (32 v210
+# groups, one thread a column) by WARP_TILE_ROWS rows; a source's window
+# spans whole groups and fits in shared memory when its texels are at most
+# WARP_WINDOW_TEXELS
+WARP_TILE_W = 192
+WARP_TILE_ROWS = 4
+WARP_WINDOW_TEXELS = 1536
+
+
+def nvcc_defines() -> tuple:
+    """The constants above as the -D flags csrc/packed_warp.cu is built
+    with."""
+    return (f"-DPHN_PACKED_WARP_TILE_ROWS={WARP_TILE_ROWS}",
+            f"-DPHN_PACKED_WARP_WINDOW_TEXELS={WARP_WINDOW_TEXELS}")
+
+
+def _span(m, off, lo, hi, size: int) -> tuple:
+    """[first, last] of the texels the valid taps of output indices
+    [lo, hi] reach along one axis (phn_common.cuh span_of): the floors
+    of the ends' texel coordinates, computed in float32 as
+    warp_axis_aligned computes them (x / size - 0.5 by a tensor divisor,
+    then (m * c + off + 0.5) * size - 0.5), bound every floor between them
+    because each step rounds monotonically; the taps are floor and
+    floor + 1, clipped to the frame.  Empty where first > last."""
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=m.device)
+    fs = f32(float(size))
+
+    def floor_at(i):
+        c = f32(i) / fs - 0.5
+        return torch.floor((m * c + off + 0.5) * fs - 0.5)
+
+    a, b = torch.broadcast_tensors(floor_at(lo), floor_at(hi))
+    first = torch.clamp(torch.minimum(a, b), min=0.0)
+    last = torch.clamp(torch.maximum(a, b) + 1.0, max=fs - 1.0)
+    empty = first > last
+    return (torch.where(empty, 0.0, first).to(torch.int64), torch.where(empty, -1.0, last).to(torch.int64))
+
+
+def axis_window(mat, x_lo, x_hi, y_lo, y_hi, width: int, height: int) -> tuple:
+    """The source window of the output tile of columns [x_lo, x_hi] by rows
+    [y_lo, y_hi] under the axis-aligned matrix ``mat`` (3, 3)
+    (phn_common.cuh tile_window before its alignment): (x_first, x_last,
+    y_first, y_last) as int64 tensors, the texels the tile's valid taps
+    reach; empty where first > last on either axis.  The tile bounds may
+    be tensors (one tile each, broadcast together).  It holds every valid
+    tap of every pixel of the tile (tests/test_torch_warp_windows.py)."""
+    mat = torch.as_tensor(mat, dtype=torch.float32)
+    x0, x1 = _span(mat[0, 0], mat[0, 2], x_lo, x_hi, width)
+    y0, y1 = _span(mat[1, 1], mat[1, 2], y_lo, y_hi, height)
+    return x0, x1, y0, y1
+
+
+def warp_window_counts(mat, width: int, height: int) -> list:
+    """[window, direct]: the tiles in which the packed warp kernel samples
+    one source under ``mat`` from its decoded shared-memory window and
+    straight from the words.  A tile's window (``axis_window``, its
+    columns whole 6-texel groups) fits when its texels are at most
+    WARP_WINDOW_TEXELS, as csrc/packed_warp.cu decides tile by tile.  An
+    empty window fits."""
+    mat = torch.as_tensor(mat, dtype=torch.float32)
+    xl = torch.arange(0, width, WARP_TILE_W, device=mat.device)
+    yl = torch.arange(0, height, WARP_TILE_ROWS, device=mat.device)[:, None]
+    x0, x1, y0, y1 = axis_window(mat, xl, torch.clamp(xl + WARP_TILE_W - 1, max=width - 1), yl,
+                                 torch.clamp(yl + WARP_TILE_ROWS - 1, max=height - 1), width, height)
+    cols = (x1 // 6 - x0 // 6 + 1) * 6
+    texels = torch.where((x0 > x1) | (y0 > y1), 0, (y1 - y0 + 1) * cols).expand(yl.shape[0], xl.shape[0])
+    fits = int((texels <= WARP_WINDOW_TEXELS).sum())
+    return [fits, texels.numel() - fits]
 
 
 def _mat_on(mat, device: torch.device, name: str) -> torch.Tensor:
@@ -112,12 +188,18 @@ def packed_warp_plain(
 def packed_warp(
     words: torch.Tensor, mat, width: int, height: int, words_b: torch.Tensor | None = None,
     mix=None, mat_b=None, col_spec: str = "709", out_col_spec: str = "709",
+    branches: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Axis-aligned bilinear DVE warp of a v210 source, (H, pitch_bytes/4)
     int32 words, by the (3, 3) matrix ``mat`` (m00, m02, m11, m12 read),
     border zero, decoding each tap -> linear RGBA (4, H, W) float32.  With
     ``words_b`` and ``mix``: the dissolve pair warp(a)*mix +
-    warp(b)*(1-mix), b under ``mat_b`` (default: ``mat``)."""
+    warp(b)*(1-mix), b under ``mat_b`` (default: ``mat``).
+
+    ``branches``, a (2,) int64 tensor on the words' device, gets the
+    (tile, source) pairs the kernel sampled from a decoded shared-memory
+    window and straight from the words added: [window, direct] (a
+    measurement hook, read by chip_smoke.py)."""
     if (words_b is None) != (mix is None):
         raise ValueError("packed_warp: words_b and mix go together")
     if words_b is None and mat_b is not None:
@@ -137,12 +219,15 @@ def packed_warp(
         mat_b = mat if mat_b is None else _mat_on(mat_b, dev, "packed_warp mat_b")
         mix = _check_mix(mix, dev)
         b_ptr, mat_b_ptr, mix_ptr = words_b.data_ptr(), mat_b.data_ptr(), mix.data_ptr()
+    if branches is not None:
+        check_arg(branches, "packed_warp branches", dev, torch.int64, (2,), align=8)
     out = torch.empty((4, height, width), dtype=torch.float32, device=dev)
     coeffs, g2l = v210_decode_args(col_spec, out_col_spec, dev)
     with torch.cuda.device(dev):
         rc = library().phn_packed_warp(
             words.data_ptr(), b_ptr, mat.data_ptr(), mat_b_ptr, mix_ptr, out.data_ptr(),
-            width, height, groups, coeffs, g2l, stream_handle(dev),
+            width, height, groups, coeffs, g2l, None if branches is None else branches.data_ptr(),
+            stream_handle(dev),
         )
     check_launch(rc, "packed_warp")
     packed_warp.launches += 1

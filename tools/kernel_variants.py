@@ -4,7 +4,7 @@ sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate]
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4]
 
 - k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
   random words and on the fill_buf ramp: tools/k1_variants.cu in its two
@@ -82,6 +82,38 @@ Run from the repository root on a machine with a CUDA GPU:
   the window/direct (tile, source) counts of the built source.  The old
   mapping whole in both blocks, every ROTATE_VARIANTS build and the
   direct-only build must equal rotate_plain (max |delta| 0).
+- b6: the packed warp (B6) at the entry frame's shape (1920x1080, a
+  shared-matrix dissolve pair of the fill_buf ramp and seeded random
+  words at scale 0.95, mix 0.5), a distinct-matrix pair and a single
+  warp.  tools/b6_variants.cu: the old mapping (one thread an output
+  pixel, every valid tap decoded where it is used) whole, with its stores
+  only, with each tap's RGB made from its position in place of its load
+  and decode, and without the gamma'->linear gather.  csrc/packed_warp.cu
+  (each tile's windows decoded once into shared memory) built with other
+  tile rows, block rows, window sizes and blocks per SM (B6_VARIANTS),
+  without the windows (every tile decoded at each tap), without its
+  all-taps-inside path, with gamma'->linear from MUFU approximations
+  moved by csrc/fused_v210.cu's correction bytes (read through L1) and
+  with the table index rounded by one conversion, and, timed only,
+  without the gather, without the windows' decode and with one tap a
+  channel (B6_DIAGNOSTICS); with the window/direct (tile, source) counts
+  of the built source.  The old mapping whole, every B6_VARIANTS build
+  and the held diagnostics must equal packed_warp_plain (max |delta| 0).
+- k4: the axis-aligned warp (K4) at 1920x1080: the 3-channel dissolve
+  pair (scale 0.9, the record), the 4-channel pair, the 4-channel wipe
+  pair, a pair under two matrices, a single warp at scale 0.95 (the keyed
+  frame's graphic), the media channel's picture in picture
+  (a 4-channel dissolve at scale 0.5), and the 4-channel wipe pair at
+  3840x2160 (the wipe frame's).  tools/warp_variants.cu: the old mapping
+  (one thread a pixel, its own taps, channels and mode at run time) whole,
+  with its stores only, and with each tap's value made from its position
+  in place of its load.  csrc/warp.cu (the same mapping, channels and
+  mode template constants) built with other block shapes (K4_VARIANTS).
+  tools/warp_windows.cu, the windowed design (taps once a tile, each
+  source's window copied into shared memory with cp.async), whole, with
+  its window/direct (tile, source) counts; and torch's grid_sample (matrix
+  a, no mix).  The old mapping whole, every K4_VARIANTS build and the
+  windowed design must equal warp_plain (max |delta| 0).
 
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
@@ -104,7 +136,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate")
+SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4")
 # K5 over words: name -> {constant: value}; two windows of 3 float32 a
 # texel must stay within the kernel's shared memory
 K5_VARIANTS = {
@@ -226,6 +258,81 @@ HELD_ROTATE = ("direct only",)
 ROTATE_OLD_PARTS = ("whole", "stores only", "taps from the position", "whole, 16x16 blocks of 8x4 warps")
 ROTATE_OLD_HELD = (0, 3)
 
+# B6 packed_warp: tile rows, block rows, window size and blocks per SM;
+# parts taken out
+B6_VARIANTS = {
+    "1 block row, 4 blocks": dict(kThreadRows=1, kBlocksPerSm=4),
+    "4 block rows, 2 blocks": dict(kThreadRows=4, kBlocksPerSm=2),
+    "4 blocks": dict(kBlocksPerSm=4),
+    "rows 8, 4 block rows, 2 blocks": dict(kTileRows=8, kThreadRows=4, kWindowTexels=3072, kBlocksPerSm=2),
+    "rows 2": dict(kTileRows=2, kWindowTexels=1152, kBlocksPerSm=4),
+}
+B6_INSIDE_ONE_TAP = ("      v[c] = c0 * (1.0f - t.fx) + c1 * t.fx;", "      v[c] = q[c][0];")
+B6_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
+    "direct only": {"packed_warp.cu": [("    src[s].fits = sp.win.texels() <= kWindowTexels;", "    src[s].fits = false;")]},
+    "no inside path": {"packed_warp.cu": [("  if (s.fits && s.inside) {", "  if (false) {")]},
+    "no gather": {"phn_common.cuh": [K5_DIAGNOSTICS["no gather"]]},
+    "no decode": {"packed_warp.cu": [("      phn::decode_v210(d, q, p, rgb);",
+                                      "      rgb[0] = rgb[1] = rgb[2] = __int_as_float(q.x + p);")]},
+    "one tap": {"phn_common.cuh": [ONE_TAP], "packed_warp.cu": [B6_INSIDE_ONE_TAP]},
+}
+# gamma'->linear from two MUFU operations moved to the table's value by a
+# signed byte an index (csrc/fused_v210.cu's g2l_approx and corrections),
+# the bytes in device memory, read through L1; b6_set_g2l (appended to the
+# variant) copies them and the transfer's constants in
+B6_G2L_HELPERS = """constexpr int kBlocksPerSm = 3;
+__device__ float g2l_consts[6];  // inv_max, thr, inv_delta, a1, inv_alpha, inv_gamma
+__device__ signed char g2l_corr[65536];
+__device__ __forceinline__ float g2l_corrected(int i) {
+  const float fi = static_cast<float>(i) * g2l_consts[0];
+  float r;
+  if (fi < g2l_consts[1]) {
+    r = fi * g2l_consts[2];
+  } else {
+    float l;
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"((fi + g2l_consts[3]) * g2l_consts[4]));
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(g2l_consts[5] * l));
+  }
+  return __int_as_float(__float_as_int(r) + g2l_corr[i]);
+}"""
+B6_G2L_DECODE = """      {
+        unsigned yc, cbc, crc;
+        phn::v210_fields(q, p, yc, cbc, crc);
+        const float yf = static_cast<float>(yc), uf = static_cast<float>(cbc), vf = static_cast<float>(crc);
+        float lin[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          lin[c] = g2l_corrected(phn::u16_sat_rte((d.col[4 * c] * yf + d.col[4 * c + 1] * uf + d.col[4 * c + 2] * vf +
+                                                   d.col[4 * c + 3]) * 65535.0f));
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          rgb[c] = d.gamut[3 * c] * lin[0] + d.gamut[3 * c + 1] * lin[1] + d.gamut[3 * c + 2] * lin[2];
+      }"""
+B6_G2L_SETTER = """}  // namespace
+
+extern "C" int b6_set_g2l(const void* corr, const float* consts) {
+  cudaError_t err = cudaMemcpyToSymbol(g2l_corr, corr, 65536, 0, cudaMemcpyDeviceToDevice);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g2l_consts, consts, 6 * sizeof(float));
+  return static_cast<int>(err);
+}"""
+B6_DIAGNOSTICS["g2l approximation"] = {"packed_warp.cu": [
+    ("constexpr int kBlocksPerSm = 3;", B6_G2L_HELPERS),
+    ("      phn::decode_v210(d, q, p, rgb);", B6_G2L_DECODE),
+    ("}  // namespace", B6_G2L_SETTER)]}
+B6_DIAGNOSTICS["one-instruction index"] = {"phn_common.cuh": [
+    ("  return static_cast<int>(fminf(fmaxf(rintf(x), 0.0f), 65535.0f));",
+     '  unsigned short r;\n  asm("cvt.rni.u16.f32 %0, %1;" : "=h"(r) : "f"(x));\n  return r;')]}
+HELD_B6 = ("direct only", "no inside path", "g2l approximation", "one-instruction index")
+B6_OLD_PARTS = ("whole", "stores only", "taps from the position", "no gather")
+B6_OLD_HELD = (0,)
+# K4 warp: block shapes
+K4_VARIANTS = {
+    "32x4 blocks": dict(kBlockH=4),
+    "32x16 blocks": dict(kBlockH=16),
+    "64x4 blocks": dict(kBlockW=64, kBlockH=4),
+}
+K4_OLD_PARTS = ("whole", "stores only", "taps from the position")
+K4_OLD_HELD = (0,)
 
 def set_consts(text: str, consts: dict) -> str:
     for const, value in consts.items():
@@ -265,6 +372,11 @@ def build(out: Path, sections) -> dict:
         jobs["b3 old"] = ROOT / "tools" / "b3_variants.cu"
     if "rotate" in sections:
         jobs["rotate old"] = ROOT / "tools" / "rotate_variants.cu"
+    if "b6" in sections:
+        jobs["b6 old"] = ROOT / "tools" / "b6_variants.cu"
+    if "k4" in sections:
+        jobs["k4 old"] = ROOT / "tools" / "warp_variants.cu"
+        jobs["k4 windows"] = ROOT / "tools" / "warp_windows.cu"
     slug = lambda name: name.replace(" ", "_").replace(",", "")
     for section, cu, variants, diagnostics in (
             ("k5", "packed_composite.cu", K5_VARIANTS,
@@ -272,7 +384,9 @@ def build(out: Path, sections) -> dict:
             ("yadif", "yadif.cu", YADIF_VARIANTS, {n: {"yadif.cu": e} for n, e in YADIF_DIAGNOSTICS.items()}),
             ("rgb3", "packed_composite.cu", RGB3_VARIANTS, RGB3_DIAGNOSTICS),
             ("b3", "fused_v210.cu", B3_VARIANTS, B3_DIAGNOSTICS),
-            ("rotate", "rotate.cu", ROTATE_VARIANTS, ROTATE_DIAGNOSTICS)):
+            ("rotate", "rotate.cu", ROTATE_VARIANTS, ROTATE_DIAGNOSTICS),
+            ("b6", "packed_warp.cu", B6_VARIANTS, B6_DIAGNOSTICS),
+            ("k4", "warp.cu", K4_VARIANTS, {})):
         if section not in sections:
             continue
         for name, consts in variants.items():
@@ -570,6 +684,146 @@ def section_rotate(torch, dev, rng, libs, card) -> list:
     return bad
 
 
+def section_b6(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    W, H = cs.W, cs.H
+    old = ctypes.CDLL(str(libs["b6 old"])).b6_old_mapping
+    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_packed_warp"][:-2]) + [ctypes.c_void_p]
+    lib = {"built": _build.library(), **{n: Lib(libs[f"b6 {n}"], "phn_packed_warp")
+                                         for n in (*B6_VARIANTS, *B6_DIAGNOSTICS)}}
+    setter = ctypes.CDLL(str(libs["b6 g2l approximation"])).b6_set_g2l
+    setter.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    corr = K.fused_v210_corrections_on("709", "709", dev)
+    torch.cuda.synchronize()
+    if setter(corr[65536:].data_ptr(), ctypes.addressof(K._g2l_consts("709"))):
+        raise RuntimeError("b6_set_g2l failed")
+    a, b = to_tensor(v210.fill_buf(W, H)[0], dev), to_tensor(cs.random_words(rng, W, H), dev)
+    m = to_tensor(transform_matrix(W, H, scale_x=0.95, scale_y=0.95, offset_x=0.025), dev)
+    mb = to_tensor(transform_matrix(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05), dev)
+    mix = torch.tensor([0.5], device=dev)
+    cases = {"entry shape: shared-matrix pair, scale 0.95, ramp and random words (the record)": (a, m, W, H, b, mix),
+             "distinct-matrix pair (0.95 and 0.8 x 0.85)": (a, m, W, H, b, mix, mb),
+             "single, random words": (b, m, W, H)}
+    coeffs, g2l = K.v210_decode_args("709", "709", dev)
+    groups = v210.pitch(W) // 6
+    ptr = lambda t: None if t is None else t.data_ptr()
+    bad = []
+    for label, args in cases.items():
+        want = PW.packed_warp_plain(*args)
+        same = lambda got: float((got - want).abs().max()) == 0.0
+        wa, wm, _, _, wb, wmix, wmb = (*args, None, None, None)[:7]
+        wmb = wm if wb is not None and wmb is None else wmb
+        out = torch.empty_like(want)
+        times = []
+        for part, part_name in enumerate(B6_OLD_PARTS):
+            call = lambda: old(part, wa.data_ptr(), ptr(wb), wm.data_ptr(), ptr(wmb), ptr(wmix), out.data_ptr(), W, H,
+                               groups, coeffs, g2l, torch.cuda.current_stream(dev).cuda_stream)
+            if part in B6_OLD_HELD:
+                out.zero_()
+                call()
+                if not same(out):
+                    bad.append(f"B6 old mapping {part_name}, {label}")
+            times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+        print(f"packed_warp {label}, old mapping (a thread a pixel, a decode a tap) on {card}: ms " + "; ".join(times))
+
+        def check(name):
+            return (name in B6_DIAGNOSTICS and name not in HELD_B6) or same(PW.packed_warp(*args))
+
+        new, wrong = timed(torch, PW, lib, lambda: PW.packed_warp(*args), check)
+        bad += [f"B6 {n}, {label}" for n in wrong]
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        PW.packed_warp(*args, branches=counts)
+        print(f"packed_warp {label}, new mapping (decoded windows) on {card}: ms "
+              + "; ".join(f"{n} {t:.4f}" for n, t in new.items())
+              + f"; window/direct (tile, source) pairs of the built source {counts.tolist()}")
+    return bad
+
+
+def section_k4(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import warp as warp_mod
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+
+    old = ctypes.CDLL(str(libs["k4 old"])).warp_old_mapping
+    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_warp"][:-2]) + [ctypes.c_void_p]
+    windows = ctypes.CDLL(str(libs["k4 windows"])).warp_windows
+    windows.argtypes = list(_build._SIGNATURES["phn_warp"][:-1]) + [ctypes.c_void_p, ctypes.c_void_p]
+    lib = {"built": _build.library(), **{n: Lib(libs[f"k4 {n}"], "phn_warp") for n in K4_VARIANTS}}
+    frame = lambda c, w, h: torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev)
+    mat = lambda w, h, **kw: to_tensor(transform_matrix(w, h, **kw), dev)
+    W, H, UW, UH = cs.W, cs.H, cs.UHD_W, cs.UHD_H
+    a3, b3, a4, b4 = frame(3, W, H), frame(3, W, H), frame(4, W, H), frame(4, W, H)
+    mask = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(dev)
+    ua, ub = frame(4, UW, UH), frame(4, UW, UH)
+    umask = torch.from_numpy(rng.random((UH, UW), dtype=np.float32)).to(dev)
+    m9 = mat(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.05)
+    mix = torch.tensor([0.45], device=dev)
+    cases = {
+        "3-channel dissolve pair, scale 0.9, 1920x1080 (the record)": (
+            (a3, mat(W, H, scale_x=0.9, scale_y=0.9, offset_x=0.02), b3, mix), {}),
+        "4-channel dissolve pair, 1920x1080": ((a4, mat(W, H, scale_x=0.9, offset_x=0.05), b4, mix), {}),
+        "4-channel wipe pair, one matrix, 1920x1080": ((a4, m9, b4), dict(mask=mask)),
+        "4-channel dissolve pair, two matrices, 1920x1080": (
+            (a4, m9, b4, mix, mat(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05)), {}),
+        "4-channel single, scale 0.95, 1920x1080 (the keyed frame's graphic)": (
+            (a4, mat(W, H, scale_x=0.95, scale_y=0.95)), {}),
+        "4-channel picture in picture, scale 0.5, dissolve, 1920x1080 (media path)": (
+            (a4, mat(W, H, **cs.MEDIA_DVE), b4, mix), {}),
+        "4-channel wipe pair, one matrix, 3840x2160 (wipe path)": (
+            (ua, mat(UW, UH, scale_x=0.9, scale_y=0.9, offset_x=0.05), ub), dict(mask=umask)),
+    }
+    ptr = lambda t: None if t is None else t.data_ptr()
+    bad = []
+    for label, (args, kw) in cases.items():
+        want = warp_mod.warp_plain(*args, **kw)
+        same = lambda got: float((got - want).abs().max()) == 0.0
+        a, m, b, mx, mb = (*args, None, None, None)[:5]
+        c, h, w = a.shape
+        out = torch.empty_like(want)
+        times = []
+        for part, part_name in enumerate(K4_OLD_PARTS):
+            call = lambda: old(part, a.data_ptr(), ptr(b), m.data_ptr(), ptr(mb), ptr(mx), ptr(kw.get("mask")),
+                               out.data_ptr(), c, h, w, torch.cuda.current_stream(dev).cuda_stream)
+            if part in K4_OLD_HELD:
+                out.zero_()
+                call()
+                if not same(out):
+                    bad.append(f"K4 old mapping {part_name}, {label}")
+            times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+        print(f"warp {label}, old mapping (a thread a pixel) on {card}: ms " + "; ".join(times))
+
+        # the windowed design, held and timed before and after the built
+        # kernel and its variants (the better of the two kept)
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        call = lambda br: windows(a.data_ptr(), ptr(b), m.data_ptr(), ptr(mb), ptr(mx), ptr(kw.get("mask")),
+                                  out.data_ptr(), c, h, w, ptr(br), torch.cuda.current_stream(dev).cuda_stream)
+        out.zero_()
+        if call(counts):
+            raise RuntimeError("warp_windows failed to launch")
+        if not same(out):
+            bad.append(f"K4 windowed design, {label}")
+        win_ms = cs.device_ms(torch, lambda: call(None), batches=5, calls=5)
+        new, wrong = timed(torch, warp_mod, lib, lambda: warp_mod.warp(*args, **kw),
+                           lambda name: same(warp_mod.warp(*args, **kw)))
+        bad += [f"K4 {n}, {label}" for n in wrong]
+        win_ms = min(win_ms, cs.device_ms(torch, lambda: call(None), batches=5, calls=5))
+        gs = cs.grid_sample_args(torch, [a] + ([b] if b is not None else []), m)
+        gs_ms = cs.device_ms(torch, lambda: torch.nn.functional.grid_sample(
+            *gs, mode="bilinear", padding_mode="zeros", align_corners=False))
+        print(f"warp {label}, built (a thread a pixel, channels and mode constants) on {card}: ms "
+              + "; ".join(f"{n} {t:.4f}" for n, t in new.items())
+              + f"; windowed design {win_ms:.4f}, its window/direct (tile, source) pairs {counts.tolist()}"
+              f"; grid_sample {gs_ms:.4f} (matrix a, no mix)")
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -587,7 +841,7 @@ def main() -> int:
     libs = build(ROOT / "build" / "variants", sections)
     rng = np.random.default_rng(cs.SEED)
     run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3, "b3": section_b3,
-           "rotate": section_rotate}
+           "rotate": section_rotate, "b6": section_b6, "k4": section_k4}
     bad = []
     for section in sections:
         bad += run[section](torch, dev, rng, libs, card)

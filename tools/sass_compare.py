@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Compare the machine code of each kernel source in two checkouts.
+
+Run from the repository root on a machine with the CUDA toolkit (unpack
+the commit to compare with into a directory that .gitignore lists, as
+for tools/compare_parent.py):
+
+    git archive HEAD~1 | tar -x -C build/parent
+    python3 tools/sass_compare.py build/parent [--change DIR]
+
+Compiles every phaneron_tpu_torch/csrc/*.cu of both checkouts to a cubin
+with that checkout's own flags (ops/_build.py nvcc_flags, without
+ptxas's report), disassembles each with cuobjdump -sass and prints, for
+each source, the two instruction counts and whether the instruction
+streams are the same (addresses, encodings and the per-file names of
+anonymous namespaces left out).  A kernel record that moves between two
+checkouts whose machine code is the same moved by noise.  Cubins go to
+build/sass/.  Exits 1 when a compile or disassembly fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+INSTRUCTION = re.compile(r"\s+/\*[0-9a-f]{4}\*/")
+ANON = re.compile(r"_GLOBAL__N__[0-9A-Za-z_]+")
+
+
+def flags_of(tree: Path) -> list:
+    """The tree's own nvcc flags, without ptxas's resource report."""
+    code = ("import sys; sys.path.insert(0, %r); from phaneron_tpu_torch.ops import _build; "
+            "print(' '.join(_build.nvcc_flags()))") % str(tree)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True).stdout
+    return [f for f in out.split() if f not in ("-Xptxas", "-v")]
+
+
+def instructions(tree: Path, out: Path) -> dict:
+    """source name -> its kernels' instructions, one string each."""
+    from phaneron_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    flags = flags_of(tree)
+    out.mkdir(parents=True, exist_ok=True)
+    code = {}
+    for cu in sorted((tree / "phaneron_tpu_torch" / "csrc").glob("*.cu")):
+        cubin = out / f"{cu.stem}.cubin"
+        subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(cu)], check=True)
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+        code[cu.name] = [ANON.sub("ANON", ln.split(";")[0].strip()) for ln in sass.splitlines()
+                         if INSTRUCTION.match(ln)]
+    return code
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("parent", type=Path)
+    parser.add_argument("--change", type=Path, default=ROOT)
+    args = parser.parse_args()
+    sys.path.insert(0, str(ROOT))
+    try:
+        parent = instructions(args.parent.resolve(), ROOT / "build" / "sass" / "parent")
+        change = instructions(args.change.resolve(), ROOT / "build" / "sass" / "change")
+    except (subprocess.CalledProcessError, RuntimeError) as exc:
+        print(f"sass_compare: {exc}", file=sys.stderr)
+        return 1
+    for name in sorted(set(parent) | set(change)):
+        p, c = parent.get(name), change.get(name)
+        if p is None or c is None:
+            print(f"{name}: only in the {'change' if p is None else 'parent'}")
+            continue
+        print(f"{name}: {len(p)} / {len(c)} instructions, {'same machine code' if p == c else 'differs'}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
