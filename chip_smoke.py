@@ -1158,6 +1158,91 @@ def phase_planar_kernels(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+PLANAR_SWEEP = ((1, 1), (2, 1), (3, 2), (130, 7), (1918, 1080), (1920, 1081), (UHD_W, UHD_H))
+PLANAR_UNALIGNED = ((130, 7), (1920, 1081))
+
+
+def phase_planar_unpack_sweep(torch, dev, rng, rec: dict) -> None:
+    """The planar unpacks (K3/B10: yuv422p8, yuv422p10le; B12: yuv420p,
+    nv12) against their plain versions, max |delta| 0, at every size of
+    PLANAR_SWEEP (a partial last quad, odd widths and heights, the 1918
+    pitch pad, UHD) on seeded random planes and the fill_buf ramps; and
+    with each plane in turn one sample past an aligned address
+    (PLANAR_UNALIGNED), which takes the 4:2:2 kernel's one-load-a-sample
+    path (fresh planes take its vector loads; 4:2:0 loads a sample at a
+    time at any address)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    err = lambda a, b: float((a - b).abs().max())
+    forms = {"yuv422p8": "planar422_unpack", "yuv422p10le": "planar422_unpack", "yuv420p": "planar420_unpack",
+             "nv12": "planar420_unpack"}
+    e = {"planar422_unpack": 0.0, "planar420_unpack": 0.0}
+    cases = {"planar422_unpack": 0, "planar420_unpack": 0}
+    for name, kernel in forms.items():
+        unpack, plain = getattr(K, kernel), getattr(K, kernel + "_plain")
+        for w, h in PLANAR_SWEEP:
+            for planes in (format_planes(rng, name, w, h), get_format(name).fill_buf(w, h)):
+                pt = [to_tensor(x, dev) for x in planes]
+                want = plain(pt, w, h, fmt_name=name)
+                e[kernel] = max(e[kernel], err(unpack(pt, w, h, fmt_name=name), want))
+                cases[kernel] += 1
+                if (w, h) not in PLANAR_UNALIGNED:
+                    continue
+                for i, t in enumerate(pt):
+                    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+                    moved = buf[1:].view(t.shape)
+                    moved.copy_(t)
+                    off = pt[:i] + [moved] + pt[i + 1:]
+                    e[kernel] = max(e[kernel], err(unpack(off, w, h, fmt_name=name), want))
+                    cases[kernel] += 1
+    sizes = ", ".join(f"{w}x{h}" for w, h in PLANAR_SWEEP)
+    for kernel, x in e.items():
+        print(f"{kernel} sweep ({cases[kernel]} cases: {sizes}; random planes and ramps; each plane one sample "
+              f"off its alignment at {PLANAR_UNALIGNED}) max |kernel - plain| = {x:.3e} (<= {TOL_UNPACK})")
+        check(x <= TOL_UNPACK, f"{kernel} sweep error {x}")
+        rec[kernel]["max_abs_err"] = max(rec[kernel]["max_abs_err"], x)
+    torch.cuda.synchronize()
+
+
+# (form, content) at 1920x1080 that a kernel record or a media-path mode
+# already times: K3's and B12's records, the media channel's sources
+PLANAR_TIMED_1080 = {("yuv422p8", "the fill_buf ramp"), ("yuv420p", "the fill_buf ramp"),
+                     ("yuv422p10le", "random planes"), ("nv12", "random planes")}
+
+
+def timed_shapes(torch, dev) -> dict:
+    """label -> (kernel call, plain call, bytes, operations): the timed
+    shapes that need no state of main(), printed beside the records.  Now
+    the planar unpacks in every form at 1920x1080 (but PLANAR_TIMED_1080)
+    and 3840x2160, on seeded random planes and the fill_buf ramps.
+    tools/compare_parent.py times on a parent's kernels the labels that
+    its own timed_shapes lacks."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    rng = np.random.default_rng(SEED + 12)
+    shapes = {}
+    for w, h in ((W, H), (UHD_W, UHD_H)):
+        for name, kernel in (("yuv422p8", "planar422_unpack"), ("yuv422p10le", "planar422_unpack"),
+                             ("yuv420p", "planar420_unpack"), ("nv12", "planar420_unpack")):
+            fmt = get_format(name)
+            sample_bytes = 2 if fmt.INFO.num_bits > 8 else 1
+            samples = (2.0 if name.startswith("yuv422") else 1.5) * h * fmt.pitch(w) * sample_bytes
+            for content, planes in (("random planes", format_planes(rng, name, w, h)),
+                                    ("the fill_buf ramp", fmt.fill_buf(w, h))):
+                if (w, h) == (W, H) and (name, content) in PLANAR_TIMED_1080:
+                    continue
+                args = ([to_tensor(x, dev) for x in planes], w, h, "709", "709", name)
+                fn, plain = getattr(K, kernel), getattr(K, kernel + "_plain")
+                shapes[f"{kernel} ({name}, {w}x{h}, {content})"] = (
+                    lambda fn=fn, args=args: fn(*args), lambda plain=plain, args=args: plain(*args),
+                    samples + 16 * w * h, OPS_DECODE_PX * w * h)
+    return shapes
+
+
 def phase_stage_program_checks(torch, dev, rng) -> None:
     """The stage programs of every format against their plain versions at
     1920x1080: make_unpack_program at channels 3 and 4 (max |delta| 0),
@@ -1807,6 +1892,7 @@ def main() -> int:
     phase_axis_warp_edges(torch, dev, np.random.default_rng(SEED + 9), rec)
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
+    phase_planar_unpack_sweep(torch, dev, np.random.default_rng(SEED + 11), rec)
     phase_stage_program_checks(torch, dev, media_rng)
     multibox_rng = np.random.default_rng(SEED + 6)
     phase_composite_modes(torch, dev, multibox_rng, rec)
@@ -2273,7 +2359,8 @@ def main() -> int:
                       OPS_ENCODE_PX * px, "(3, H, W) in"),
         "planar422_unpack": (call(K.planar422_unpack, rec["planar422_unpack"]["args"]),
                              call(K.planar422_unpack_plain, rec["planar422_unpack"]["args"]),
-                             y422_bytes + rgba, OPS_DECODE_PX * px, "yuv422p8, 4 channels (entry path)"),
+                             y422_bytes + rgba, OPS_DECODE_PX * px,
+                             "yuv422p8, the fill_buf ramp, 1920x1080 (entry path)"),
         "warp": (call(warp_mod.warp, rec["warp"]["rgb3_args"]), call(warp_mod.warp_plain, rec["warp"]["rgb3_args"]),
                  warp_bytes(rec["warp"]["rgb3_args"]), warp_ops(3, 2), "3-channel dissolve pair"),
         "yadif_ring": (call(Y.yadif_ring, rec["yadif_ring"]["args"]), call(Y.yadif_ring_plain, rec["yadif_ring"]["args"]),
@@ -2300,7 +2387,8 @@ def main() -> int:
                            rgb + 2 * 2 * planar_px, OPS_ENCODE_PX * px,
                            "yuv422p10le from the media channel's (4, H, W) frame, 1920x1080 (media path)"),
         "planar420_unpack": (call(K.planar420_unpack, y420_args), call(K.planar420_unpack_plain, y420_args),
-                             1.5 * planar_px + rgba, OPS_DECODE_PX * px, "yuv420p, 1920x1080 (media path)"),
+                             1.5 * planar_px + rgba, OPS_DECODE_PX * px,
+                             "yuv420p, the fill_buf ramp, 1920x1080 (media path)"),
         "planar420_pack": (call(K.planar420_pack, (m_rgba, "nv12")), call(K.planar420_pack_plain, (m_rgba, "nv12")),
                            rgb + 1.5 * planar_px, OPS_ENCODE_420_PX * px,
                            "nv12 from the media channel's (4, H, W) frame, 1920x1080 (file consumer)"),
@@ -2493,17 +2581,20 @@ def main() -> int:
             call(K.planar420_unpack, nv12_args), call(K.planar420_unpack_plain, nv12_args),
             1.5 * planar_px + rgba, OPS_DECODE_PX * px),
     }
+    other.update(timed_shapes(torch, dev))
     modes = {}  # kernel name -> its other shapes and modes, for the kernels line
     for label, (kernel_fn, plain_fn, nbytes, ops, *library) in other.items():
         kernel_ms, plain_ms = best_of_two(torch, kernel_fn, plain_fn, dict(batches=3, calls=2, warmup=1))
         bound_ms, bound_by = bound(nbytes, ops)
-        extra = ""
-        if library:
-            extra = f", grid_sample {device_ms(torch, grid_sample(library[0])):.4f} ms (the same sources, no mix)"
+        library_ms = device_ms(torch, grid_sample(library[0])) if library else None
+        extra = f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library else ""
+        if label.startswith("planar"):
+            extra = f", library {none}"
         print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")
         modes.setdefault(label.split(" ")[0], []).append(dict(
-            shape=label, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            shape=label, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
     errs = rec["composite_modes"]
     for name, (pat, replaces, (args, kw), shape) in mode_records.items():
         kernel_ms, plain_ms = best_of_two(torch, call(PW.packed_composite, args, kw),

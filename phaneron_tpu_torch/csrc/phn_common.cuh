@@ -2,7 +2,7 @@
 // rounding, the transfer functions, the YCbCr decode and encode, the v210
 // word fields and group packing, the axis-aligned bilinear taps, the
 // decode window of a v210 source, the block-wide encode + pack of a row
-// segment and the planar pixel-pair decode and encode.
+// segment, the planar quad decode and the pixel-pair encode.
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
@@ -447,24 +447,74 @@ __device__ __forceinline__ void encode_pack_block(const Encode& e, const float r
   words[static_cast<size_t>(row) * groups + gi] = v210_group(ys + 6 * t, cb + 3 * t, cr + 3 * t);
 }
 
-// The pixel pair x0 = 2k, x0 + 1 of one planar row (luma samples yrow),
-// which shares one Cb and one Cr sample (the 2x nearest chroma upsample):
-// each pixel inside the frame decoded and stored as RGBA with alpha 1 into
-// out's row o, whose channel planes lie `plane` floats apart.
-template <typename T>
-__device__ __forceinline__ void decode_pair(const Decode& d, const T* __restrict__ yrow, int x0,
-                                            int width, float uf, float vf,
-                                            float* __restrict__ o, size_t plane) {
+// ---- the planar unpacks (K3/B10, B12): a thread decodes a quad, the four
+// pixels x0 = 4j .. 4j + 3 of a row, which share the chroma samples 2j and
+// 2j + 1 (the 2x nearest chroma upsample); a warp's 32 quads are 128
+// pixels of a row.  A row's pitch (its width rounded up to 8 samples)
+// holds every sample of its last quad, so a quad's loads never leave the
+// row.
+constexpr int kQuadsPerWarp = 32;
+
+struct Quad {
+  float y[4], cb[2], cr[2];
+};
+
+// kCount (2 or 4) consecutive 8- or 16-bit samples from s: with kVec one
+// load of all of them (s aligned to their size), else one load a sample
+template <typename T, int kCount, bool kVec>
+__device__ __forceinline__ void load_samples(const T* __restrict__ s, float v[kCount]) {
+  constexpr int kBits = 8 * sizeof(T);
+  constexpr unsigned kMask = (1u << kBits) - 1u;
+  if constexpr (kVec && kCount * sizeof(T) == 2) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned short*>(s));
+    v[0] = static_cast<float>(w & kMask);
+    v[1] = static_cast<float>(w >> kBits);
+  } else if constexpr (kVec && kCount * sizeof(T) == 4) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(s));
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int x = x0 + q;
-    if (x >= width) break;
+    for (int i = 0; i < kCount; ++i) v[i] = static_cast<float>((w >> (kBits * i)) & kMask);
+  } else if constexpr (kVec) {  // four 16-bit samples
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(s));
+    v[0] = static_cast<float>(w.x & kMask);
+    v[1] = static_cast<float>(w.x >> kBits);
+    v[2] = static_cast<float>(w.y & kMask);
+    v[3] = static_cast<float>(w.y >> kBits);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCount; ++i) v[i] = static_cast<float>(__ldg(s + i));
+  }
+}
+
+// A quad decoded and stored as RGBA with alpha 1 at o, the quad's first
+// pixel in a row of out, whose channel planes lie `plane` floats apart:
+// with kVec one 16-byte store a plane (o 16-byte aligned, the whole quad
+// inside the frame), else the n (1 .. 4) pixels inside the frame one by
+// one.  Each plane is so written by consecutive lanes on consecutive
+// floats.
+template <bool kVec>
+__device__ __forceinline__ void decode_quad(const Decode& d, const Quad& q, float* __restrict__ o,
+                                            size_t plane, int n) {
+  float c[3][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
     float rgb[3];
-    decode(d, static_cast<float>(yrow[x]), uf, vf, rgb);
-    o[x] = rgb[0];
-    o[plane + x] = rgb[1];
-    o[2 * plane + x] = rgb[2];
-    o[3 * plane + x] = 1.0f;
+    decode(d, q.y[p], q.cb[p >> 1], q.cr[p >> 1], rgb);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k][p] = rgb[k];
+  }
+  if constexpr (kVec) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      *reinterpret_cast<float4*>(o + k * plane) = make_float4(c[k][0], c[k][1], c[k][2], c[k][3]);
+    *reinterpret_cast<float4*>(o + 3 * plane) = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p >= n) break;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[k * plane + p] = c[k][p];
+      o[3 * plane + p] = 1.0f;
+    }
   }
 }
 

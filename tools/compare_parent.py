@@ -15,6 +15,10 @@ A checkout whose chip_smoke.py times kernels eagerly (before device_ms)
 gets this one's device_ms for its kernel records, so both sides time a
 kernel the same way: its launches captured in a CUDA graph and replayed
 between events.
+The labels of this checkout's chip_smoke.timed_shapes that the other
+checkout's lacks (it may have none) are timed on that checkout's
+kernels too, after its chip_smoke.py, and printed as one more
+{"kernels": ...} line.
 Then it prints, for every kernel record and timed mode of the two
 checkouts' {"kernels": ...} lines, the better of each side's two runs
 and the change's ratio to the parent, and exits 1 if any run failed.
@@ -40,26 +44,42 @@ def run_tree(tree: Path) -> int:
     import chip_smoke as cs
 
     if not hasattr(cs, "device_ms"):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location("chip_smoke_here", ROOT / "chip_smoke.py")
-        here = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(here)
+        here = _here()
         cs.best_of_two = here.best_of_two
-    return cs.main()
+    rc = cs.main()
+    if rc or tree == ROOT:
+        return rc
+    import torch
+
+    here, dev = _here(), torch.device("cuda", 0)
+    have = set(cs.timed_shapes(torch, dev)) if hasattr(cs, "timed_shapes") else set()
+    extra = {label: fn for label, (fn, *_) in here.timed_shapes(torch, dev).items() if label not in have}
+    if extra:
+        print(json.dumps({"kernels": [{"name": label, "ms": min(here.device_ms(torch, fn), here.device_ms(torch, fn))}
+                                      for label, fn in extra.items()]}))
+    return rc
+
+
+def _here():
+    """This checkout's chip_smoke.py, loaded beside the run tree's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", ROOT / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    return here
 
 
 def kernel_times(log: str) -> dict:
-    """{record or mode label: ms} from a run's {"kernels": ...} line."""
+    """{record or mode label: ms} from a run's {"kernels": ...} lines."""
+    out = {}
     for line in log.splitlines():
         if line.startswith('{"kernels"'):
-            out = {}
             for r in json.loads(line)["kernels"]:
                 out[r["name"]] = r["ms"]
                 for m in r.get("modes", []):
                     out[m["shape"]] = m["ms"]
-            return out
-    return {}
+    return out
 
 
 def main() -> int:

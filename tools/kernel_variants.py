@@ -4,7 +4,7 @@ sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4]
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4,planar]
 
 - k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
   random words and on the fill_buf ramp: tools/k1_variants.cu in its two
@@ -114,6 +114,25 @@ Run from the repository root on a machine with a CUDA GPU:
   its window/direct (tile, source) counts; and torch's grid_sample (matrix
   a, no mix).  The old mapping whole, every K4_VARIANTS build and the
   windowed design must equal warp_plain (max |delta| 0).
+- planar: the planar unpacks, K3/B10 (yuv422p8, yuv422p10le) and B12
+  (yuv420p, nv12), at 1920x1080 and 3840x2160, on seeded full-range
+  random planes and on the fill_buf ramps.  tools/planar_variants.cu: the
+  old mapping (one thread a pixel pair of one row) whole, with its stores
+  only (a constant decode, no loads), without the gamma'->linear gather
+  (the table index scaled instead) and with its loads and trivial
+  arithmetic (the samples stored as they are); one thread a pixel (K1's
+  mapping), whole.  csrc/planar422_unpack.cu and planar420_unpack.cu (a
+  thread a quad, 16-byte plane stores; 4:2:2 with vector loads, 4:2:0
+  with one load a sample) built with other block rows and rows a thread
+  (PLANAR_VARIANTS), and (PLANAR_DIAGNOSTICS) with one load a sample
+  (4:2:2) or vector loads (4:2:0), with one store a pixel, with the L1 carveout set, with 8 blocks an SM,
+  with 4:2:0's second row loaded after the first is stored, with
+  gamma'->linear from MUFU approximations moved by csrc/fused_v210.cu's
+  correction bytes (read through L1) in every warp or only in warps
+  most of whose quads are rough (alone, with 16 block rows, with 8 blocks
+  an SM), and, timed only, without the gather.  The old mapping and the
+  pixel mapping whole, every PLANAR_VARIANTS build and the held
+  diagnostics must equal the plain version (max |delta| 0).
 
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
@@ -136,7 +155,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4")
+SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4", "planar")
 # K5 over words: name -> {constant: value}; two windows of 3 float32 a
 # texel must stay within the kernel's shared memory
 K5_VARIANTS = {
@@ -333,6 +352,111 @@ K4_VARIANTS = {
 }
 K4_OLD_PARTS = ("whole", "stores only", "taps from the position")
 K4_OLD_HELD = (0,)
+# the planar unpacks: block rows and rows (4:2:0: row pairs) a thread, set
+# in both sources; parts changed or taken out, "unpack" standing for both
+PLANAR_SOURCES = {"planar422": "planar422_unpack.cu", "planar420": "planar420_unpack.cu"}
+PLANAR_VARIANTS = {
+    "4 block rows": dict(kThreadRows=4),
+    "16 block rows": dict(kThreadRows=16),
+    "1 row a thread": dict(kRowsPerThread=1),
+    "2 rows a thread": dict(kRowsPerThread=2),
+    "4 rows a thread": dict(kRowsPerThread=4),
+}
+PLANAR_G2L = ("constexpr unsigned kField = 0x3FFu;  // one 10-bit v210 field",
+              "constexpr unsigned kField = 0x3FFu;\n" + B6_G2L_HELPERS.split("\n", 1)[1])
+PLANAR_G2L_SETTER = """}  // namespace
+
+extern "C" int planar_set_g2l(const void* corr, const float* consts) {
+  cudaError_t err = cudaMemcpyToSymbol(phn::g2l_corr, corr, 65536, 0, cudaMemcpyDeviceToDevice);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phn::g2l_consts, consts, 6 * sizeof(float));
+  return static_cast<int>(err);
+}"""
+PLANAR_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
+    "one load a sample": {"planar422_unpack.cu": [("  const bool vec_loads = vector_loads<T>(y, u, v, y_pitch, c_pitch);",
+                                                   "  const bool vec_loads = false;")]},
+    "4:2:0 vector loads": {"planar420_unpack.cu": [
+        (f"phn::load_samples<uint8_t, {n}, false>", f"phn::load_samples<uint8_t, {n}, true>") for n in (2, 4)]},
+    "one store a pixel": {"unpack": [("  const bool vec_stores = width % 4 == 0;",
+                                      "  const bool vec_stores = false;")]},
+    "g2l approximation": {"phn_common.cuh": [PLANAR_G2L, (
+        "    lin[c] = g2l(d.g2l, gam);", "    lin[c] = g2l_corrected(u16_sat_rte(gam * 65535.0f));")],
+        "unpack": [("}  // namespace", PLANAR_G2L_SETTER)]},
+    "no gather": {"phn_common.cuh": [(
+        "    lin[c] = g2l(d.g2l, gam);",
+        "    lin[c] = static_cast<float>(u16_sat_rte(gam * 65535.0f)) * 1.52590219e-05f;")]},
+}
+PLANAR_GRID = "  const dim3 grid((width + 4 * phn::kQuadsPerWarp - 1) / (4 * phn::kQuadsPerWarp),"
+PLANAR_CARVEOUT = ("  static bool carved = false;\n  if (!carved) {{\n    cudaFuncSetAttribute({}_unpack_kernel<{}>, "
+                   "cudaFuncAttributePreferredSharedMemoryCarveout, {});\n    carved = true;\n  }}\n" + PLANAR_GRID)
+PLANAR_ONE_ROW = ("""    float y1[4];
+    phn::load_samples<uint8_t, 4, false>(y + static_cast<size_t>(row) * y_pitch + x0, q.y);
+    if (second)
+      phn::load_samples<uint8_t, 4, false>(y + static_cast<size_t>(row + 1) * y_pitch + x0, y1);
+    float* o = out + static_cast<size_t>(row) * width + x0;
+    phn::decode_quad<kVecStore>(d, q, o, plane, width - x0);
+    if (second) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) q.y[p] = y1[p];
+      phn::decode_quad<kVecStore>(d, q, o + width, plane, width - x0);
+    }""", """    float* o = out + static_cast<size_t>(row) * width + x0;
+    phn::load_samples<uint8_t, 4, false>(y + static_cast<size_t>(row) * y_pitch + x0, q.y);
+    phn::decode_quad<kVecStore>(d, q, o, plane, width - x0);
+    if (second) {
+      phn::load_samples<uint8_t, 4, false>(y + static_cast<size_t>(row + 1) * y_pitch + x0, q.y);
+      phn::decode_quad<kVecStore>(d, q, o + width, plane, width - x0);
+    }""")
+for name, percent in (("L1 carveout max", 0), ("L1 carveout half", 50)):
+    PLANAR_DIAGNOSTICS[name] = {
+        "planar422_unpack.cu": [(PLANAR_GRID, PLANAR_CARVEOUT.format("planar422", "T, kVecLoad, kVecStore", percent))],
+        "planar420_unpack.cu": [(PLANAR_GRID, PLANAR_CARVEOUT.format("planar420", "kNv12, kVecStore", percent))]}
+PLANAR_DIAGNOSTICS["L1 carveout max, 16 block rows"] = {
+    **PLANAR_DIAGNOSTICS["L1 carveout max"],
+    "unpack": [("constexpr int kThreadRows = 8;", "constexpr int kThreadRows = 16;")]}
+PLANAR_DIAGNOSTICS["8 blocks an SM"] = {"unpack": [("__global__ void __launch_bounds__(kThreads)",
+                                                    "__global__ void __launch_bounds__(kThreads, 8)")]}
+PLANAR_DIAGNOSTICS["4:2:0 rows one by one"] = {"planar420_unpack.cu": [PLANAR_ONE_ROW]}
+# the approximation only in warps most of whose quads are rough (green's
+# index moves more than kRough from a quad's first pixel to its last, as
+# on random planes and not on smooth video), the table's gather elsewhere
+PLANAR_ROUGH = """constexpr int kQuadsPerWarp = 32;
+constexpr float kRough = 4096.0f;
+
+__device__ __forceinline__ void decode_approx(const Decode& d, float yf, float uf, float vf, float rgb[3]) {
+  float lin[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float gam = d.col[4 * c] * yf + d.col[4 * c + 1] * uf + d.col[4 * c + 2] * vf + d.col[4 * c + 3];
+    lin[c] = g2l_corrected(u16_sat_rte(gam * 65535.0f));
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    rgb[c] = d.gamut[3 * c] * lin[0] + d.gamut[3 * c + 1] * lin[1] + d.gamut[3 * c + 2] * lin[2];
+}"""
+PLANAR_DIAGNOSTICS["g2l approximation where rough"] = {
+    "phn_common.cuh": [PLANAR_G2L, ("constexpr int kQuadsPerWarp = 32;", PLANAR_ROUGH), (
+        "  float c[3][4];\n",
+        "  float c[3][4];\n"
+        "  const float g0 = d.col[4] * q.y[0] + d.col[5] * q.cb[0] + d.col[6] * q.cr[0] + d.col[7];\n"
+        "  const float g3 = d.col[4] * q.y[3] + d.col[5] * q.cb[1] + d.col[6] * q.cr[1] + d.col[7];\n"
+        "  const unsigned lanes = __activemask();\n"
+        "  const bool approx =\n"
+        "      2 * __popc(__ballot_sync(lanes, fabsf(g3 - g0) * 65535.0f > kRough)) > __popc(lanes);\n"),
+        ("    decode(d, q.y[p], q.cb[p >> 1], q.cr[p >> 1], rgb);",
+         "    if (approx) decode_approx(d, q.y[p], q.cb[p >> 1], q.cr[p >> 1], rgb);\n"
+         "    else decode(d, q.y[p], q.cb[p >> 1], q.cr[p >> 1], rgb);")],
+    "unpack": [("}  // namespace", PLANAR_G2L_SETTER)]}
+PLANAR_DIAGNOSTICS["g2l approximation where rough, 16 block rows"] = {
+    **PLANAR_DIAGNOSTICS["g2l approximation where rough"],
+    "unpack": [*PLANAR_DIAGNOSTICS["g2l approximation where rough"]["unpack"],
+               ("constexpr int kThreadRows = 8;", "constexpr int kThreadRows = 16;")]}
+PLANAR_DIAGNOSTICS["g2l approximation where rough, 8 blocks an SM"] = {
+    **PLANAR_DIAGNOSTICS["g2l approximation where rough"],
+    "unpack": [*PLANAR_DIAGNOSTICS["g2l approximation where rough"]["unpack"],
+               *PLANAR_DIAGNOSTICS["8 blocks an SM"]["unpack"]]}
+PLANAR_TIMED_ONLY = ("no gather",)  # every other diagnostic must equal the plain version
+PLANAR_OLD_PARTS = ("whole", "stores only", "no gather", "loads, trivial arithmetic")
+PLANAR_OLD_HELD = (0,)
+PLANAR_FORMS = ("yuv422p8", "yuv422p10le", "yuv420p", "nv12")  # the variant file's form numbers
 
 def set_consts(text: str, consts: dict) -> str:
     for const, value in consts.items():
@@ -364,6 +488,7 @@ def build(out: Path, sections) -> dict:
     from phaneron_tpu_torch.ops import _build
 
     jobs = {}
+    slug = lambda name: name.replace(" ", "_").replace(",", "")
     if "k1" in sections:
         jobs["k1"] = ROOT / "tools" / "k1_variants.cu"
     if "yadif" in sections:
@@ -377,7 +502,18 @@ def build(out: Path, sections) -> dict:
     if "k4" in sections:
         jobs["k4 old"] = ROOT / "tools" / "warp_variants.cu"
         jobs["k4 windows"] = ROOT / "tools" / "warp_windows.cu"
-    slug = lambda name: name.replace(" ", "_").replace(",", "")
+    if "planar" in sections:
+        jobs["planar old"] = ROOT / "tools" / "planar_variants.cu"
+        for kind, cu in PLANAR_SOURCES.items():
+            for name, consts in PLANAR_VARIANTS.items():
+                jobs[f"{kind} {name}"] = edited_copy(out / kind / slug(name), cu, consts, {})
+            for name, edits in PLANAR_DIAGNOSTICS.items():
+                mine = {}
+                for f, e in edits.items():
+                    if f in ("unpack", cu, "phn_common.cuh"):
+                        mine.setdefault(cu if f == "unpack" else f, []).extend(e)
+                if mine:  # a diagnostic of the other source only is not built for this one
+                    jobs[f"{kind} {name}"] = edited_copy(out / kind / slug(name), cu, {}, mine)
     for section, cu, variants, diagnostics in (
             ("k5", "packed_composite.cu", K5_VARIANTS,
              {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
@@ -824,6 +960,80 @@ def section_k4(torch, dev, rng, libs, card) -> list:
     return bad
 
 
+def section_planar(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    fns = {"planar422": "phn_planar422_unpack", "planar420": "phn_planar420_unpack"}
+    variant_args = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    old = ctypes.CDLL(str(libs["planar old"]))
+    old.planar_old_mapping.argtypes = [ctypes.c_int] + variant_args
+    old.planar_pixel_mapping.argtypes = variant_args
+    lib = {kind: {"built": _build.library(), **{n: Lib(libs[f"{kind} {n}"], fn)
+                                                for n in (*PLANAR_VARIANTS, *PLANAR_DIAGNOSTICS)
+                                                if f"{kind} {n}" in libs}}
+           for kind, fn in fns.items()}
+    corr = K.fused_v210_corrections_on("709", "709", dev)
+    torch.cuda.synchronize()
+    for kind in fns:
+        for name in ("g2l approximation", "g2l approximation where rough",
+                     "g2l approximation where rough, 16 block rows", "g2l approximation where rough, 8 blocks an SM"):
+            setter = ctypes.CDLL(str(libs[f"{kind} {name}"])).planar_set_g2l
+            setter.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            if setter(corr[65536:].data_ptr(), ctypes.addressof(K._g2l_consts("709"))):
+                raise RuntimeError(f"planar_set_g2l failed ({kind}, {name})")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    bad = []
+    for w, h in ((cs.W, cs.H), (cs.UHD_W, cs.UHD_H)):
+        for form, fmt_name in enumerate(PLANAR_FORMS):
+            kind = "planar420" if form >= 2 else "planar422"
+            unpack = K.planar420_unpack if form >= 2 else K.planar422_unpack
+            plain = K.planar420_unpack_plain if form >= 2 else K.planar422_unpack_plain
+            fmt = get_format(fmt_name)
+            p = fmt.pitch(w)
+            cp = p if fmt_name == "nv12" else p // 2
+            coeffs, g2l = K.decode_args(fmt_name, "709", "709", dev)
+            for content, planes in (("random planes", cs.format_planes(rng, fmt_name, w, h)),
+                                    ("the fill_buf ramp", fmt.fill_buf(w, h))):
+                pt = [to_tensor(x, dev) for x in planes]
+                y, c0, c1 = (*pt, None)[:3]
+                want = plain(pt, w, h, fmt_name=fmt_name)
+                same = lambda got: float((got - want).abs().max()) == 0.0
+                out = torch.empty_like(want)
+                label = f"{fmt_name} {w}x{h}, {content}"
+                stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+                times = []
+                for part, part_name in enumerate(PLANAR_OLD_PARTS):
+                    call = lambda: old.planar_old_mapping(part, form, y.data_ptr(), c0.data_ptr(), ptr(c1),
+                                                          out.data_ptr(), w, h, p, cp, coeffs, g2l, stream())
+                    if part in PLANAR_OLD_HELD:
+                        out.zero_()
+                        call()
+                        if not same(out):
+                            bad.append(f"planar old mapping {part_name}, {label}")
+                    times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+                call = lambda: old.planar_pixel_mapping(form, y.data_ptr(), c0.data_ptr(), ptr(c1), out.data_ptr(),
+                                                        w, h, p, cp, coeffs, g2l, stream())
+                out.zero_()
+                call()
+                if not same(out):
+                    bad.append(f"planar pixel mapping, {label}")
+                times.append(f"a thread a pixel {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+                print(f"planar unpack {label}, old mapping (a thread a pixel pair) on {card}: ms " + "; ".join(times))
+
+                def check(name):
+                    return name in PLANAR_TIMED_ONLY or same(
+                        unpack(pt, w, h, fmt_name=fmt_name))
+
+                new, wrong = timed(torch, K, lib[kind], lambda: unpack(pt, w, h, fmt_name=fmt_name), check)
+                bad += [f"{kind} {n}, {label}" for n in wrong]
+                print(f"planar unpack {label}, new mapping (a thread a quad) on {card}: ms "
+                      + "; ".join(f"{n} {t:.4f}" for n, t in new.items()))
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -841,7 +1051,7 @@ def main() -> int:
     libs = build(ROOT / "build" / "variants", sections)
     rng = np.random.default_rng(cs.SEED)
     run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3, "b3": section_b3,
-           "rotate": section_rotate, "b6": section_b6, "k4": section_k4}
+           "rotate": section_rotate, "b6": section_b6, "k4": section_k4, "planar": section_planar}
     bad = []
     for section in sections:
         bad += run[section](torch, dev, rng, libs, card)
