@@ -59,6 +59,11 @@ Run from the repository root:  python3 chip_smoke.py
    nv12) max |delta| 0; planar422_pack (B11, 8 and 10 bit) and
    planar420_pack (B13, yuv420p and nv12) <= 1 code on random RGBA (C 4
    and 3) and pack(unpack(fill_buf)) == fill_buf bit-exact, pad included;
+   the planar unpacks and packs swept from 1x1 to 3840x2160 (partial
+   quads, a width not a multiple of 4, odd heights; C 3 and 4 into the
+   packs, random and ramps; each plane, or the RGB frame, one sample off
+   its alignment at two sizes), the unpacks max |delta| 0, the packs'
+   max code delta printed (<= 1, expected 0);
    and the stage programs of every format against their plain versions:
    make_unpack_program at channels 3 and 4 (max |delta| 0),
    make_pack_program, make_interlaced_pack_program("yuv420p") and
@@ -74,7 +79,8 @@ Run from the repository root:  python3 chip_smoke.py
    the packed composite's launches are also split by mode (source kind,
    emit, alpha) from the frame program's calls that raised its count, and
    the pipeline's torch combine and alpha fix-up calls are counted, and
-   no frame may build fused_v210's transfer corrections:
+   no frame may build fused_v210's transfer corrections or the packs'
+   l2g corrections:
    - entry: the entry() structure (a v210 dissolve with an axis-aligned
      DVE under a yuv422p8 layer) at 1920x1080 over 50 frames, mix
      ramping 0 -> 1 and the DVE scale animating 0.90 -> 1.0: one
@@ -114,7 +120,9 @@ Run from the repository root:  python3 chip_smoke.py
      a yuv420p clip under a picture-in-picture DVE dissolving to an nv12
      clip under the same matrix, a keyed rgba8 lower third; yuv422p10le
      out with emit_rgba, the rgba frame packed by the preview (rgba8,
-     sRGB) and file (nv12) consumer stage programs.  A frame: 1
+     sRGB) and file (nv12) consumer stage programs; at 1080p the l2g
+     corrections are dropped first and the program's prepare(), called
+     twice, must build them once.  A frame: 1
      planar422_unpack (10 bit), 2 planar420_unpack, 1 warp pair, torch
      ops for the rgba8 decode and the combine, 1 planar422_pack, then 1
      planar420_pack and the rgba8 pack in torch ops; every plane <= 1 code
@@ -1206,19 +1214,84 @@ def phase_planar_unpack_sweep(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_planar_pack_sweep(torch, dev, rng, rec: dict) -> None:
+    """The planar packs (B11: yuv422p8, yuv422p10le; B13: yuv420p, nv12)
+    against their plain versions at every size of PLANAR_SWEEP (a partial
+    last quad, a width not a multiple of 4 and the 1918 pitch pad, odd
+    heights, UHD) on seeded random RGBA in [-0.05, 1.05] (C 4 and 3) and
+    the decoded fill_buf ramps (whose round trip must be bit-exact, but at
+    an odd 4:2:2 width, where fill_buf fills the last pair's missing pixel
+    and the pack writes it black); and
+    at PLANAR_UNALIGNED with the RGB frame one float past a 16-byte
+    boundary, which takes the kernels' one-load-a-pixel path (fresh frames
+    of a width that is a multiple of 4 take the 16-byte loads).  Prints
+    the max code delta (<= TOL_CODES; the kernels' powf-exact transfer
+    makes it the plain version's own rounding differences only)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    forms = {"yuv422p8": "planar422", "yuv422p10le": "planar422", "yuv420p": "planar420", "nv12": "planar420"}
+    d = {"planar422_pack": 0, "planar420_pack": 0}
+    cases = {"planar422_pack": 0, "planar420_pack": 0}
+    for name, kind in forms.items():
+        pack, plain = getattr(K, kind + "_pack"), getattr(K, kind + "_pack_plain")
+        unpack = getattr(K, kind + "_unpack")
+        fmt = get_format(name)
+        for w, h in PLANAR_SWEEP:
+            fill = fmt.fill_buf(w, h)
+            ramp = unpack([to_tensor(x, dev) for x in fill], w, h, fmt_name=name)
+            if w % 2 == 0 or kind == "planar420":  # an odd 4:2:2 width's fill_buf fills the missing pixel
+                same = all(np.array_equal(g.cpu().numpy(), f) for g, f in zip(pack(ramp, name), fill))
+                check(same, f"{name} pack sweep: round trip at {w}x{h}")
+            rgba = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+            frames = [ramp, rgba, rgba[:3].contiguous()]
+            if (w, h) in PLANAR_UNALIGNED:
+                buf = torch.empty(rgba.numel() + 1, dtype=torch.float32, device=dev)
+                moved = buf[1:].view(rgba.shape)
+                moved.copy_(rgba)
+                frames.append(moved)
+            for x in frames:
+                d[pack.__name__] = max(d[pack.__name__], plane_delta(torch, pack(x, name), plain(x, name)))
+                cases[pack.__name__] += 1
+    sizes = ", ".join(f"{w}x{h}" for w, h in PLANAR_SWEEP)
+    for kernel, x in d.items():
+        print(f"{kernel} sweep ({cases[kernel]} cases: {sizes}; random RGBA, C 4 and 3, and the decoded ramps, "
+              f"round trips bit-exact; the frame one float off its alignment at {PLANAR_UNALIGNED}) max code delta "
+              f"vs plain = {x} (<= {TOL_CODES})")
+        check(x <= TOL_CODES, f"{kernel} sweep code delta {x}")
+        rec[kernel]["max_abs_err"] = max(rec[kernel]["max_abs_err"], float(x))
+    torch.cuda.synchronize()
+
+
+def media_frame(torch, dev, w: int, h: int):
+    """The media channel's composited (4, H, W) frame at mix 0.5 (seeded
+    inputs, as media_spec_params makes them): what its packs (B11 into
+    yuv422p10le, B13 into nv12) read."""
+    from phaneron_tpu_torch.graph.pipeline import make_channel_program
+
+    spec, params = media_spec_params(torch, dev, np.random.default_rng(SEED + 5), w, h)
+    media_animate(torch, params, dev, 0.5)
+    return make_channel_program(spec)(params)["rgba"]
+
+
 # (form, content) at 1920x1080 that a kernel record or a media-path mode
 # already times: K3's and B12's records, the media channel's sources
 PLANAR_TIMED_1080 = {("yuv422p8", "the fill_buf ramp"), ("yuv420p", "the fill_buf ramp"),
                      ("yuv422p10le", "random planes"), ("nv12", "random planes")}
+# the packs' records: (form, content) at 1920x1080
+PACK_TIMED_1080 = {("yuv422p10le", "the media frame"), ("nv12", "the media frame")}
 
 
 def timed_shapes(torch, dev) -> dict:
     """label -> (kernel call, plain call, bytes, operations): the timed
     shapes that need no state of main(), printed beside the records.  Now
     the planar unpacks in every form at 1920x1080 (but PLANAR_TIMED_1080)
-    and 3840x2160, on seeded random planes and the fill_buf ramps.
-    tools/compare_parent.py times on a parent's kernels the labels that
-    its own timed_shapes lacks."""
+    and 3840x2160, on seeded random planes and the fill_buf ramps; and the
+    planar packs in every form at both sizes (but PACK_TIMED_1080), C 4,
+    on seeded random RGBA, the decoded fill_buf ramp and the media
+    channel's frame (media_frame).  tools/compare_parent.py times on a
+    parent's kernels the labels that its own timed_shapes lacks."""
     from phaneron_tpu_torch.graph.convert import to_tensor
     from phaneron_tpu_torch.ops import kernels as K
     from phaneron_tpu_torch.ops.formats import get_format
@@ -1240,6 +1313,25 @@ def timed_shapes(torch, dev) -> dict:
                 shapes[f"{kernel} ({name}, {w}x{h}, {content})"] = (
                     lambda fn=fn, args=args: fn(*args), lambda plain=plain, args=args: plain(*args),
                     samples + 16 * w * h, OPS_DECODE_PX * w * h)
+        media = media_frame(torch, dev, w, h)
+        for name, kind in (("yuv422p8", "planar422"), ("yuv422p10le", "planar422"), ("yuv420p", "planar420"),
+                           ("nv12", "planar420")):
+            fmt = get_format(name)
+            sample_bytes = 2 if fmt.INFO.num_bits > 8 else 1
+            c_rows = h if kind == "planar422" else (h + 1) // 2
+            samples = (h + c_rows) * fmt.pitch(w) * sample_bytes
+            ops = (OPS_ENCODE_PX if kind == "planar422" else OPS_ENCODE_420_PX) * w * h
+            unpack = getattr(K, kind + "_unpack")
+            ramp = unpack([to_tensor(x, dev) for x in fmt.fill_buf(w, h)], w, h, "709", "709", name)
+            rgba = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+            for content, frame in (("random RGBA", rgba), ("the decoded fill_buf ramp", ramp),
+                                   ("the media frame", media)):
+                if (w, h) == (W, H) and (name, content) in PACK_TIMED_1080:
+                    continue
+                fn, plain = getattr(K, kind + "_pack"), getattr(K, kind + "_pack_plain")
+                shapes[f"{kind}_pack ({name}, {w}x{h}, {content})"] = (
+                    lambda fn=fn, x=frame, name=name: fn(x, name), lambda plain=plain, x=frame, name=name: plain(x, name),
+                    12 * w * h + samples, ops)
     return shapes
 
 
@@ -1893,6 +1985,7 @@ def main() -> int:
     media_rng = np.random.default_rng(SEED + 5)  # the earlier paths keep their inputs
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_planar_unpack_sweep(torch, dev, np.random.default_rng(SEED + 11), rec)
+    phase_planar_pack_sweep(torch, dev, np.random.default_rng(SEED + 13), rec)
     phase_stage_program_checks(torch, dev, media_rng)
     multibox_rng = np.random.default_rng(SEED + 6)
     phase_composite_modes(torch, dev, multibox_rng, rec)
@@ -1956,11 +2049,13 @@ def main() -> int:
         by_mode_now.clear()
         for name in tail_calls:
             tail_calls[name] = 0
-        tables = K.fused_v210_corrections_on.launches
+        tables = K.fused_v210_corrections_on.launches, K.l2g_corrections_on.launches
         fn()
         torch.cuda.synchronize()
-        check(K.fused_v210_corrections_on.launches == tables,
+        check(K.fused_v210_corrections_on.launches == tables[0],
               f"{path}: a frame built fused_v210's transfer corrections (the program's prepare() builds them)")
+        check(K.l2g_corrections_on.launches == tables[1],
+              f"{path}: a frame built the l2g corrections (the program's prepare() builds them)")
         for k, w in wrappers.items():
             launches[k][path] = w.launches
         mode_launches[path] = dict(by_mode_now)
@@ -2169,6 +2264,13 @@ def main() -> int:
         mspec, mparams = media_spec_params(torch, dev, media_rng, w, h)
         media, plain_media = MediaChannel(mspec, plain=False), MediaChannel(mspec, plain=True)
         path = f"media_{w}x{h}"
+        if (w, h) == (W, H):  # the program's prepare() builds the packs' l2g corrections, once
+            K.l2g_corrections_on.cache_clear()
+            built = K.l2g_corrections_on.launches
+            media.program.prepare(dev)
+            media.program.prepare(dev)
+            check(K.l2g_corrections_on.launches == built + 1,
+                  f"{path}: prepare() launched the l2g corrections {K.l2g_corrections_on.launches - built} times")
 
         def media_path():
             t0 = time.perf_counter()

@@ -26,8 +26,9 @@
 // every index is known in advance.  The kernel computes linear->gamma'
 // with two MUFU operations (ex2 and lg2 of the formula) and moves the
 // result's bits by a signed byte a table index, the difference to powf's
-// bits, which phn_fused_v210_corrections computes on the card with the
-// same instructions: equal to powf, and so to K2, to the bit.
+// bits, which phn_l2g_corrections (csrc/l2g_corrections.cu) computes on
+// the card with the same instructions: equal to powf, and so to K2, to the
+// bit.
 // gamma'->linear is a gather from the g2l table, cheap where a warp's
 // indices lie close together (video, and the L1 cache holds their part of
 // the 256 KB table) and slow where they do not (full-range random words);
@@ -44,10 +45,18 @@
 
 namespace {
 
+// the transfers' shared helpers (phn_common.cuh: linear->gamma' without
+// powf)
+using phn::index_of;
+using phn::kTable;
+using phn::l2g_corrected;
+using phn::moved;
+using phn::pow_approx;
+using phn::u16_rte;
+
 constexpr int kRows = 32;  // tile rows; a block is 32 x kRows threads
 constexpr int kBlocksPerSm = 1;
 constexpr int kThreads = phn::kGroupsPerBlock * kRows;
-constexpr int kTable = 65536;  // table indices: one signed byte each
 constexpr int kSmemBytes = 2 * kTable;  // l2g corrections, then g2l corrections
 constexpr int kGatherSpan = 8192;  // a warp gathers g2l when its indices span at most this many
 
@@ -58,43 +67,10 @@ struct G2L {
   float inv_max, thr, inv_delta, a1, inv_alpha, inv_gamma;
 };
 
-// phn::u16_sat_rte (round half to even, clamp to [0, 65535], NaN to 0) in
-// one conversion
-__device__ __forceinline__ int u16_rte(float x) {
-  unsigned short r;
-  asm("cvt.rni.u16.f32 %0, %1;" : "=h"(r) : "f"(x));
-  return r;
-}
-
-// The table index of a transfer's argument x: u16_sat_rte(x * 65535)
-__device__ __forceinline__ int index_of(float x) { return u16_rte(x * 65535.0f); }
-
-// x ** y for x in (0, 1] before its correction: 2 ** (y * log2 x) by the
-// MUFU unit's approximations (normal arguments and results here, so
-// flushing denormals changes nothing)
-__device__ __forceinline__ float pow_approx(float x, float y) {
-  float l, r;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(x));
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y * l));
-  return r;
-}
-
-__device__ __forceinline__ float moved(float approx, const signed char* corr, int i) {
-  return __int_as_float(__float_as_int(approx) + corr[i]);
-}
-
 __device__ __forceinline__ float g2l_approx(const G2L& g, int i) {
   const float fi = static_cast<float>(i) * g.inv_max;
   if (fi < g.thr) return fi * g.inv_delta;
   return pow_approx((fi + g.a1) * g.inv_alpha, g.inv_gamma);
-}
-
-// phn::l2g, its powf from pow_approx and the index's correction
-__device__ __forceinline__ float l2g_corrected(const phn::L2G& g, const signed char* corr, float x) {
-  const int i = index_of(x);
-  const float fi = static_cast<float>(i) * g.inv_max;
-  if (fi < g.beta) return fi * g.delta;
-  return g.alpha * moved(pow_approx(fi, g.gamma), corr, i) - g.alpha_m1;
 }
 
 // gamma' of channel c from the codes, in phn::decode's expressions, but
@@ -200,45 +176,31 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-// The signed byte that moves an approximation's bits to the exact value's;
-// *bad counts the indices whose difference a byte cannot hold
-__device__ __forceinline__ signed char correction(float exact, float approx, int* bad) {
-  const int diff = __float_as_int(exact) - __float_as_int(approx);
-  if (diff >= -128 && diff <= 127) return static_cast<signed char>(diff);
-  atomicAdd(bad, 1);
-  return 0;
-}
-
-// corr[0, kTable): linear->gamma', bits(powf(fi, gamma)) - bits(pow_approx)
-// at or past beta (0 below it, where the transfer is linear);
-// corr[kTable, 2 kTable): gamma'->linear, bits(table[i]) - bits(g2l_approx)
-__global__ void corrections_kernel(phn::L2G l2g, G2L g2l, const float* __restrict__ table,
-                                   signed char* __restrict__ corr, int* __restrict__ bad) {
+// corr[i]: gamma'->linear, bits(table[i]) - bits(g2l_approx) (the
+// linear->gamma' half is csrc/l2g_corrections.cu's)
+__global__ void corrections_kernel(G2L g2l, const float* __restrict__ table, signed char* __restrict__ corr,
+                                   int* __restrict__ bad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= kTable) return;
-  const float fi = static_cast<float>(i) * l2g.inv_max;
-  corr[i] = fi < l2g.beta ? 0 : correction(powf(fi, l2g.gamma), pow_approx(fi, l2g.gamma), bad);
-  corr[kTable + i] = correction(table[i], g2l_approx(g2l, i), bad);
+  corr[i] = phn::correction(table[i], g2l_approx(g2l, i), bad);
 }
 
 G2L g2l_from(const float* c) { return G2L{c[0], c[1], c[2], c[3], c[4], c[5]}; }
 
 }  // namespace
 
-// corr: 2 * 65536 bytes in device memory (16-byte aligned), filled with the
-// corrections of the encode's linear->gamma' (enc_coeffs: col[12], l2g[6])
-// and of the decode's gamma'->linear (g2l: its table in device memory;
-// g2l_consts: inv_max, thr, inv_delta, a1, inv_alpha, inv_gamma, the
-// table's float32 constants); bad: one int32 in device memory, set to the
-// count of indices whose correction a byte cannot hold (0 expected).
-// Returns cudaGetLastError().
-extern "C" int phn_fused_v210_corrections(void* corr, void* bad, const float* enc_coeffs,
-                                          const float* g2l, const float* g2l_consts, void* stream) {
+// corr: 65536 bytes in device memory, filled with the corrections of the
+// decode's gamma'->linear (g2l: its table in device memory; g2l_consts:
+// inv_max, thr, inv_delta, a1, inv_alpha, inv_gamma, the table's float32
+// constants); bad: one int32 in device memory, set to the count of
+// indices whose correction a byte cannot hold (0 expected).  Returns
+// cudaGetLastError().
+extern "C" int phn_fused_v210_corrections(void* corr, void* bad, const float* g2l, const float* g2l_consts,
+                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  corrections_kernel<<<kTable / 256, 256, 0, st>>>(phn::encode_from(enc_coeffs).g, g2l_from(g2l_consts),
-                                                   g2l, static_cast<signed char*>(corr),
+  corrections_kernel<<<kTable / 256, 256, 0, st>>>(g2l_from(g2l_consts), g2l, static_cast<signed char*>(corr),
                                                    static_cast<int*>(bad));
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,8 +209,10 @@ extern "C" int phn_fused_v210_corrections(void* corr, void* bad, const float* en
 // float32 in device memory (ignored for a cut); out: like a.
 // dec_coeffs: col[12] (R' without Cb and B' without Cr: col[1] and
 // col[10] zero, else cudaErrorInvalidValue), gamut[9]; g2l: the gamma'->linear table in device
-// memory; enc_coeffs: col[12], l2g[6]; g2l_consts and corr: as
-// phn_fused_v210_corrections takes and fills them for these transfers.
+// memory; enc_coeffs: col[12], l2g[6]; g2l_consts: as
+// phn_fused_v210_corrections takes them; corr: 2 * 65536 bytes (16-byte
+// aligned), the encode's l2g corrections (phn_l2g_corrections), then the
+// decode's g2l ones (phn_fused_v210_corrections).
 // Returns cudaGetLastError().
 extern "C" int phn_fused_v210(const void* a, const void* b, const void* mix, void* out,
                               int width, int height, int groups, const float* dec_coeffs,

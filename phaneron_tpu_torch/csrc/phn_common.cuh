@@ -1,8 +1,9 @@
 // Shared device helpers for the channel-frame kernels: OpenCL-style
-// rounding, the transfer functions, the YCbCr decode and encode, the v210
-// word fields and group packing, the axis-aligned bilinear taps, the
-// decode window of a v210 source, the block-wide encode + pack of a row
-// segment, the planar quad decode and the pixel-pair encode.
+// rounding, the transfer functions (linear->gamma' also without powf),
+// the YCbCr decode and encode, the v210 word fields and group packing,
+// the axis-aligned bilinear taps, the decode window of a v210 source, the
+// block-wide encode + pack of a row segment, the planar quad decode and
+// the planar quad encode.
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
@@ -57,6 +58,57 @@ __device__ __forceinline__ float l2g(const L2G& g, float x) {
   float fi = static_cast<float>(u16_sat_rte(x * 65535.0f)) * g.inv_max;
   if (fi < g.beta) return fi * g.delta;
   return g.alpha * powf(fi, g.gamma) - g.alpha_m1;
+}
+
+// ---- linear->gamma' without powf (B3, B11, B13).  l2g depends only on
+// its table index i = u16_sat_rte(x * 65535), so powf's bits are known at
+// all kTable indices in advance.  A kernel computes the power with two
+// MUFU operations (pow_approx) and moves the result's bits by a signed
+// byte an index, the difference to powf's bits (the l2g corrections,
+// csrc/l2g_corrections.cu, built on the card with the same instructions):
+// equal to l2g to the bit.
+constexpr int kTable = 65536;  // table indices: one signed byte each
+
+// u16_sat_rte (round half to even, clamp to [0, 65535], NaN to 0) in one
+// conversion
+__device__ __forceinline__ int u16_rte(float x) {
+  unsigned short r;
+  asm("cvt.rni.u16.f32 %0, %1;" : "=h"(r) : "f"(x));
+  return r;
+}
+
+// The table index of a transfer's argument x: u16_sat_rte(x * 65535)
+__device__ __forceinline__ int index_of(float x) { return u16_rte(x * 65535.0f); }
+
+// x ** y for x in (0, 1] before its correction: 2 ** (y * log2 x) by the
+// MUFU unit's approximations (normal arguments and results here, so
+// flushing denormals changes nothing)
+__device__ __forceinline__ float pow_approx(float x, float y) {
+  float l, r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(x));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y * l));
+  return r;
+}
+
+__device__ __forceinline__ float moved(float approx, const signed char* corr, int i) {
+  return __int_as_float(__float_as_int(approx) + corr[i]);
+}
+
+// l2g, its powf from pow_approx and the index's correction
+__device__ __forceinline__ float l2g_corrected(const L2G& g, const signed char* corr, float x) {
+  const int i = index_of(x);
+  const float fi = static_cast<float>(i) * g.inv_max;
+  if (fi < g.beta) return fi * g.delta;
+  return g.alpha * moved(pow_approx(fi, g.gamma), corr, i) - g.alpha_m1;
+}
+
+// The signed byte that moves an approximation's bits to the exact value's;
+// *bad counts the indices whose difference a byte cannot hold
+__device__ __forceinline__ signed char correction(float exact, float approx, int* bad) {
+  const int diff = __float_as_int(exact) - __float_as_int(approx);
+  if (diff >= -128 && diff <= 127) return static_cast<signed char>(diff);
+  atomicAdd(bad, 1);
+  return 0;
 }
 
 __device__ __forceinline__ void decode(const Decode& d, float yf, float uf, float vf,
@@ -518,6 +570,21 @@ __device__ __forceinline__ void decode_quad(const Decode& d, const Quad& q, floa
   }
 }
 
+// ---- the planar packs (B11, B13): a thread encodes a quad, the four
+// pixels x0 = 4j .. 4j + 3 of a row, whose even pixels give the chroma
+// samples 2j and 2j + 1; a warp's 32 quads are 128 pixels of a row.  A
+// row's pitch (its width rounded up to 8 samples) is whole quads, so a
+// quad's stores never leave the row; a quad past the frame width is pad.
+// One persistent block an SM (kPackRows warps) copies the l2g corrections
+// into shared memory once, then walks tiles of 32 quads by kPackRows rows,
+// each thread's R, G and B staged in shared memory with cp.async
+// kPackStages - 1 tiles ahead of the tile it encodes.
+constexpr int kPackRows = 32;  // block rows: a block is 32 x kPackRows threads
+constexpr int kPackStages = 2;  // tiles in flight: the one encoded and kPackStages - 1 ahead
+constexpr int kPackThreads = kQuadsPerWarp * kPackRows;
+constexpr int kPackSmemBytes = kTable + kPackStages * 3 * kPackThreads * 16;  // corrections, then stages
+static_assert(kPackSmemBytes <= 227 * 1024, "the packs' shared memory exceeds a block's");
+
 // The codes a planar format stores for pixels past the frame width (the
 // pitch pad and an odd width's missing pixel: black luma, null chroma,
 // yuv422p10.ts:180-182) and the mask to its bit depth, as
@@ -531,33 +598,192 @@ inline PlanarPad planar_pad(int num_bits, int luma_black) {
                    (1u << num_bits) - 1u};
 }
 
-// Planar codes of the pixel pair x0 = 2k, x0 + 1 of one row of a linear
-// RGB(A) frame (row: the row's R samples; channel planes `plane` floats
-// apart; alpha is not read): both pixels' luma and, when `chroma`, the
-// even pixel's Cb and Cr, each masked to the bit depth.  A pixel past
-// the frame width keeps the pad codes.
-struct PairCodes {
-  unsigned y[2], cb, cr;
+// u16_sat_rte(x), as an int and as its exact float, without a conversion
+// instruction (conversions, like MUFU operations, issue at a quarter of
+// the float32 rate): x clamped to [0, 65535] (NaN to 0), then added to
+// 1.5 * 2^23, whose ulp is 1, so that the sum rounds to an integer, half
+// to even; its low bits are that integer, and the sum less 1.5 * 2^23 is
+// its float
+struct U16 {
+  int i;
+  float f;
 };
 
-__device__ __forceinline__ PairCodes encode_pair(const Encode& e, const float* __restrict__ row,
-                                                 size_t plane, int x0, int width, bool chroma,
+__device__ __forceinline__ U16 u16_rte_alu(float x) {
+  constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+  const float t = fminf(fmaxf(x, 0.0f), 65535.0f) + kMagic;
+  return U16{__float_as_int(t) - __float_as_int(kMagic), t - kMagic};
+}
+
+// l2g_corrected as a callable, its table index rounded by u16_rte_alu
+struct CorrectedL2G {
+  L2G g;
+  const signed char* corr;
+  __device__ __forceinline__ float operator()(float x) const {
+    const U16 i = u16_rte_alu(x * 65535.0f);
+    const float fi = i.f * g.inv_max;
+    if (fi < g.beta) return fi * g.delta;
+    return g.alpha * moved(pow_approx(fi, g.gamma), corr, i.i) - g.alpha_m1;
+  }
+};
+
+// A quad's codes: every pixel's luma and, when `chroma`, the even pixels'
+// Cb and Cr, each masked to the bit depth, in the expressions of
+// ops/kernels.py _planar_codes_plain (encode_row's, rounded and saturated
+// by u16_rte_alu); a pixel past the frame width (p >= n) keeps the pad
+// codes
+struct QuadCodes {
+  unsigned y[4], cb[2], cr[2];
+};
+
+__device__ __forceinline__ unsigned quad_code(const Encode& e, int c, float rp, float gp, float bp,
+                                              unsigned mask) {
+  return static_cast<unsigned>(
+             u16_rte_alu(e.col[4 * c] * rp + e.col[4 * c + 1] * gp + e.col[4 * c + 2] * bp + e.col[4 * c + 3]).i) &
+         mask;
+}
+
+template <class L2GFn>
+__device__ __forceinline__ QuadCodes encode_quad(const Encode& e, const L2GFn& l2g_of,
+                                                 const float (&rgb)[3][4], int n, bool chroma,
                                                  const PlanarPad& pad) {
-  PairCodes c{{pad.black, pad.black}, pad.null, pad.null};
+  QuadCodes q{{pad.black, pad.black, pad.black, pad.black}, {pad.null, pad.null},
+              {pad.null, pad.null}};
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int x = x0 + q;
-    if (x >= width) break;
-    const float rp = l2g(e.g, row[x]);
-    const float gp = l2g(e.g, row[plane + x]);
-    const float bp = l2g(e.g, row[2 * plane + x]);
-    c.y[q] = static_cast<unsigned>(encode_row(e, 0, rp, gp, bp)) & pad.mask;
-    if (q == 0 && chroma) {
-      c.cb = static_cast<unsigned>(encode_row(e, 1, rp, gp, bp)) & pad.mask;
-      c.cr = static_cast<unsigned>(encode_row(e, 2, rp, gp, bp)) & pad.mask;
+  for (int p = 0; p < 4; ++p) {
+    if (p >= n) break;
+    const float rp = l2g_of(rgb[0][p]);
+    const float gp = l2g_of(rgb[1][p]);
+    const float bp = l2g_of(rgb[2][p]);
+    q.y[p] = quad_code(e, 0, rp, gp, bp, pad.mask);
+    if ((p & 1) == 0 && chroma) {
+      q.cb[p >> 1] = quad_code(e, 1, rp, gp, bp, pad.mask);
+      q.cr[p >> 1] = quad_code(e, 2, rp, gp, bp, pad.mask);
     }
   }
-  return c;
+  return q;
+}
+
+// Four 8- or 16-bit codes in one 4- or 8-byte store, two in one 2- or
+// 4-byte store (s aligned to the store's size)
+template <typename T>
+__device__ __forceinline__ void store4(T* s, unsigned a, unsigned b, unsigned c, unsigned d) {
+  if constexpr (sizeof(T) == 1) {
+    *reinterpret_cast<unsigned*>(s) = a | (b << 8) | (c << 16) | (d << 24);
+  } else {
+    *reinterpret_cast<uint2*>(s) = make_uint2(a | (b << 16), c | (d << 16));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* s, unsigned a, unsigned b) {
+  if constexpr (sizeof(T) == 1) {
+    *reinterpret_cast<unsigned short*>(s) = static_cast<unsigned short>(a | (b << 8));
+  } else {
+    *reinterpret_cast<unsigned*>(s) = a | (b << 16);
+  }
+}
+
+// The l2g corrections (kTable bytes at corr, 16-byte aligned) copied into
+// a block's shared memory with cp.async and committed; the caller waits
+// (cp_async_wait, then a barrier) before its first read
+__device__ __forceinline__ void copy_corrections(int4* smem, const int4* __restrict__ corr, int tid,
+                                                 int threads) {
+  for (int i = tid; i < kTable / 16; i += threads) cp_async16(smem + i, corr + i);
+  cp_async_commit();
+}
+
+// A thread's quad of a tile: column j of `quads`, `row` of `height`;
+// false past the pitch or the last row
+__device__ __forceinline__ bool pack_quad_of(int tile, int tiles_x, int quads, int height, int& j, int& row) {
+  j = (tile % tiles_x) * kQuadsPerWarp + threadIdx.x;
+  row = (tile / tiles_x) * kPackRows + threadIdx.y;
+  return j < quads && row < height;
+}
+
+// Issues the copies of R, G and B of the quad at x0 of a row (row: its R
+// samples; planes `plane` floats apart) into the thread's slot of a
+// stage (slot: its R float4; G and B kPackThreads float4 further each):
+// with kVec one 16-byte copy a plane (row + x0 16-byte aligned, a quad
+// inside the frame whole or not at all), else one 4-byte copy a pixel of
+// the n inside the frame.
+template <bool kVec>
+__device__ __forceinline__ void stage_quad(float4* slot, const float* __restrict__ row, size_t plane, int x0,
+                                           int n) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* s = row + c * plane + x0;
+    if constexpr (kVec) {
+      if (n > 0) cp_async16(slot + c * kPackThreads, s);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (p < n) cp_async4(reinterpret_cast<float*>(slot + c * kPackThreads) + p, s + p);
+    }
+  }
+}
+
+// The body of a planar pack kernel (a block of 32 x kPackRows threads,
+// kPackSmemBytes of dynamic shared memory, at most n_tiles blocks): every
+// quad of the pitch of every row of the (C, height, width) frame rgb
+// (C >= 3; alpha is not read) encoded with l2g_corrected, chroma on every
+// row (chroma_every_row) or on even rows, and handed to store(row, j,
+// codes).  The copies keep one commit group a tile, so cp_async_wait
+// <kPackStages - 1> finds the tile to encode (and, the first time, the
+// corrections) in shared memory; each thread reads only its own slots, so
+// one barrier, for the corrections, is all the block needs.
+template <bool kVec, class Store>
+__device__ __forceinline__ void pack_tiles(const float* __restrict__ rgb, const Encode& e, const PlanarPad& pad,
+                                           const int4* __restrict__ corr, int width, int height, int y_pitch,
+                                           bool chroma_every_row, const Store& store) {
+  extern __shared__ int4 smem[];
+  const int tid = threadIdx.y * kQuadsPerWarp + threadIdx.x;
+  copy_corrections(smem, corr, tid, kPackThreads);
+  const CorrectedL2G l2g_of{e.g, reinterpret_cast<const signed char*>(smem)};
+  float4* slots = reinterpret_cast<float4*>(smem + kTable / 16) + tid;  // stage s: slots + 3 s kPackThreads
+  const int quads = y_pitch / 4;
+  const int tiles_x = (quads + kQuadsPerWarp - 1) / kQuadsPerWarp;
+  const int n_tiles = tiles_x * ((height + kPackRows - 1) / kPackRows);
+  const size_t plane = static_cast<size_t>(width) * height;
+  const auto stage = [&](int tile, int s) {
+    int j, row;
+    if (tile < n_tiles && pack_quad_of(tile, tiles_x, quads, height, j, row))
+      stage_quad<kVec>(slots + 3 * s * kPackThreads, rgb + static_cast<size_t>(row) * width, plane, 4 * j,
+                       width - 4 * j);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < kPackStages - 1; ++k) stage(blockIdx.x + k * gridDim.x, k);
+  for (int k = 0, tile = blockIdx.x; tile < n_tiles; ++k, tile += gridDim.x) {
+    stage(tile + (kPackStages - 1) * gridDim.x, (k + kPackStages - 1) % kPackStages);
+    cp_async_wait<kPackStages - 1>();
+    if (k == 0) __syncthreads();  // every thread of the block is in its first tile
+    int j, row;
+    if (!pack_quad_of(tile, tiles_x, quads, height, j, row)) continue;
+    const float4* slot = slots + 3 * (k % kPackStages) * kPackThreads;
+    float px[3][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4 v = slot[c * kPackThreads];
+      px[c][0] = v.x;
+      px[c][1] = v.y;
+      px[c][2] = v.z;
+      px[c][3] = v.w;
+    }
+    store(row, j, encode_quad(e, l2g_of, px, width - 4 * j, chroma_every_row || (row & 1) == 0, pad));
+  }
+}
+
+// The grid of a planar pack: its tiles, at most one wave of the kernel's
+// blocks (resident_blocks; cache: the caller's, one slot a device); 0
+// with *err set on an error or with nothing to pack
+template <typename Kernel>
+inline int pack_grid(Kernel kernel, int y_pitch, int height, int (&cache)[kMaxDevices], cudaError_t* err) {
+  const int tiles = (y_pitch / 4 + kQuadsPerWarp - 1) / kQuadsPerWarp * ((height + kPackRows - 1) / kPackRows);
+  *err = cudaSuccess;
+  if (tiles == 0) return 0;
+  const int wave = resident_blocks(kernel, kPackThreads, kPackSmemBytes, cache, err);
+  return tiles < wave ? tiles : wave;
 }
 
 inline Decode decode_from(const float* coeffs, const float* g2l_table) {

@@ -52,16 +52,17 @@ _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
     "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "phn_fused_v210_corrections": (_P, _P, _P, _P, _P, _P),
+    "phn_fused_v210_corrections": (_P, _P, _P, _P, _P),
+    "phn_l2g_corrections": (_P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }

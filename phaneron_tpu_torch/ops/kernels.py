@@ -30,7 +30,10 @@ kernel: ops/io.py decodes and encodes them in torch ops, as the JAX
 package does in XLA.
 
 Every decode gathers gamma'->linear from ops/gamma.py g2l_table; the
-kernels receive the same table on their device (``g2l_table_on``).
+kernels receive the same table on their device (``g2l_table_on``).  B3,
+B11 and B13 compute linear->gamma' without powf, moved to powf's bits by
+a correction byte an index (``l2g_corrections_on``, csrc/
+l2g_corrections.cu).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ __all__ = [
     "format_saver",
     "fused_v210",
     "fused_v210_plain",
+    "l2g_corrections_on",
     "combine_pack",
     "combine_pack_plain",
     "MAX_SRCS",
@@ -195,7 +199,7 @@ def _check_rgb(rgb: torch.Tensor, who: str) -> None:
 
 def _planar_codes_plain(fmt, rgb: torch.Tensor, out_col_spec: str) -> list[torch.Tensor]:
     """The planar packs' plain version, term for term as csrc
-    phn::encode_pair: linear->gamma', the format's encode matrix, rte and
+    phn::encode_quad: linear->gamma', the format's encode matrix, rte and
     saturation, the mask to its bit depth, then the format's pack (chroma
     subsampling, the pad codes, the sample type).  Alpha is not read."""
     _, h, w = rgb.shape
@@ -342,6 +346,39 @@ def planar422_unpack(
 planar422_unpack.launches = 0
 
 
+# ------------------------------------------- linear->gamma' corrections
+
+
+@lru_cache(maxsize=None)
+def l2g_corrections_on(out_col_spec: str, device: torch.device) -> torch.Tensor:
+    """The l2g corrections of out_col_spec on ``device``: 65536 int8, at
+    each table index of linear->gamma' the difference between the bits of
+    its power by powf (as K2 computes it) and by the two-instruction
+    approximation that B3, B11 and B13 compute instead, computed there by
+    the kernel library (csrc/l2g_corrections.cu), so those kernels'
+    linear->gamma' equals K2's to the bit.  Built once per
+    device and col_spec, by one launch (counted in
+    ``l2g_corrections_on.launches``, never in a pack's counter) and a host
+    wait for its check; raises if a difference does not fit a byte.  A
+    channel program's ``prepare(device)`` (graph/pipeline.py) calls it
+    before the first frame."""
+    corr = torch.empty(65536, dtype=torch.int8, device=device)
+    bad = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = library().phn_l2g_corrections(
+            corr.data_ptr(), bad.data_ptr(), ctypes.addressof(_encode_coeffs(out_col_spec)),
+            stream_handle(device),
+        )
+        check_launch(rc, "l2g corrections")
+        l2g_corrections_on.launches += 1
+        if int(bad.item()):
+            raise RuntimeError(f"l2g corrections: {int(bad.item())} of {out_col_spec} do not fit a byte")
+    return corr
+
+
+l2g_corrections_on.launches = 0
+
+
 # ---------------------------------------------- B11 planar 4:2:2 pack
 
 
@@ -356,7 +393,9 @@ def planar422_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
     [y (H, pitch), u (H, pitch/2), v (H, pitch/2)] of the format's sample
     type.  Chroma comes from even pixels; the pitch pad and an odd width's
     missing pixel pack as black luma and null chroma.  Alpha is never
-    read."""
+    read.  The kernel reads ``l2g_corrections_on(out_col_spec, device)``,
+    built at the first call unless a channel program's ``prepare(device)``
+    built it (one more launch, counted there, and a host wait)."""
     fmt = _planar_format(fmt_name, PLANAR422, "planar422_pack")
     _check_rgb(rgb, "planar422_pack")
     if is_cpu(rgb, "planar422_pack"):
@@ -370,11 +409,12 @@ def planar422_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
     y = torch.empty((h, p), dtype=dtype, device=dev)
     u = torch.empty((h, p // 2), dtype=dtype, device=dev)
     v = torch.empty((h, p // 2), dtype=dtype, device=dev)
+    corr = l2g_corrections_on(out_col_spec, dev)
     with torch.cuda.device(dev):
         rc = library().phn_planar422_pack(
             rgb.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(), w, h, p, p // 2,
             info.num_bits, info.luma_black,
-            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), stream_handle(dev),
+            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "planar422_pack")
     planar422_pack.launches += 1
@@ -451,7 +491,8 @@ def planar420_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
     yuv420p [y, u, v], nv12 [y, CbCr] (the layouts of planar420_unpack).
     Chroma comes from the even pixels of even lines (yuv420p.ts:191-201);
     the pitch pad packs as black luma and null chroma.  Alpha is never
-    read."""
+    read.  The kernel reads ``l2g_corrections_on`` as planar422_pack's
+    does."""
     fmt = _planar_format(fmt_name, PLANAR420, "planar420_pack")
     _check_rgb(rgb, "planar420_pack")
     if is_cpu(rgb, "planar420_pack"):
@@ -468,11 +509,12 @@ def planar420_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
     planes = [torch.empty((h, p), dtype=torch.uint8, device=dev)]
     planes += [torch.empty((h2, cp), dtype=torch.uint8, device=dev) for _ in range(2 - interleaved)]
     c1 = planes[2].data_ptr() if not interleaved else None
+    corr = l2g_corrections_on(out_col_spec, dev)
     with torch.cuda.device(dev):
         rc = library().phn_planar420_pack(
             rgb.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(), c1, w, h, p, cp,
             interleaved, info.luma_black,
-            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), stream_handle(dev),
+            ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "planar420_pack")
     planar420_pack.launches += 1
@@ -504,29 +546,29 @@ def fused_v210_corrections_on(col_spec: str, out_col_spec: str, device: torch.de
     """The fused v210 kernel's transfer corrections on ``device``: 2 x
     65536 int8, at each table index the difference between the bits of
     the exact value and of the kernel's two-instruction approximation of
-    it, for linear->gamma' of out_col_spec (powf, which every encode kernel
-    runs) and gamma'->linear of col_spec (``g2l_table``, which every decode
-    kernel gathers from), computed there by the kernel library
+    it: first linear->gamma' of out_col_spec (``l2g_corrections_on``'s
+    table, copied), then gamma'->linear of col_spec (``g2l_table``, which
+    every decode kernel gathers from), computed there by the kernel library
     (csrc/fused_v210.cu phn_fused_v210_corrections).  So the kernel's
     transfers equal K1's and K2's to the bit.  Built once per device and
     pair of col_specs, by one launch (counted in
-    ``fused_v210_corrections_on.launches``) and a host wait for its check;
-    raises if a difference does not fit a byte.  A channel program's
-    ``prepare(device)`` (graph/pipeline.py) calls it before the first
-    frame."""
+    ``fused_v210_corrections_on.launches``; the l2g half counts its own)
+    and a host wait for its check; raises if a difference does not fit a
+    byte.  A channel program's ``prepare(device)`` (graph/pipeline.py)
+    calls it before the first frame."""
     corr = torch.empty(2 * 65536, dtype=torch.int8, device=device)
     bad = torch.empty(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
+        corr[:65536].copy_(l2g_corrections_on(out_col_spec, device))
         rc = library().phn_fused_v210_corrections(
-            corr.data_ptr(), bad.data_ptr(), ctypes.addressof(_encode_coeffs(out_col_spec)),
-            g2l_table_on(col_spec, device).data_ptr(), ctypes.addressof(_g2l_consts(col_spec)),
-            stream_handle(device),
+            corr[65536:].data_ptr(), bad.data_ptr(), g2l_table_on(col_spec, device).data_ptr(),
+            ctypes.addressof(_g2l_consts(col_spec)), stream_handle(device),
         )
         check_launch(rc, "fused_v210 corrections")
         fused_v210_corrections_on.launches += 1
         if int(bad.item()):
-            raise RuntimeError(f"fused_v210: {int(bad.item())} transfer corrections of {col_spec} -> "
-                               f"{out_col_spec} do not fit a byte")
+            raise RuntimeError(f"fused_v210: {int(bad.item())} gamma'->linear corrections of {col_spec} "
+                               "do not fit a byte")
     return corr
 
 

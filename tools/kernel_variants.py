@@ -4,7 +4,7 @@ sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4,planar]
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4,planar,packs]
 
 - k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
   random words and on the fill_buf ramp: tools/k1_variants.cu in its two
@@ -133,6 +133,30 @@ Run from the repository root on a machine with a CUDA GPU:
   an SM), and, timed only, without the gather.  The old mapping and the
   pixel mapping whole, every PLANAR_VARIANTS build and the held
   diagnostics must equal the plain version (max |delta| 0).
+- packs: the planar packs, B11 (yuv422p8, yuv422p10le) and B13 (yuv420p,
+  nv12), at 1920x1080 and 3840x2160, C 4, on seeded random RGBA in
+  [-0.05, 1.05], on the format's decoded fill_buf ramp and on the media
+  channel's composited frame (chip_smoke.media_frame, what the records
+  pack).  tools/planar_pack_variants.cu: the old mapping (one thread a
+  pixel pair of one row, three powf a pixel) whole, with its stores only
+  (constant codes, no loads), without the powf (the linear segment for
+  every index) and with its loads and trivial arithmetic; and the quad
+  mappings that load into registers (a thread a quad, 16-byte loads a
+  plane, one store a plane; 4:2:0 a quad of a row pair) with
+  linear->gamma' by powf, by two MUFU operations and a correction byte
+  from shared memory (persistent blocks) or through L1, by a gather from
+  a 65536-float table of l2g's values, and by the gather in warps whose
+  indices lie close and the shared corrections elsewhere; 8 pixels a
+  thread (with the shared corrections and with powf); 4:2:0 a row a
+  thread; one load a pixel; 16 block rows at 2 blocks an SM.
+  csrc/planar422_pack.cu and planar420_pack.cu (phn::pack_tiles: the
+  frame staged in shared memory with cp.async a tile ahead) built with
+  other block rows and stages, with the table indices and codes rounded
+  by conversion instructions, and, timed only (PACK_TIMED_ONLY), without
+  the MUFU operations, without linear->gamma', without the loads and
+  without the stores (PACK_VARIANTS).  Every other variant, the old
+  mapping whole included, must equal the built kernel (max |delta| 0),
+  checked before it is timed; the largest l2g correction is printed.
 
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
@@ -155,7 +179,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4", "planar")
+SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4", "planar", "packs")
 # K5 over words: name -> {constant: value}; two windows of 3 float32 a
 # texel must stay within the kernel's shared memory
 K5_VARIANTS = {
@@ -240,7 +264,7 @@ B3_DIAGNOSTICS = {  # name -> {file: [(line, its stand-in), ...]}
                                         "  if (c == 2) return d.col[8] * yf + d.col[9] * uf + d.col[11];\n", "")]},
     "no g2l": {"fused_v210.cu": [("    lin[c] = kGather ? __ldg(d.g2l + i) : moved(g2l_approx(g, i), corr, i);",
                                   "    lin[c] = static_cast<float>(i);")]},
-    "no corrections": {"fused_v210.cu": [("  return __int_as_float(__float_as_int(approx) + corr[i]);",
+    "no corrections": {"phn_common.cuh": [("  return __int_as_float(__float_as_int(approx) + corr[i]);",
                                           "  return approx;")]},
     "no word loads": {"fused_v210.cu": [
         ("    const int4 wa = __ldg(a + at);", "    const int4 wa = make_int4(at, gi, row, gi * 977);"),
@@ -457,6 +481,32 @@ PLANAR_TIMED_ONLY = ("no gather",)  # every other diagnostic must equal the plai
 PLANAR_OLD_PARTS = ("whole", "stores only", "no gather", "loads, trivial arithmetic")
 PLANAR_OLD_HELD = (0,)
 PLANAR_FORMS = ("yuv422p8", "yuv422p10le", "yuv420p", "nv12")  # the variant file's form numbers
+# the planar packs: block rows and stages of phn::pack_tiles, set in
+# phn_common.cuh for both sources
+PACK_SOURCES = {"planar422": "planar422_pack.cu", "planar420": "planar420_pack.cu"}
+PACK_VARIANTS = {  # name -> [(line of phn_common.cuh, its stand-in), ...]
+    "3 stages": [("constexpr int kPackStages = 2;", "constexpr int kPackStages = 3;")],
+    "16 block rows": [("constexpr int kPackRows = 32;", "constexpr int kPackRows = 16;")],
+    "16 block rows, 3 stages": [("constexpr int kPackRows = 32;", "constexpr int kPackRows = 16;"),
+                                ("constexpr int kPackStages = 2;", "constexpr int kPackStages = 3;")],
+    "conversion instructions": [(  # u16_rte_alu by cvt.rni and a conversion back
+        "  const float t = fminf(fmaxf(x, 0.0f), 65535.0f) + kMagic;\n"
+        "  return U16{__float_as_int(t) - __float_as_int(kMagic), t - kMagic};",
+        "  const int i = u16_rte(x);\n  return U16{i, static_cast<float>(i)};")],
+    # timed only: parts taken out, their codes wrong on purpose
+    "no MUFU": [("    return g.alpha * moved(pow_approx(fi, g.gamma), corr, i.i) - g.alpha_m1;",
+                 "    return g.alpha * moved(fi, corr, i.i) - g.alpha_m1;")],
+    "no transfer": [("    const float rp = l2g_of(rgb[0][p]);\n    const float gp = l2g_of(rgb[1][p]);\n"
+                     "    const float bp = l2g_of(rgb[2][p]);",
+                     "    const float rp = rgb[0][p], gp = rgb[1][p], bp = rgb[2][p];")],
+    "no loads": [("    if (tile < n_tiles && pack_quad_of(tile, tiles_x, quads, height, j, row))",
+                  "    if (false && tile < n_tiles && pack_quad_of(tile, tiles_x, quads, height, j, row))")],
+    "no stores": [("    store(row, j, encode_quad(e, l2g_of, px, width - 4 * j, chroma_every_row || (row & 1) == 0, pad));",
+                   "    const QuadCodes q = encode_quad(e, l2g_of, px, width - 4 * j, chroma_every_row || (row & 1) == 0, pad);\n"
+                   "    if (q.y[0] == 0xFFFFFFFFu) store(row, j, q);")],
+}
+PACK_TIMED_ONLY = ("no MUFU", "no transfer", "no loads", "no stores")
+PACK_OLD_PARTS = ("whole", "stores only", "no powf", "loads, trivial arithmetic")
 
 def set_consts(text: str, consts: dict) -> str:
     for const, value in consts.items():
@@ -514,6 +564,11 @@ def build(out: Path, sections) -> dict:
                         mine.setdefault(cu if f == "unpack" else f, []).extend(e)
                 if mine:  # a diagnostic of the other source only is not built for this one
                     jobs[f"{kind} {name}"] = edited_copy(out / kind / slug(name), cu, {}, mine)
+    if "packs" in sections:
+        jobs["packs"] = ROOT / "tools" / "planar_pack_variants.cu"
+        for kind, cu in PACK_SOURCES.items():
+            for name, edits in PACK_VARIANTS.items():
+                jobs[f"{kind} {name}"] = edited_copy(out / kind / slug(name), cu, {}, {"phn_common.cuh": edits})
     for section, cu, variants, diagnostics in (
             ("k5", "packed_composite.cu", K5_VARIANTS,
              {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
@@ -1034,6 +1089,93 @@ def section_planar(torch, dev, rng, libs, card) -> list:
     return bad
 
 
+def section_packs(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import get_format
+
+    var = ctypes.CDLL(str(libs["packs"]))
+    var.pack_old_mapping.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p] * 2
+    var.pack_quad.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    var.pack_quad_name.argtypes, var.pack_quad_name.restype = [ctypes.c_int], ctypes.c_char_p
+    var.pack_l2g_table.argtypes = [ctypes.c_void_p] * 3
+    names = []
+    while (name := var.pack_quad_name(len(names))) is not None:
+        names.append(name.decode())
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    corr = K.l2g_corrections_on("709", dev)
+    lut = torch.empty(65536, dtype=torch.float32, device=dev)
+    var.pack_l2g_table(lut.data_ptr(), ctypes.addressof(K._encode_coeffs("709")), stream())
+    print(f"l2g corrections (709): largest |difference| {int(corr.abs().max())} ulp, at {int((corr != 0).sum())} "
+          "of 65536 indices")
+    fns = {"planar422": "phn_planar422_pack", "planar420": "phn_planar420_pack"}
+    lib = {kind: {"built": _build.library(), **{n: Lib(libs[f"{kind} {n}"], fn) for n in PACK_VARIANTS}}
+           for kind, fn in fns.items()}
+    ptr = lambda x: None if x is None else x.data_ptr()
+    bad = []
+    for w, h in ((cs.W, cs.H), (cs.UHD_W, cs.UHD_H)):
+        media = cs.media_frame(torch, dev, w, h)
+        for form, fmt_name in enumerate(PLANAR_FORMS):
+            kind = "planar420" if form >= 2 else "planar422"
+            pack = K.planar420_pack if form >= 2 else K.planar422_pack
+            unpack = K.planar420_unpack if form >= 2 else K.planar422_unpack
+            fmt = get_format(fmt_name)
+            p = fmt.pitch(w)
+            cp = p if fmt_name == "nv12" else p // 2
+            coeffs = ctypes.addressof(K._encode_coeffs("709", fmt_name))
+            black = fmt.INFO.luma_black
+            ramp = unpack([to_tensor(x, dev) for x in fmt.fill_buf(w, h)], w, h, fmt_name=fmt_name)
+            rand = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+            for content, rgb in (("random RGBA", rand), ("the decoded fill_buf ramp", ramp),
+                                 ("the media frame", media)):
+                want = pack(rgb, fmt_name)
+                outs = [torch.empty_like(x) for x in want]
+                y, c0, c1 = (*outs, None)[:3]
+                label = f"{fmt_name} {w}x{h}, {content}"
+
+                def ran(call, what) -> bool:
+                    """call() on poisoned planes: every sample must come out as the built kernel's."""
+                    for o, x in zip(outs, want):
+                        o.copy_((x.to(torch.int32) ^ 1).to(o.dtype))
+                    rc = call()
+                    torch.cuda.synchronize()
+                    if rc or cs.plane_delta(torch, outs, want):
+                        bad.append(f"{what}, {label} (rc {rc})")
+                        return False
+                    return True
+
+                times = []
+                for part, part_name in enumerate(PACK_OLD_PARTS):
+                    call = lambda: var.pack_old_mapping(part, form, rgb.data_ptr(), y.data_ptr(), c0.data_ptr(),
+                                                        ptr(c1), w, h, p, cp, black, coeffs, stream())
+                    if part == 0:
+                        ran(call, "pack old mapping")
+                    times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+                print(f"planar pack {label}, old mapping (a thread a pixel pair) on {card}: ms " + "; ".join(times),
+                      flush=True)
+                times = []
+                for v, name in enumerate(names):
+                    if form < 2 and name.startswith("quad a row"):
+                        continue
+                    call = lambda: var.pack_quad(v, form, rgb.data_ptr(), y.data_ptr(), c0.data_ptr(), ptr(c1), w, h,
+                                                 p, cp, black, coeffs, corr.data_ptr(), lut.data_ptr(), stream())
+                    if ran(call, f"pack {name}"):
+                        times.append(f"{name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+                print(f"planar pack {label}, tools/planar_pack_variants.cu on {card}: ms " + "; ".join(times),
+                      flush=True)
+
+                def check(name):
+                    return name in PACK_TIMED_ONLY or cs.plane_delta(torch, pack(rgb, fmt_name), want) == 0
+
+                new, wrong = timed(torch, K, lib[kind], lambda: pack(rgb, fmt_name), check)
+                bad += [f"{kind} {n}, {label}" for n in wrong]
+                print(f"planar pack {label}, csrc/{PACK_SOURCES[kind]} on {card}: ms "
+                      + "; ".join(f"{n} {t:.4f}" for n, t in new.items()), flush=True)
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -1051,11 +1193,12 @@ def main() -> int:
     libs = build(ROOT / "build" / "variants", sections)
     rng = np.random.default_rng(cs.SEED)
     run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3, "b3": section_b3,
-           "rotate": section_rotate, "b6": section_b6, "k4": section_k4, "planar": section_planar}
+           "rotate": section_rotate, "b6": section_b6, "k4": section_k4, "planar": section_planar,
+           "packs": section_packs}
     bad = []
     for section in sections:
         bad += run[section](torch, dev, rng, libs, card)
-    print(f"variants that disagree with the plain version: {bad or 'none'}")
+    print(f"variants that disagree with the plain version or the built kernel: {bad or 'none'}")
     return 1 if bad else 0
 
 

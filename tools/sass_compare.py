@@ -13,7 +13,8 @@ with that checkout's own flags (ops/_build.py nvcc_flags, without
 ptxas's report), disassembles each with cuobjdump -sass and prints, for
 each source, the two instruction counts and whether the instruction
 streams are the same (addresses, encodings and the per-file names of
-anonymous namespaces left out).  A kernel record that moves between two
+anonymous namespaces left out), and for a source that differs, the same
+for each of its kernels.  A kernel record that moves between two
 checkouts whose machine code is the same moved by noise.  Cubins go to
 build/sass/.  Exits 1 when a compile or disassembly fails.
 """
@@ -29,6 +30,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 INSTRUCTION = re.compile(r"\s+/\*[0-9a-f]{4}\*/")
 ANON = re.compile(r"_GLOBAL__N__[0-9A-Za-z_]+")
+FUNCTION = re.compile(r"\s*Function : (\S+)")
+ANON_NAME = re.compile(r"(\d+)_GLOBAL__N__")  # a mangled name's length-prefixed anonymous namespace
+
+
+def kernel_name(mangled: str) -> str:
+    """The mangled name with its anonymous namespace, whose name differs
+    from file to file, cut out (the rest names the kernel)."""
+    m = ANON_NAME.search(mangled)
+    if m is None:
+        return mangled
+    return mangled[:m.start()] + "ANON" + mangled[m.end(1) + int(m.group(1)):]
 
 
 def flags_of(tree: Path) -> list:
@@ -40,7 +52,8 @@ def flags_of(tree: Path) -> list:
 
 
 def instructions(tree: Path, out: Path) -> dict:
-    """source name -> its kernels' instructions, one string each."""
+    """source name -> {kernel (mangled name): its instructions, one
+    string each}."""
     from phaneron_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -52,8 +65,13 @@ def instructions(tree: Path, out: Path) -> dict:
         cubin = out / f"{cu.stem}.cubin"
         subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(cu)], check=True)
         sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
-        code[cu.name] = [ANON.sub("ANON", ln.split(";")[0].strip()) for ln in sass.splitlines()
-                         if INSTRUCTION.match(ln)]
+        kernels, name = {}, None
+        for ln in sass.splitlines():
+            if (m := FUNCTION.match(ln)) is not None:
+                name = kernel_name(m.group(1))
+            elif INSTRUCTION.match(ln):
+                kernels.setdefault(name, []).append(ANON.sub("ANON", ln.split(";")[0].strip()))
+        code[cu.name] = kernels
     return code
 
 
@@ -74,7 +92,16 @@ def main() -> int:
         if p is None or c is None:
             print(f"{name}: only in the {'change' if p is None else 'parent'}")
             continue
-        print(f"{name}: {len(p)} / {len(c)} instructions, {'same machine code' if p == c else 'differs'}")
+        count = lambda kernels: sum(len(v) for v in kernels.values())
+        print(f"{name}: {count(p)} / {count(c)} instructions, {'same machine code' if p == c else 'differs'}")
+        if p == c:
+            continue
+        for kernel in sorted(set(p) | set(c)):
+            kp, kc = p.get(kernel), c.get(kernel)
+            if kp is None or kc is None:
+                print(f"  {kernel}: only in the {'change' if kp is None else 'parent'}")
+            else:
+                print(f"  {kernel}: {len(kp)} / {len(kc)} instructions, {'same' if kp == kc else 'differs'}")
     return 0
 
 
