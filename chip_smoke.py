@@ -27,7 +27,14 @@ Run from the repository root:  python3 chip_smoke.py
    combine_pack (4-channel and (rgb, wy, wx) layers) and packed_warp
    (single, shared-matrix pair, distinct-matrix pair, max |delta| 0), and
    each fused kernel's delta against the staged kernels it replaces (a
-   record); then the straggler modes: rotate (single, dissolve and wipe
+   record; combine_pack's == combine_rgb + K2 on the card, checked); then
+   K2 and B5 swept at widths 1-13 (3 rows), 200x7 and 1918x8 (K2 on
+   random RGB(A) and the decoded ramps, C 4 and 3, the round trips of
+   even widths bit-exact; B5 with 1, 2 and 8 layers alternating RGBA and
+   (rgb, wy, wx) layers, also == combine_rgb + K2; both with every frame
+   one float off its 16-byte alignment at 200 and 1918, the kernel's
+   4-byte copies) <= 1 code from their plain versions; then the
+   straggler modes: rotate (single, dissolve and wipe
    pairs under one matrix or two, C 4 and 3, at 25, 100 and -7 degrees)
    and K4's wipe and distinct-matrix pairs <= 5e-5, packed_composite's
    rgba and both emits (v210 words and rgb3) <= 2e-4 and <= 1 code; then
@@ -84,7 +91,10 @@ Run from the repository root:  python3 chip_smoke.py
    - entry: the entry() structure (a v210 dissolve with an axis-aligned
      DVE under a yuv422p8 layer) at 1920x1080 over 50 frames, mix
      ramping 0 -> 1 and the DVE scale animating 0.90 -> 1.0: one
-     packed_warp, planar422_unpack and combine_pack launch a frame;
+     packed_warp, planar422_unpack and combine_pack launch a frame; the
+     l2g corrections are dropped first and the program's prepare(),
+     called twice, must build them once (the straggler and keyed
+     programs' prepare() is called before their frames too);
    - progressive: bench.py composite_step (4 DVE + dissolve layers, a
      matrix each, 8 distinct v210 sources: rolled fill_buf ramps and
      seeded random words, mixes animating) at 3840x2160 and 1920x1080:
@@ -160,7 +170,10 @@ Run from the repository root:  python3 chip_smoke.py
    torch.nn.functional.grid_sample on the same frames; packed_composite
    also in each whole-stack and rgba mode at a main path's shapes; K1,
    K5 over v210 words and fused_v210 (the UHD dissolve) also on the rolled
-   fill_buf ramps (coherent content, beside the random words); rotate
+   fill_buf ramps (coherent content, beside the random words); K2 at
+   3840x2160 (C 3 and 4) and on the one_rotation emit_rgba and keyed
+   paths' frames, B5 on the mixed 4-layer stack and the one_rotation and
+   wipe paths' 2-layer stacks at both sizes (v210_pack_inputs); rotate
    also at 0 degrees; K4 also at the media picture in picture and the UHD
    wipe frame's shape, B6 under two matrices; and packed_composite's,
    rotate's and B6's window/direct counts at every timed shape (for B6
@@ -769,9 +782,87 @@ def phase_packed_source_kernels(torch, dev, rng, rec: dict) -> None:
 
     d5_staged = delta(K.combine_pack(mixed), K.v210_pack(combine_rgb(mixed)))
     print(f"combine_pack max code delta vs plain = {d5} (<= {TOL_CODES}); vs combine_rgb + K2 on "
-          f"the card = {d5_staged} (a record)")
+          f"the card = {d5_staged} (== 0)")
     check(d5 <= TOL_CODES, f"combine_pack code delta {d5}")
+    check(d5_staged == 0, f"combine_pack {d5_staged} codes from combine_rgb + K2 on the card")
     rec["combine_pack"] = dict(max_abs_err=float(d5))
+    torch.cuda.synchronize()
+
+
+# K2's and B5's edge sweep: widths that end a group part-way (1-13), a
+# 192-pixel segment part-way (200) and the 1918 pitch pad
+V210_SWEEP = [(w, 3) for w in range(1, 14)] + [(200, 7), (1918, 8)]
+
+
+def phase_v210_pack_sweep(torch, dev, rng, rec: dict) -> None:
+    """K2 and B5 at V210_SWEEP against their plain versions (<= TOL_CODES;
+    the kernels' powf-exact transfer makes it the plain version's own
+    rounding differences only): K2 on seeded random RGB(A) in [-0.05, 1.05]
+    and the decoded fill_buf ramp (whose round trip must be bit-exact at
+    the even widths: at an odd one fill_buf leaves fields of the last
+    pixel pair 0 that the pack fills), C 4 and 3; B5 with 1, 2 and
+    MAX_LAYERS layers (the kernel's three instances) alternating
+    premultiplied RGBA frames and (rgb, wy, wx) layers, also ==
+    combine_rgb + K2 on the card; and both with every frame one float past
+    a 16-byte boundary at 1918 and 200 (the kernel's 4-byte copies, which
+    every width not a multiple of 4 takes too)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor, words_to_numpy
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.composite import combine_rgb
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    def moved(x):
+        buf = torch.empty(x.numel() + 1, dtype=torch.float32, device=dev)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    d2 = d5 = d5_staged = 0
+    cases = 0
+    for w, h in V210_SWEEP:
+        delta = lambda a, b: code_delta(torch, a, b, w, h)
+        fill = v210.fill_buf(w, h)[0]
+        ramp = K.v210_unpack([to_tensor(fill, dev)], w, h)[0]
+        if w % 2 == 0:  # at an odd width fill_buf leaves fields of the last pixel pair 0 that the pack fills
+            check(np.array_equal(words_to_numpy(K.v210_pack(ramp)), fill), f"v210_pack sweep: round trip at {w}x{h}")
+        rand = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+        frames = [x[:c].contiguous() for x in (ramp, rand) for c in (4, 3)]
+        if w in (200, 1918):
+            frames.append(moved(rand[:3]))
+        for x in frames:
+            d2 = max(d2, delta(K.v210_pack(x), K.v210_pack_plain(x)))
+        for n in (1, 2, K.MAX_LAYERS):
+            layers = []
+            for m in range(n):
+                if m % 2 == 0:
+                    a = torch.from_numpy(rng.random((1, h, w), dtype=np.float32)).to(dev)
+                    rgb = torch.from_numpy(rng.uniform(-0.05, 1.05, (3, h, w)).astype(np.float32)).to(dev)
+                    layers.append(torch.cat([rgb * a, a]))
+                else:
+                    mat = to_tensor(transform_matrix(w, h, scale_x=0.8 + 0.02 * m, scale_y=0.9, offset_x=0.01 * m), dev)
+                    rgb = torch.from_numpy(rng.random((3, h, w), dtype=np.float32)).to(dev)
+                    layers.append((rgb, *warp_alpha_vectors(h, w, mat)))
+            stacks = [layers]
+            if w in (200, 1918):
+                stacks.append([tuple(moved(t) for t in f) if isinstance(f, tuple) else moved(f) for f in layers])
+            for ls in stacks:
+                got = K.combine_pack(ls)
+                d5 = max(d5, delta(got, K.combine_pack_plain(ls)))
+                d5_staged = max(d5_staged, delta(got, K.v210_pack(combine_rgb(ls))))
+                cases += 1
+    sizes = ", ".join(f"{w}x{h}" for w, h in V210_SWEEP)
+    print(f"v210_pack sweep ({sizes}; random RGB(A) and the decoded ramps, C 4 and 3, round trips bit-exact, "
+          f"one float off alignment at 200 and 1918) max code delta vs plain = {d2} (<= {TOL_CODES})")
+    print(f"combine_pack sweep ({cases} stacks of 1, 2 and 8 layers, RGBA and (rgb, wy, wx) alternating, one float "
+          f"off alignment at 200 and 1918) max code delta vs plain = {d5} (<= {TOL_CODES}); vs combine_rgb + K2 on "
+          f"the card = {d5_staged} (== 0)")
+    check(d2 <= TOL_CODES, f"v210_pack sweep code delta {d2}")
+    check(d5 <= TOL_CODES, f"combine_pack sweep code delta {d5}")
+    check(d5_staged == 0, f"combine_pack sweep {d5_staged} codes from combine_rgb + K2 on the card")
+    rec["v210_pack"]["max_abs_err"] = max(rec["v210_pack"]["max_abs_err"], float(d2))
+    rec["combine_pack"]["max_abs_err"] = max(rec["combine_pack"]["max_abs_err"], float(d5))
     torch.cuda.synchronize()
 
 
@@ -1275,6 +1366,99 @@ def media_frame(torch, dev, w: int, h: int):
     return make_channel_program(spec)(params)["rgba"]
 
 
+def captured_call(torch, spec, params, kernel: str) -> tuple:
+    """The arguments of the first call of ``kernel`` (a field of the
+    pipeline's _KERNELS: combine_pack's layers, v210_pack's frame) in one
+    frame of the channel program of ``spec``: a kernel's inputs as a
+    driven path gives them."""
+    from phaneron_tpu_torch.graph import pipeline as P
+
+    seen, kernels = [], P._KERNELS
+    real = getattr(kernels, kernel)
+
+    def grab(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    P._KERNELS = kernels._replace(**{kernel: grab})
+    try:
+        P.make_channel_program(spec)(params)
+    finally:
+        P._KERNELS = kernels
+    return seen[0]
+
+
+def v210_pack_inputs(torch, dev, sizes=((W, H), (UHD_W, UHD_H))) -> dict:
+    """label -> ("k2", (C, H, W) frame) or ("b5", layers): K2's inputs at
+    each size, C 3 and 4 (seeded random RGB(A) in [-0.05, 1.05] as
+    phase_kernels draws it, the decoded fill_buf ramp) and the one_rotation
+    emit_rgba path's composited frame, with the keyed straggler's at
+    1920x1080; B5's layers as the entry path (1920x1080, the record), the
+    one_rotation and wipe paths (2 RGBA layers at each size) give them,
+    and a 4-layer stack mixing RGBA frames and (rgb, wy, wx) layers
+    (phase_packed_source_kernels' mixed stack)."""
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    rng = np.random.default_rng(SEED + 14)
+    out = {}
+    for w, h in sizes:
+        rand = torch.from_numpy(rng.uniform(-0.05, 1.05, (4, h, w)).astype(np.float32)).to(dev)
+        ramp = K.v210_unpack([to_tensor(v210.fill_buf(w, h)[0], dev)], w, h)[0]
+        for c in (3, 4):
+            out[f"C {c}, {w}x{h}, random"] = ("k2", rand[:c].contiguous())
+            out[f"C {c}, {w}x{h}, the decoded fill_buf ramp"] = ("k2", ramp[:c].contiguous())
+        for variant in ("one_rotation", "wipe"):
+            spec, params = straggler_spec_params(torch, dev, w, h, variant)
+            straggler_animate(torch, params, dev, w, h, variant, 0.5)
+            out[f"2 RGBA layers, {w}x{h}, {variant} path"] = ("b5", captured_call(torch, spec, params, "combine_pack")[0])
+        spec, params = straggler_spec_params(torch, dev, w, h, "one_rotation", emit_rgba=True)
+        straggler_animate(torch, params, dev, w, h, "one_rotation", 0.5)
+        out[f"C 4, {w}x{h}, one_rotation emit_rgba path"] = ("k2", captured_call(torch, spec, params, "v210_pack")[0])
+    spec, params = keyed_straggler_spec_params(torch, dev, rng, W, H)
+    keyed_straggler_animate(torch, params, dev, 0.5)
+    out[f"C 4, {W}x{H}, keyed_straggler path"] = ("k2", captured_call(torch, spec, params, "v210_pack")[0])
+    spec, params = entry_spec_params(rng, dev)
+    animate(torch, params, dev, 0.5)
+    entry = captured_call(torch, spec, params, "combine_pack")[0]
+    out[f"2 RGBA layers, {W}x{H}, entry path"] = ("b5", entry)
+    fa, fb = K.v210_unpack([to_tensor(random_words(rng, W, H), dev) for _ in range(2)], W, H)
+    m = to_tensor(transform_matrix(W, H, scale_x=0.9, offset_x=0.05), dev)
+    mb = to_tensor(transform_matrix(W, H, scale_x=0.8, scale_y=0.85, offset_y=-0.05), dev)
+    out[f"4 layers, RGBA and (rgb, wy, wx), {W}x{H}"] = ("b5", [
+        fa, (fb[:3].contiguous(), *warp_alpha_vectors(H, W, m)), entry[0],
+        (fa[:3].contiguous(), *warp_alpha_vectors(H, W, mb))])
+    return out
+
+
+def v210_pack_bytes_ops(torch, kind: str, x) -> tuple[float, float]:
+    """Least bytes and operations of a K2 or B5 call: every layer's
+    planes read once (layer 0's R, G and B; then RGBA, or RGB with wx and
+    wy), the words written once; the 'over' of each layer above the first
+    and the encode per pixel."""
+    from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
+
+    layers = [x] if kind == "k2" else list(x)
+    first = layers[0][0] if isinstance(layers[0], tuple) else layers[0]
+    _, h, w = first.shape
+    nbytes, ops = 12.0 * h * w + h * pitch_bytes(w), OPS_ENCODE_PX * h * w
+    for f in layers[1:]:
+        nbytes += 12.0 * h * w + 4 * (h + w) if isinstance(f, tuple) else 16.0 * h * w
+        ops += h * w * (1 + 3 * OPS_OVER + (1 if isinstance(f, tuple) else 0))
+    return nbytes, ops
+
+
+# the v210_pack_inputs labels that timed_shapes times (the 1920x1080
+# records K2 (3, H, W) and (4, H, W) and B5's entry layers are timed apart)
+V210_TIMED = ("C 3, 3840x2160, random", "C 4, 3840x2160, random", "C 4, 1920x1080, one_rotation emit_rgba path",
+              "C 4, 1920x1080, keyed_straggler path", "4 layers, RGBA and (rgb, wy, wx), 1920x1080",
+              "2 RGBA layers, 1920x1080, one_rotation path", "2 RGBA layers, 3840x2160, one_rotation path",
+              "2 RGBA layers, 1920x1080, wipe path", "2 RGBA layers, 3840x2160, wipe path")
+
+
 # (form, content) at 1920x1080 that a kernel record or a media-path mode
 # already times: K3's and B12's records, the media channel's sources
 PLANAR_TIMED_1080 = {("yuv422p8", "the fill_buf ramp"), ("yuv420p", "the fill_buf ramp"),
@@ -1287,10 +1471,11 @@ def timed_shapes(torch, dev) -> dict:
     """label -> (kernel call, plain call, bytes, operations): the timed
     shapes that need no state of main(), printed beside the records.  Now
     the planar unpacks in every form at 1920x1080 (but PLANAR_TIMED_1080)
-    and 3840x2160, on seeded random planes and the fill_buf ramps; and the
+    and 3840x2160, on seeded random planes and the fill_buf ramps; the
     planar packs in every form at both sizes (but PACK_TIMED_1080), C 4,
     on seeded random RGBA, the decoded fill_buf ramp and the media
-    channel's frame (media_frame).  tools/compare_parent.py times on a
+    channel's frame (media_frame); and K2 and B5 at the V210_TIMED
+    inputs of v210_pack_inputs.  tools/compare_parent.py times on a
     parent's kernels the labels that its own timed_shapes lacks."""
     from phaneron_tpu_torch.graph.convert import to_tensor
     from phaneron_tpu_torch.ops import kernels as K
@@ -1332,6 +1517,12 @@ def timed_shapes(torch, dev) -> dict:
                 shapes[f"{kind}_pack ({name}, {w}x{h}, {content})"] = (
                     lambda fn=fn, x=frame, name=name: fn(x, name), lambda plain=plain, x=frame, name=name: plain(x, name),
                     12 * w * h + samples, ops)
+    inputs = v210_pack_inputs(torch, dev)
+    for label in V210_TIMED:
+        kind, x = inputs[label]
+        fn, plain = (K.v210_pack, K.v210_pack_plain) if kind == "k2" else (K.combine_pack, K.combine_pack_plain)
+        shapes[f"{'v210_pack' if kind == 'k2' else 'combine_pack'} ({label})"] = (
+            lambda fn=fn, x=x: fn(x), lambda plain=plain, x=x: plain(x), *v210_pack_bytes_ops(torch, kind, x))
     return shapes
 
 
@@ -1978,6 +2169,7 @@ def main() -> int:
     rec = phase_kernels(torch, dev, rng)
     phase_interlaced_kernels(torch, dev, rng, rec)
     phase_packed_source_kernels(torch, dev, rng, rec)
+    phase_v210_pack_sweep(torch, dev, np.random.default_rng(SEED + 15), rec)
     phase_straggler_kernels(torch, dev, rng, rec)
     phase_window_edges(torch, dev, np.random.default_rng(SEED + 7), rec)
     phase_rotate_edges(torch, dev, np.random.default_rng(SEED + 8), rec)
@@ -2080,6 +2272,13 @@ def main() -> int:
     spec, params = entry_spec_params(rng, dev)
     program = make_channel_program(spec)
     plain_program = make_channel_program(spec, plain=True)
+    # the program's prepare() builds the l2g corrections its combine_pack reads, once
+    K.l2g_corrections_on.cache_clear()
+    built = K.l2g_corrections_on.launches
+    program.prepare(dev)
+    program.prepare(dev)
+    check(K.l2g_corrections_on.launches == built + 1,
+          f"entry: prepare() launched the l2g corrections {K.l2g_corrections_on.launches - built} times")
 
     def entry_path():
         t0 = time.perf_counter()
@@ -2243,6 +2442,7 @@ def main() -> int:
                 per_frame["v210_pack"] = 1
         vprog = make_channel_program(vspec)
         vplain = make_channel_program(vspec, plain=True)
+        vprog.prepare(dev)
         path = f"{variant}{'_emit_rgba' if emit_rgba else ''}_{w}x{h}"
         alpha = (lambda p, s=vspec: top_alpha(torch, s, p)) if emit_rgba else None
 
@@ -2337,6 +2537,7 @@ def main() -> int:
     # under it (coverage alpha), the graphic staged with its own alpha
     kspec, kparams = keyed_straggler_spec_params(torch, dev, multibox_rng, W, H)
     kprog, kplain = make_channel_program(kspec), make_channel_program(kspec, plain=True)
+    kprog.prepare(dev)
     path = f"keyed_straggler_emit_rgba_{W}x{H}"
     kanimate = lambda t: keyed_straggler_animate(torch, kparams, dev, t)
     key_alpha = multibox_top_alpha(torch, kspec, kparams)
@@ -2499,7 +2700,7 @@ def main() -> int:
     none = "none (no single PyTorch call computes a planar decode or encode)"
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
-        "v210_pack": ("phaneron_tpu_torch/csrc/v210_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
+        "v210_pack": ("phaneron_tpu_torch/csrc/combine_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
         "planar422_unpack": ("phaneron_tpu_torch/csrc/planar422_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:892"),
         "warp": ("phaneron_tpu_torch/csrc/warp.cu", "phaneron_tpu/ops/pallas_warp.py:532"),
         "yadif_ring": ("phaneron_tpu_torch/csrc/yadif.cu", "phaneron_tpu/ops/pallas_yadif.py:500"),

@@ -10,8 +10,8 @@
 // 'over' black is the identity on its RGB (0 * (1 - alpha) + rgb).
 //
 // The decode is phn::decode_v210 (the one K1 runs), the dissolve the
-// order of ops/composite.py mix_frames, the encode that of csrc/
-// v210_pack.cu (tail fields past the frame width and groups in the pitch
+// order of ops/composite.py mix_frames, the encode that of K2 (csrc/
+// combine_pack.cu; tail fields past the frame width and groups in the pitch
 // pad pack as zero).  So the kernel equals its plain version (K1 plain ->
 // mix_frames -> combine over black -> K2 plain) up to the pack's powf
 // rounding, and K1 -> K2 on the card to the bit.

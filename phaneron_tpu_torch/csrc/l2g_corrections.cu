@@ -1,8 +1,9 @@
 // The l2g corrections: at each of the 65536 table indices of linear->gamma'
 // (phn::l2g), the signed byte that moves phn::pow_approx's bits to powf's,
-// which every kernel that encodes without powf reads (B3 fused_v210, B11
-// planar422_pack, B13 planar420_pack; phn::l2g_corrected).  Built once per
-// device and colour spec by ops/kernels.py l2g_corrections_on.
+// which every kernel that encodes without powf reads (K2 v210_pack, B3
+// fused_v210, B5 combine_pack, B11 planar422_pack, B13 planar420_pack;
+// phn::l2g_corrected, phn::CorrectedL2G).  Built once per device and
+// colour spec by ops/kernels.py l2g_corrections_on.
 #include "phn_common.cuh"
 
 namespace {

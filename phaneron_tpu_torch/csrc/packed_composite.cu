@@ -32,7 +32,7 @@
 //   alpha_m = v_m.a                                 (kind rgba)
 //   out = v_0.rgb;  out = out * (1 - alpha_m) + v_m.rgb  for m >= 1
 //   cover = alpha_0;  cover = cover * (1 - alpha_m) + alpha_m
-// then the v210 encode and packing of csrc/v210_pack.cu, and/or the
+// then the v210 encode and packing of K2 (csrc/combine_pack.cu), and/or the
 // (4, H, W) frame: (out, cover), the run's coverage alpha, which a layer
 // above or below composites with (a run that spans part of the stack), or
 // with top_alpha (a run that is the whole stack) (out, alpha_top), the

@@ -2,8 +2,9 @@
 // rounding, the transfer functions (linear->gamma' also without powf),
 // the YCbCr decode and encode, the v210 word fields and group packing,
 // the axis-aligned bilinear taps, the decode window of a v210 source, the
-// block-wide encode + pack of a row segment, the planar quad decode and
-// the planar quad encode.
+// block-wide encode + pack of a row segment (K5), the planar quad decode
+// and the planar quad encode, and the v210 packs' staged row segments (K2,
+// B5).
 //
 // Every expression keeps the operation order of the plain PyTorch
 // versions (phaneron_tpu_torch/ops/gamma.py, ops/colorspace.py,
@@ -784,6 +785,238 @@ inline int pack_grid(Kernel kernel, int y_pitch, int height, int (&cache)[kMaxDe
   if (tiles == 0) return 0;
   const int wave = resident_blocks(kernel, kPackThreads, kPackSmemBytes, cache, err);
   return tiles < wave ? tiles : wave;
+}
+
+// ---- the v210 packs (K2 v210_pack, B5 combine_pack): one kernel over N
+// layers (K2: one), 192-pixel row segments (kGroupsPerBlock v210 groups).
+// A warp takes a segment; lane g encodes its group g (pixels x0 + 6g ..
+// x0 + 6g + 5) and stores its four words with one 16-byte store.  The
+// layers' planes come through shared memory: the warp copies a segment's
+// row of each plane (R, G and B, and alpha or wx above layer 0) with
+// cp.async, coalesced, one stage ahead of the one it composites.  A stage
+// holds every layer of the segment where there are at most two, else one
+// layer, so a block holds 15 warps or more whatever the layer count.  One
+// persistent block an SM copies the l2g corrections into shared memory
+// once; its warps walk the (segment, layers of a stage) units.  The
+// expressions are combine_pack_plain's: combine_rgb's 'over' (k = 1 - a,
+// then out * k + f; a separable alpha wy[row] * wx[x]) and encode_row's
+// (linear->gamma' by CorrectedL2G, codes rounded by u16_rte_alu), term for
+// term.
+constexpr int kMaxLayers = 8;  // layers a combine_pack launch takes
+constexpr int kSegStages = 2;  // stages in flight: the one composited and one ahead
+constexpr int kMaxSegWarps = 32;  // warps a block at most
+constexpr int kSegSmemLimit = 227 * 1024;  // shared memory a block can have
+// the smallest block's (K2's: kMaxSegWarps warps, 3 planes a stage; the
+// others hold as many warps as the limit allows) shared memory
+static_assert(kTable + kMaxSegWarps * kSegStages * 3 * kPixelsPerBlock * 4 > kSegSmemLimit / 2,
+              "a v210 pack block holds its SM alone");
+
+// Layers bottom to top: (4, H, W) RGBA frames (alpha plane 3) or (3, H, W)
+// frames whose alpha is wy[row] * wx[x] (wy, wx null for RGBA).  Layer
+// 0's alpha is never read, so K2's (C, H, W) frame is one layer.
+struct Layers {
+  const float* frame[kMaxLayers];
+  const float* wy[kMaxLayers];
+  const float* wx[kMaxLayers];
+  int n_layers;
+};
+
+// Layers a stage holds, the planes of its rows (layer 0's three, four a
+// layer above it) and the warps a block holds, by layer count
+__host__ __device__ constexpr int stage_layers(int n_layers) { return n_layers <= 2 ? n_layers : 1; }
+
+__host__ __device__ constexpr int stage_planes(int n_layers) { return n_layers == 1 ? 3 : n_layers == 2 ? 7 : 4; }
+
+constexpr int segment_warps(int n_layers) {
+  const int fit = (kSegSmemLimit - kTable) / (kSegStages * stage_planes(n_layers) * kPixelsPerBlock * 4);
+  return fit < kMaxSegWarps ? fit : kMaxSegWarps;
+}
+
+// The most warps a block of two or more layers holds (three or more:
+// four-plane stages; two: seven-plane stages, fewer): the launch bound of
+// B5's instances, whose threads then may use more registers than K2's
+constexpr int kLayersSegWarps = segment_warps(3);
+
+// Copies n (> 0) floats of a segment's row of one plane from src into dst
+// (kPixelsPerBlock floats) by the warp's 32 lanes: with kVec one 16-byte
+// copy a quad (src and dst 16-byte aligned, n a multiple of 4 or at least
+// kPixelsPerBlock), else one 4-byte copy a float
+template <bool kVec>
+__device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ src, int n, int lane) {
+  if constexpr (kVec) {
+    for (int i = lane; i < kPixelsPerBlock / 4; i += 32)
+      if (4 * i < n) cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = lane; i < kPixelsPerBlock; i += 32)
+      if (i < n) cp_async4(dst + i, src + i);
+  }
+}
+
+// Six consecutive floats of a staged row (8-byte aligned)
+__device__ __forceinline__ void six_of(const float* s, float (&v)[6]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float2 t = *reinterpret_cast<const float2*>(s + 2 * q);
+    v[2 * q] = t.x;
+    v[2 * q + 1] = t.y;
+  }
+}
+
+// The v210 words of a group from its pixels' linear RGB (rgb[c][p]), n of
+// them inside the frame: luma of each, chroma of the even ones, each
+// masked to 10 bits; a pixel outside codes 0
+template <class L2GFn>
+__device__ __forceinline__ int4 encode_group(const Encode& e, const L2GFn& l2g_of, const float (&rgb)[3][6], int n) {
+  unsigned ys[6] = {0, 0, 0, 0, 0, 0}, cb[3] = {0, 0, 0}, cr[3] = {0, 0, 0};
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    if (p >= n) break;
+    const float rp = l2g_of(rgb[0][p]);
+    const float gp = l2g_of(rgb[1][p]);
+    const float bp = l2g_of(rgb[2][p]);
+    ys[p] = quad_code(e, 0, rp, gp, bp, kField);
+    if ((p & 1) == 0) {
+      cb[p / 2] = quad_code(e, 1, rp, gp, bp, kField);
+      cr[p / 2] = quad_code(e, 2, rp, gp, bp, kField);
+    }
+  }
+  return v210_group(ys, cb, cr);
+}
+
+// A warp's place in its walk over its units: segment s (row, first pixel
+// x0 of segs_x segments a row), its layers m .. m + per - 1; next() goes
+// on to the next layers, or to layer 0 of the warp's segment s + stride
+struct SegmentWalk {
+  int s, m, row, x0;
+  __device__ __forceinline__ void at(int seg, int segs_x) {
+    s = seg;
+    row = seg / segs_x;
+    x0 = (seg - row * segs_x) * kPixelsPerBlock;
+  }
+  __device__ __forceinline__ void next(int per, int n_layers, int stride, int segs_x) {
+    m += per;
+    if (m == n_layers) {
+      m = 0;
+      at(s + stride, segs_x);
+    }
+  }
+};
+
+// The body of the v210 pack kernel (a block of 32 segment_warps(n_layers)
+// threads, kTable + that many warps' kSegStages stages of
+// stage_planes(n_layers) rows of dynamic shared memory; kLayers: the
+// layer count where it is known when compiled, 0 for L.n_layers): every
+// group of the pitch of every row of the layers' (height, width) frames,
+// composited, encoded and stored to words (height, groups); fields past
+// the frame width pack as 0.  The copies
+// keep one commit group a unit, so cp_async_wait<kSegStages - 1> finds
+// the unit to composite in shared memory; a lane reads other lanes'
+// copies, so the warp meets at __syncwarp before it reads a stage and
+// before it copies into one again.
+template <int kLayers, bool kVec>
+__device__ __forceinline__ void v210_segments(const Layers& L, const Encode& e, const int4* __restrict__ corr,
+                                              int4* __restrict__ words, int width, int height, int groups) {
+  extern __shared__ int4 smem[];
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  copy_corrections(smem, corr, threadIdx.x, blockDim.x);
+  const CorrectedL2G l2g_of{e.g, reinterpret_cast<const signed char*>(smem)};
+  const int n_layers = kLayers > 0 ? kLayers : L.n_layers, per = stage_layers(n_layers),
+            planes = stage_planes(n_layers);
+  float* stages = reinterpret_cast<float*>(smem + kTable / 16) + warp * kSegStages * planes * kPixelsPerBlock;
+  const int segs_x = (groups + kGroupsPerBlock - 1) / kGroupsPerBlock, n_segs = segs_x * height;
+  const size_t plane = static_cast<size_t>(width) * height;
+  const int stride = gridDim.x * warps;
+  SegmentWalk copied{0, 0, 0, 0};
+  copied.at(blockIdx.x * warps + warp, segs_x);
+  SegmentWalk used = copied;
+  int n_copies = 0;
+  const auto stage = [&]() {  // the next unit's planes into stage n_copies % kSegStages
+    if (copied.s < n_segs) {
+      float* dst = stages + n_copies % kSegStages * planes * kPixelsPerBlock;
+      const size_t at = static_cast<size_t>(copied.row) * width + copied.x0;
+      for (int m = copied.m; m < copied.m + per; ++m) {
+        for (int ch = 0; ch < (m == 0 ? 3 : 4); ++ch, dst += kPixelsPerBlock) {
+          const float* src = ch == 3 && L.wx[m] != nullptr ? L.wx[m] + copied.x0 : L.frame[m] + ch * plane + at;
+          stage_row<kVec>(dst, src, width - copied.x0, lane);
+        }
+      }
+      copied.next(per, n_layers, stride, segs_x);
+    }
+    cp_async_commit();
+    ++n_copies;
+  };
+#pragma unroll
+  for (int k = 0; k < kSegStages - 1; ++k) stage();
+  cp_async_wait<kSegStages - 1>();  // the corrections
+  __syncthreads();
+  float rgb[3][6];
+  for (int k = 0; used.s < n_segs; ++k) {
+    stage();
+    cp_async_wait<kSegStages - 1>();
+    __syncwarp();
+    const float* st = stages + k % kSegStages * planes * kPixelsPerBlock + 6 * lane;
+    for (int m = used.m; m < used.m + per; ++m) {
+      if (m == 0) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) six_of(st + ch * kPixelsPerBlock, rgb[ch]);
+        st += 3 * kPixelsPerBlock;
+        continue;
+      }
+      const bool separable = L.wx[m] != nullptr;
+      const float wy = separable ? __ldg(L.wy[m] + used.row) : 0.0f;
+      float a[6], v[6], k_m[6];
+      six_of(st + 3 * kPixelsPerBlock, a);
+#pragma unroll
+      for (int p = 0; p < 6; ++p) k_m[p] = 1.0f - (separable ? wy * a[p] : a[p]);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        six_of(st + ch * kPixelsPerBlock, v);
+#pragma unroll
+        for (int p = 0; p < 6; ++p) rgb[ch][p] = rgb[ch][p] * k_m[p] + v[p];
+      }
+      st += 4 * kPixelsPerBlock;
+    }
+    if (used.m + per == n_layers) {
+      const int g = used.x0 / 6 + lane;
+      if (g < groups)
+        words[static_cast<size_t>(used.row) * groups + g] = encode_group(e, l2g_of, rgb, width - (used.x0 + 6 * lane));
+    }
+    used.next(per, n_layers, stride, segs_x);
+    __syncwarp();
+  }
+}
+
+// Whether the layers take the 16-byte copies: every frame and wx 16-byte
+// aligned and a width a multiple of 4 (so every row's quads are)
+inline bool quads_aligned(const Layers& L, int width) {
+  const auto at16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  bool ok = width % 4 == 0;
+  for (int m = 0; m < L.n_layers; ++m) ok = ok && at16(L.frame[m]) && at16(L.wx[m]);
+  return ok;
+}
+
+// Launches a v210 pack kernel (kernel: a __global__ wrapper of
+// v210_segments) over the layers: segment_warps(n_layers) warps a block,
+// at most one wave of blocks (resident_blocks at the shared-memory limit:
+// every layer count's block fills its SM alone; cache: the caller's, one
+// slot a device).  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for corrections that are null or not 16-byte aligned.
+template <typename Kernel>
+inline int launch_segments(Kernel kernel, const Layers& L, const Encode& e, const void* corr, void* words,
+                           int width, int height, int groups, int (&cache)[kMaxDevices], cudaStream_t s) {
+  if (corr == nullptr || reinterpret_cast<uintptr_t>(corr) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_segs = (groups + kGroupsPerBlock - 1) / kGroupsPerBlock * height;
+  if (n_segs == 0) return static_cast<int>(cudaSuccess);
+  const int warps = segment_warps(L.n_layers);
+  const int smem = kTable + warps * kSegStages * stage_planes(L.n_layers) * kPixelsPerBlock * 4;
+  cudaError_t err;
+  const int wave = resident_blocks(kernel, 32 * warps, kSegSmemLimit, cache, &err);
+  if (wave == 0) return static_cast<int>(err);
+  const int blocks = (n_segs + warps - 1) / warps;
+  const int grid = blocks < wave ? blocks : wave;
+  kernel<<<grid, 32 * warps, smem, s>>>(L, e, static_cast<const int4*>(corr), static_cast<int4*>(words), width,
+                                        height, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline Decode decode_from(const float* coeffs, const float* g2l_table) {

@@ -638,20 +638,21 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     ``plain=True`` runs the plain version of every kernel stage instead
     (the on-card reference).  ``program.prepare(device)`` does the
     one-time device work of the structure before its first frame (the
-    fused v210 kernel's transfer corrections; a planar output's pack, B11
-    or B13, reads the l2g corrections), so that no frame hides a launch or
-    a host wait; frames run without it too."""
+    fused v210 kernel's transfer corrections; the l2g corrections that the
+    output's pack reads: K2 or B5 into v210, whose use the frame's sources
+    decide, B11 or B13 into a planar format), so that no frame hides a
+    launch or a host wait; frames run without it too."""
     if _fused_v210_ok(spec):
         return _fused_v210_program(spec, plain)
 
     def program(params: dict) -> list:
         return _channel_frame(spec, params, plain)
 
-    planar_out = spec.out_format in kernels.PLANAR422 + kernels.PLANAR420
+    encoded_out = spec.out_format in (_V210,) + kernels.PLANAR422 + kernels.PLANAR420
 
     def prepare(device) -> None:
         device = torch.device(device)
-        if not plain and planar_out and device.type == "cuda":
+        if not plain and encoded_out and device.type == "cuda":
             kernels.l2g_corrections_on(spec.out_col_spec, device)
 
     program.prepare = prepare

@@ -50,7 +50,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (a plain int would be cut to 32 bits), sizes as c_int
 _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P),
+    "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P, _P),
     "phn_planar422_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -63,7 +63,7 @@ _SIGNATURES = {
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "phn_fused_v210_corrections": (_P, _P, _P, _P, _P),
     "phn_l2g_corrections": (_P, _P, _P, _P),
-    "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+    "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 

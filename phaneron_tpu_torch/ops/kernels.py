@@ -15,7 +15,7 @@ Counterpart of phaneron_tpu/ops/pallas_kernels.py.  Each kernel has:
 | wrapper            | CUDA source                  | replaces (phaneron_tpu/ops/pallas_kernels.py)             |
 |--------------------|------------------------------|-----------------------------------------------------------|
 | v210_unpack        | csrc/v210_unpack.cu          | _make_v210_spatial_unpack (C 3, 4), make_v210_unpack_rgba  |
-| v210_pack          | csrc/v210_pack.cu            | make_v210_pack_rgba                                        |
+| v210_pack          | csrc/combine_pack.cu         | make_v210_pack_rgba                                        |
 | planar422_unpack   | csrc/planar422_unpack.cu     | _make_planar422_spatial_unpack, make_planar422_unpack_rgba |
 | planar422_pack     | csrc/planar422_pack.cu       | make_planar422_pack_rgba                                   |
 | planar420_unpack   | csrc/planar420_unpack.cu     | _make_planar420_spatial_unpack, make_planar420_unpack_rgba |
@@ -30,10 +30,11 @@ kernel: ops/io.py decodes and encodes them in torch ops, as the JAX
 package does in XLA.
 
 Every decode gathers gamma'->linear from ops/gamma.py g2l_table; the
-kernels receive the same table on their device (``g2l_table_on``).  B3,
-B11 and B13 compute linear->gamma' without powf, moved to powf's bits by
-a correction byte an index (``l2g_corrections_on``, csrc/
-l2g_corrections.cu).
+kernels receive the same table on their device (``g2l_table_on``).  Every
+encode (K2, B3, B5, B11, B13) computes linear->gamma' without powf, moved
+to powf's bits by a correction byte an index (``l2g_corrections_on``,
+csrc/l2g_corrections.cu).  K2 and B5 are one kernel (csrc/combine_pack.cu,
+phn_common.cuh ``v210_segments``): K2 launches it over one layer.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ __all__ = [
 ]
 
 MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
-MAX_LAYERS = 8  # layers per combine_pack launch (kMaxLayers in csrc/combine_pack.cu)
+MAX_LAYERS = 8  # layers per combine_pack launch (kMaxLayers in csrc/phn_common.cuh)
 PLANAR422 = ("yuv422p10le", "yuv422p10", "yuv422p", "yuv422p8")  # K3 / B10, B11
 PLANAR420 = ("yuv420p", "nv12")  # B12, B13
 
@@ -279,18 +280,23 @@ def v210_pack_plain(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tenso
 
 def v210_pack(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tensor:
     """Linear RGB(A) (C, H, W) float32, C = 3 or 4 -> v210 words (H,
-    pitch_bytes/4) int32.  Alpha is never read; pitch-pad fields are 0."""
+    pitch_bytes/4) int32.  Alpha is never read; pitch-pad fields are 0.
+    The kernel reads ``l2g_corrections_on(out_col_spec, device)``, built
+    at the first call unless a channel program's ``prepare(device)`` built
+    it (one more launch, counted there, and a host wait)."""
     _check_rgb(rgb, "v210_pack")
     if is_cpu(rgb, "v210_pack"):
         return v210_pack_plain(rgb, out_col_spec)
     c, h, w = rgb.shape
-    check_arg(rgb, "v210_pack rgb", rgb.device, torch.float32, (c, h, w))
+    dev = rgb.device
+    check_arg(rgb, "v210_pack rgb", dev, torch.float32, (c, h, w))
     groups = v210fmt.pitch(w) // 6
-    out = torch.empty((h, groups * 4), dtype=torch.int32, device=rgb.device)
-    with torch.cuda.device(rgb.device):
+    out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+    corr = l2g_corrections_on(out_col_spec, dev)
+    with torch.cuda.device(dev):
         rc = library().phn_v210_pack(
             rgb.data_ptr(), out.data_ptr(), w, h, groups,
-            ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(rgb.device),
+            ctypes.addressof(_encode_coeffs(out_col_spec)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "v210_pack")
     v210_pack.launches += 1
@@ -353,15 +359,16 @@ planar422_unpack.launches = 0
 def l2g_corrections_on(out_col_spec: str, device: torch.device) -> torch.Tensor:
     """The l2g corrections of out_col_spec on ``device``: 65536 int8, at
     each table index of linear->gamma' the difference between the bits of
-    its power by powf (as K2 computes it) and by the two-instruction
-    approximation that B3, B11 and B13 compute instead, computed there by
-    the kernel library (csrc/l2g_corrections.cu), so those kernels'
-    linear->gamma' equals K2's to the bit.  Built once per
+    its power by CUDA's full-precision powf and by the two-instruction
+    approximation that K2, B3, B5, B11 and B13 compute instead, computed
+    there by the kernel library (csrc/l2g_corrections.cu), so those
+    kernels' linear->gamma' equals powf's to the bit.  Built once per
     device and col_spec, by one launch (counted in
     ``l2g_corrections_on.launches``, never in a pack's counter) and a host
     wait for its check; raises if a difference does not fit a byte.  A
     channel program's ``prepare(device)`` (graph/pipeline.py) calls it
-    before the first frame."""
+    before the first frame of a structure that packs with K2, B5, B11 or
+    B13."""
     corr = torch.empty(65536, dtype=torch.int8, device=device)
     bad = torch.empty(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
@@ -666,7 +673,8 @@ def combine_pack(layers: Sequence, out_col_spec: str = "709") -> torch.Tensor:
     """Layers bottom to top, each a (4, H, W) float32 premultiplied RGBA
     frame or an ``(rgb (3, H, W), wy (H,), wx (W,))`` tuple whose alpha is
     wy[:, None] * wx, 'over' the implicit black base and packed to v210
-    words (H, pitch_bytes/4) int32, at most MAX_LAYERS layers a launch."""
+    words (H, pitch_bytes/4) int32, at most MAX_LAYERS layers a launch.
+    The kernel reads ``l2g_corrections_on`` as v210_pack's does."""
     h, w = _check_layers(layers)
     first = layers[0][0] if isinstance(layers[0], tuple) else layers[0]
     if is_cpu(first, "combine_pack"):
@@ -697,11 +705,12 @@ def combine_pack(layers: Sequence, out_col_spec: str = "709") -> torch.Tensor:
     chan_p = (ctypes.c_int * n)(*chans)
     groups = v210fmt.pitch(w) // 6
     out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+    corr = l2g_corrections_on(out_col_spec, dev)
     with torch.cuda.device(dev):
         rc = library().phn_combine_pack(
             ctypes.addressof(frame_p), ctypes.addressof(chan_p), ctypes.addressof(wy_p),
             ctypes.addressof(wx_p), n, out.data_ptr(), w, h, groups,
-            ctypes.addressof(_encode_coeffs(out_col_spec)), stream_handle(dev),
+            ctypes.addressof(_encode_coeffs(out_col_spec)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "combine_pack")
     combine_pack.launches += 1

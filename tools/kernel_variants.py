@@ -4,7 +4,7 @@ sets their time.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4,planar,packs]
+    python3 tools/kernel_variants.py [--only k1,k5,yadif,rgb3,b3,rotate,b6,k4,planar,packs,v210packs]
 
 - k1: K1 (v210 unpack, 1 source, 3 channels, 1920x1080), on seeded
   random words and on the fill_buf ramp: tools/k1_variants.cu in its two
@@ -158,6 +158,35 @@ Run from the repository root on a machine with a CUDA GPU:
   mapping whole included, must equal the built kernel (max |delta| 0),
   checked before it is timed; the largest l2g correction is printed.
 
+- v210packs: K2 (v210_pack) and B5 (combine_pack) on
+  chip_smoke.v210_pack_inputs: K2 at 1920x1080 and 3840x2160, C 3 and
+  4, on seeded random RGB(A) in [-0.05, 1.05], the decoded fill_buf ramp
+  and the one_rotation emit_rgba path's composited frame (and the keyed
+  straggler's at 1920x1080); B5 on the entry frame's 2 RGBA layers, the
+  one_rotation and wipe paths' 2-layer stacks at both sizes and a mixed
+  4-layer stack of RGBA and (rgb, wy, wx) layers.
+  tools/v210_pack_variants.cu: the kernels before their redesign,
+  verbatim, whole, with their stores only (constant codes, no loads),
+  without the powf (the linear segment for every index) and with their
+  loads and trivial arithmetic; and the other mappings with the l2g
+  correction bytes in shared memory: (a) 192 threads a row segment, a
+  thread a pixel, codes exchanged behind a named barrier; a warp a
+  segment with its loads in registers (a lane three pixel pairs, codes
+  exchanged through shared memory), also with the next segment
+  prefetched into L2; and the staged design with every layer in one
+  stage.  csrc/combine_pack.cu (phn::v210_segments, a thread a 6-pixel
+  group from planes staged with cp.async a stage ahead, one layer a
+  stage; K2 is one layer) built with linear->gamma' by powf, one 4-byte
+  copy a pixel, 3 stages, at most 16 warps a block, and, timed only
+  (V210_TIMED_ONLY), without the MUFU operations, without linear->gamma',
+  without the copies into shared memory and without the encode and the
+  stores
+  (V210_VARIANTS).  Every variant but the timed-only ones, and the built
+  wrappers, must equal the old kernel's words exactly, on every shape and
+  on an edge sweep (widths 1-13 and 1918 at 3 rows, 1280x16 and 200x7;
+  K2 C 3 and 4; B5 with 1, 2, 4 and 8 layers mixing both kinds; the frames
+  one float off their 16-byte alignment).
+
 Times are device ms per call (chip_smoke.device_ms: calls captured into
 a CUDA graph and replayed), with the card's name and power limit.
 Builds go to build/variants/.  Exits 1 when a variant disagrees.
@@ -179,7 +208,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4", "planar", "packs")
+SECTIONS = ("k1", "k5", "yadif", "rgb3", "b3", "rotate", "b6", "k4", "planar", "packs", "v210packs")
 # K5 over words: name -> {constant: value}; two windows of 3 float32 a
 # texel must stay within the kernel's shared memory
 K5_VARIANTS = {
@@ -507,6 +536,39 @@ PACK_VARIANTS = {  # name -> [(line of phn_common.cuh, its stand-in), ...]
 }
 PACK_TIMED_ONLY = ("no MUFU", "no transfer", "no loads", "no stores")
 PACK_OLD_PARTS = ("whole", "stores only", "no powf", "loads, trivial arithmetic")
+# K2 and B5, one source: kind -> its exported function; the source's
+# variants: name -> {file ("cu": the source): [(line, its stand-in), ...]}
+V210_SOURCE = "combine_pack.cu"
+V210_FUNCTIONS = {"k2": "phn_v210_pack", "b5": "phn_combine_pack"}
+V210_VARIANTS = {
+    "powf": {"phn_common.cuh": [(
+        "  copy_corrections(smem, corr, threadIdx.x, blockDim.x);\n"
+        "  const CorrectedL2G l2g_of{e.g, reinterpret_cast<const signed char*>(smem)};",
+        "  copy_corrections(smem, corr, threadIdx.x, blockDim.x);\n"
+        "  const auto l2g_of = [&](float x) { return l2g(e.g, x); };")]},
+    "one 4-byte copy a pixel": {"cu": [("  if (phn::quads_aligned(L, width))", "  if (false)")]},
+    "3 stages": {"phn_common.cuh": [("constexpr int kSegStages = 2;", "constexpr int kSegStages = 3;")]},
+    "at most 16 warps a block": {"phn_common.cuh": [("constexpr int kMaxSegWarps = 32;",
+                                                     "constexpr int kMaxSegWarps = 16;")]},
+    # timed only: parts taken out, their words wrong on purpose
+    "no MUFU": {"phn_common.cuh": [("    return g.alpha * moved(pow_approx(fi, g.gamma), corr, i.i) - g.alpha_m1;",
+                                    "    return g.alpha * moved(fi, corr, i.i) - g.alpha_m1;")]},
+    "no transfer": {"phn_common.cuh": [(
+        "    const float rp = l2g_of(rgb[0][p]);\n    const float gp = l2g_of(rgb[1][p]);\n"
+        "    const float bp = l2g_of(rgb[2][p]);\n    ys[p] = quad_code",
+        "    const float rp = rgb[0][p], gp = rgb[1][p], bp = rgb[2][p];\n    ys[p] = quad_code")]},
+    "no loads": {"phn_common.cuh": [
+        ("      if (4 * i < n) cp_async16(dst + 4 * i, src + 4 * i);",
+         "      if (4 * i < n && n < 0) cp_async16(dst + 4 * i, src + 4 * i);"),
+        ("      if (i < n) cp_async4(dst + i, src + i);", "      if (i < n && n < 0) cp_async4(dst + i, src + i);")]},
+    "no encode or stores": {"phn_common.cuh": [(  # the encode is the stored value: it goes with the store
+        "      if (g < groups)\n        words[",
+        "      if (g < groups && width < 0)\n        words[")]},
+}
+V210_TIMED_ONLY = ("no MUFU", "no transfer", "no loads", "no encode or stores")
+V210_OLD_PARTS = ("whole", "stores only", "no powf", "loads, trivial arithmetic")
+# the edge sweep: (width, height)
+V210_EDGES = [(w, 3) for w in range(1, 14)] + [(1918, 3), (1280, 16), (200, 7)]
 
 def set_consts(text: str, consts: dict) -> str:
     for const, value in consts.items():
@@ -569,6 +631,11 @@ def build(out: Path, sections) -> dict:
         for kind, cu in PACK_SOURCES.items():
             for name, edits in PACK_VARIANTS.items():
                 jobs[f"{kind} {name}"] = edited_copy(out / kind / slug(name), cu, {}, {"phn_common.cuh": edits})
+    if "v210packs" in sections:
+        jobs["v210packs"] = ROOT / "tools" / "v210_pack_variants.cu"
+        for name, edits in V210_VARIANTS.items():
+            mine = {V210_SOURCE if f == "cu" else f: e for f, e in edits.items()}
+            jobs[f"v210 {name}"] = edited_copy(out / "v210" / slug(name), V210_SOURCE, {}, mine)
     for section, cu, variants, diagnostics in (
             ("k5", "packed_composite.cu", K5_VARIANTS,
              {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
@@ -1176,6 +1243,132 @@ def section_packs(torch, dev, rng, libs, card) -> list:
     return bad
 
 
+def section_v210packs(torch, dev, rng, libs, card) -> list:
+    from phaneron_tpu_torch.ops import _build
+    from phaneron_tpu_torch.ops import kernels as K
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.warp import warp_alpha_vectors
+
+    var = ctypes.CDLL(str(libs["v210packs"]))
+    layer_args = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+    var.v210_old.argtypes = [ctypes.c_int] * 2 + layer_args + [ctypes.c_void_p] * 2
+    var.v210_mapping.argtypes = [ctypes.c_int] + layer_args + [ctypes.c_void_p] * 3
+    var.v210_mapping_name.argtypes, var.v210_mapping_name.restype = [ctypes.c_int], ctypes.c_char_p
+    names = []
+    while (name := var.v210_mapping_name(len(names))) is not None:
+        names.append(name.decode())
+    corr = K.l2g_corrections_on("709", dev)
+    coeffs = ctypes.addressof(K._encode_coeffs("709"))
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    lib = {kind: {"built": _build.library(), **{n: Lib(libs[f"v210 {n}"], fn) for n in V210_VARIANTS}}
+           for kind, fn in V210_FUNCTIONS.items()}
+
+    def c_layers(kind, x):
+        """The layer arrays of phn_combine_pack for a K2 frame or B5 stack
+        (kept alive by the caller)."""
+        layers = [x] if kind == "k2" else list(x)
+        n = len(layers)
+        frame = lambda f: f[0] if isinstance(f, tuple) else f
+        arrs = ((ctypes.c_void_p * n)(*(frame(f).data_ptr() for f in layers)),
+                (ctypes.c_int * n)(*(frame(f).shape[0] for f in layers)),
+                (ctypes.c_void_p * n)(*(f[1].data_ptr() if isinstance(f, tuple) else None for f in layers)),
+                (ctypes.c_void_p * n)(*(f[2].data_ptr() if isinstance(f, tuple) else None for f in layers)))
+        return arrs, n
+
+    def shape_of(kind, x):
+        f = x if kind == "k2" else (x[0][0] if isinstance(x[0], tuple) else x[0])
+        return f.shape[2], f.shape[1]
+
+    def run(kind, x):
+        """The case's calls: (old kernel part p), (mapping v), the built wrapper, and its words."""
+        w, h = shape_of(kind, x)
+        groups = v210.pitch(w) // 6
+        arrs, n = c_layers(kind, x)
+        out = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+        ptrs = [ctypes.addressof(a) for a in arrs]
+        old = lambda part: var.v210_old(0 if kind == "k2" else 1, part, *ptrs, n, out.data_ptr(), w, h, groups,
+                                        coeffs, stream())
+        mapping = lambda v: var.v210_mapping(v, *ptrs, n, out.data_ptr(), w, h, groups, coeffs, corr.data_ptr(),
+                                             stream())
+        built = (lambda: K.v210_pack(x)) if kind == "k2" else (lambda: K.combine_pack(x))
+        return arrs, out, old, mapping, built
+
+    def words_of(call, out):
+        """call()'s words on a poisoned output (every word all ones first)."""
+        out.fill_(-1)
+        rc = call()
+        torch.cuda.synchronize()
+        return None if rc else out.clone()
+
+    bad = []
+    cases = cs.v210_pack_inputs(torch, dev)
+    for label, (kind, x) in cases.items():
+        keep, out, old, mapping, built = run(kind, x)
+        want = words_of(lambda: old(0), out)
+        if want is None:
+            bad.append(f"{kind} old kernel failed, {label}")
+            continue
+        times = []
+        for part, part_name in enumerate(V210_OLD_PARTS):
+            times.append(f"{part_name} {cs.device_ms(torch, lambda: old(part), batches=5, calls=10):.4f}")
+        print(f"{kind} {label}, the kernel before its redesign on {card}: ms " + "; ".join(times), flush=True)
+        times = []
+        for v, name in enumerate(names):
+            got = words_of(lambda: mapping(v), out)
+            if got is None or not torch.equal(got, want):
+                bad.append(f"{kind} {name}, {label}")
+                continue
+            times.append(f"{name} {cs.device_ms(torch, lambda: mapping(v), batches=5, calls=10):.4f}")
+        print(f"{kind} {label}, tools/v210_pack_variants.cu on {card}: ms " + "; ".join(times), flush=True)
+        check = lambda name: name in V210_TIMED_ONLY or torch.equal(built(), want)
+        new, wrong = timed(torch, K, lib[kind], built, check)
+        bad += [f"{kind} {n}, {label}" for n in wrong]
+        print(f"{kind} {label}, csrc/{V210_SOURCE} on {card}: ms "
+              + "; ".join(f"{n} {t:.4f}" for n, t in new.items()), flush=True)
+    # the edge sweep: every held variant equal to the old kernel's words
+    n_cases = 0
+    held = {kind: {n: v for n, v in lib[kind].items() if n not in V210_TIMED_ONLY} for kind in lib}
+    for w, h in V210_EDGES:
+        rand = lambda c: torch.from_numpy(rng.uniform(-0.05, 1.05, (c, h, w)).astype(np.float32)).to(dev)
+
+        def moved(t):
+            buf = torch.empty(t.numel() + 1, dtype=torch.float32, device=dev)
+            buf[1:].view(t.shape).copy_(t)
+            return buf[1:].view(t.shape)
+
+        sweep = [("k2", rand(4)), ("k2", rand(3)), ("k2", moved(rand(3)))]
+        for n in (1, 2, 4, 8):
+            layers = []
+            for m in range(n):
+                if m % 2 == 0:
+                    a = torch.from_numpy(rng.random((1, h, w), dtype=np.float32)).to(dev)
+                    layers.append(torch.cat([rand(3) * a, a]))
+                else:
+                    mat = torch.from_numpy(transform_matrix(w, h, scale_x=0.8, scale_y=0.9, offset_x=0.01 * m)).to(dev)
+                    layers.append((rand(3), *warp_alpha_vectors(h, w, mat)))
+            sweep += [("b5", layers), ("b5", [tuple(moved(t) for t in f) if isinstance(f, tuple) else moved(f)
+                                                for f in layers])]
+        for kind, x in sweep:
+            keep, out, old, mapping, built = run(kind, x)
+            want = words_of(lambda: old(0), out)
+            calls = {name: (lambda v=v: mapping(v)) for v, name in enumerate(names)}
+            results = {name: words_of(c, out) for name, c in calls.items()}
+            try:
+                for name, l in held[kind].items():
+                    K.library = lambda l=l: l
+                    results[f"csrc {name}"] = built().clone()
+            finally:
+                K.library = _build.library
+            for name, got in results.items():
+                if want is None or got is None or not torch.equal(got, want):
+                    bad.append(f"{kind} {name}, edge {w}x{h}")
+            n_cases += 1
+    print(f"v210 packs edge sweep: {n_cases} cases at {V210_EDGES}, every held variant and build equal to the old "
+          f"kernel's words: {not any('edge' in b for b in bad)}", flush=True)
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -1194,7 +1387,7 @@ def main() -> int:
     rng = np.random.default_rng(cs.SEED)
     run = {"k1": section_k1, "k5": section_k5, "yadif": section_yadif, "rgb3": section_rgb3, "b3": section_b3,
            "rotate": section_rotate, "b6": section_b6, "k4": section_k4, "planar": section_planar,
-           "packs": section_packs}
+           "packs": section_packs, "v210packs": section_v210packs}
     bad = []
     for section in sections:
         bad += run[section](torch, dev, rng, libs, card)

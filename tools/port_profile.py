@@ -13,8 +13,9 @@ file-media channel with its two consumer packs at 1920x1080 and
 3840x2160; the file-media multi-box channel into v210 with emit_rgba at
 1920x1080 and 3840x2160 and into yuv422p10le at 1920x1080; the
 progressive 4-layer frame into yuv422p10le at 1920x1080; the keyed
-graphic over two boxes and a rotation, emit_rgba, at 1920x1080) under
-torch.profiler after warm-up, and prints
+graphic over two boxes and a rotation, emit_rgba, at 1920x1080; the v210
+unpack and pack stage programs at 1920x1080, one K1 and one K2 a step)
+under torch.profiler after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
@@ -161,6 +162,15 @@ def main() -> int:
     cs.keyed_straggler_animate(torch, kparams, dev, 0.5)
     profile(torch, f"keyed graphic over two boxes and a rotation, emit_rgba, {cs.W}x{cs.H}", lambda: kprog(kparams),
             20, card)
+    from phaneron_tpu_torch.graph.convert import to_tensor
+    from phaneron_tpu_torch.graph.pipeline import make_pack_program, make_unpack_program
+    from phaneron_tpu_torch.ops.formats import v210
+
+    fill = [to_tensor(v210.fill_buf(cs.W, cs.H)[0], dev)]
+    unpack_stage = make_unpack_program("v210", cs.W, cs.H, "709", "709")
+    pack_stage = make_pack_program("v210", cs.W, cs.H, "709")
+    profile(torch, f"v210 unpack and pack stage programs, {cs.W}x{cs.H}", lambda: pack_stage(unpack_stage(fill)),
+            50, card)
     return 0
 
 
