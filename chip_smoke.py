@@ -158,7 +158,26 @@ Run from the repository root:  python3 chip_smoke.py
      2 planar422_unpack, 2 planar420_unpack, 1 packed_composite over the
      boxes (rgba kind, emit rgba, coverage alpha), 1 warp for the graphic,
      which stays staged, the torch combine and 1 v210_pack; the rgba
-     frame carries the graphic's own warped alpha.
+     frame carries the graphic's own warped alpha;
+   - runtime (``phase_runtime``): port Channels (runtime/channel.py) with
+     test-pattern sources (packed on the card at load by K2 and B11), a
+     kernel set against a plain=True set, frames through render_frame,
+     each delivered to a recording Consumer: the default load
+     (configs/quad_1080i_1chip.json, four 1080i50 channels, each four
+     layers dissolving BARS -> RAMP under bench.py's interlaced boxes,
+     the consumer pairing the field ticks), 3 steady periods after the
+     rings fill, each 32 v210_unpack, 32 yadif_pair and 8 packed_composite
+     (rgb3, packed, top) as the stage-driven period, frames and paired
+     words <= 1 code from the plain set; a 1080p50 playout channel (a MIX
+     between two v210 patterns, one fused_v210 a tick) and an entry()
+     channel (a v210 DVE dissolve under a yuv422p8 pattern, one
+     packed_warp, planar422_unpack and combine_pack a tick), 4 ticks each;
+     a warm period (tick) of every kernel channel under
+     torch.cuda.set_sync_debug_mode("error"); the runtime period timed in
+     turns with the stage-driven one; then the four 1080i50 kernel
+     channels under Channel.run for PACED_SECONDS: every rendered tick
+     delivered, one packed_composite a tick, each channel's frames,
+     late_frames and render p50 / p99 (host ms) printed.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
@@ -260,6 +279,12 @@ MULTIBOX_CLIP = (1280, 720)  # L1's clip pair: a 720p H.264 clip and its nv12 su
 # box -> (offset_x, offset_y) at scale 0.5: transform_matrix maps output
 # to input, so a box moves against the sign of its offset
 QUADRANTS = {"top_left": (0.25, 0.25), "top_right": (-0.25, 0.25), "bottom_left": (0.25, -0.25)}
+# the runtime phase: port Channels (runtime/channel.py) on one event loop
+RUNTIME_DISSOLVE_TICKS = 100_000  # a MIX this long: every measured tick is mid-dissolve
+RUNTIME_FILL_PERIODS = 3  # the rings fill over two periods; the third's first tick prepares the structure
+RUNTIME_PERIODS = 3  # steady 1080i50 periods checked and counted
+RUNTIME_TICKS = 4  # steady ticks of each 1080p50 channel
+PACED_SECONDS = 4.0  # the four 1080i50 channels under Channel.run
 # the TPU kernels K5's whole-stack modes stand for
 B15 = "phaneron_tpu/ops/pallas_composite.py:407"
 B16 = "phaneron_tpu/ops/pallas_warp.py:910"
@@ -1976,6 +2001,122 @@ class InterlacedLoad:
         return outs
 
 
+def recording_consumer():
+    """A Consumer (consumer/consumer.py) that counts the frames delivered
+    to it, keeps the last one and, on an interlaced channel, pairs the
+    field ticks into interlaced frames (``_init_field_pairing``) and keeps
+    the last pair."""
+    from phaneron_tpu_torch.consumer.consumer import Consumer
+
+    class Recording(Consumer):
+        async def initialise(self, fmt):
+            await super().initialise(fmt)
+            if fmt.interlaced:
+                self._init_field_pairing(fmt)
+            self.delivered, self.frame, self.paired, self.pair = 0, None, 0, None
+
+        async def deliver(self, frame):
+            self.delivered += 1
+            self.frame = frame
+            if self._word_pair is not None:
+                out = self._pair_field(frame, frame.timestamp)
+                if out is not None:
+                    self.paired += 1
+                    self.pair = out[0][0]
+
+    return Recording()
+
+
+async def runtime_channel(dev, chan_id: int, fmt, plain: bool):
+    """A port Channel on the card (kernels, or ``plain`` for the reference
+    set) with its own test-pattern registry and a recording consumer."""
+    from phaneron_tpu_torch.producer.producer import ProducerRegistry
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+    from phaneron_tpu_torch.runtime.channel import Channel
+
+    ch = Channel(chan_id, fmt, ProducerRegistry([create_test_pattern_producer]), device=dev, plain=plain)
+    consumer = recording_consumer()
+    await ch.add_consumer(consumer)
+    return ch, consumer
+
+
+async def runtime_dissolve(ch, num: int, url_a: str, url_b: str, fill=None) -> None:
+    """LOAD ``url_a`` on layer ``num`` and PLAY it, then a long MIX to
+    ``url_b`` (RUNTIME_DISSOLVE_TICKS, so every measured tick is
+    mid-dissolve), each source under MIXER FILL ``fill`` where given:
+    Layer.set_fill sets the playing source's mixer, and the incoming
+    source's own mixer gets the same box."""
+    from phaneron_tpu_torch.producer.producer import LoadParams
+    from phaneron_tpu_torch.runtime.types import TransitionSpec
+
+    check(await ch.load_source(num, LoadParams(url_a)), f"runtime: LOAD {url_a}")
+    check(ch.play(num), f"runtime: PLAY {num}")
+    if fill is not None:
+        check(ch.layer(num).set_fill(*fill), f"runtime: MIXER {num} FILL")
+    check(await ch.load_source(num, LoadParams(url_b), transition=TransitionSpec("dissolve", RUNTIME_DISSOLVE_TICKS)),
+          f"runtime: LOAD {url_b} MIX")
+    if fill is not None:
+        ch.layer(num).next.mixer.set_fill(*fill)
+    check(ch.play(num), f"runtime: PLAY {num} MIX")
+
+
+async def runtime_tick(chans) -> list:
+    """One tick of each channel through render_frame, delivered to its
+    consumer; render_frame raises where Channel.run would log and go on."""
+    frames = []
+    for ch, consumer in chans:
+        frame = await ch.render_frame()
+        await consumer.deliver(frame)
+        frames.append(frame)
+    return frames
+
+
+async def runtime_interlaced_set(dev, plain: bool) -> list:
+    """The default load through the runtime (configs/quad_1080i_1chip.json):
+    per channel four layers, each a dissolve from BARS to RAMP (v210
+    patterns) under bench.py's interlaced box; kernel channels, or plain
+    ones; prewarmed."""
+    from pathlib import Path
+
+    from phaneron_tpu_torch.config import ServerConfig, get_video_format
+
+    cfg = ServerConfig.load(Path(__file__).resolve().parent / "configs" / "quad_1080i_1chip.json")
+    chans = []
+    for c, cc in enumerate(cfg.channels):
+        ch, consumer = await runtime_channel(dev, c + 1, get_video_format(cc.format), plain)
+        for i in range(4):
+            await runtime_dissolve(ch, i + 1, "BARS", "RAMP", (0.02 + 0.003 * i + 0.0007 * c, 0.0, 0.9, 0.9))
+        await ch.wait_prewarmed()
+        chans.append((ch, consumer))
+    return chans
+
+
+def runtime_compare(torch, kernel_frames, plain_frames, w: int, h: int, what: str) -> int:
+    """Each kernel channel's frame against its plain twin's (<= 1 code);
+    returns the worst code delta."""
+    from phaneron_tpu_torch.ops.formats.v210 import pitch_bytes
+
+    worst = 0
+    for c, (a, b) in enumerate(zip(kernel_frames, plain_frames)):
+        words, ref = a.packed[0], b.packed[0]
+        check(tuple(words.shape) == (h, pitch_bytes(w) // 4) and words.dtype == torch.int32,
+              f"{what} channel {c}: output {tuple(words.shape)} {words.dtype}")
+        d = code_delta(torch, words, ref, w, h)
+        check(d <= TOL_CODES, f"{what} channel {c}: kernel channel {d} codes from the plain channel")
+        worst = max(worst, d)
+    return worst
+
+
+@contextlib.contextmanager
+def sync_errors(torch):
+    """Any host wait for the card raises inside (torch's sync debug mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def multibox_matrices(w: int, h: int) -> list:
     """The multi-box stack's DVE matrices, bottom to top: three boxes at
     scale 0.5 (top left, top right, bottom left), then the graphic at
@@ -2132,6 +2273,161 @@ def phase_composite_modes(torch, dev, rng, rec: dict) -> None:
             check(d <= TOL_CODES, f"packed_composite {kind} {alpha} code delta {d}")
     rec["composite_modes"] = errs
     torch.cuda.synchronize()
+
+
+def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> None:
+    """The runtime on the card: port Channels (runtime/channel.py) with
+    test-pattern sources, on one event loop.  (a) The default load's four
+    1080i50 channels, a kernel set against a plain set through
+    render_frame, 3 steady periods with the stage-driven period's launch
+    counts (``run_path``), then a warm period under the sync debug mode
+    and the runtime period timed in turns with ``stage_load``; (b) a
+    1080p50 playout and entry() channel the same way; (c) the four 1080i50
+    kernel channels under Channel.run for PACED_SECONDS: every rendered
+    tick delivered, each channel's stats recorded in ``timing``."""
+    import asyncio
+
+    from phaneron_tpu_torch.config import get_video_format
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.producer.producer import LoadParams
+
+    loop = asyncio.new_event_loop()
+    arun = loop.run_until_complete
+    t_phase = time.perf_counter()
+    kern, ref = arun(runtime_interlaced_set(dev, False)), arun(runtime_interlaced_set(dev, True))
+    for _ in range(2 * RUNTIME_FILL_PERIODS):  # the rings fill, then the structure's first (prepared) tick
+        arun(runtime_tick(kern))
+        arun(runtime_tick(ref))
+    live = kern[0][0]._last_layer_specs
+    check(len(live) == 4 and all(ls == interlaced_spec().layers[0] for ls in live.values()),
+          f"runtime: the channels run {live}, not the stage-driven period's structure")
+
+    def runtime_interlaced_path():
+        worst = 0
+        for p in range(RUNTIME_PERIODS):
+            for t in (0, 1):
+                worst = max(worst, runtime_compare(torch, arun(runtime_tick(kern)), arun(runtime_tick(ref)),
+                                                   W, H, f"runtime period {p} tick {t}"))
+            for c, ((_, a), (_, b)) in enumerate(zip(kern, ref)):
+                check(a.paired == b.paired and a.pair is not None, f"runtime period {p} channel {c}: no field pair")
+                d = code_delta(torch, a.pair, b.pair, W, H)
+                check(d <= TOL_CODES, f"runtime period {p} channel {c}: paired words {d} codes from the plain set")
+                worst = max(worst, d)
+        print(f"runtime_interlaced: {RUNTIME_PERIODS} steady periods of {N_CHANNELS} Channels {W}x{H} "
+              f"(render_frame, 4 BARS -> RAMP dissolves under MIXER FILL, a consumer pairing the fields), "
+              f"max code delta vs the plain channels {worst} (frames and paired words)")
+
+    # the stage-driven period's counts: the runtime takes the same route
+    run_path("runtime_interlaced", {"v210_unpack": N_CHANNELS * N_SOURCES, "yadif_pair": N_CHANNELS * N_SOURCES,
+                                    "packed_composite": N_CHANNELS * 2}, RUNTIME_PERIODS, runtime_interlaced_path,
+             modes={("rgb3", "packed", "top"): N_CHANNELS * 2})
+    with sync_errors(torch):  # a warm period makes the host wait for nothing
+        warm = [arun(runtime_tick(kern)) for _ in (0, 1)]
+    for frames in warm:
+        runtime_compare(torch, frames, arun(runtime_tick(ref)), W, H, "runtime warm tick")
+    print("runtime_interlaced: a warm period of each kernel channel ran under "
+          "torch.cuda.set_sync_debug_mode('error')")
+    for ch, _ in ref:
+        arun(ch.shutdown())
+    runtime_ms, stage_ms = [], []
+    runtime_period = lambda: [arun(runtime_tick(kern)) for _ in (0, 1)]
+    for order in ("stage", "runtime", "runtime", "stage"):
+        if order == "stage":
+            stage_ms.append(time_ms(torch, stage_load, batches=5, calls=2, warmup=1))
+        else:
+            runtime_ms.append(time_ms(torch, runtime_period, batches=5, calls=2, warmup=1))
+    timing["runtime_interlaced_period"] = dict(ms=statistics.median(runtime_ms), runs=runtime_ms,
+                                               stage_ms=statistics.median(stage_ms), stage_runs=stage_ms)
+    print(f"runtime_interlaced period ms ({N_CHANNELS} x 1080i50 Channels, render_frame + deliver, eager) on "
+          f"{card}: {timing['runtime_interlaced_period']['ms']:.4f} (runs {runtime_ms}); the stage-driven "
+          f"period {timing['runtime_interlaced_period']['stage_ms']:.4f} (runs {stage_ms})")
+
+    # 1080p50: playout (a v210 pattern, then a MIX to another, no DVE: one
+    # fused_v210 a tick) and entry() (a v210 DVE dissolve under a yuv422p8
+    # pattern: one packed_warp, planar422_unpack and combine_pack a tick)
+    async def progressive_channels(name: str) -> list:
+        out = []
+        for plain in (False, True):
+            ch, consumer = await runtime_channel(dev, 10 + plain, get_video_format("1080p5000"), plain)
+            if name == "playout":
+                await runtime_dissolve(ch, 1, "BARS", "RAMP")
+            else:
+                await runtime_dissolve(ch, 1, "BARS", "RAMP", (0.05, 0.0, 0.9, 1.0))
+                check(await ch.load_source(2, LoadParams("BARS@yuv422p8")) and ch.play(2), "runtime: LOAD yuv422p8")
+            await ch.wait_prewarmed()
+            out.append((ch, consumer))
+        return out
+
+
+    for name, per_tick in (("playout", {"fused_v210": 1}),
+                           ("entry", {"packed_warp": 1, "planar422_unpack": 1, "combine_pack": 1})):
+        pair = arun(progressive_channels(name))
+        for _ in range(2):  # the structure's first (prepared) tick, then one warm
+            arun(runtime_tick(pair))
+        path = f"runtime_{name}_{W}x{H}"
+
+        def runtime_progressive_path():
+            worst = 0
+            for t in range(RUNTIME_TICKS):
+                a, b = arun(runtime_tick(pair[:1])), arun(runtime_tick(pair[1:]))
+                worst = max(worst, runtime_compare(torch, a, b, W, H, f"{path} tick {t}"))
+            print(f"{path}: {RUNTIME_TICKS} ticks of a 1080p50 Channel, max code delta vs the plain channel {worst}")
+
+        run_path(path, per_tick, RUNTIME_TICKS, runtime_progressive_path)
+        with sync_errors(torch):
+            warm = arun(runtime_tick(pair[:1]))
+        runtime_compare(torch, warm, arun(runtime_tick(pair[1:])), W, H, f"{path} warm tick")
+        print(f"{path}: a warm tick ran under torch.cuda.set_sync_debug_mode('error')")
+        for ch, _ in pair:
+            arun(ch.shutdown())
+
+    # the four 1080i50 kernel channels paced by Channel.run on the event loop
+    k5_before = PW.packed_composite.launches
+    starts = {}
+    for ch, consumer in kern:
+        ch.frame_times.clear()
+        consumer.delivered = 0
+        starts[ch.chan_id] = ch.timestamp
+
+    async def paced():
+        for ch, _ in kern:
+            await ch.wait_prewarmed()
+            ch.start()
+        await asyncio.sleep(PACED_SECONDS)
+        for ch, _ in kern:
+            ch.running = False  # each loop ends after a whole tick
+        await asyncio.wait_for(asyncio.gather(*(ch._task for ch, _ in kern)), 30)
+
+    arun(paced())
+    stats = []
+    for ch, consumer in kern:
+        s = ch.stats()
+        rendered = ch.timestamp - starts[ch.chan_id]
+        check(rendered > 0 and consumer.delivered == rendered == ch.clock.total_frames,
+              f"runtime paced channel {ch.chan_id}: {ch.clock.total_frames} ticks, {rendered} rendered, "
+              f"{consumer.delivered} delivered")
+        stats.append(dict(channel=ch.chan_id, frames=rendered, late_frames=s["late_frames"],
+                          render_p50_host_ms=s["render_p50_ms"], render_p99_host_ms=s["render_p99_ms"]))
+        print(f"runtime paced run on {card}: channel {ch.chan_id} {rendered} ticks in {PACED_SECONDS} s, "
+              f"late_frames {s['late_frames']}, render p50 {s['render_p50_ms']:.4f} host ms, "
+              f"p99 {s['render_p99_ms']:.4f} host ms, every tick delivered")
+    k5_paced = PW.packed_composite.launches - k5_before
+    check(k5_paced == sum(s["frames"] for s in stats),
+          f"runtime paced run: {k5_paced} packed_composite launches for {sum(s['frames'] for s in stats)} ticks")
+    timing["runtime_paced"] = stats
+    for ch, _ in kern:
+        arun(ch.shutdown())
+
+    async def drain():  # the streams' pumps end with their producers
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+        for task in pending:
+            task.cancel()
+        await asyncio.gather(*pending, return_exceptions=True)
+
+    arun(drain())
+    loop.close()
+    print(f"runtime phase: {time.perf_counter() - t_phase:.2f} s")
+
 
 
 def main() -> int:
@@ -2553,6 +2849,9 @@ def main() -> int:
              modes={("rgba", "rgba", "coverage"): 1}, tail={"combine": 1, "_top_alpha_fixup": 0})
     kanimate(0.5)
     timing[path] = time_frame(torch, card, path, kprog, kplain, kparams)
+
+    # -------- phase 7f: the runtime (port Channels through render_frame and Channel.run)
+    phase_runtime(torch, dev, card, run_path, load, timing)
 
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []

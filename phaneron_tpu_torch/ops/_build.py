@@ -17,7 +17,10 @@ with its plain version (``nvcc_defines`` of ops/rotate.py and
 ops/packed_warp.py).
 
 Importing this module builds nothing, so the package imports cleanly on
-a machine without nvcc.
+a machine without nvcc.  ``library()`` and ``build_info()`` hold one lock
+while they build or load, so threads that ask at once (channels
+prewarming from worker threads) wait for one build instead of each
+running nvcc.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
@@ -144,8 +148,14 @@ def _compile(out: Path, srcs: list[Path]) -> str:
     return log
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @lru_cache(maxsize=1)
 def _load() -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build or load the library once a process; call it under _LOAD_LOCK
+    (``library``, ``build_info``): lru_cache alone lets two threads that
+    miss at once both build."""
     t0 = time.perf_counter()
     srcs = sources()
     out = build_dir() / f"libphaneron_kernels-{_digest(srcs)}.so"
@@ -165,8 +175,10 @@ def _load() -> tuple[ctypes.CDLL, BuildInfo]:
 
 def library() -> ctypes.CDLL:
     """The kernel library, built on the first call of the process."""
-    return _load()[0]
+    with _LOAD_LOCK:
+        return _load()[0]
 
 
 def build_info() -> BuildInfo:
-    return _load()[1]
+    with _LOAD_LOCK:
+        return _load()[1]

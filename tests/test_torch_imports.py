@@ -41,6 +41,14 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert "phaneron_tpu_torch.ops.warp" in res["modules"]
     assert "phaneron_tpu_torch.ops.yadif" in res["modules"]
     assert "phaneron_tpu_torch.ops.packed_warp" in res["modules"]
+    runtime = [
+        "config", "audio.engine", "audio.filters", "runtime.stream", "runtime.clock",
+        "runtime.types", "runtime.mixer", "runtime.layer", "runtime.channel",
+        "producer.producer", "producer.test_pattern", "consumer.consumer", "utils.metrics",
+        "graph.warmup",
+    ]
+    for name in runtime:
+        assert f"phaneron_tpu_torch.{name}" in res["modules"], name
     assert res["jax"] == []
     assert res["reference"] == []
     assert res["built"] == 0

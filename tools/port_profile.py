@@ -14,14 +14,17 @@ file-media channel with its two consumer packs at 1920x1080 and
 1920x1080 and 3840x2160 and into yuv422p10le at 1920x1080; the
 progressive 4-layer frame into yuv422p10le at 1920x1080; the keyed
 graphic over two boxes and a rotation, emit_rgba, at 1920x1080; the v210
-unpack and pack stage programs at 1920x1080, one K1 and one K2 a step)
+unpack and pack stage programs at 1920x1080, one K1 and one K2 a step;
+the default load again through the port's runtime, four 1080i50
+Channels with test-pattern sources, one frame period a step)
 under torch.profiler after warm-up, and prints
 for each: the host-clock ms per step without the profiler (synchronised
 before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
 the step, the number of device operations per step, and the host time
 of each stage (record_function ranges that chip_smoke.InterlacedLoad
-opens through its ``stage`` hook).  Exits 1 without CUDA.
+opens through its ``stage`` hook, and that ``profile_runtime`` opens
+around the runtime's parts of a tick).  Exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -89,6 +92,53 @@ def profile(torch, name: str, step, steps: int, card: str) -> None:
                   f"per step (profiled)")
 
 
+def profile_runtime(torch, dev, periods: int, card: str, record_function) -> None:
+    """The default load through the port's runtime (chip_smoke.py
+    runtime_interlaced_set: four 1080i50 Channels, each four dissolving
+    test-pattern layers under MIXER FILL), one frame period (two ticks of
+    each channel, render_frame and deliver) a step, with a stage range
+    around each part of a tick: ``layer_poll`` (Layer.poll, which holds
+    ``slot_tick``, SourceSlot.tick with its unpack and pair deinterlace,
+    and ``slot_audio``, SourceSlot.audio_tick), ``dispatch``
+    (Channel._dispatch, the frame program) and ``deliver``."""
+    import asyncio
+
+    from phaneron_tpu_torch.runtime.channel import Channel
+    from phaneron_tpu_torch.runtime.layer import Layer, SourceSlot
+
+    def ranged(cls, name: str, stage: str) -> None:
+        orig = getattr(cls, name)
+
+        async def call(self, *args, **kw):
+            with record_function(f"stage:{stage}"):
+                return await orig(self, *args, **kw)
+
+        setattr(cls, name, call)
+
+    ranged(Layer, "poll", "layer_poll")
+    ranged(SourceSlot, "tick", "slot_tick")
+    ranged(SourceSlot, "audio_tick", "slot_audio")
+    dispatch = Channel._dispatch
+
+    def ranged_dispatch(self, spec, contribs):
+        with record_function("stage:dispatch"):
+            return dispatch(self, spec, contribs)
+
+    Channel._dispatch = ranged_dispatch
+    loop = asyncio.new_event_loop()
+    chans = loop.run_until_complete(cs.runtime_interlaced_set(dev, plain=False))
+    for ch, consumer in chans:
+        ranged(type(consumer), "deliver", "deliver")
+    for _ in range(2 * cs.RUNTIME_FILL_PERIODS):
+        loop.run_until_complete(cs.runtime_tick(chans))
+    period = lambda: [loop.run_until_complete(cs.runtime_tick(chans)) for _ in (0, 1)]
+    profile(torch, "runtime: 4 x 1080i50 Channels (render_frame + deliver), one frame period", period,
+            periods, card)
+    for ch, _ in chans:
+        loop.run_until_complete(ch.shutdown())
+    loop.close()
+
+
 def main() -> int:
     import torch
 
@@ -113,6 +163,7 @@ def main() -> int:
 
     profile(torch, "interlaced default load, 4 x 1080i50, one frame period", load,
             args.periods, card)
+    profile_runtime(torch, dev, args.periods, card, record_function)
 
     spec, params = cs.entry_spec_params(rng, dev)
     program = make_channel_program(spec)
