@@ -177,7 +177,32 @@ Run from the repository root:  python3 chip_smoke.py
      turns with the stage-driven one; then the four 1080i50 kernel
      channels under Channel.run for PACED_SECONDS: every rendered tick
      delivered, one packed_composite a tick, each channel's frames,
-     late_frames and render p50 / p99 (host ms) printed.
+     late_frames and render p50 / p99 (host ms) printed;
+   - server (``phase_server``): PhaneronServer (server.py) on
+     configs/quad_1080i_1chip.json through ServerConfig.load, its file
+     paths and ports changed in memory only (two file consumers, a
+     preview, an MJPEG stream; AMCP and OSC on ports the OS picks).  Over
+     TCP: PLAY n-i BARS and MIXER n-i FILL (bench.py's boxes) on four
+     layers of each channel, LOADBG 1-1 RAMP MIX 50 and PLAY 1-1, then,
+     once the dissolve has ended, MIXER 1-1 FILL for the RAMP, INFO,
+     INFO 1, REQ tokens, VERSION and ADD 2 DECKLINK (400: not ported),
+     every response line checked and each round trip timed; an MJPEG
+     client reads the stream; SERVER_PACED_SECONDS paced, with an INFO
+     every 100 ms: each channel's ticks, late_frames, render p50 / p99
+     host ms, the file consumers' frames written and MB/s, the AMCP round
+     trip p50 / p99, and every rendered tick delivered.  Then, the loops
+     stopped, 3 steady periods counted (16 v210_unpack, 16 yadif_pair,
+     8 packed_composite rgb3 a period: 'packed' on the file channels,
+     'both' on the preview and MJPEG ones), a warm period under
+     torch.cuda.set_sync_debug_mode("error") with every consumer
+     attached, the last written interlaced frame of channels 1 and 2 0
+     codes from a plain=True twin (given the same commands through the
+     control plane, each source PLAYed with SEEK to the server source's
+     last frame at its field parity), the preview's GET / body <= 1
+     code from the twin's rgba8 pack, the MJPEG part headers (where PIL
+     imports); and a second session that PLAYs channel 1's recording
+     back through the raw-file producer, its last written frame 0 codes
+     from a plain channel playing it.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
@@ -2430,6 +2455,452 @@ def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> 
 
 
 
+SERVER_PACED_SECONDS = 4.0  # the server's channels under Channel.run with every consumer attached
+SERVER_DISSOLVE_TICKS = 50  # LOADBG 1-1 RAMP MIX 50
+SERVER_PERIODS = 3  # steady server periods counted
+SERVER_PLAYBACK_SECONDS = 1.0  # the second session's raw-file playback
+SERVER_PROBE_S = 0.1  # an INFO every 100 ms while the server runs paced
+
+
+def server_boxes(n_channels: int) -> dict:
+    """(channel, layer) -> MIXER FILL box: bench.py's interlaced boxes."""
+    return {(c, i): (0.02 + 0.003 * i + 0.0007 * c, 0.0, 0.9, 0.9)
+            for c in range(1, n_channels + 1) for i in range(1, 5)}
+
+
+class AmcpClient:
+    """An AMCP connection that sends a command, reads its response lines
+    and records the round trip (send to the final response line)."""
+
+    def __init__(self, reader, writer):
+        self.reader, self.writer = reader, writer
+        self.rtt_ms = []
+
+    async def call(self, cmd: str, expect) -> list:
+        """Send ``cmd``; ``expect`` is the list of response lines (a line
+        ending in '...' matches by prefix).  Fails unless they match."""
+        import asyncio
+
+        t0 = time.perf_counter()
+        self.writer.write(f"{cmd}\r\n".encode())
+        await self.writer.drain()
+        lines = [(await asyncio.wait_for(self.reader.readline(), 30)).decode().rstrip("\r\n") for _ in expect]
+        self.rtt_ms.append((time.perf_counter() - t0) * 1e3)
+        for got, want in zip(lines, expect):
+            ok = got.startswith(want[:-3]) if want.endswith("...") else got == want
+            check(ok, f"server: {cmd!r} answered {lines}, expected {expect}")
+        return lines
+
+    async def close(self) -> None:
+        self.writer.close()
+        await self.writer.wait_closed()
+
+
+def server_config(out_dir, playback: bool = False):
+    """configs/quad_1080i_1chip.json through the port's ServerConfig.load,
+    changed in memory only: the file consumers write under ``out_dir``
+    (``*_playback.v210`` in the second session), the HTTP consumers, AMCP
+    and OSC take ports the OS chooses."""
+    from pathlib import Path
+
+    from phaneron_tpu_torch.config import ServerConfig
+
+    cfg = ServerConfig.load(Path(__file__).resolve().parent / "configs" / "quad_1080i_1chip.json")
+    for cc in cfg.channels:
+        dev = dict(cc.device)
+        if dev["name"] == "file":
+            stem = Path(dev["path"]).stem + ("_playback" if playback else "")
+            dev["path"] = str(Path(out_dir) / f"{stem}.v210")
+        else:
+            dev["port"] = 0
+        cc.device = dev
+    cfg.amcp_port = cfg.osc_listen_port = 0
+    return cfg
+
+
+def count_deliveries(server) -> None:
+    """Before ``start``: every consumer the server's registry makes counts
+    the frames handed to it in ``smoke_delivered``."""
+    registry = server.consumer_registry
+    for name, factory in list(registry.factories.items()):
+        def create(params, factory=factory):
+            consumer = factory(params)
+            consumer.smoke_delivered = 0
+            deliver = consumer.deliver
+
+            async def counted(frame):
+                consumer.smoke_delivered += 1
+                return await deliver(frame)
+
+            consumer.deliver = counted
+            return consumer
+
+        registry.register(name, create)
+
+
+async def stop_paced(server) -> None:
+    """End every channel's Channel.run after a whole tick."""
+    import asyncio
+
+    for ch in server.channels.values():
+        ch.running = False
+    await asyncio.wait_for(asyncio.gather(*(ch._task for ch in server.channels.values())), 30)
+
+
+async def server_tick(ch) -> None:
+    """One tick as Channel.run makes it, unpaced: render, deliver to every
+    consumer (errors raise here)."""
+    frame = await ch.render_frame()
+    for c in ch.consumers:
+        await c.deliver(frame)
+
+
+def source_position(slot) -> int:
+    """The index of a slot's last frame in its source: a test pattern's
+    frame timestamps start at its SEEK, a raw file's count the frames it
+    played from its SEEK (no LOOP wrap or CALL SEEK here)."""
+    from phaneron_tpu_torch.producer.raw_file import RawFileProducer
+
+    if isinstance(slot.producer, RawFileProducer):
+        return slot.producer.params.seek + slot.last.timestamp
+    return slot.last.timestamp
+
+
+async def plain_twin(dev, ch, emit_rgba: bool):
+    """A plain=True Channel in the state the server channel ``ch`` ends in
+    after its last tick, given the same commands through the port's
+    control plane: each playing test-pattern or raw-file source is PLAYed
+    with SEEK so that its last frame is the server source's last frame,
+    at the same field parity, under the same MIXER FILL, and ticked until
+    its deinterlace ring is full.  Returns the twin's last two frames."""
+    from phaneron_tpu_torch.consumer.consumer import Consumer
+    from phaneron_tpu_torch.control.basic_cmds import BasicCmds
+    from phaneron_tpu_torch.control.commands import Commands
+    from phaneron_tpu_torch.control.mixer_cmds import MixerCmds
+    from phaneron_tpu_torch.producer.producer import ProducerRegistry
+    from phaneron_tpu_torch.producer.raw_file import create_raw_file_producer
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+    from phaneron_tpu_torch.runtime.channel import Channel
+
+    class RgbaSink(Consumer):  # makes the twin emit its rgba frame, as the preview does
+        pix_format = None
+
+        async def deliver(self, frame):
+            pass
+
+    twin = Channel(ch.chan_id, ch.fmt, ProducerRegistry([create_test_pattern_producer, create_raw_file_producer]),
+                   device=dev, plain=True)
+    if emit_rgba:
+        await twin.add_consumer(RgbaSink())
+    cmds = Commands()
+    cmds.add(BasicCmds({ch.chan_id: twin}, None).list())
+    cmds.add(MixerCmds({ch.chan_id: twin}).list())
+    starts = {}
+    for num, lay in sorted(ch.layers.items()):
+        slot = lay.cur
+        check(slot is not None and lay.next is None and lay.transition is None,
+              f"server channel {ch.chan_id} layer {num}: not a steady source")
+        ticks = 8 + slot.ticks % 2  # >= 3 pulls, the server slot's field parity
+        seek = source_position(slot) - (ticks + 1) // 2 + 1  # the twin pulls (ticks + 1) // 2 frames
+        check(seek >= 0, f"server channel {ch.chan_id} layer {num}: seek {seek}")
+        cmd = [f'PLAY {ch.chan_id}-{num} "{slot.producer.params.url}" SEEK {seek}']
+        if not slot.mixer.is_identity:
+            cmd.append(f"MIXER {ch.chan_id}-{num} FILL " + " ".join(repr(v) for v in slot.mixer.fill))
+        starts.setdefault(9 - ticks, []).append(cmd)
+    frames = []
+    for t in range(9):
+        for cmd in starts.get(t, []):
+            for line in cmd:
+                tokens = [tok.strip('"') for tok in line.split(" ")]
+                check(await cmds.process(tokens), f"plain twin {ch.chan_id}: {line}")
+        frames.append(await twin.render_frame())
+    for num, lay in ch.layers.items():
+        got, want = twin.layers[num].cur, lay.cur
+        check((got.ticks % 2, source_position(got)) == (want.ticks % 2, source_position(want)),
+              f"plain twin {ch.chan_id} layer {num}: ticks {got.ticks}, frame {source_position(got)}; server "
+              f"{want.ticks}, {source_position(want)}")
+        check(got.mixer.fill == want.mixer.fill, f"plain twin {ch.chan_id} layer {num}: fill {got.mixer.fill}")
+    await twin.shutdown()
+    return frames[-2:]
+
+
+def last_written(torch, dev, cons, height: int):
+    """The last frame a released FileConsumer wrote, as v210 words on ``dev``."""
+    data = np.fromfile(cons.path, dtype=np.uint32)
+    words = data[-data.size // cons.written:].view(np.int32).reshape(height, -1)
+    return torch.from_numpy(words.copy()).to(dev)
+
+
+def percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q)) if xs else float("nan")
+
+
+async def mjpeg_reader(port: int, parts: list) -> None:
+    """Read the MJPEG stream, keeping each part's header and JPEG bytes."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET / HTTP/1.1\r\n\r\n")
+    await writer.drain()
+    parts.append(await reader.readuntil(b"\r\n\r\n"))
+    try:
+        while True:
+            head = await reader.readuntil(b"\r\n\r\n")
+            n = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+            parts.append((head, await reader.readexactly(n)))
+            await reader.readexactly(2)
+    finally:
+        writer.close()
+
+
+async def http_get(port: int, path: str, n: int) -> tuple:
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    body = await asyncio.wait_for(reader.readexactly(n), 30)
+    writer.close()
+    return head, body
+
+
+def phase_server(torch, dev, card: str, run_path, timing: dict, server_device=None) -> None:
+    """The server (server.py) on configs/quad_1080i_1chip.json, as a user
+    starts it: PhaneronServer over ServerConfig.load (file paths and ports
+    changed in memory), on the card; AMCP over TCP builds the load (four
+    BARS boxes a channel, a MIX on 1-1), the channels run paced with the
+    file, preview and MJPEG consumers attached; then 3 steady periods
+    counted, a warm period under the sync debug mode, the last written
+    frames and the preview against plain twins, and a second session
+    playing channel 1's recording back through the raw-file producer."""
+    import asyncio
+    import tempfile
+    from pathlib import Path
+
+    from phaneron_tpu_torch.graph.pipeline import make_interlaced_word_pack_program, make_pack_program
+    from phaneron_tpu_torch.server import PhaneronServer
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    out_dir = Path(tempfile.mkdtemp(prefix="phaneron_server_"))
+    loop = asyncio.new_event_loop()
+    arun = loop.run_until_complete
+    t_phase = time.perf_counter()
+    record = {}
+
+    async def session1():
+        server = PhaneronServer(server_config(out_dir), device=server_device)
+        count_deliveries(server)
+        await server.start()
+        chans = server.channels
+        fmt = chans[1].fmt
+        w, h = fmt.width, fmt.height
+        amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        boxes = server_boxes(len(chans))
+        for (c, i), box in boxes.items():
+            await amcp.call(f"PLAY {c}-{i} BARS", ["202 PLAY OK"])
+            await amcp.call(f"MIXER {c}-{i} FILL " + " ".join(map(str, box)), ["202 MIXER OK"])
+        await amcp.call(f"LOADBG 1-1 RAMP MIX {SERVER_DISSOLVE_TICKS}", ["202 LOADBG OK"])
+        await amcp.call("PLAY 1-1", ["202 PLAY OK"])
+        while chans[1].layers[1].transition is not None or chans[1].layers[1].next is not None:
+            await amcp.call("REQ chip0 PING", ["PONG chip0"])
+            await asyncio.sleep(0.05)
+        # the RAMP that the dissolve brought in takes the box too (MIXER
+        # FILL reaches the playing source's mixer only)
+        await amcp.call("MIXER 1-1 FILL " + " ".join(map(str, boxes[(1, 1)])), ["202 MIXER OK"])
+        info = ["200 INFO OK", *(f"{n} {fmt.name} PLAYING" for n in chans), ""]
+        await amcp.call("INFO", info)
+        await amcp.call("INFO 1", ["201 INFO OK", f"1 {fmt.name} PLAYING frames=..."])
+        await amcp.call("REQ chip1 MIXER 2-1 FILL", ["RES chip1 202 MIXER OK"])
+        await amcp.call("REQ chip2 PING", ["PONG chip2"])
+        await amcp.call("VERSION", ["201 VERSION OK", "2.1.8..."])
+        await amcp.call("ADD 2 DECKLINK", ["400 ERROR", "ADD 2 DECKLINK NOT IMPLEMENTED"])
+        script_rtt = list(amcp.rtt_ms)
+
+        parts = []
+        mjpeg_task = asyncio.create_task(mjpeg_reader(chans[4].consumers[0].port, parts))
+        for ch in chans.values():  # the paced window starts on warm structures
+            await ch.wait_prewarmed()
+        def snapshot():
+            return {n: dict(ticks=ch.timestamp, late=ch.clock.late_frames,
+                            written=[getattr(c, "written", 0) for c in ch.consumers],
+                            bytes=[getattr(c, "bytes_written", 0) for c in ch.consumers]) for n, ch in chans.items()}
+
+        before = snapshot()
+        for ch in chans.values():
+            ch.frame_times.clear()
+        amcp.rtt_ms.clear()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SERVER_PACED_SECONDS:
+            await amcp.call("INFO", info)
+            await asyncio.sleep(SERVER_PROBE_S)
+        seconds = time.perf_counter() - t0
+        probe_rtt = list(amcp.rtt_ms)
+        stats = {n: ch.stats() for n, ch in chans.items()}
+        after = snapshot()
+        await stop_paced(server)
+        per_channel = []
+        for n, ch in chans.items():
+            rendered = ch.timestamp
+            counts = [c.smoke_delivered for c in ch.consumers]
+            check(rendered == ch.clock.total_frames and counts == [rendered], f"server channel {n}: "
+                  f"{ch.clock.total_frames} clock ticks, {rendered} rendered, delivered {counts}")
+            b, a = before[n], after[n]
+            row = dict(channel=n, consumer=server.config.channels[n - 1].device["name"],
+                       ticks_rendered=rendered, ticks_delivered=counts[0],
+                       window_ticks=a["ticks"] - b["ticks"],
+                       late_frames=a["late"] - b["late"], late_frames_whole_run=ch.clock.late_frames,
+                       render_p50_host_ms=stats[n]["render_p50_ms"], render_p99_host_ms=stats[n]["render_p99_ms"])
+            if row["consumer"] == "file":
+                row["frames_written"] = a["written"][0] - b["written"][0]
+                row["mb_per_s_written"] = (a["bytes"][0] - b["bytes"][0]) / 1e6 / seconds
+            per_channel.append(row)
+            print(f"server paced run on {card}: channel {n} ({row['consumer']}) {rendered} ticks rendered and "
+                  f"{counts[0]} delivered since start; in the {seconds:.3f} s window {row['window_ticks']} "
+                  f"ticks, late_frames {row['late_frames']} ({ch.clock.late_frames} over the run), render p50 "
+                  f"{row['render_p50_host_ms']:.4f} p99 {row['render_p99_host_ms']:.4f} host ms"
+                  + (f", {row['frames_written']} frames written, {row['mb_per_s_written']:.2f} MB/s"
+                     if "frames_written" in row else ""))
+        rtt = dict(script_p50_ms=percentile(script_rtt, 50), script_p99_ms=percentile(script_rtt, 99),
+                   script_n=len(script_rtt), probe_p50_ms=percentile(probe_rtt, 50),
+                   probe_p99_ms=percentile(probe_rtt, 99), probe_n=len(probe_rtt))
+        print(f"server AMCP round trip on {card} (send to the final response line, channels running): the "
+              f"script's {rtt['script_n']} commands p50 {rtt['script_p50_ms']:.4f} ms p99 "
+              f"{rtt['script_p99_ms']:.4f} ms; INFO every {SERVER_PROBE_S} s in the paced window, "
+              f"{rtt['probe_n']} calls, p50 {rtt['probe_p50_ms']:.4f} ms p99 {rtt['probe_p99_ms']:.4f} ms")
+
+        live = chans[1]._last_layer_specs
+        check(len(live) == 4 and all(ls.has_transform and ls.axis_aligned for ls in live.values()),
+              f"server channel 1 runs {live}, not four boxes")
+        await amcp.close()
+        record.update(per_channel=per_channel, rtt=rtt, seconds=seconds, server=server, w=w, h=h, fmt=fmt,
+                      parts=parts, mjpeg_task=mjpeg_task)
+
+    arun(session1())
+    server, w, h, fmt, chans = record["server"], record["w"], record["h"], record["fmt"], record["server"].channels
+    n_ch = len(chans)
+    n_src = sum(len(ch.layers) for ch in chans.values())
+
+    def server_periods():  # the paced loops have stopped: ticks one at a time, as Channel.run makes them
+        for _ in range(SERVER_PERIODS):
+            for _ in (0, 1):
+                for ch in chans.values():
+                    arun(server_tick(ch))
+        print(f"server: {SERVER_PERIODS} steady periods of {n_ch} channels {w}x{h} "
+              f"({n_src} BARS / RAMP boxes; file, file, preview, mjpeg consumers)")
+
+    run_path("server", {"v210_unpack": n_src, "yadif_pair": n_src, "packed_composite": 2 * n_ch},
+             SERVER_PERIODS, server_periods,
+             modes={("rgb3", "packed", "top"): 4, ("rgb3", "both", "top"): 4})
+    with sync_errors(torch):  # a warm server period waits on nothing, consumers included
+        for _ in (0, 1):
+            for ch in chans.values():
+                arun(server_tick(ch))
+        arun(asyncio.sleep(0.05))  # the preview and MJPEG drains run their step
+    print("server: a warm period of every channel, its consumers attached, ran under "
+          "torch.cuda.set_sync_debug_mode('error')")
+
+    async def finish1():
+        for ch in chans.values():  # end on a whole frame period: the files' last pair is the last two ticks
+            if ch.timestamp % 2:
+                await server_tick(ch)
+        preview = chans[3].consumers[0]
+        if preview._task is not None:
+            await preview._task
+        check(preview.last_timestamp == chans[3].timestamp - 1,
+              f"server preview: last frame {preview.last_timestamp}, channel at {chans[3].timestamp}")
+        head, body = await http_get(preview.port, "/", w * h * 4)
+        check(b"200 OK" in head and f"X-Width: {w}".encode() in head, f"server preview: {head!r}")
+        files = {}
+        for n in (1, 2):
+            cons = chans[n].consumers[0]
+            cons.release()
+            check(cons.leaked_threads == 0 and cons.written == chans[n].timestamp // 2,
+                  f"server channel {n}: {cons.written} frames written for {chans[n].timestamp} ticks")
+            files[n] = cons
+        twins = {n: await plain_twin(dev, chans[n], emit_rgba=(n == 3)) for n in (1, 2, 3)}
+        worst = 0
+        for n in (1, 2):
+            last = last_written(torch, dev, files[n], h)
+            (ref,) = make_interlaced_word_pack_program("v210")([twins[n][0].packed[0]], [twins[n][1].packed[0]])
+            d = code_delta(torch, last, ref, w, h)
+            check(d == 0, f"server channel {n}: the last written frame {d} codes from the plain twin's")
+            worst = max(worst, d)
+        rgba8 = make_pack_program("rgba8", w, h, "sRGB", plain=True)(twins[3][1].rgba)[0]
+        got = torch.frombuffer(bytearray(body), dtype=torch.uint8).reshape(h, w, 4).to(dev)
+        pd = int((got.to(torch.int32) - rgba8.to(torch.int32)).abs().max())
+        check(pd <= TOL_CODES, f"server preview: {pd} codes from the plain twin's rgba8 pack")
+        print(f"server: the last written interlaced frames of channels 1 and 2 (after the MIX) {worst} codes "
+              f"from plain twins; the preview body {pd} codes from the plain twin's rgba8 (sRGB) pack")
+        parts, task = record["parts"], record["mjpeg_task"]
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        check(parts and b"multipart/x-mixed-replace; boundary=phaneronframe" in parts[0],
+              f"server mjpeg: {parts[:1]}")
+        if have_pil:
+            from PIL import Image
+            import io
+
+            check(len(parts) > 1, "server mjpeg: no part streamed")
+            for head, jpeg in parts[1:]:
+                check(head.startswith(b"--phaneronframe\r\nContent-Type: image/jpeg\r\nContent-Length: ")
+                      and jpeg[:2] == b"\xff\xd8", f"server mjpeg part: {head!r}")
+            check(Image.open(io.BytesIO(parts[-1][1])).size == (w, h), "server mjpeg: JPEG size")
+            print(f"server mjpeg: {len(parts) - 1} JPEG parts, headers checked, last {len(parts[-1][1])} bytes")
+        else:
+            print("server mjpeg: PIL does not import here; the stream's parts were not checked (skipped)")
+        await server.shutdown()
+        return files[1].path, pd, worst
+
+    clip, preview_delta, worst = arun(finish1())
+
+    async def session2():
+        """Play channel 1's recording back on channel 1 of a new session."""
+        server = PhaneronServer(server_config(out_dir, playback=True), device=server_device)
+        await server.start()
+        chans2 = server.channels
+        amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        await amcp.call(f'PLAY 1-1 "{clip}"', ["202 PLAY OK"])
+        await amcp.close()
+        await asyncio.sleep(SERVER_PLAYBACK_SECONDS)
+        await stop_paced(server)
+        ch = chans2[1]
+        if ch.timestamp % 2:
+            await server_tick(ch)
+        cons = ch.consumers[0]
+        cons.release()
+        check(cons.written == ch.timestamp // 2 and cons.written > 0,
+              f"server playback: {cons.written} frames written for {ch.timestamp} ticks")
+        twin = await plain_twin(dev, ch, emit_rgba=False)
+        last = last_written(torch, dev, cons, h)
+        (ref,) = make_interlaced_word_pack_program("v210")([twin[0].packed[0]], [twin[1].packed[0]])
+        d = code_delta(torch, last, ref, w, h)
+        check(d == 0, f"server playback: the last written frame {d} codes from the plain channel playing the file")
+        print(f"server playback: channel 1's recording played back over {ch.timestamp} ticks (raw-file "
+              f"producer), the last written frame {d} codes from the plain channel playing it")
+        await server.shutdown()
+        return d
+
+    playback_delta = arun(session2())
+
+    async def drain():
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+        for task in pending:
+            task.cancel()
+        await asyncio.gather(*pending, return_exceptions=True)
+
+    arun(drain())
+    loop.close()
+    timing["server_paced"] = dict(channels=record["per_channel"], amcp_rtt=record["rtt"],
+                                  seconds=record["seconds"], last_frame_codes=worst,
+                                  preview_codes=preview_delta, playback_codes=playback_delta)
+    print(f"server phase: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2852,6 +3323,9 @@ def main() -> int:
 
     # -------- phase 7f: the runtime (port Channels through render_frame and Channel.run)
     phase_runtime(torch, dev, card, run_path, load, timing)
+
+    # -------- phase 7g: the server (server.py) on the default config, AMCP over TCP
+    phase_server(torch, dev, card, run_path, timing)
 
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []

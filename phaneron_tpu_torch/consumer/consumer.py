@@ -24,6 +24,7 @@ with it.
 
 from __future__ import annotations
 
+import asyncio
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -32,6 +33,7 @@ import numpy as np
 
 from ..config import VideoFormat
 from ..graph.pipeline import make_interlaced_pack_program, make_interlaced_word_pack_program
+from ..utils.hostio import host_buffer
 
 __all__ = ["ChannelFrame", "Consumer", "ConsumerRegistry"]
 
@@ -64,6 +66,9 @@ class Consumer(ABC):
         self._word_pair = None
         self._pack_pair = None
         self.dropped_fields = 0  # fields discarded for a missing form
+        # the device of the frames it is handed: Channel.add_consumer sets
+        # it before initialise (None: known at the first frame)
+        self.device = None
 
     async def initialise(self, fmt: VideoFormat) -> None:
         self.fmt = fmt
@@ -102,6 +107,14 @@ class Consumer(ABC):
         else:
             planes = self._pack_pair(top, field)
         return planes, top_payload
+
+    async def host_buffers(self, nbytes: int, count: int, device=None) -> list:
+        """``count`` host buffers for frames of ``device`` (default: the
+        consumer's), made on a worker thread: pinning memory takes tens of
+        milliseconds a buffer, which would stall the event loop."""
+        return await asyncio.to_thread(
+            lambda: [host_buffer(nbytes, device or self.device) for _ in range(count)]
+        )
 
     @abstractmethod
     async def deliver(self, frame: ChannelFrame) -> None: ...

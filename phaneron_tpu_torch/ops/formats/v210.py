@@ -50,6 +50,10 @@ def pitch_bytes(width: int) -> int:
     return (pitch(width) * 8) // 3
 
 
+def num_bytes(width: int, height: int) -> list[int]:
+    return [pitch_bytes(width) * height]
+
+
 def plane_shapes(width: int, height: int) -> list[tuple[tuple[int, int], np.dtype]]:
     return [((height, pitch_bytes(width) // 4), np.dtype(np.uint32))]
 

@@ -320,6 +320,7 @@ class Channel:
     # -------------------------------------------------------- consumers
 
     async def add_consumer(self, consumer: Consumer) -> None:
+        consumer.device = self.device  # where its frames will live
         await consumer.initialise(self.fmt)
         self.consumers.append(consumer)
 

@@ -1,0 +1,197 @@
+"""Server composition root (counterpart of phaneron_tpu/server.py;
+reference src/index.ts:36-189).
+
+Builds the whole server: config, producer/consumer registries, channels
+(each running the port's frame programs on its CUDA device), the AMCP TCP
+server, OSC, heads automation and a stdin REPL, all on one asyncio loop.
+Run with:
+
+    python -m phaneron_tpu_torch.server [config.json]
+
+Channels run on ``cuda:0``, or on ``cuda:n`` for a config channel's
+``chip: n``; without CUDA the server raises: there is no CPU fallback.
+``PhaneronServer(config, device="cpu")`` runs every channel in plain
+PyTorch on the CPU, as the tests do.  A config channel with ``sp > 1`` or
+``chips`` (a row-sharded channel) raises NotImplementedError naming
+ROADMAP.md A10.
+
+Ported consumers: file, screen (preview), mjpeg / stream.  Ported
+producers: ROUTE, the test patterns (DECKLINK URLs play bars) and raw
+files.  A consumer not ported yet (decklink, ffmpeg) raises
+NotImplementedError naming ROADMAP.md A8b; the server prints it and keeps
+serving, as it does for any consumer that fails.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import re
+import sys
+from typing import Optional
+
+import torch
+
+from .config import ServerConfig, get_video_format
+from .consumer.consumer import ConsumerRegistry
+from .consumer.file_consumer import FileConsumer
+from .consumer.mjpeg_consumer import MJPEGConsumer
+from .consumer.preview_consumer import PreviewConsumer
+from .control.amcp import AMCPServer
+from .control.basic_cmds import BasicCmds
+from .control.commands import Commands
+from .control.heads import Heads
+from .control.mixer_cmds import MixerCmds
+from .control.osc import Osc
+from .producer.producer import ProducerRegistry
+from .producer.raw_file import create_raw_file_producer
+from .producer.route import make_route_factory
+from .producer.test_pattern import create_test_pattern_producer
+from .runtime.channel import Channel
+
+__all__ = ["PhaneronServer", "default_consumer_registry", "main"]
+
+
+def _not_ported(name: str):
+    def factory(_params: dict):
+        raise NotImplementedError(f"the {name} consumer is not ported yet: ROADMAP.md A8b")
+
+    return factory
+
+
+def default_consumer_registry() -> ConsumerRegistry:
+    reg = ConsumerRegistry()
+    reg.register("file", FileConsumer)
+    reg.register("mjpeg", MJPEGConsumer)
+    reg.register("stream", MJPEGConsumer)
+    reg.register("screen", PreviewConsumer)
+    for name in ("ffmpeg", "decklink"):
+        reg.register(name, _not_ported(name))
+    return reg
+
+
+def _server_device(device) -> Optional[torch.device]:
+    """None (each channel on its CUDA device) or the one device every
+    channel runs on.  Without CUDA, None raises: no CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "PhaneronServer: no CUDA device; pass device='cpu' to run the plain PyTorch path"
+            )
+        return None
+    return torch.device(device)
+
+
+class PhaneronServer:
+    def __init__(self, config: Optional[ServerConfig] = None, device=None):
+        self.config = config or ServerConfig()
+        self.device = _server_device(device)
+        self.channels: dict[int, Channel] = {}
+        self.consumer_registry = default_consumer_registry()
+        self.producer_registry = ProducerRegistry(
+            [
+                make_route_factory(lambda n: self.channels.get(n)),
+                create_test_pattern_producer,
+                create_raw_file_producer,
+            ]
+        )
+        self.commands = Commands()
+        self.commands.add(BasicCmds(self.channels, self.consumer_registry).list())
+        self.commands.add(MixerCmds(self.channels).list())
+        self.amcp = AMCPServer(self.commands, self.config.amcp_port, server=self)
+        self.osc = Osc(
+            self.config.osc_listen_port,
+            self.config.osc_remote_address,
+            self.config.osc_remote_port,
+        )
+        self.heads: Optional[Heads] = None
+        self._stop_event = asyncio.Event()
+        self.amcp.on_kill = self._stop_event.set
+
+    def _placement(self, cc) -> tuple:
+        """(device, sp_devices) of a config channel: ``chip: n`` is
+        ``cuda:n``; ``sp > 1`` or ``chips`` name a device group."""
+        if cc.sp > 1 or cc.chips:
+            idxs = cc.chips or list(range(cc.chip or 0, (cc.chip or 0) + cc.sp))
+            return None, [torch.device("cuda", j) for j in idxs]
+        if self.device is not None:
+            return self.device, None
+        return torch.device("cuda", cc.chip or 0), None
+
+    async def start(self) -> None:
+        # channels, one per configured consumer (index.ts:156-168);
+        # a failing consumer must not kill the server
+        for i, cc in enumerate(self.config.channels, start=1):
+            device, sp_devices = self._placement(cc)
+            channel = Channel(
+                i,
+                get_video_format(cc.format),
+                self.producer_registry,
+                col_spec=self.config.col_spec,
+                gamma_mode=self.config.gamma_mode,
+                device=device,
+                sp_devices=sp_devices,
+            )
+            params = dict(cc.device)
+            name = params.pop("name", None)
+            if name:
+                try:
+                    consumer = self.consumer_registry.create(name, params)
+                    await channel.add_consumer(consumer)
+                except Exception as err:
+                    print(f"Channel {i}: consumer '{name}' failed: {err}")
+            self.channels[i] = channel
+            channel.start()
+
+        await self.osc.start()
+        if self.config.heads_url and 1 in self.channels:
+            self.heads = Heads(
+                self.osc,
+                self.channels[1],
+                {"load": "/heads/load", "take": "/heads/take"},
+            )
+            await self.heads.load_spec(self.config.heads_url)
+        print(await self.amcp.start())
+
+    async def shutdown(self) -> None:
+        await self.amcp.stop()
+        self.osc.close()
+        for ch in self.channels.values():
+            await ch.shutdown()
+        self.channels.clear()
+
+    async def repl(self) -> None:
+        """stdin AMCP REPL (index.ts:110-128); 'q' quits."""
+        loop = asyncio.get_running_loop()
+        token_re = re.compile(r'"[^"]+"|""|\S+')
+        while not self._stop_event.is_set():
+            try:
+                line = await loop.run_in_executor(None, sys.stdin.readline)
+            except Exception:
+                break
+            if not line:
+                break
+            line = line.strip()
+            if line.lower() == "q":
+                self._stop_event.set()
+                break
+            if line:
+                print(await self.amcp.process_command(token_re.findall(line)))
+
+    async def run_forever(self) -> None:
+        await self.start()
+        repl_task = asyncio.create_task(self.repl())
+        await self._stop_event.wait()
+        repl_task.cancel()
+        await self.shutdown()
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    cfg = ServerConfig.load(argv[0]) if argv else ServerConfig()
+    server = PhaneronServer(cfg)  # raises without CUDA
+
+    asyncio.run(server.run_forever())
+
+
+if __name__ == "__main__":
+    main()

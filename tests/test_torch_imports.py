@@ -46,6 +46,11 @@ def test_port_imports_no_jax_and_builds_nothing():
         "runtime.types", "runtime.mixer", "runtime.layer", "runtime.channel",
         "producer.producer", "producer.test_pattern", "consumer.consumer", "utils.metrics",
         "graph.warmup",
+        # the server and its control plane, and the I/O the default config runs
+        "server", "control.chan_layer", "control.commands", "control.osc", "control.responses",
+        "control.amcp", "control.mixer_cmds", "control.basic_cmds", "control.heads",
+        "utils.hostio", "utils.avi", "consumer.file_consumer", "consumer.preview_consumer",
+        "consumer.mjpeg_consumer", "producer.raw_file", "producer.route",
     ]
     for name in runtime:
         assert f"phaneron_tpu_torch.{name}" in res["modules"], name
