@@ -17,8 +17,10 @@ Run from the repository root:  python3 chip_smoke.py
    widths with a pitch pad), warp (4 and 3 channels, single and pair)
    <= 5e-5, yadif_ring and yadif_pair on seeded random opaque rings (C 3
    and 4, opaque, tff and bff, with and without skip_spatial, both
-   parities; at 1920x1080, 1920x1081 and 1918x1080, and every ring of 1-5
-   rows by 1-7 columns) max |delta| == 0, packed_composite over (3, H, W)
+   parities read from device memory; at 1920x1080, 1920x1081 and
+   1918x1080, every ring of 1-5 rows by 1-7 columns, and 31-33 and 63-65
+   rows by 63-66 columns, the staged tiles' edges) max |delta| == 0,
+   packed_composite over (3, H, W)
    frames (the interlaced tick; emits packed, rgba and both) 0 codes and
    max |delta| 0; then, to <= 1 code (expected 0), packed_composite over
    v210 words, fused_v210 (cut and dissolve at mixes 0, 0.35, 0.37 and
@@ -115,7 +117,8 @@ Run from the repository root:  python3 chip_smoke.py
      make_interlaced_word_pack_program;
    - ring_route: the in-program ring route (deinterlace=True layers over
      the same rings, parity on the card) for the two ticks of one
-     channel: it must equal the pair route bit for bit;
+     channel: it must equal the pair route bit for bit; its device ms a
+     tick (8 yadif_ring + 1 packed_composite, a CUDA graph replayed);
    - straggler channels (bench.py composite_variant_step): 3 DVE +
      dissolve layers under a one_rotation or wipe top layer at 3840x2160
      and 1920x1080 (1 v210_unpack, 1 packed_composite emitting rgba, 1
@@ -202,7 +205,11 @@ Run from the repository root:  python3 chip_smoke.py
      code from the twin's rgba8 pack, the MJPEG part headers (where PIL
      imports); and a second session that PLAYs channel 1's recording
      back through the raw-file producer, its last written frame 0 codes
-     from a plain channel playing it.
+     from a plain channel playing it; and a third on
+     configs/quad_1080i_2chip.json, whose channels name chips 0 and 1:
+     each placed on cuda:(chip % device count), as the JAX server wraps
+     it (all four on cuda:0 with one card), PLAY n-1 BARS, every rendered
+     tick delivered.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
@@ -700,9 +707,15 @@ def phase_interlaced_kernels(torch, dev, rng, rec: dict) -> None:
     for i, (h, w) in enumerate((h, w) for h in range(1, 6) for w in range(1, 8)):
         channels, opaque = ((3, False), (4, False), (4, True))[i % 3]
         yadif_cases(yadif_ring_of(edge_rng, channels, h, w), opaque, tffs=(i % 2 == 0,))
+    # the ring kernel's 64-column tiles of 32 rows (and the pair's 64 x 32):
+    # heights one below, at and one above one and two tiles' rows, widths
+    # one below, at and one above a tile, and one off 16 bytes
+    for i, (h, w) in enumerate((h, w) for h in (31, 32, 33, 63, 64, 65) for w in (63, 64, 65, 66)):
+        channels, opaque = ((3, False), (4, False), (4, True))[i % 3]
+        yadif_cases(yadif_ring_of(edge_rng, channels, h, w), opaque, tffs=(i % 2 == 0,))
     print(f"yadif_ring / yadif_pair max |kernel - plain| = {ey} over {cases} cases (C 3 and 4, opaque, tff "
-          "and bff, skip_spatial, both parities; 1920x1080, 1920x1081, 1918x1080 and every ring of 1-5 rows "
-          "by 1-7 columns; == 0)")
+          "and bff, skip_spatial, both parities from device memory; 1920x1080, 1920x1081, 1918x1080, every "
+          "ring of 1-5 rows by 1-7 columns, and 31-33 and 63-65 rows by 63-66 columns; == 0)")
     check(ey == 0.0, f"yadif kernels differ from their plain versions by {ey}")
     rec["yadif_ring"]["max_abs_err"] = ey
     rec["yadif_pair"]["max_abs_err"] = ey
@@ -2460,6 +2473,7 @@ SERVER_DISSOLVE_TICKS = 50  # LOADBG 1-1 RAMP MIX 50
 SERVER_PERIODS = 3  # steady server periods counted
 SERVER_PLAYBACK_SECONDS = 1.0  # the second session's raw-file playback
 SERVER_PROBE_S = 0.1  # an INFO every 100 ms while the server runs paced
+SERVER_TWO_CHIP_SECONDS = 1.0  # configs/quad_1080i_2chip.json's channels paced on the one card
 
 
 def server_boxes(n_channels: int) -> dict:
@@ -2496,20 +2510,22 @@ class AmcpClient:
         await self.writer.wait_closed()
 
 
-def server_config(out_dir, playback: bool = False):
-    """configs/quad_1080i_1chip.json through the port's ServerConfig.load,
-    changed in memory only: the file consumers write under ``out_dir``
-    (``*_playback.v210`` in the second session), the HTTP consumers, AMCP
+def server_config(out_dir, playback: bool = False, config: str = "quad_1080i_1chip.json"):
+    """configs/<config> (the default load's) through the port's
+    ServerConfig.load, changed in memory only: the file consumers write
+    under ``out_dir`` (``*_playback.v210`` in the second session,
+    ``*_<config stem>.v210`` for another config), the HTTP consumers, AMCP
     and OSC take ports the OS chooses."""
     from pathlib import Path
 
     from phaneron_tpu_torch.config import ServerConfig
 
-    cfg = ServerConfig.load(Path(__file__).resolve().parent / "configs" / "quad_1080i_1chip.json")
+    cfg = ServerConfig.load(Path(__file__).resolve().parent / "configs" / config)
+    tag = ("_playback" if playback else "") + ("" if config == "quad_1080i_1chip.json" else f"_{Path(config).stem}")
     for cc in cfg.channels:
         dev = dict(cc.device)
         if dev["name"] == "file":
-            stem = Path(dev["path"]).stem + ("_playback" if playback else "")
+            stem = Path(dev["path"]).stem + tag
             dev["path"] = str(Path(out_dir) / f"{stem}.v210")
         else:
             dev["port"] = 0
@@ -2887,6 +2903,38 @@ def phase_server(torch, dev, card: str, run_path, timing: dict, server_device=No
 
     playback_delta = arun(session2())
 
+    async def session_two_chips():
+        """configs/quad_1080i_2chip.json as a user starts it on a host with
+        fewer cards than it names: its chip 0 and chip 1 channels wrap onto
+        the device count, as the JAX server places them, and tick."""
+        server = PhaneronServer(server_config(out_dir, config="quad_1080i_2chip.json"), device=server_device)
+        count_deliveries(server)
+        await server.start()
+        chans3 = server.channels
+        chips = [cc.chip for cc in server.config.channels]
+        placed = {n: ch.device for n, ch in chans3.items()}
+        want = {n: torch.device(server_device) if server_device
+                else torch.device("cuda", (chip or 0) % torch.cuda.device_count())
+                for n, chip in zip(chans3, chips)}
+        check(placed == want, f"server quad_1080i_2chip.json: channels on {placed}, expected {want}")
+        amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        for n in chans3:
+            await amcp.call(f"PLAY {n}-1 BARS", ["202 PLAY OK"])
+        await amcp.close()
+        await asyncio.sleep(SERVER_TWO_CHIP_SECONDS)
+        await stop_paced(server)
+        ticks = {n: ch.timestamp for n, ch in chans3.items()}
+        for n, ch in chans3.items():
+            counts = [c.smoke_delivered for c in ch.consumers]
+            check(ticks[n] > 0 and counts == [ticks[n]], f"server quad_1080i_2chip.json channel {n}: "
+                  f"{ticks[n]} ticks rendered, delivered {counts}")
+        print(f"server on configs/quad_1080i_2chip.json (chips {chips}, {torch.cuda.device_count()} CUDA "
+              f"device(s)): channels placed on {sorted({str(d) for d in placed.values()})}, ticks rendered and "
+              f"delivered in {SERVER_TWO_CHIP_SECONDS} s paced: {ticks}")
+        await server.shutdown()
+
+    arun(session_two_chips())
+
     async def drain():
         pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
         for task in pending:
@@ -3161,14 +3209,15 @@ def main() -> int:
     p_last = (load.period_index - 1) % PERIODS
     parities = [torch.tensor(p, dtype=torch.int32, device=dev) for p in ((0, 1) if TFF else (1, 0))]
     ring_out = []
+    ring_params = [{"layers": [
+        {"src_ring": tuple(rings0[2 * i]), "src_b_ring": tuple(rings0[2 * i + 1]),
+         "parity": parities[t], "matrix": ch0["mats"][i], "mix": ch0["mixes"][p_last][t][i]}
+        for i in range(4)
+    ]} for t in (0, 1)]
 
     def ring_route():
         for t in (0, 1):
-            ring_out.append(ring_program({"layers": [
-                {"src_ring": tuple(rings0[2 * i]), "src_b_ring": tuple(rings0[2 * i + 1]),
-                 "parity": parities[t], "matrix": ch0["mats"][i], "mix": ch0["mixes"][p_last][t][i]}
-                for i in range(4)
-            ]})[0])
+            ring_out.append(ring_program(ring_params[t])[0])
 
     run_path("ring_route", {"yadif_ring": N_SOURCES, "packed_composite": 1}, 2, ring_route,
              modes={("rgb3", "packed", "top"): 1})
@@ -3177,6 +3226,13 @@ def main() -> int:
         (via_pair,) = load.program(load.tick_params(ch0, fields, p_last, t))
         check(torch.equal(ring_out[t], via_pair), f"ring route tick {t} differs from the pair route")
     print("ring route (deinterlace=True, parity on the card) == pair route, both ticks: True")
+    # the route's device time a tick: a tick's launches captured into a CUDA
+    # graph and replayed (chip_smoke.device_ms), each tick's parity
+    route_ms = [device_ms(torch, lambda t=t: ring_program(ring_params[t]), batches=5, calls=4) for t in (0, 1)]
+    timing["ring_route_tick"] = dict(device_ms=statistics.mean(route_ms), ticks=route_ms)
+    print(f"ring route on {card}: {timing['ring_route_tick']['device_ms']:.4f} device ms a tick (parity "
+          f"{int(parities[0])} {route_ms[0]:.4f}, parity {int(parities[1])} {route_ms[1]:.4f}; "
+          f"{N_SOURCES} yadif_ring + 1 packed_composite rgb3 a tick)")
 
     # -------- phase 7b: the straggler channels (bench.py composite_variant_step)
     # and emit_rgba channels: a packed composite run emitting its frame under
@@ -3534,7 +3590,8 @@ def main() -> int:
         elif name == "rotate":
             library_ms = device_ms(torch, grid_sample(rot_lib))
         print(f"{name} ({shape}) on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP)"
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP; "
+              f"{bound_ms / kernel_ms:.1%} of it reached)"
               + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else "")
               + (f", library {none}" if name.startswith("planar") else ""))
         source, replaces = meta[name]

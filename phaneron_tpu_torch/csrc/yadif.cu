@@ -25,27 +25,24 @@
 // and writes two: 124 MB, 37 us.  The arithmetic (~70 flops per
 // predicted sample) is far below the card's float32 rate.
 //
-// Design.  The ring kernel: one thread per output pixel gathers its taps
-// straight from device memory with clamped row and column indices (26
-// taps a channel, each a clamp and a 64-bit address).  The pair kernel,
-// the default load's (32 launches a 1080i50 period of four channels),
-// stages tiles instead: a block copies the ring rows and columns its
-// taps reach into shared memory once, clamping at the frame's edges as it
-// copies, and each thread walks down one column keeping the rows its next
-// output row reuses in registers, so a tap is a shared-memory read at a
-// constant offset (see the pair kernel below).  The TPU kernel's
-// field-planar lane slices, window DMAs and pl.when edge strips exist for
-// VMEM; here the staged rows' clamp plays their part.  The pair writes a
-// kept row to one output and a predicted row to the other, so one ring
-// read serves both field ticks.
+// Design.  Both kernels stage tiles: a block copies the ring rows and
+// columns its taps reach into shared memory once, a channel plane at a
+// time with the next plane's copy in flight, clamping at the frame's edges
+// as it copies, and each thread walks down one column keeping the rows
+// its next output row reuses in registers, so a tap is a shared-memory
+// read at a constant offset.  The ring kernel (its earlier mapping, one
+// thread a pixel gathering its 26 taps a channel from device memory, is
+// kept in tools/yadif_variants.cu) stages only the rows one parity reads and
+// writes each output row once: its predicted rows from the walk, its kept
+// rows from the staged cur with 16-byte stores.  The pair kernel, the
+// default load's (32 launches a 1080i50 period of four channels), stages
+// every ring row of its tile and writes a kept row to one output and a
+// predicted row to the other, so one ring read serves both field ticks.
+// The TPU kernel's field-planar lane slices, window DMAs and pl.when edge
+// strips exist for VMEM; here the staged rows' clamp plays their part.
 #include "phn_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ const float* row_of(const float* plane, int y, int height,
-                                               int width) {
-  return plane + static_cast<size_t>(min(max(y, 0), height - 1)) * width;
-}
 
 __device__ __forceinline__ int col_of(int x, int width) { return min(max(x, 0), width - 1); }
 
@@ -76,18 +73,6 @@ __device__ __forceinline__ float spatial_from_taps(float a, float b, float c, fl
   const bool cmp4 = cmp3 && (s4 < score);
   pred = cmp4 ? (f + i) / 2.0f : pred;
   return pred;
-}
-
-// The spatial prediction at column x from the clamped taps of the rows
-// above (up) and below (dn)
-__device__ __forceinline__ float spatial_pred(const float* up, const float* dn, int x,
-                                              int width) {
-  return spatial_from_taps(up[col_of(x - 3, width)], up[col_of(x - 2, width)],
-                           up[col_of(x - 1, width)], up[x], up[col_of(x + 1, width)],
-                           up[col_of(x + 2, width)], up[col_of(x + 3, width)],
-                           dn[col_of(x - 3, width)], dn[col_of(x - 2, width)],
-                           dn[col_of(x - 1, width)], dn[x], dn[col_of(x + 1, width)],
-                           dn[col_of(x + 2, width)], dn[col_of(x + 3, width)]);
 }
 
 // _temporal_clamp (yadifCl.ts:72-103)
@@ -121,59 +106,10 @@ __device__ __forceinline__ float temporal_clamp(float A, float B, float C, float
   return pred;
 }
 
-// The predicted value of one channel plane at (x, y).  is_second picks
-// which frames feed C/D/E and H/I/J (yadifCl.ts:144-150).
-__device__ __forceinline__ float predict(const float* prev, const float* cur,
-                                         const float* next, int x, int y, int height,
-                                         int width, bool is_second, bool skip_spatial) {
-  const float* cu = row_of(cur, y - 1, height, width);
-  const float* cd = row_of(cur, y + 1, height, width);
-  const float spatial = spatial_pred(cu, cd, x, width);
-  const float* cde = is_second ? cur : prev;
-  const float* hij = is_second ? next : cur;
-  return temporal_clamp(
-      row_of(prev, y - 1, height, width)[x], row_of(prev, y + 1, height, width)[x],
-      row_of(cde, y - 2, height, width)[x], row_of(cde, y, height, width)[x],
-      row_of(cde, y + 2, height, width)[x], cu[x], cd[x],
-      row_of(hij, y - 2, height, width)[x], row_of(hij, y, height, width)[x],
-      row_of(hij, y + 2, height, width)[x], row_of(next, y - 1, height, width)[x],
-      row_of(next, y + 1, height, width)[x], spatial, skip_spatial);
-}
-
 struct Frame {
   int channels, height, width;
   bool skip_spatial, opaque;
 };
-
-// Writes pixel (x, y) of every channel of `out`: cur where `keep`, else
-// the prediction at the parity whose is_second flag is given
-__device__ __forceinline__ void yadif_pixel(const float* __restrict__ prev,
-                                            const float* __restrict__ cur,
-                                            const float* __restrict__ next,
-                                            float* __restrict__ out, const Frame& f, int x,
-                                            int y, bool keep, bool is_second) {
-  const size_t plane = static_cast<size_t>(f.width) * f.height;
-  const size_t o = static_cast<size_t>(y) * f.width + x;
-  for (int c = 0; c < 3; ++c) {
-    const size_t off = c * plane;
-    out[off + o] = keep ? cur[off + o]
-                        : predict(prev + off, cur + off, next + off, x, y, f.height, f.width,
-                                  is_second, f.skip_spatial);
-  }
-  if (f.channels == 4) out[3 * plane + o] = f.opaque ? 1.0f : cur[3 * plane + o];
-}
-
-__global__ void yadif_ring_kernel(const float* __restrict__ prev,
-                                  const float* __restrict__ cur,
-                                  const float* __restrict__ next,
-                                  const int* __restrict__ parity, float* __restrict__ out,
-                                  Frame f, int tff) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= f.width || y >= f.height) return;
-  const int par = *parity;
-  yadif_pixel(prev, cur, next, out, f, x, y, (y % 2) == par, (par ^ tff) == 0);
-}
 
 // ---- the pair kernel: staged tiles
 //
@@ -321,29 +257,238 @@ __global__ void __launch_bounds__(kPairThreads, kPairBlocksPerSm)
   }
 }
 
-const dim3 kBlock(32, 8);
+// ---- the ring kernel: one parity from staged tiles
+//
+// A block owns kRingCols columns x kRingRows rows of the output, kRingRows
+// even and its first row y_lo even, so each of its kRingPairs row pairs
+// holds one kept row (y % 2 == parity) and one predicted row.  The parity,
+// read once, fixes which rows are predicted (q = 1 - parity) and is_second
+// which frames feed the taps C/D/E (cur, else prev) and H/I/J (next, else
+// cur); both are uniform over the launch.  A predicted row y reads rows
+// y-1 and y+1 (the kept field) of cur (columns x-3..x+3), prev and next,
+// and rows y-2, y and y+2 (the predicted field) of cur and of one more
+// frame: prev where is_second is false, next where it is true ("full").
+// So for one channel plane the block stages, every second row from
+// b = y_lo - 2 + q, each row clamped to the frame as it is copied:
+//   the kept field, rows b+1, b+3, ... (kKeptRows): cur with kHalo columns
+//     on each side (clamped at the frame's sides), prev and next;
+//   the predicted field, rows b, b+2, ... (kPredRows): cur and full;
+// 2.5 frames' rows, the function's own reads, copied with cp.async as the
+// pair's are.  Each thread walks kRingSteps row pairs of one column, keeping
+// the taps of rows y-2..y+2 in registers and reading one new row of each
+// staged field a step, and stores the predicted row; the block then stores
+// its kept rows from the staged cur, 16 bytes a thread where the rows are
+// 16-byte aligned.  Alpha (C = 4) is copied the same way from device
+// memory, each row once.  The tile shape was chosen on the card
+// (tools/kernel_variants.py --only yadif): 64x32 tiles of two row groups
+// walking 8 row pairs keep the walk's taps in 114 registers without
+// spilling, at four 128-thread blocks an SM (45,632 bytes of buffers
+// each); 256-thread blocks at four an SM spill under their 64-register
+// cap, and wider, taller or narrower tiles were no faster.
+constexpr int kRingCols = 64;
+constexpr int kRingRowGroups = 2;
+constexpr int kRingSteps = 8;
+constexpr int kRingBlocksPerSm = 4;
+constexpr int kRingThreads = kRingCols * kRingRowGroups;
+constexpr int kRingPairs = kRingRowGroups * kRingSteps;
+constexpr int kRingRows = 2 * kRingPairs;
+constexpr int kKeptRows = kRingPairs + 1;
+constexpr int kPredRows = kRingPairs + 2;
+constexpr int kRingCurCols = kRingCols + 2 * kHalo;
+constexpr int kCurKeptFloats = kKeptRows * kRingCurCols;
+constexpr int kSideKeptFloats = kKeptRows * kRingCols;  // prev's, and next's
+constexpr int kPredFloats = kPredRows * kRingCols;      // cur's, and full's
+constexpr int kRingPlaneFloats = kCurKeptFloats + 2 * kSideKeptFloats + 2 * kPredFloats;
+constexpr int kRingSmemBytes = 2 * kRingPlaneFloats * static_cast<int>(sizeof(float));
+constexpr int kRingChunks = kRingCols / 4;  // 16-byte chunks of a tile row
+static_assert(kRingCols % 4 == 0 && kRingPlaneFloats % 4 == 0, "16-byte staged rows");
 
-dim3 grid_of(int height, int width) {
-  return dim3((width + kBlock.x - 1) / kBlock.x, (height + kBlock.y - 1) / kBlock.y);
+// Copy `rows` rows of one channel plane, frame rows y0, y0+2, ... each
+// clamped to the frame, columns x0 .. x0+kCols-1 clamped at its sides,
+// into dst (rows x kCols).  vec: every row starts 16-byte aligned.
+template <int kCols>
+__device__ __forceinline__ void stage_field(const float* src, float* dst, int y0, int rows, int x0,
+                                            int width, int height, bool vec) {
+  constexpr int kChunks = kCols / 4;
+  for (int i = threadIdx.y * kRingCols + threadIdx.x; i < rows * kChunks; i += kRingThreads) {
+    const int r = i / kChunks, k = i - r * kChunks;
+    const int x = x0 + 4 * k;
+    const float* row = src + static_cast<size_t>(min(max(y0 + 2 * r, 0), height - 1)) * width;
+    float* d = dst + r * kCols + 4 * k;
+    if (vec && x >= 0 && x + 4 <= width) {
+      phn::cp_async16(d, row + x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) phn::cp_async4(d + e, row + col_of(x + e, width));
+    }
+  }
+}
+
+// The rows one parity reads of one channel plane into buf (the layout
+// above: cur's kept rows, prev's, next's, then cur's and full's predicted
+// rows), from frame row b
+__device__ __forceinline__ void stage_ring_plane(const float* prev, const float* cur,
+                                                 const float* next, float* buf, int x_lo, int b,
+                                                 bool is_second, int width, int height,
+                                                 bool vec) {
+  stage_field<kRingCurCols>(cur, buf, b + 1, kKeptRows, x_lo - kHalo, width, height, vec);
+  buf += kCurKeptFloats;
+  stage_field<kRingCols>(prev, buf, b + 1, kKeptRows, x_lo, width, height, vec);
+  buf += kSideKeptFloats;
+  stage_field<kRingCols>(next, buf, b + 1, kKeptRows, x_lo, width, height, vec);
+  buf += kSideKeptFloats;
+  stage_field<kRingCols>(cur, buf, b, kPredRows, x_lo, width, height, vec);
+  buf += kPredFloats;
+  stage_field<kRingCols>(is_second ? next : prev, buf, b, kPredRows, x_lo, width, height, vec);
+}
+
+// The predicted rows of one channel plane (out at its offset) for this
+// thread's column x and row pairs s0 .. s0+kRingSteps-1, from the staged
+// plane in buf
+__device__ __forceinline__ void ring_predicted(const float* buf, float* __restrict__ out, int x,
+                                               int y_lo, int q, bool is_second, const Frame& f) {
+  const int s0 = threadIdx.y * kRingSteps;
+  // kept row s0 is row y-1 of the thread's first predicted row y, and
+  // predicted row s0 its row y-2
+  const float* cs = buf + s0 * kRingCurCols + kHalo + threadIdx.x;
+  const float* ps = buf + kCurKeptFloats + s0 * kRingCols + threadIdx.x;
+  const float* ns = ps + kSideKeptFloats;
+  const float* cur_pred = ns + kSideKeptFloats;
+  const float* full_pred = cur_pred + kPredFloats;
+  const float* cde_s = is_second ? cur_pred : full_pred;
+  const float* hij_s = is_second ? full_pred : cur_pred;
+  float c[2][7], p[2], n[2], cde[3], hij[3];  // kept rows y-1, y+1; predicted y-2, y, y+2
+#pragma unroll
+  for (int d = 0; d < 7; ++d) c[1][d] = cs[d - 3];
+  p[1] = ps[0];
+  n[1] = ns[0];
+  cde[1] = cde_s[0];
+  cde[2] = cde_s[kRingCols];
+  hij[1] = hij_s[0];
+  hij[2] = hij_s[kRingCols];
+#pragma unroll
+  for (int s = 0; s < kRingSteps; ++s) {
+#pragma unroll
+    for (int d = 0; d < 7; ++d) {
+      c[0][d] = c[1][d];
+      c[1][d] = cs[(s + 1) * kRingCurCols + d - 3];
+    }
+    p[0] = p[1];
+    p[1] = ps[(s + 1) * kRingCols];
+    n[0] = n[1];
+    n[1] = ns[(s + 1) * kRingCols];
+    cde[0] = cde[1];
+    cde[1] = cde[2];
+    cde[2] = cde_s[(s + 2) * kRingCols];
+    hij[0] = hij[1];
+    hij[1] = hij[2];
+    hij[2] = hij_s[(s + 2) * kRingCols];
+    const int y = y_lo + 2 * (s0 + s) + q;
+    if (x >= f.width || y >= f.height) continue;
+    const float spatial = spatial_from_taps(c[0][0], c[0][1], c[0][2], c[0][3], c[0][4], c[0][5],
+                                            c[0][6], c[1][0], c[1][1], c[1][2], c[1][3], c[1][4],
+                                            c[1][5], c[1][6]);
+    out[static_cast<size_t>(y) * f.width + x] =
+        temporal_clamp(p[0], p[1], cde[0], cde[1], cde[2], c[0][3], c[1][3], hij[0], hij[1],
+                       hij[2], n[0], n[1], spatial, f.skip_spatial);
+  }
+}
+
+// The kept rows y_lo + 2s + par of one channel plane (out at its offset):
+// cur's staged kept row s + par, 16 bytes a thread where vec
+__device__ __forceinline__ void ring_kept(const float* buf, float* __restrict__ out, int x_lo,
+                                          int y_lo, int par, const Frame& f, bool vec) {
+  for (int i = threadIdx.y * kRingCols + threadIdx.x; i < kRingPairs * kRingChunks;
+       i += kRingThreads) {
+    const int s = i / kRingChunks, k = i - s * kRingChunks;
+    const int y = y_lo + 2 * s + par, x = x_lo + 4 * k;
+    if (y >= f.height || x >= f.width) continue;
+    const float* src = buf + (s + par) * kRingCurCols + kHalo + 4 * k;
+    float* dst = out + static_cast<size_t>(y) * f.width + x;
+    if (vec && x + 4 <= f.width) {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int e = 0; e < 4 && x + e < f.width; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
+    yadif_ring_kernel(const float* __restrict__ prev, const float* __restrict__ cur,
+                      const float* __restrict__ next, const int* __restrict__ parity,
+                      float* __restrict__ out, Frame f, int tff, int vec) {
+  extern __shared__ __align__(16) float stage[];  // two planes' buffers
+  const int par = __ldg(parity) & 1;
+  const int q = 1 - par;
+  const bool is_second = (par ^ tff) == 0;
+  const int x_lo = blockIdx.x * kRingCols, y_lo = blockIdx.y * kRingRows;
+  const int b = y_lo - 2 + q;
+  const int x = x_lo + threadIdx.x;
+  const size_t plane = static_cast<size_t>(f.width) * f.height;
+  stage_ring_plane(prev, cur, next, stage, x_lo, b, is_second, f.width, f.height, vec);
+  phn::cp_async_commit();
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    if (c < 2) {
+      const size_t o = (c + 1) * plane;
+      stage_ring_plane(prev + o, cur + o, next + o, stage + ((c + 1) & 1) * kRingPlaneFloats,
+                       x_lo, b, is_second, f.width, f.height, vec);
+      phn::cp_async_commit();
+      phn::cp_async_wait<1>();
+    } else {
+      phn::cp_async_wait<0>();
+    }
+    __syncthreads();  // plane c is staged
+    const float* buf = stage + (c & 1) * kRingPlaneFloats;
+    ring_predicted(buf, out + c * plane, x, y_lo, q, is_second, f);
+    ring_kept(buf, out + c * plane, x_lo, y_lo, par, f, vec);
+    __syncthreads();  // its buffer is free for plane c + 2
+  }
+  if (f.channels == 4) {
+    for (int i = threadIdx.y * kRingCols + threadIdx.x; i < kRingRows * kRingChunks;
+         i += kRingThreads) {
+      const int r = i / kRingChunks, k = i - r * kRingChunks;
+      const int y = y_lo + r, xa = x_lo + 4 * k;
+      if (y >= f.height || xa >= f.width) continue;
+      const size_t o = 3 * plane + static_cast<size_t>(y) * f.width + xa;
+      if (vec && xa + 4 <= f.width) {
+        *reinterpret_cast<float4*>(out + o) =
+            f.opaque ? make_float4(1.0f, 1.0f, 1.0f, 1.0f)
+                     : __ldg(reinterpret_cast<const float4*>(cur + o));
+      } else {
+        for (int e = 0; e < 4 && xa + e < f.width; ++e) out[o + e] = f.opaque ? 1.0f : cur[o + e];
+      }
+    }
+  }
 }
 
 bool valid(int channels, int height, int width) {
   return (channels == 3 || channels == 4) && height > 0 && width > 0;
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
 
 // prev, cur, next, out: (channels, height, width) float32; parity: one
-// int32 in device memory.  Returns cudaGetLastError().
+// int32 in device memory, 0 or 1 (its low bit is read).  Returns
+// cudaGetLastError().
 extern "C" int phn_yadif_ring(const void* prev, const void* cur, const void* next,
                               const void* parity, void* out, int channels, int height,
                               int width, int tff, int skip_spatial, int opaque, void* stream) {
   if (!valid(channels, height, width)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      yadif_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const Frame f{channels, height, width, skip_spatial != 0, opaque != 0};
-  yadif_ring_kernel<<<grid_of(height, width), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int vec = width % 4 == 0 && aligned16(prev) && aligned16(cur) && aligned16(next) &&
+                  aligned16(out);
+  const dim3 grid((width + kRingCols - 1) / kRingCols, (height + kRingRows - 1) / kRingRows);
+  yadif_ring_kernel<<<grid, dim3(kRingCols, kRingRowGroups), kRingSmemBytes,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(prev), static_cast<const float*>(cur),
       static_cast<const float*>(next), static_cast<const int*>(parity),
-      static_cast<float*>(out), f, tff != 0);
+      static_cast<float*>(out), f, tff != 0, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,8 +501,7 @@ extern "C" int phn_yadif_pair(const void* prev, const void* cur, const void* nex
       yadif_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPairSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Frame f{channels, height, width, skip_spatial != 0, opaque != 0};
-  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const int vec = width % 4 == 0 && aligned(prev) && aligned(cur) && aligned(next);
+  const int vec = width % 4 == 0 && aligned16(prev) && aligned16(cur) && aligned16(next);
   const dim3 grid((width + kPairCols - 1) / kPairCols, (height + kPairRows - 1) / kPairRows);
   yadif_pair_kernel<<<grid, dim3(kPairCols, kPairRowGroups), kPairSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -192,9 +192,9 @@ def _ring_args(name: str, prev, cur, next_):
 
 def yadif_ring(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False,
                opaque: bool = False) -> torch.Tensor:
-    """Yadif at one parity over the ring (prev, cur, next_), each (C, H,
-    W) float32 -> (C, H, W).  ``parity`` is read from device memory on
-    the card, so alternating fields needs no host sync."""
+    """Yadif at one parity (0 or 1) over the ring (prev, cur, next_),
+    each (C, H, W) float32 -> (C, H, W).  ``parity`` is read from device
+    memory on the card, so alternating fields needs no host sync."""
     _check_ring("yadif_ring", prev, cur, next_)
     if is_cpu(cur, "yadif_ring"):
         return yadif_ring_plain(prev, cur, next_, parity, tff, skip_spatial, opaque)

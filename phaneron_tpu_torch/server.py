@@ -109,13 +109,17 @@ class PhaneronServer:
 
     def _placement(self, cc) -> tuple:
         """(device, sp_devices) of a config channel: ``chip: n`` is
-        ``cuda:n``; ``sp > 1`` or ``chips`` name a device group."""
+        ``cuda:(n % device count)`` as the JAX server wraps it (unwrapped
+        where no CUDA device is seen: the channel raises); ``sp > 1`` or
+        ``chips`` name a device group."""
         if cc.sp > 1 or cc.chips:
             idxs = cc.chips or list(range(cc.chip or 0, (cc.chip or 0) + cc.sp))
             return None, [torch.device("cuda", j) for j in idxs]
         if self.device is not None:
             return self.device, None
-        return torch.device("cuda", cc.chip or 0), None
+        count = torch.cuda.device_count()
+        chip = cc.chip or 0
+        return torch.device("cuda", chip % count if count else chip), None
 
     async def start(self) -> None:
         # channels, one per configured consumer (index.ts:156-168);

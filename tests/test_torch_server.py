@@ -173,9 +173,10 @@ def test_heads_url_loads_a_rundown_at_start(tmp_path):
     run(main())
 
 
-def test_no_cpu_fallback_and_placement(tmp_path):
+def test_no_cpu_fallback_and_placement(tmp_path, monkeypatch):
     """Without CUDA, PhaneronServer() and main() raise; config ``chip: n``
-    is cuda:n; ``sp > 1`` reaches the channel's NotImplementedError (A10)."""
+    is cuda:n where no CUDA device is seen (the channel raises); ``sp > 1``
+    reaches the channel's NotImplementedError (A10)."""
     from phaneron_tpu_torch.server import PhaneronServer, main
 
     cfg = tconfig.ServerConfig.load(ROOT / "configs" / "quad_1080i_1chip.json")
@@ -188,6 +189,7 @@ def test_no_cpu_fallback_and_placement(tmp_path):
     cc = replace(cfg.channels[0], chip=2)
     assert server._placement(cc) == (torch.device("cpu"), None)
     server.device = None  # as PhaneronServer(cfg) places channels on a CUDA machine
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     assert server._placement(cc) == (torch.device("cuda", 2), None)
     assert server._placement(cfg.channels[0]) == (torch.device("cuda", 0), None)
     assert server._placement(replace(cc, sp=2)) == (None, [torch.device("cuda", 2), torch.device("cuda", 3)])
@@ -204,6 +206,23 @@ def test_no_cpu_fallback_and_placement(tmp_path):
 
     with pytest.raises(NotImplementedError, match="A10"):
         run(start_sp())
+
+
+@pytest.mark.parametrize("count, chip, want", [(1, 2, 0), (4, 2, 2), (4, 5, 1), (2, 1, 1)])
+def test_chip_placement_wraps(monkeypatch, count, chip, want):
+    """With CUDA devices seen, config ``chip: n`` is cuda:(n % count), as
+    the JAX server wraps ``devices[chip % len(devices)]``: on one card
+    configs/quad_1080i_2chip.json runs its four channels on cuda:0."""
+    from phaneron_tpu_torch.server import PhaneronServer
+
+    cfg = tconfig.ServerConfig.load(ROOT / "configs" / "quad_1080i_2chip.json")
+    server = PhaneronServer(cfg, device="cpu")
+    server.device = None  # as PhaneronServer(cfg) places channels on a CUDA machine
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    assert server._placement(replace(cfg.channels[0], chip=chip)) == (torch.device("cuda", want), None)
+    placed = {server._placement(cc)[0] for cc in cfg.channels}
+    cards = {torch.device("cuda", j) for j in range(min(count, 2))}
+    assert placed == cards
 
 
 @pytest.mark.parametrize("name", ["decklink", "ffmpeg", "DeckLink"])

@@ -22,18 +22,21 @@ Run from the repository root on a machine with a CUDA GPU:
   built source without the gamma'->linear gather, without the window's
   decode (its words stored as they are) and with one tap a channel in
   place of the bilinear sample (K5_DIAGNOSTICS).
-- yadif: yadif_pair on chip_smoke.py's 3-channel 1920x1080 ring (tff),
-  the default load's shape.  The old mapping (tools/yadif_variants.cu:
-  one thread a pixel, clamped gathers from device memory) whole, with
-  its stores only, its loads with trivial arithmetic, its full
-  arithmetic on taps made from the pixel's position, and its taps read
-  without clamps; the new mapping (csrc/yadif.cu, staged tiles) built
-  with other tile shapes (YADIF_VARIANTS) and, timed only, without the
+- yadif: yadif_pair and yadif_ring (parity 1 in device memory) on
+  chip_smoke.py's 3-channel 1920x1080 ring (tff), the default load's and
+  the ring route's shape.  Each kernel's old mapping
+  (tools/yadif_variants.cu: one thread a pixel, clamped gathers from
+  device memory) whole, with its stores only, its loads with trivial
+  arithmetic, its full arithmetic on taps made from the pixel's
+  position, and its taps read without clamps; each new mapping
+  (csrc/yadif.cu, staged tiles) built with other tile shapes
+  (YADIF_VARIANTS, YADIF_RING_VARIANTS) and, timed only, without the
   staging copies, without the arithmetic (the taps summed) and with one
   staging buffer (no overlap of the next plane's copy)
-  (YADIF_DIAGNOSTICS).  The whole variants must equal yadif_pair_plain
-  (max |delta| 0), and so at bff, with skip_spatial, 4 channels and
-  opaque, and at 1918x1081.
+  (YADIF_DIAGNOSTICS, YADIF_RING_DIAGNOSTICS).  The whole variants must
+  equal yadif_pair_plain / yadif_ring_plain (max |delta| 0), and so at
+  bff, with skip_spatial, 4 channels and opaque, and at 1918x1081 (the
+  ring also at both parities and at 33x65 and 31x63, off its tiles).
 - rgb3: K5 over (3, H, W) frames, chip_smoke.py's interlaced tick (4
   dissolve layers, 8 seeded random sources, scale-0.9 matrices) at
   1920x1080.  The tile kernel (csrc/packed_composite.cu
@@ -248,6 +251,37 @@ YADIF_DIAGNOSTICS = {  # name -> [(line of csrc/yadif.cu, its stand-in), ...]
 }
 YADIF_OLD_PARTS = ("whole", "stores only", "loads, trivial arithmetic", "arithmetic, no loads",
                    "taps without clamps")
+# yadif_ring's staged tiles: name -> {constant: value} (columns, row groups,
+# row pairs a thread walks, blocks an SM); two planes' buffers must fit
+YADIF_RING_VARIANTS = {
+    "C64_G2_S8_B4": dict(kRingCols=64, kRingRowGroups=2, kRingSteps=8, kRingBlocksPerSm=4),
+    "C64_G4_S4_B4": dict(kRingCols=64, kRingRowGroups=4, kRingSteps=4, kRingBlocksPerSm=4),
+    "C64_G4_S4_B3": dict(kRingCols=64, kRingRowGroups=4, kRingSteps=4, kRingBlocksPerSm=3),
+    "C64_G4_S8_B2": dict(kRingCols=64, kRingRowGroups=4, kRingSteps=8, kRingBlocksPerSm=2),
+    "C64_G2_S8_B5": dict(kRingCols=64, kRingRowGroups=2, kRingSteps=8, kRingBlocksPerSm=5),
+    "C64_G2_S4_B6": dict(kRingCols=64, kRingRowGroups=2, kRingSteps=4, kRingBlocksPerSm=6),
+    "C64_G2_S16_B2": dict(kRingCols=64, kRingRowGroups=2, kRingSteps=16, kRingBlocksPerSm=2),
+    "C128_G1_S8_B4": dict(kRingCols=128, kRingRowGroups=1, kRingSteps=8, kRingBlocksPerSm=4),
+    "C32_G4_S8_B6": dict(kRingCols=32, kRingRowGroups=4, kRingSteps=8, kRingBlocksPerSm=6),
+}
+YADIF_RING_SUM = ("        temporal_clamp(p[0], p[1], cde[0], cde[1], cde[2], c[0][3], c[1][3], hij[0], hij[1],",
+                  "        c[0][0] + c[0][1] + c[0][2] + c[0][4] + c[0][5] + c[0][6] + c[1][0] + c[1][1] + "
+                  "c[1][2] + c[1][4] + c[1][5] + c[1][6] + p[0] + p[1] + n[0] + n[1] + cde[0] + cde[1] + cde[2] + "
+                  "hij[0] + hij[1] + hij[2] + spatial;\n"
+                  "    if (false) (void)temporal_clamp(p[0], p[1], cde[0], cde[1], cde[2], c[0][3], c[1][3], hij[0], "
+                  "hij[1],")
+YADIF_RING_DIAGNOSTICS = {  # name -> [(line of csrc/yadif.cu, its stand-in), ...]
+    "no staging": [("      phn::cp_async16(d, row + x);", "      (void)d;"),
+                   ("      for (int e = 0; e < 4; ++e) phn::cp_async4(d + e, row + col_of(x + e, width));",
+                    "      for (int e = 0; e < 0; ++e) {}")],
+    "no arithmetic": [("    const float spatial = spatial_from_taps(c[0][0],",
+                       "    const float spatial = c[0][3] + c[1][3]; if (false) spatial_from_taps(c[0][0],"),
+                      YADIF_RING_SUM],
+    "one buffer": [("                       x_lo, b, is_second, f.width, f.height, vec);\n"
+                    "      phn::cp_async_commit();\n      phn::cp_async_wait<1>();",
+                    "                       x_lo, b, is_second, f.width, f.height, vec);\n"
+                    "      phn::cp_async_commit();\n      phn::cp_async_wait<0>();")],
+}
 # K5 over rgb3 frames: the tile kernel's constants, and the old mapping
 RGB3_VARIANTS = {
     "R3_W1792_B2": dict(kFrameRowsPerThread=3, kFrameWindowTexels=1792, kFrameBlocksPerSm=2),
@@ -640,17 +674,19 @@ def build(out: Path, sections) -> dict:
             ("k5", "packed_composite.cu", K5_VARIANTS,
              {n: {"phn_common.cuh": [e]} for n, e in K5_DIAGNOSTICS.items()}),
             ("yadif", "yadif.cu", YADIF_VARIANTS, {n: {"yadif.cu": e} for n, e in YADIF_DIAGNOSTICS.items()}),
+            ("yadif ring", "yadif.cu", YADIF_RING_VARIANTS,
+             {n: {"yadif.cu": e} for n, e in YADIF_RING_DIAGNOSTICS.items()}),
             ("rgb3", "packed_composite.cu", RGB3_VARIANTS, RGB3_DIAGNOSTICS),
             ("b3", "fused_v210.cu", B3_VARIANTS, B3_DIAGNOSTICS),
             ("rotate", "rotate.cu", ROTATE_VARIANTS, ROTATE_DIAGNOSTICS),
             ("b6", "packed_warp.cu", B6_VARIANTS, B6_DIAGNOSTICS),
             ("k4", "warp.cu", K4_VARIANTS, {})):
-        if section not in sections:
+        if section.split()[0] not in sections:
             continue
         for name, consts in variants.items():
-            jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, consts, {})
+            jobs[f"{section} {name}"] = edited_copy(out / slug(section) / slug(name), cu, consts, {})
         for name, edits in diagnostics.items():
-            jobs[f"{section} {name}"] = edited_copy(out / section / slug(name), cu, {}, edits)
+            jobs[f"{section} {name}"] = edited_copy(out / slug(section) / slug(name), cu, {}, edits)
     procs = {name: subprocess.Popen([_build._nvcc(), *_build.nvcc_flags(), "-shared", "-o", str(cu.with_suffix(".so")),
                                      str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, cu in jobs.items()}
@@ -804,6 +840,46 @@ def section_yadif(torch, dev, rng, libs, card) -> list:
     times, wrong = timed(torch, Y, lib, lambda: Y.yadif_pair(*ring, cs.TFF), check)
     bad += [f"yadif_pair {n}" for n in wrong]
     print(f"yadif_pair 3 ch 1920x1080, new mapping (staged tiles) on {card}: ms "
+          + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
+
+    # the ring kernel at parity 1 (in device memory): its old mapping's parts
+    par = torch.tensor(1, dtype=torch.int32, device=dev)
+    old = ctypes.CDLL(str(libs["yadif old"])).yadif_old_ring
+    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_yadif_ring"])
+    want = Y.yadif_ring_plain(*ring, 1, cs.TFF)
+    times = []
+    for part, part_name in enumerate(YADIF_OLD_PARTS):
+        call = lambda: old(part, *(f.data_ptr() for f in ring), par.data_ptr(), out0.data_ptr(), 3, H, W,
+                           int(cs.TFF), 0, 0, torch.cuda.current_stream(dev).cuda_stream)
+        if part == 0:
+            out0.zero_()
+            call()
+            if not torch.equal(out0, want):
+                bad.append("yadif_ring old mapping")
+        times.append(f"{part_name} {cs.device_ms(torch, call, batches=5, calls=10):.4f}")
+    print(f"yadif_ring 3 ch 1920x1080, old mapping (one thread a pixel, clamped gathers) on {card}: ms "
+          + "; ".join(times))
+    # the new mapping: tile shapes and parts taken out
+    lib = {"built": _build.library(), **{n: Lib(libs[f"yadif ring {n}"], "phn_yadif_ring")
+                                         for n in (*YADIF_RING_VARIANTS, *YADIF_RING_DIAGNOSTICS)}}
+    small = [[torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev) for _ in range(3)]
+             for c, h, w in ((3, 33, 65), (4, 31, 63))]
+
+    def check_ring(name):
+        if name in YADIF_RING_DIAGNOSTICS:
+            return True
+        for frames, tff, kw in ((ring, cs.TFF, {}), (ring, not cs.TFF, dict(skip_spatial=True)),
+                                (odd, cs.TFF, {}), (odd, not cs.TFF, dict(opaque=True)),
+                                (small[0], cs.TFF, {}), (small[1], not cs.TFF, {})):
+            for parity in (0, 1):
+                p = torch.tensor(parity, dtype=torch.int32, device=dev)
+                if not torch.equal(Y.yadif_ring(*frames, p, tff, **kw), Y.yadif_ring_plain(*frames, parity, tff, **kw)):
+                    return False
+        return True
+
+    times, wrong = timed(torch, Y, lib, lambda: Y.yadif_ring(*ring, par, cs.TFF), check_ring)
+    bad += [f"yadif_ring {n}" for n in wrong]
+    print(f"yadif_ring 3 ch 1920x1080, new mapping (staged tiles, one parity) on {card}: ms "
           + "; ".join(f"{n} {t:.4f}" for n, t in times.items()))
     return bad
 

@@ -1,10 +1,9 @@
-// yadif_pair's suspects told apart (tools/kernel_variants.py): the pair
-// kernel as it was before its redesign, one thread per output pixel in
-// 32x8 blocks, each tap gathered from device memory through a clamped row
-// and column (the ring kernel's helpers, csrc/yadif.cu), whole and with
-// one part taken out.
-//   part 0: the whole pair (equals yadif_pair_plain)
-//   part 1: the stores only (constants to both outputs, no loads)
+// yadif's suspects told apart (tools/kernel_variants.py): the ring and
+// pair kernels as they were before their redesigns, one thread per output
+// pixel in 32x8 blocks, each tap gathered from device memory through a
+// clamped row and column, whole and with one part taken out.
+//   part 0: the whole kernel (equals yadif_ring_plain / yadif_pair_plain)
+//   part 1: the stores only (constants to the outputs, no loads)
 //   part 2: the same clamped loads, summed (trivial arithmetic)
 //   part 3: the full arithmetic on taps made from (x, y) (no loads)
 //   part 4: the full arithmetic on taps read without clamps (interior
@@ -12,6 +11,49 @@
 #include "../phaneron_tpu_torch/csrc/yadif.cu"
 
 namespace {
+
+// ---- the one-thread-a-pixel mapping's helpers, as csrc/yadif.cu had them
+__device__ __forceinline__ const float* row_of(const float* plane, int y, int height,
+                                               int width) {
+  return plane + static_cast<size_t>(min(max(y, 0), height - 1)) * width;
+}
+
+// The spatial prediction at column x from the clamped taps of the rows
+// above (up) and below (dn)
+__device__ __forceinline__ float spatial_pred(const float* up, const float* dn, int x,
+                                              int width) {
+  return spatial_from_taps(up[col_of(x - 3, width)], up[col_of(x - 2, width)],
+                           up[col_of(x - 1, width)], up[x], up[col_of(x + 1, width)],
+                           up[col_of(x + 2, width)], up[col_of(x + 3, width)],
+                           dn[col_of(x - 3, width)], dn[col_of(x - 2, width)],
+                           dn[col_of(x - 1, width)], dn[x], dn[col_of(x + 1, width)],
+                           dn[col_of(x + 2, width)], dn[col_of(x + 3, width)]);
+}
+
+// The predicted value of one channel plane at (x, y).  is_second picks
+// which frames feed C/D/E and H/I/J (yadifCl.ts:144-150).
+__device__ __forceinline__ float predict(const float* prev, const float* cur,
+                                         const float* next, int x, int y, int height,
+                                         int width, bool is_second, bool skip_spatial) {
+  const float* cu = row_of(cur, y - 1, height, width);
+  const float* cd = row_of(cur, y + 1, height, width);
+  const float spatial = spatial_pred(cu, cd, x, width);
+  const float* cde = is_second ? cur : prev;
+  const float* hij = is_second ? next : cur;
+  return temporal_clamp(
+      row_of(prev, y - 1, height, width)[x], row_of(prev, y + 1, height, width)[x],
+      row_of(cde, y - 2, height, width)[x], row_of(cde, y, height, width)[x],
+      row_of(cde, y + 2, height, width)[x], cu[x], cd[x],
+      row_of(hij, y - 2, height, width)[x], row_of(hij, y, height, width)[x],
+      row_of(hij, y + 2, height, width)[x], row_of(next, y - 1, height, width)[x],
+      row_of(next, y + 1, height, width)[x], spatial, skip_spatial);
+}
+
+const dim3 kBlock(32, 8);
+
+dim3 grid_of(int height, int width) {
+  return dim3((width + kBlock.x - 1) / kBlock.x, (height + kBlock.y - 1) / kBlock.y);
+}
 
 // the predicted value of one plane with part kPart of the taps
 template <int kPart>
@@ -89,6 +131,18 @@ __global__ void old_pair_kernel(const float* __restrict__ prev, const float* __r
   pixel_part<kPart>(prev, cur, next, kept ? out0 : out1, f, x, y, false, (predicted ^ tff) == 0);
 }
 
+// The ring kernel before its redesign: one parity, read from device memory
+template <int kPart>
+__global__ void old_ring_kernel(const float* __restrict__ prev, const float* __restrict__ cur,
+                                const float* __restrict__ next, const int* __restrict__ parity,
+                                float* __restrict__ out, Frame f, int tff) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= f.width || y >= f.height) return;
+  const int par = *parity;
+  pixel_part<kPart>(prev, cur, next, out, f, x, y, (y % 2) == par, (par ^ tff) == 0);
+}
+
 }  // namespace
 
 // The old pair kernel with part `part` (0..4), the arguments of phn_yadif_pair
@@ -110,6 +164,30 @@ extern "C" int yadif_old_pair(int part, const void* prev, const void* cur, const
     case 2: old_pair_kernel<2><<<grid, kBlock, 0, st>>>(a, b, c, o0, o1, f, tff != 0); break;
     case 3: old_pair_kernel<3><<<grid, kBlock, 0, st>>>(a, b, c, o0, o1, f, tff != 0); break;
     case 4: old_pair_kernel<4><<<grid, kBlock, 0, st>>>(a, b, c, o0, o1, f, tff != 0); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The old ring kernel with part `part` (0..4), the arguments of phn_yadif_ring
+extern "C" int yadif_old_ring(int part, const void* prev, const void* cur, const void* next,
+                              const void* parity, void* out, int channels, int height, int width,
+                              int tff, int skip_spatial, int opaque, void* stream) {
+  if (!valid(channels, height, width)) return static_cast<int>(cudaErrorInvalidValue);
+  const Frame f{channels, height, width, skip_spatial != 0, opaque != 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(prev);
+  const auto* b = static_cast<const float*>(cur);
+  const auto* c = static_cast<const float*>(next);
+  const auto* par = static_cast<const int*>(parity);
+  auto* o = static_cast<float*>(out);
+  const dim3 grid = grid_of(height, width);
+  switch (part) {
+    case 0: old_ring_kernel<0><<<grid, kBlock, 0, st>>>(a, b, c, par, o, f, tff != 0); break;
+    case 1: old_ring_kernel<1><<<grid, kBlock, 0, st>>>(a, b, c, par, o, f, tff != 0); break;
+    case 2: old_ring_kernel<2><<<grid, kBlock, 0, st>>>(a, b, c, par, o, f, tff != 0); break;
+    case 3: old_ring_kernel<3><<<grid, kBlock, 0, st>>>(a, b, c, par, o, f, tff != 0); break;
+    case 4: old_ring_kernel<4><<<grid, kBlock, 0, st>>>(a, b, c, par, o, f, tff != 0); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
