@@ -209,7 +209,29 @@ Run from the repository root:  python3 chip_smoke.py
      configs/quad_1080i_2chip.json, whose channels name chips 0 and 1:
      each placed on cuda:(chip % device count), as the JAX server wraps
      it (all four on cuda:0 with one card), PLAY n-1 BARS, every rendered
-     tick delivered.
+     tick delivered;
+   - media I/O (``phase_media_io``), at 1920x1080, each against a plain
+     twin given the same commands: the SDI loop (a 1080i50 Channel, PLAY
+     1-1 DECKLINK DEVICE 1 over the port's control plane, a fake capture
+     card registered with set_capture_backend serving
+     utils/fixtures.write_interlaced_v210's clip and its PCM, an
+     SDIConsumer over a virtual-clock playout card; 1 v210_unpack, 1
+     yadif_pair and 2 combine_pack a period; every displayed frame 0
+     codes from the twin's, the captured frames in order with their field
+     markers, the captured s32 audio, late_frames 0); the file media
+     through the server's AMCP on the default config (a v210 AVI, an MJPG
+     AVI, a keyed PNG sequence over BARS, a WAV bed, one a channel; 3
+     v210_unpack, 1 yadif_pair, 2 fused_v210, 4 v210_pack and 2
+     combine_pack a period; every frame 0 codes from the twins, the WAV's
+     samples equal); the cluster ingest (channel 4's MJPEG stream played
+     by channel 2 over HTTP, paced: each checked part equal to the plain
+     decode of its JPEG, the event loop's lag); the ffmpeg pair over stub
+     binaries at the front of PATH (a 1080p50 Channel, a yuv422p10le
+     source and a yuv420p box: 1 planar422_unpack, 1 planar420_unpack, 1
+     warp, 1 v210_pack and the ffmpeg consumer's planar422_pack a tick;
+     frames 0 codes, the consumer's rawvideo equal to the twin's packs);
+     the loaders' host ms and MB/s.  The MJPG AVI, the PNG sequence and
+     the ingest need Pillow and print "skipped" without it.
 5. Times, with CUDA events after warm-up, the median ms per frame (or
    period) of each path, kernel and plain (batches of back-to-back
    frames), the progressive frame also on the staged K1 (3 ch) + K5
@@ -2563,12 +2585,13 @@ async def stop_paced(server) -> None:
     await asyncio.wait_for(asyncio.gather(*(ch._task for ch in server.channels.values())), 30)
 
 
-async def server_tick(ch) -> None:
+async def server_tick(ch):
     """One tick as Channel.run makes it, unpaced: render, deliver to every
-    consumer (errors raise here)."""
+    consumer (errors raise here); returns the frame."""
     frame = await ch.render_frame()
     for c in ch.consumers:
         await c.deliver(frame)
+    return frame
 
 
 def source_position(slot) -> int:
@@ -2589,28 +2612,16 @@ async def plain_twin(dev, ch, emit_rgba: bool):
     with SEEK so that its last frame is the server source's last frame,
     at the same field parity, under the same MIXER FILL, and ticked until
     its deinterlace ring is full.  Returns the twin's last two frames."""
-    from phaneron_tpu_torch.consumer.consumer import Consumer
-    from phaneron_tpu_torch.control.basic_cmds import BasicCmds
-    from phaneron_tpu_torch.control.commands import Commands
-    from phaneron_tpu_torch.control.mixer_cmds import MixerCmds
     from phaneron_tpu_torch.producer.producer import ProducerRegistry
     from phaneron_tpu_torch.producer.raw_file import create_raw_file_producer
     from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
     from phaneron_tpu_torch.runtime.channel import Channel
 
-    class RgbaSink(Consumer):  # makes the twin emit its rgba frame, as the preview does
-        pix_format = None
-
-        async def deliver(self, frame):
-            pass
-
     twin = Channel(ch.chan_id, ch.fmt, ProducerRegistry([create_test_pattern_producer, create_raw_file_producer]),
                    device=dev, plain=True)
     if emit_rgba:
-        await twin.add_consumer(RgbaSink())
-    cmds = Commands()
-    cmds.add(BasicCmds({ch.chan_id: twin}, None).list())
-    cmds.add(MixerCmds({ch.chan_id: twin}).list())
+        await twin.add_consumer(rgba_sink())
+    cmds = control_plane({ch.chan_id: twin})
     starts = {}
     for num, lay in sorted(ch.layers.items()):
         slot = lay.cur
@@ -2947,6 +2958,654 @@ def phase_server(torch, dev, card: str, run_path, timing: dict, server_device=No
                                   seconds=record["seconds"], last_frame_codes=worst,
                                   preview_codes=preview_delta, playback_codes=playback_delta)
     print(f"server phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+MEDIA_IO_WARM_TICKS = 4  # ticks before a counted window: the first frames pulled, each structure prepared
+MEDIA_IO_PERIODS = 3  # frame periods (two ticks) counted and compared with the plain twins
+MEDIA_IO_CLIP_FRAMES = 8  # frames of each file fixture: more than the ticks pull (25 fps on 50 Hz)
+MEDIA_IO_STUB_FRAMES = 16  # frames of the ffmpeg stubs' sources (50 fps on 50 Hz)
+MEDIA_IO_LAG_SECONDS = 2.0  # the paced window with the MJPEG producer playing
+SDI_CLIP_FRAMES = 6  # utils/fixtures' interlaced clip, served by the fake capture card in a loop
+MEDIA_IO_BOX = (0.25, 0.25, 0.5, 0.5)  # MIXER FILL of the ffmpeg channel's yuv420p layer
+# launches a counted period (two ticks) or tick (no packed_composite on
+# these paths): the SDI channel a period: K1 and yadif_pair once a
+# captured frame, the single deinterlaced layer through combine_pack each
+# tick
+SDI_PATH_LAUNCHES = {"v210_unpack": 1, "yadif_pair": 1, "combine_pack": 2}
+# the four file channels a period: 1 the v210 AVI cut (fused_v210 a tick);
+# 2 the MJPG AVI (torch rgba8 decode, v210_pack a tick); 3 BARS (K1 and
+# yadif_pair a frame) under the keyed PNG (torch decode), combine_pack a
+# tick; 4 the WAV's black (K1 and v210_pack a tick, emitting the MJPEG
+# stream's rgba).  Without Pillow channel 2 is empty (its transparent
+# frame through v210_pack a tick) and channel 3's BARS alone through
+# combine_pack: the same launches.
+MEDIA_FILES_LAUNCHES = {"v210_unpack": 3, "yadif_pair": 1, "fused_v210": 2, "v210_pack": 4, "combine_pack": 2}
+# the ffmpeg channel a tick: K3 10-bit (full frame), B12 (the box's
+# source) and K4 (its DVE), the torch combine and v210_pack (the channel
+# emits rgba for the consumer), the consumer's planar422_pack
+FFMPEG_PATH_LAUNCHES = {"planar422_unpack": 1, "planar420_unpack": 1, "warp": 1, "v210_pack": 1,
+                        "planar422_pack": 1}
+
+
+class FakeCapture:
+    """A capture card's backend (producer/sdi_capture.py protocol): serves
+    ``frames`` in a loop, each with its two fields' audio as s32."""
+
+    def __init__(self, frames: list, audio_s32: list):
+        self.frames, self.audio_s32 = frames, audio_s32
+        self.served = 0
+        self.opened = None
+        self.closed = False
+
+    async def open(self, device_index, fmt):
+        self.opened = (device_index, fmt.name)
+
+    async def capture_frame(self):
+        k = self.served % len(self.frames)
+        self.served += 1
+        return self.frames[k].tobytes(), self.audio_s32[k], float(self.served)
+
+    def close(self):
+        self.closed = True
+
+
+class VirtualPlayout:
+    """A playout card's backend (consumer/sdi_consumer.py protocol) on a
+    virtual clock: ``wait_until`` moves the clock to a frame's slot at
+    once, so the genlock's accounting does not depend on host load; the
+    displayed frames are kept."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.frames = []  # (wire planes, audio_s32, timestamp)
+        self.closed = False
+
+    def hardware_time(self) -> float:
+        return self.t
+
+    async def wait_until(self, t: float) -> None:
+        self.t = max(self.t, t)
+
+    async def open(self, device_index, fmt, keyer=False):
+        pass
+
+    async def display_frame(self, planes, audio_s32, ts):
+        self.frames.append((planes, audio_s32, ts))
+
+    def close(self):
+        self.closed = True
+
+
+class LoaderTimes:
+    """While installed: the host seconds and bytes of each producer's
+    loader step (a worker thread's read or decode into a pinned buffer and
+    its upload, enqueued) and of the codec process's decodes, by producer
+    class and format; each object's first call (a process's start, first
+    touches of its buffers) is kept apart from the steady calls."""
+
+    def __init__(self):
+        self.calls = {}  # name -> {"first": [seconds], "steady": [seconds], "bytes": last call's bytes}
+        self._seen = set()
+        self._undo = []
+
+    def wrap(self, cls, attr: str, name_of, bytes_of) -> None:
+        orig = getattr(cls, attr)
+
+        def call(obj, *args, **kw):
+            t0 = time.perf_counter()
+            out = orig(obj, *args, **kw)
+            rec = self.calls.setdefault(name_of(obj), {"first": [], "steady": [], "bytes": 0})
+            rec["steady" if id(obj) in self._seen else "first"].append(time.perf_counter() - t0)
+            rec["bytes"] = bytes_of(out, args)
+            self._seen.add(id(obj))
+            return out
+
+        setattr(cls, attr, call)
+        self._undo.append((cls, attr, orig))
+
+    def install(self) -> None:
+        from phaneron_tpu_torch.producer.ffmpeg import FFmpegProducer
+        from phaneron_tpu_torch.producer.mjpeg import MJPEGProducer
+        from phaneron_tpu_torch.producer.raw_file import RawFileProducer
+        from phaneron_tpu_torch.producer.sdi_capture import SDICaptureProducer
+        from phaneron_tpu_torch.utils.jpeg import JpegProcess
+
+        def planes_bytes(planes) -> int:
+            return sum(p.numel() * p.element_size() for p in planes)
+
+        self.wrap(RawFileProducer, "_load_frame", lambda p: f"{type(p).__name__} {p.pix_format}",
+                  lambda out, args: planes_bytes(out[0]))
+        self.wrap(MJPEGProducer, "_decode_upload", lambda p: "MJPEGProducer rgba8",
+                  lambda out, args: planes_bytes(out[0]))
+        self.wrap(SDICaptureProducer, "_upload", lambda p: "SDICaptureProducer v210",
+                  lambda out, args: planes_bytes(out))
+        self.wrap(FFmpegProducer, "_to_planes", lambda p: f"FFmpegProducer {p.pix_format}",
+                  lambda out, args: planes_bytes(out))
+        self.wrap(JpegProcess, "decode", lambda c: "image decode to rgba8 (codec process)",
+                  lambda out, args: args[4].nbytes)
+
+    def restore(self) -> None:
+        for cls, attr, orig in reversed(self._undo):
+            setattr(cls, attr, orig)
+        self._undo.clear()
+
+    def report(self) -> dict:
+        out = {}
+        for name, rec in sorted(self.calls.items()):
+            steady = rec["steady"] or rec["first"]
+            ms = statistics.median(steady) * 1e3
+            out[name] = dict(steady_calls=len(rec["steady"]), median_ms=ms, max_ms=max(steady) * 1e3,
+                             first_ms=max(rec["first"], default=float("nan")) * 1e3,
+                             mb_a_call=rec["bytes"] / 1e6, mb_per_s=rec["bytes"] / 1e3 / ms)
+        return out
+
+
+def rgba_sink():
+    """A consumer that makes its channel emit the rgba frame (as the
+    preview, MJPEG and ffmpeg consumers do) and keeps nothing."""
+    from phaneron_tpu_torch.consumer.consumer import Consumer
+
+    class RgbaSink(Consumer):
+        pix_format = None
+
+        async def deliver(self, frame):
+            pass
+
+    return RgbaSink()
+
+
+def control_plane(channels: dict):
+    """The port's AMCP command set over ``channels`` (what the server's
+    AMCP connection dispatches to)."""
+    from phaneron_tpu_torch.control.basic_cmds import BasicCmds
+    from phaneron_tpu_torch.control.commands import Commands
+    from phaneron_tpu_torch.control.mixer_cmds import MixerCmds
+
+    cmds = Commands()
+    cmds.add(BasicCmds(channels, None).list())
+    cmds.add(MixerCmds(channels).list())
+    return cmds
+
+
+async def command(cmds, line: str) -> None:
+    import shlex
+
+    check(await cmds.process(shlex.split(line)), f"command {line!r} failed")
+
+
+def words_of(torch, planes, dev):
+    """Host v210 wire words (uint32) -> an int32 tensor on ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(planes[0]).view(np.int32)).to(dev)
+
+
+def media_io_sdi(torch, dev, card: str, run_path, arun, out_dir, record: dict) -> None:
+    """PLAY 1-1 DECKLINK DEVICE 1 on a 1080i50 channel whose capture card
+    is a fake serving utils/fixtures' interlaced clip with its PCM, into an
+    SDIConsumer over a virtual-clock playout card, against a plain twin."""
+    from phaneron_tpu_torch.audio.engine import QUANTUM
+    from phaneron_tpu_torch.config import get_video_format
+    from phaneron_tpu_torch.consumer.sdi_consumer import SDIConsumer
+    from phaneron_tpu_torch.producer import sdi_capture
+    from phaneron_tpu_torch.producer.producer import ProducerRegistry
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+    from phaneron_tpu_torch.runtime.channel import Channel
+    from phaneron_tpu_torch.utils.fixtures import write_interlaced_v210
+
+    fmt = get_video_format("1080i5000")
+    w, h, n_ch = fmt.width, fmt.height, fmt.audio_channels
+    sdi_dir = out_dir / "sdi"
+    sdi_dir.mkdir()
+    _, frames = write_interlaced_v210(sdi_dir, w, h, SDI_CLIP_FRAMES, audio_channels=n_ch)
+    blocks = np.fromfile(sdi_dir / "clip.pcm", np.float32).reshape(-1, n_ch, QUANTUM)
+    pcm = blocks.transpose(1, 0, 2).reshape(n_ch, -1)  # (channels, samples)
+    spf = 2 * fmt.samples_per_frame  # a wire frame carries two fields
+    audio = [(pcm[:, k * spf:(k + 1) * spf].T.reshape(-1).astype(np.float64) * 2**31).astype(np.int32)
+             for k in range(SDI_CLIP_FRAMES)]
+    captures = []
+
+    def backend(device, f):
+        captures.append(FakeCapture(frames, audio))
+        return captures[-1]
+
+    async def channel(plain: bool):
+        ch = Channel(1, fmt, ProducerRegistry([sdi_capture.create_sdi_capture_producer, create_test_pattern_producer]),
+                     device=dev, plain=plain)
+        playout = VirtualPlayout()
+        cons = SDIConsumer({"backend": playout, "device": 1})
+        await ch.add_consumer(cons)
+        await command(control_plane({1: ch}), "PLAY 1-1 DECKLINK DEVICE 1")
+        check(type(ch.layers[1].cur.producer).__name__ == "SDICaptureProducer",
+              f"sdi: DECKLINK played {type(ch.layers[1].cur.producer).__name__}")
+        return ch, cons, playout
+
+    sdi_capture.set_capture_backend(backend)
+    try:
+        (ch, cons, play), (twin, tcons, tplay) = arun(channel(False)), arun(channel(True))
+    finally:
+        sdi_capture.set_capture_backend(None)
+    check([c.opened for c in captures] == [(1, fmt.name)] * 2, f"sdi: capture cards opened {captures}")
+    for _ in range(MEDIA_IO_WARM_TICKS + 2):  # the deinterlace ring fills over the first three frames
+        arun(server_tick(ch))
+
+    def sdi_path():
+        for _ in range(2 * MEDIA_IO_PERIODS):
+            arun(server_tick(ch))
+
+    run_path("media_io_sdi", SDI_PATH_LAUNCHES, MEDIA_IO_PERIODS, sdi_path)
+    for _ in range(MEDIA_IO_WARM_TICKS + 2 + 2 * MEDIA_IO_PERIODS):
+        arun(server_tick(twin))
+    check(len(play.frames) == len(tplay.frames) == (MEDIA_IO_WARM_TICKS + 2) // 2 + MEDIA_IO_PERIODS,
+          f"sdi: {len(play.frames)} frames displayed, the twin {len(tplay.frames)}")
+    worst = max(code_delta(torch, words_of(torch, a[0], dev), words_of(torch, b[0], dev), w, h)
+                for a, b in zip(play.frames, tplay.frames))
+    check(worst == 0, f"sdi: a displayed frame {worst} codes from the plain twin's")
+    flat = [f.reshape(-1) for f in frames]
+    match = [next((k for k, s in enumerate(flat) if np.array_equal(p[0].reshape(-1), s)), -1)
+             for p, _, _ in play.frames]
+    first = next((j for j, k in enumerate(match) if k >= 0), None)
+    check(first is not None, f"sdi: no displayed frame is a captured frame ({match})")
+    chained = 0
+    for j in range(first, len(match)):
+        k = (match[first] + j - first) % SDI_CLIP_FRAMES
+        check(match[j] == k, f"sdi: displayed frame {j} is captured frame {match[j]}, expected {k}")
+        check(np.array_equal(play.frames[j][1], audio[k]), f"sdi: displayed frame {j}'s audio is not the captured s32")
+        chained += 1
+    y = words_of(torch, play.frames[first][0], dev)
+    from phaneron_tpu_torch.ops.formats import v210
+
+    yy, cb, cr = v210.unpack_codes([y], w, h)
+    k = match[first]
+    check(bool((yy[0::2] == 120 + 16 * k).all()) and bool((yy[1::2] == 560 + 16 * k).all())
+          and bool((cb == 512).all()) and bool((cr == 512).all()), "sdi: the field markers did not survive")
+    check(cons.late_frames == tcons.late_frames == 0, f"sdi: late_frames {cons.late_frames} on the virtual clock")
+    cons.release()
+    tcons.release()
+    arun(ch.shutdown())
+    arun(twin.shutdown())
+    check(all(c.closed for c in captures) and play.closed, "sdi: a card was not closed")
+    print(f"media_io sdi on {card}: PLAY 1-1 DECKLINK DEVICE 1 at {w}x{h} 1080i50, {len(play.frames)} frames "
+          f"displayed, {worst} codes from the plain twin; from displayed frame {first} {chained} frames are the "
+          f"captured frames in order (field markers intact), each with the captured s32 audio; late_frames 0 on "
+          f"the virtual clock")
+    record["sdi"] = dict(displayed=len(play.frames), twin_codes=worst, chained=chained, late_frames=cons.late_frames)
+
+
+def media_fixtures(out_dir, w: int, h: int, have_pil: bool) -> dict:
+    """The file sources at the channel's size: a v210 AVI of rolled
+    fill_buf ramps, a stereo 16-bit WAV of seeded noise (2 s), and with
+    Pillow an MJPG AVI (a moving gradient) and a PNG sequence of the keyed
+    lower third (utils: graphic_rgba8), sliding a few pixels a frame."""
+    from phaneron_tpu_torch.ops.formats import v210
+    from phaneron_tpu_torch.utils.avi import write_avi
+
+    out = {}
+    base = v210.fill_buf(w, h)[0]
+    out["v210_avi"] = out_dir / "clip_v210.avi"
+    write_avi(out["v210_avi"], [np.roll(base, 7 * k, axis=0).tobytes() for k in range(MEDIA_IO_CLIP_FRAMES)],
+              "v210", w, h, 25.0)
+    rng = np.random.default_rng(SEED + 17)
+    out["wav"] = out_dir / "bed.wav"
+    out["wav_samples"] = (rng.random((2, 2 * 48000)) * 0.4 - 0.2).astype(np.float32)
+    import wave
+
+    with wave.open(str(out["wav"]), "wb") as wf:
+        wf.setnchannels(2)
+        wf.setsampwidth(2)
+        wf.setframerate(48000)
+        pcm16 = np.round(out["wav_samples"] * 32767).astype("<i2")
+        wf.writeframes(pcm16.T.tobytes())
+    out["wav_samples"] = pcm16.astype(np.float32) / 32768.0  # what the file decodes to
+    if not have_pil:
+        return out
+    import io
+
+    from PIL import Image
+
+    chunks = []
+    ramp = np.linspace(0, 255, w, dtype=np.float32)
+    for k in range(MEDIA_IO_CLIP_FRAMES):
+        rgb = np.empty((h, w, 3), np.uint8)
+        rgb[..., 0] = np.roll(ramp, 24 * k)[None, :].astype(np.uint8)
+        rgb[..., 1] = np.linspace(0, 255, h, dtype=np.float32)[:, None].astype(np.uint8)
+        rgb[..., 2] = 96 + 16 * k
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, "JPEG", quality=90)
+        chunks.append(buf.getvalue())
+    out["mjpg_avi"] = out_dir / "clip_mjpg.avi"
+    write_avi(out["mjpg_avi"], chunks, "MJPG", w, h, 25.0)
+    seq = out_dir / "key"
+    seq.mkdir()
+    graphic = graphic_rgba8(w, h)
+    for k in range(MEDIA_IO_CLIP_FRAMES):
+        Image.fromarray(np.roll(graphic, 4 * k, axis=1), "RGBA").save(seq / f"f{k:04d}.png", compress_level=1)
+    out["png"] = seq / "f%04d.png"
+    return out
+
+
+def media_io_files(torch, dev, card: str, run_path, arun, out_dir, record: dict, have_pil: bool,
+                   server_device) -> None:
+    """The server on the default config with its consumers, loaded over
+    AMCP so that the registry order picks each producer: a v210 AVI on
+    channel 1, an MJPG AVI on 2, a keyed PNG sequence over BARS on 3 and a
+    WAV bed on 4; the channels ticked one at a time beside plain twins
+    given the same commands.  Then channel 4 plays BARS into its MJPEG
+    stream, which channel 2 ingests over HTTP (PLAY 2-1 http://...), paced,
+    the event loop's lag probed."""
+    import asyncio
+    import shlex
+
+    from phaneron_tpu_torch.producer.avi_file import create_avi_producer
+    from phaneron_tpu_torch.producer.image_seq import create_image_seq_producer
+    from phaneron_tpu_torch.producer.mjpeg import MJPEGProducer
+    from phaneron_tpu_torch.producer.producer import ProducerRegistry
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+    from phaneron_tpu_torch.producer.wav_file import create_wav_producer
+    from phaneron_tpu_torch.runtime.channel import Channel
+    from phaneron_tpu_torch.server import PhaneronServer
+    from phaneron_tpu_torch.utils.jpeg import FIT_RGB, decode_rgba
+
+    async def session():
+        server = PhaneronServer(server_config(out_dir), device=server_device)
+        await server.start()
+        await stop_paced(server)  # ticked one at a time below, beside the twins
+        chans = server.channels
+        fmt = chans[1].fmt
+        w, h = fmt.width, fmt.height
+        media = media_fixtures(out_dir, w, h, have_pil)
+        registry = ProducerRegistry([create_test_pattern_producer, create_avi_producer, create_wav_producer,
+                                     create_image_seq_producer])
+        twins = {}
+        for n, ch in chans.items():
+            twins[n] = Channel(n, ch.fmt, registry, device=ch.device, plain=True)
+            if ch._needs_rgba():
+                await twins[n].add_consumer(rgba_sink())
+        cmds = control_plane(twins)
+        script = [f'PLAY 1-1 "{media["v210_avi"]}"', f'PLAY 4-1 "{media["wav"]}"', "PLAY 3-1 BARS"]
+        if have_pil:
+            script += [f'PLAY 2-1 "{media["mjpg_avi"]}"', f'PLAY 3-2 "{media["png"]}"']
+        amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        for line in script:
+            await amcp.call(line, ["202 PLAY OK"])
+            await command(cmds, line)
+        want = {(1, 1): "AviProducer v210", (4, 1): "WavProducer v210", (3, 1): "TestPatternProducer v210",
+                (2, 1): "AviProducer rgba8", (3, 2): "ImageSeqProducer rgba8"}
+        for (c, i), name in want.items():
+            lay = chans[c].layers.get(i)
+            if lay is None:
+                check(not have_pil and c in (2, 3), f"media_io: channel {c} layer {i} has no source")
+                continue
+            got = f"{type(lay.cur.producer).__name__} {lay.cur.producer.pix_format}"
+            check(got == name, f"media_io: {c}-{i} played by {got}, expected {name}")
+        frames = {n: [] for n in chans}
+        tframes = {n: [] for n in chans}
+        for _ in range(MEDIA_IO_WARM_TICKS):
+            for n, ch in chans.items():
+                frames[n].append(await server_tick(ch))
+        return server, amcp, chans, twins, media, frames, tframes
+
+    server, amcp, chans, twins, media, frames, tframes = arun(session())
+    fmt = chans[1].fmt
+    w, h = fmt.width, fmt.height
+
+    def files_path():
+        for _ in range(2 * MEDIA_IO_PERIODS):
+            for n, ch in chans.items():
+                frames[n].append(arun(server_tick(ch)))
+
+    run_path("media_io_files", MEDIA_FILES_LAUNCHES, MEDIA_IO_PERIODS, files_path)
+    for _ in range(MEDIA_IO_WARM_TICKS + 2 * MEDIA_IO_PERIODS):
+        for n, twin in twins.items():
+            tframes[n].append(arun(twin.render_frame()))
+    worst = {}
+    for n in chans:
+        worst[n] = max(code_delta(torch, a.packed[0], b.packed[0], w, h) for a, b in zip(frames[n], tframes[n]))
+        check(worst[n] == 0, f"media_io: channel {n}'s frames {worst[n]} codes from the plain twin's")
+    # the WAV bed: channel 4's audio over the counted ticks is the file's
+    # samples, up-mapped 2 -> 8 by repetition, in order
+    got = np.concatenate([f.audio for f in frames[4][MEDIA_IO_WARM_TICKS:]], axis=1)
+    ref = np.tile(media["wav_samples"], (fmt.audio_channels // 2, 1))
+    starts = [s for s in range(ref.shape[1] - got.shape[1] + 1)
+              if np.array_equal(ref[:, s:s + 8], got[:, :8])]
+    check(len(starts) == 1 and np.array_equal(ref[:, starts[0]:starts[0] + got.shape[1]], got),
+          f"media_io: channel 4's audio is not the WAV's samples (offsets {starts[:4]})")
+    print(f"media_io files on {card}: channels 1-4 ({w}x{h} 1080i50, the default config's consumers) over "
+          f"{len(frames[1])} ticks: v210 AVI, " + ("MJPG AVI, keyed PNG sequence over BARS, " if have_pil else
+          "(no Pillow here: the MJPG AVI and the PNG sequence skipped), BARS, ")
+          + f"WAV bed; codes from the plain twins {worst}; the WAV's {got.shape[1]} samples a channel from offset "
+          f"{starts[0]} equal the file's")
+    record["files"] = dict(twin_codes=worst, ticks=len(frames[1]), wav_samples=int(got.shape[1]))
+    for twin in twins.values():
+        arun(twin.shutdown())
+    del frames, tframes
+
+    async def cluster():
+        """Channel 4's MJPEG stream (BARS) ingested by channel 2, paced."""
+        seen = []
+        next_jpeg, decode = MJPEGProducer._next_jpeg, MJPEGProducer._decode_upload
+
+        async def recorded(self):
+            jpeg = await next_jpeg(self)
+            if jpeg is not None:
+                seen.append([jpeg])
+            return jpeg
+
+        def decode_recorded(self, jpeg, w, h):
+            planes, stamp = decode(self, jpeg, w, h)
+            if len(seen) <= 4 and seen and len(seen[-1]) == 1:
+                seen[-1].append(planes[0].clone())
+            return planes, stamp
+
+        MJPEGProducer._next_jpeg, MJPEGProducer._decode_upload = recorded, decode_recorded
+        lags = []
+        try:
+            await amcp.call("PLAY 4-1 BARS", ["202 PLAY OK"])
+            for ch in chans.values():
+                ch.start()
+            port = chans[4].consumers[0].port
+            await amcp.call(f"PLAY 2-1 http://127.0.0.1:{port}/", ["202 PLAY OK"])
+            check(isinstance(chans[2].layers[1].cur.producer, MJPEGProducer), "media_io cluster: not the MJPEG producer")
+            await asyncio.sleep(0.5)  # the stream's first parts, structures prepared
+
+            async def probe():
+                while True:
+                    a = time.perf_counter()
+                    await asyncio.sleep(0.005)
+                    lags.append((time.perf_counter() - a - 0.005) * 1e3)
+
+            before = {n: (ch.timestamp, ch.clock.late_frames) for n, ch in chans.items()}
+            ingested = chans[2].layers[1].cur.frames_seen
+            task = asyncio.create_task(probe())
+            await asyncio.sleep(MEDIA_IO_LAG_SECONDS)
+            task.cancel()
+            ingested = chans[2].layers[1].cur.frames_seen - ingested
+            window = {n: dict(ticks=ch.timestamp - before[n][0], late=ch.clock.late_frames - before[n][1])
+                      for n, ch in chans.items()}
+            # channel 2's tick waits for its next part: its loop ends while
+            # channel 4 still streams, then the others
+            chans[2].running = False
+            await asyncio.wait_for(chans[2]._task, 30)
+            await stop_paced(server)
+        finally:
+            MJPEGProducer._next_jpeg, MJPEGProducer._decode_upload = next_jpeg, decode
+        return seen, lags, window, ingested
+
+    if have_pil:
+        seen, lags, window, ingested = arun(cluster())
+        pairs = [s for s in seen if len(s) == 2]
+        check(len(pairs) >= 2 and ingested > 0, f"media_io cluster: {len(pairs)} parts decoded, {ingested} ingested")
+        for jpeg, payload in pairs:
+            ref = torch.frombuffer(bytearray(decode_rgba(jpeg, w, h, FIT_RGB)), dtype=torch.uint8)
+            ref = ref.reshape(h, w, 4).to(payload.device)
+            check(torch.equal(payload, ref), "media_io cluster: an ingested frame is not the plain decode of its JPEG")
+        lag = dict(p50_ms=percentile(lags, 50), p99_ms=percentile(lags, 99), max_ms=max(lags, default=float("nan")),
+                   probes=len(lags))
+        print(f"media_io cluster on {card}: channel 4's MJPEG stream (BARS) played by channel 2 (PLAY 2-1 "
+              f"http://...): {ingested} frames ingested in {MEDIA_IO_LAG_SECONDS} s paced, {len(pairs)} checked "
+              f"equal to the plain decode of their JPEG; the event loop's lag (a 5 ms sleep's overshoot) p50 "
+              f"{lag['p50_ms']:.4f} p99 {lag['p99_ms']:.4f} max {lag['max_ms']:.4f} ms ({lag['probes']} probes), "
+              f"per channel ticks and late_frames {window}")
+        record["cluster"] = dict(ingested=ingested, checked=len(pairs), loop_lag=lag, window=window)
+    else:
+        print("media_io cluster: PIL does not import here; the MJPEG ingest was not run (skipped)")
+
+    async def close():
+        await amcp.close()
+        await server.shutdown()
+
+    arun(close())
+
+
+def media_io_ffmpeg(torch, dev, card: str, run_path, arun, out_dir, record: dict) -> None:
+    """The ffmpeg pair over stub binaries on a 1080p50 channel: a
+    yuv422p10le source full frame and a yuv420p source in a box, each
+    loaded with its stubs at the front of PATH, recorded by the ffmpeg
+    consumer (yuv422p10le rawvideo into an encoder stub that writes its
+    input unchanged), against a plain twin."""
+    import os
+
+    from phaneron_tpu_torch.config import get_video_format
+    from phaneron_tpu_torch.consumer.ffmpeg_consumer import FFmpegConsumer
+    from phaneron_tpu_torch.graph.pipeline import make_pack_program
+    from phaneron_tpu_torch.producer.ffmpeg import create_ffmpeg_producer
+    from phaneron_tpu_torch.producer.producer import ProducerRegistry
+    from phaneron_tpu_torch.runtime.channel import Channel
+    from phaneron_tpu_torch.utils.fixtures import write_ffmpeg_stubs
+
+    fmt = get_video_format("1080p5000")
+    w, h = fmt.width, fmt.height
+    bins = {pix: write_ffmpeg_stubs(out_dir / f"bin_{pix}", w, h, pix, MEDIA_IO_STUB_FRAMES, fps=50)
+            for pix in ("yuv422p10le", "yuv420p")}
+    path0 = os.environ["PATH"]
+    rec_path = out_dir / "rec.nut"
+
+    async def setup():
+        ch = Channel(1, fmt, ProducerRegistry([create_ffmpeg_producer]), device=dev)
+        twin = Channel(1, fmt, ProducerRegistry([create_ffmpeg_producer]), device=dev, plain=True)
+        await twin.add_consumer(rgba_sink())
+        chans = {"kernel": (ch, control_plane({1: ch})), "twin": (twin, control_plane({1: twin}))}
+        try:
+            os.environ["PATH"] = f"{bins['yuv422p10le']}{os.pathsep}{path0}"
+            cons = FFmpegConsumer({"path": str(rec_path)})
+            await ch.add_consumer(cons)
+            for c, cmds in chans.values():
+                await command(cmds, "PLAY 1-1 full.mxf")
+            os.environ["PATH"] = f"{bins['yuv420p']}{os.pathsep}{path0}"
+            for c, cmds in chans.values():
+                await command(cmds, "PLAY 1-2 box.mxf")
+                await command(cmds, "MIXER 1-2 FILL " + " ".join(map(str, MEDIA_IO_BOX)))
+        finally:
+            os.environ["PATH"] = path0
+        names = [f"{type(ch.layers[i].cur.producer).__name__} {ch.layers[i].cur.producer.pix_format}" for i in (1, 2)]
+        check(names == ["FFmpegProducer yuv422p10le", "FFmpegProducer yuv420p"], f"media_io ffmpeg: played by {names}")
+        return ch, twin, cons
+
+    ch, twin, cons = arun(setup())
+    frames, tframes = [], []
+    for _ in range(MEDIA_IO_WARM_TICKS):
+        frames.append(arun(server_tick(ch)))
+
+    def ffmpeg_path():
+        for _ in range(2 * MEDIA_IO_PERIODS):
+            frames.append(arun(server_tick(ch)))
+
+    run_path("media_io_ffmpeg", FFMPEG_PATH_LAUNCHES, 2 * MEDIA_IO_PERIODS, ffmpeg_path)
+
+    async def finish(consumer):
+        consumer.release()
+        await consumer._finish_task  # the drain wrote the last frame, the encoder has exited
+
+    arun(finish(cons))
+    for _ in range(len(frames)):
+        tframes.append(arun(twin.render_frame()))
+    worst = max(code_delta(torch, a.packed[0], b.packed[0], w, h) for a, b in zip(frames, tframes))
+    check(worst == 0, f"media_io ffmpeg: the channel's frames {worst} codes from the plain twin's")
+    pack = make_pack_program("yuv422p10le", w, h, "709", plain=True)
+    want = b"".join(np.ascontiguousarray(p.cpu().numpy()[:, :cols]).tobytes()
+                    for f in tframes for p, cols in zip(pack(f.rgba), (w, (w + 1) // 2, (w + 1) // 2)))
+    got = rec_path.read_bytes()
+    check(len(got) == len(want) == len(frames) * 2 * h * (w + 2 * ((w + 1) // 2)),
+          f"media_io ffmpeg: the encoder got {len(got)} bytes, the twin's packs make {len(want)}")
+    check(got == want, "media_io ffmpeg: the consumer's rawvideo is not the twin's yuv422p10le pack, cropped")
+
+    async def burst():
+        """The channel's frames again, back to back, into a new consumer:
+        its egress alone (the ticks waited for the stub decoders)."""
+        try:
+            os.environ["PATH"] = f"{bins['yuv422p10le']}{os.pathsep}{path0}"
+            burst = FFmpegConsumer({"path": str(out_dir / "burst.nut")})
+            burst.device = dev
+            await burst.initialise(fmt)  # starts the encoder stub
+        finally:
+            os.environ["PATH"] = path0
+        t0 = time.perf_counter()
+        for f in frames:
+            await burst.deliver(f)
+        burst.release()
+        await burst._task  # the drain has written the last frame into the encoder's stdin
+        seconds = time.perf_counter() - t0
+        await burst._finish_task
+        return burst, seconds
+
+    burst, seconds = arun(burst())
+    check((out_dir / "burst.nut").read_bytes() == got, "media_io ffmpeg: the burst's rawvideo differs")
+    mb_s = burst.bytes_written / 1e6 / seconds
+    print(f"media_io ffmpeg on {card}: stub ffmpeg / ffprobe at {w}x{h} 50p (yuv422p10le full frame, yuv420p "
+          f"box), {len(frames)} ticks 0 codes from the plain twin; the ffmpeg consumer's {len(frames)} rawvideo "
+          f"frames ({cons.bytes_written} bytes) equal the twin's yuv422p10le packs, cropped; the same frames "
+          f"delivered back to back: {mb_s:.2f} MB/s into the encoder stub ({seconds:.3f} s from the first "
+          f"deliver until the drain wrote the last frame; real time at 50p is "
+          f"{burst.bytes_written / len(frames) * 50 / 1e6:.2f} MB/s)")
+    record["ffmpeg"] = dict(ticks=len(frames), twin_codes=worst, bytes=cons.bytes_written, mb_per_s=mb_s)
+    arun(ch.shutdown())
+    arun(twin.shutdown())
+
+
+def phase_media_io(torch, dev, card: str, run_path, timing: dict, server_device=None) -> None:
+    """The producers and consumers of ROADMAP A8b at 1920x1080 on the
+    card, each against a plain twin: the SDI loop, the file media through
+    the server's AMCP (AVI, MJPG AVI, keyed PNG sequence, WAV), the
+    cluster's MJPEG ingest and the ffmpeg pair over stub binaries; the
+    loaders' host ms and MB/s."""
+    import asyncio
+    import tempfile
+    from pathlib import Path
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    out_dir = Path(tempfile.mkdtemp(prefix="phaneron_media_io_"))
+    loop = asyncio.new_event_loop()
+    arun = loop.run_until_complete
+    t_phase = time.perf_counter()
+    record = {}
+    loader = LoaderTimes()
+    loader.install()
+    try:
+        media_io_sdi(torch, dev, card, run_path, arun, out_dir, record)
+        media_io_files(torch, dev, card, run_path, arun, out_dir, record, have_pil, server_device)
+        media_io_ffmpeg(torch, dev, card, run_path, arun, out_dir, record)
+    finally:
+        loader.restore()
+
+        async def drain():
+            await asyncio.sleep(0.2)  # the killed ffmpeg stubs' exits reach their transports
+            pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+            for task in pending:
+                task.cancel()
+            await asyncio.gather(*pending, return_exceptions=True)
+
+        arun(drain())
+        loop.close()
+    record["loaders"] = loader.report()
+    for name, r in record["loaders"].items():
+        print(f"media_io loader on {card}: {name}: {r['mb_a_call']:.3f} MB a frame, median "
+              f"{r['median_ms']:.4f} host ms a frame over {r['steady_calls']} steady calls (max "
+              f"{r['max_ms']:.4f}; each producer's first call at most {r['first_ms']:.4f}), "
+              f"{r['mb_per_s']:.2f} MB/s at the median")
+    timing["media_io"] = record
+    print(f"media_io phase: {time.perf_counter() - t_phase:.2f} s")
 
 
 def main() -> int:
@@ -3382,6 +4041,9 @@ def main() -> int:
 
     # -------- phase 7g: the server (server.py) on the default config, AMCP over TCP
     phase_server(torch, dev, card, run_path, timing)
+
+    # -------- phase 7h: the last producers and consumers (SDI, file media, MJPEG ingest, ffmpeg)
+    phase_media_io(torch, dev, card, run_path, timing)
 
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []

@@ -21,7 +21,7 @@ from typing import Optional
 
 from ..graph.pipeline import make_pack_program
 from ..utils.hostio import copy_to_host, wait_copy
-from ..utils.jpeg import JpegEncoder
+from ..utils.jpeg import JpegProcess
 from .consumer import ChannelFrame, Consumer
 
 __all__ = ["MJPEGConsumer"]
@@ -41,7 +41,7 @@ class MJPEGConsumer(Consumer):
         self._latest: Optional[ChannelFrame] = None
         self._task: Optional[asyncio.Task] = None
         self._buf = None  # one pinned buffer: the drain copies and encodes a frame at a time
-        self._encoder = JpegEncoder()
+        self._encoder = JpegProcess()
         self.dropped = 0
         self.sent = 0  # parts written to clients
 

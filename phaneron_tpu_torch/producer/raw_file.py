@@ -19,9 +19,9 @@ Ingest: a loader thread reads frame N+1 from the memmap into a pinned
 host buffer and enqueues its upload to the producer's device
 (``non_blocking``) while the channel composites frame N.  The planes keep
 the format's host layout (v210: the interleaved (H, G*4) words as int32,
-the layout the port's unpack takes).  Three pinned buffers rotate, and a
-buffer is filled again only once the event after its last upload has
-completed.  Looping sources within ``CACHE_BYTES`` keep their uploaded
+the layout the port's unpack takes).  Three pinned buffers rotate
+(``utils/hostio.StagedUpload``), and a buffer is filled again only once
+the event after its last upload has completed.  Looping sources within ``CACHE_BYTES`` keep their uploaded
 frames on the device and replay them without host traffic.
 
 Audio: optional side PCM file (float32 planar blocks per QUANTUM) or
@@ -38,22 +38,16 @@ from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from ..audio.engine import QUANTUM, silence
 from ..config import VideoFormat
 from ..ops.formats import FORMATS, get_format
 from ..runtime.frame import AudioFrame, VideoFrame
 from ..runtime.stream import END, Stream, from_generator
-from ..utils.hostio import host_buffer, wait_copy
+from ..utils.hostio import StagedUpload
 from .producer import InvalidProducerError, LoadParams, Producer
 
-__all__ = ["create_raw_file_producer"]
-
-# host plane dtype -> the tensor dtype a plane is carried in (v210 words:
-# int32 bit views, graph/convert.py)
-_TORCH_DTYPES = {np.dtype(np.uint32): torch.int32, np.dtype(np.uint16): torch.uint16,
-                 np.dtype(np.uint8): torch.uint8}
+__all__ = ["RawFileProducer", "create_raw_file_producer"]
 
 
 def _resolve(path: Path, fmt: VideoFormat, params: LoadParams):
@@ -82,7 +76,6 @@ class RawFileProducer(Producer):
     # device-cache budget for looping sources (a 24-frame 1080i v210
     # stinger is about 130 MB)
     CACHE_BYTES = 512 * 1024 * 1024
-    STAGING_BUFFERS = 3  # the frame being read, the one uploading, one spare
 
     def __init__(self, source_id: str, params: LoadParams, fmt: VideoFormat):
         super().__init__(source_id, fmt)
@@ -106,7 +99,7 @@ class RawFileProducer(Producer):
         self._pending_seek: int | None = None
         self._device_cache: dict[int, list] = {}
         self._cache_ok = False
-        self._staging: list = []  # (pinned buffer, event of its last upload)
+        self._uploader: StagedUpload | None = None
 
     def seek(self, frame: int) -> bool:
         self._pending_seek = frame
@@ -125,48 +118,33 @@ class RawFileProducer(Producer):
         if self.num_frames == 0:
             raise InvalidProducerError(f"file smaller than one frame: {self.path}")
         self._mm = np.memmap(self.path, dtype=np.uint8, mode="r")
-        self._cache_ok = self.loop and self.num_frames * self.frame_bytes <= self.CACHE_BYTES
-        if self.device.type == "cuda":  # pinning takes tens of ms a buffer: off the loop
-            self._staging = await asyncio.to_thread(
-                lambda: [(host_buffer(self.frame_bytes, self.device), None)
-                         for _ in range(self.STAGING_BUFFERS)])
+        await self._init_staging()
 
-    def _upload(self, raw: np.ndarray) -> list:
-        """One frame's bytes -> its planes on the producer's device (on the
-        loader thread): via a pinned buffer and an asynchronous copy on a
-        CUDA device, as fresh tensors on the CPU."""
-        cuda = self.device.type == "cuda"
-        if cuda:
-            buf, event = self._staging.pop(0)
-            wait_copy(event)  # its last upload has completed
-            buf.numpy()[:] = raw
-        else:
-            buf = torch.from_numpy(np.array(raw))
-        planes, off = [], 0
-        for shape, dtype in self.plane_shapes:
-            n = int(np.prod(shape)) * dtype.itemsize
-            planes.append(buf[off : off + n].view(_TORCH_DTYPES[dtype]).view(shape))
-            off += n
-        if not cuda:
-            return planes
-        planes = [p.to(self.device, non_blocking=True) for p in planes]
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self._staging.append((buf, event))
-        return planes
+    async def _init_staging(self) -> None:
+        """The device cache's budget check and the staging buffers, once
+        ``plane_shapes``, ``frame_bytes`` and ``num_frames`` are known
+        (pinning takes tens of ms a buffer: off the loop)."""
+        self._cache_ok = self.loop and self.num_frames * self.frame_bytes <= self.CACHE_BYTES
+        self._uploader = await asyncio.to_thread(
+            StagedUpload, self.device, self.frame_bytes)
+
+    def _read_frame(self, index: int, out: np.ndarray) -> None:
+        """Frame ``index``'s bytes into ``out`` (the loader thread)."""
+        off = index * self.frame_bytes
+        out[:] = self._mm[off : off + self.frame_bytes]
 
     def _load_frame(self, index: int):
         """Read + upload one frame (runs on the loader thread: the host
         read and the upload of frame N+1 overlap the channel compositing
-        frame N — the reference's load-queue overlap, io.ts:88-94).
-        Looping sources within the cache budget serve repeat passes from
-        the device."""
+        frame N — the reference's load-queue overlap, io.ts:88-94): via a
+        pinned buffer and an asynchronous copy on a CUDA device, as fresh
+        tensors on the CPU.  Looping sources within the cache budget serve
+        repeat passes from the device."""
         stamp = time.monotonic()
         cached = self._device_cache.get(index)
         if cached is not None:
             return cached, stamp
-        off = index * self.frame_bytes
-        planes = self._upload(self._mm[off : off + self.frame_bytes])
+        planes = self._uploader(lambda out: self._read_frame(index, out), self.plane_shapes)
         if self._cache_ok:
             self._device_cache[index] = planes
         return planes, stamp

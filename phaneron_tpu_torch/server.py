@@ -15,11 +15,16 @@ PyTorch on the CPU, as the tests do.  A config channel with ``sp > 1`` or
 ``chips`` (a row-sharded channel) raises NotImplementedError naming
 ROADMAP.md A10.
 
-Ported consumers: file, screen (preview), mjpeg / stream.  Ported
-producers: ROUTE, the test patterns (DECKLINK URLs play bars) and raw
-files.  A consumer not ported yet (decklink, ffmpeg) raises
-NotImplementedError naming ROADMAP.md A8b; the server prints it and keeps
-serving, as it does for any consumer that fails.
+The registries hold the JAX server's entries in its order.  Consumers:
+file, ffmpeg, mjpeg and stream, screen (preview), decklink.  Producers,
+tried in turn: ROUTE, DECKLINK capture (``set_capture_backend``; without
+a backend DECKLINK URLs fall through to the test patterns' bars), the
+test patterns, MJPEG over HTTP, AVI, WAV, images and image sequences, raw
+files, then ffmpeg (with ffmpeg and ffprobe on PATH).  A consumer that
+cannot run on the host — ffmpeg without a binary, decklink without an SDI
+backend — raises RuntimeError; the server prints it and keeps serving, as
+it does for any consumer that fails (the JAX server's fallback from
+ffmpeg to the file consumer is not ported).
 """
 
 from __future__ import annotations
@@ -33,39 +38,40 @@ import torch
 
 from .config import ServerConfig, get_video_format
 from .consumer.consumer import ConsumerRegistry
+from .consumer.ffmpeg_consumer import FFmpegConsumer
 from .consumer.file_consumer import FileConsumer
 from .consumer.mjpeg_consumer import MJPEGConsumer
 from .consumer.preview_consumer import PreviewConsumer
+from .consumer.sdi_consumer import SDIConsumer
 from .control.amcp import AMCPServer
 from .control.basic_cmds import BasicCmds
 from .control.commands import Commands
 from .control.heads import Heads
 from .control.mixer_cmds import MixerCmds
 from .control.osc import Osc
+from .producer.avi_file import create_avi_producer
+from .producer.ffmpeg import create_ffmpeg_producer
+from .producer.image_seq import create_image_seq_producer
+from .producer.mjpeg import create_mjpeg_producer
 from .producer.producer import ProducerRegistry
 from .producer.raw_file import create_raw_file_producer
 from .producer.route import make_route_factory
+from .producer.sdi_capture import create_sdi_capture_producer
 from .producer.test_pattern import create_test_pattern_producer
+from .producer.wav_file import create_wav_producer
 from .runtime.channel import Channel
 
 __all__ = ["PhaneronServer", "default_consumer_registry", "main"]
 
 
-def _not_ported(name: str):
-    def factory(_params: dict):
-        raise NotImplementedError(f"the {name} consumer is not ported yet: ROADMAP.md A8b")
-
-    return factory
-
-
 def default_consumer_registry() -> ConsumerRegistry:
     reg = ConsumerRegistry()
     reg.register("file", FileConsumer)
+    reg.register("ffmpeg", FFmpegConsumer)
     reg.register("mjpeg", MJPEGConsumer)
     reg.register("stream", MJPEGConsumer)
     reg.register("screen", PreviewConsumer)
-    for name in ("ffmpeg", "decklink"):
-        reg.register(name, _not_ported(name))
+    reg.register("decklink", SDIConsumer)
     return reg
 
 
@@ -90,8 +96,14 @@ class PhaneronServer:
         self.producer_registry = ProducerRegistry(
             [
                 make_route_factory(lambda n: self.channels.get(n)),
+                create_sdi_capture_producer,
                 create_test_pattern_producer,
+                create_mjpeg_producer,
+                create_avi_producer,
+                create_wav_producer,
+                create_image_seq_producer,
                 create_raw_file_producer,
+                create_ffmpeg_producer,
             ]
         )
         self.commands = Commands()

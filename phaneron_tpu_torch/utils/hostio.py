@@ -31,6 +31,8 @@ __all__ = [
     "host_buffer",
     "copy_to_host",
     "wait_copy",
+    "StagedUpload",
+    "host_planes",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -258,3 +260,68 @@ def wait_copy(event: Optional[torch.cuda.Event], stop: Optional[threading.Event]
         else:
             time.sleep(0.0005)
     return True
+
+
+# host plane dtype -> the tensor dtype a plane is carried in (v210 words:
+# int32 bit views, graph/convert.py), and back
+TORCH_DTYPES = {np.dtype(np.uint32): torch.int32, np.dtype(np.uint16): torch.uint16,
+                np.dtype(np.uint8): torch.uint8}
+HOST_DTYPES = {t: d for d, t in TORCH_DTYPES.items()}
+
+
+class StagedUpload:
+    """Host frames -> plane tensors on ``device``, for a producer's loader
+    thread (one call at a time).  On a CUDA device each frame is written
+    into one of ``buffers`` pinned buffers and copied up ``non_blocking``;
+    a buffer is written again only once the event after its last copy has
+    completed.  On the CPU each frame gets a fresh buffer: the planes
+    handed on are never written again.  Make it on a worker thread:
+    pinning takes tens of milliseconds a buffer."""
+
+    def __init__(self, device: torch.device | str, nbytes: int, buffers: int = 3):
+        # three: the frame being read, the one uploading, one spare
+        self.device = torch.device(device)
+        self.nbytes = nbytes
+        self._staging = ([(host_buffer(nbytes, self.device), None) for _ in range(buffers)]
+                         if self.device.type == "cuda" else [])
+
+    def __call__(self, fill, plane_shapes) -> list:
+        """``fill(out)`` writes the frame's bytes into ``out``, a uint8
+        numpy array of ``nbytes``; returns its planes, ``plane_shapes``
+        ([(shape, numpy dtype)], a format's ``plane_shapes``), as tensors
+        on the device."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            buf, event = self._staging.pop(0)
+            wait_copy(event)  # its last upload has completed
+        else:
+            buf = torch.empty(self.nbytes, dtype=torch.uint8)
+        fill(buf.numpy())
+        planes, off = [], 0
+        for shape, dtype in plane_shapes:
+            n = int(np.prod(shape)) * dtype.itemsize
+            planes.append(buf[off : off + n].view(TORCH_DTYPES[dtype]).view(shape))
+            off += n
+        if not cuda:
+            return planes
+        planes = [p.to(self.device, non_blocking=True) for p in planes]
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._staging.append((buf, event))
+        return planes
+
+
+def host_planes(buf: torch.Tensor, planes, copy: bool = True) -> list[np.ndarray]:
+    """The planes ``copy_to_host`` wrote into ``buf``, as numpy arrays in
+    the wire dtypes (v210 words uint32) with the planes' shapes: arrays of
+    their own, or with ``copy=False`` views of ``buf``.  Call it once the
+    copy has completed."""
+    out, off = [], 0
+    data = buf.numpy()
+    for plane in planes:
+        dtype = np.dtype(HOST_DTYPES[plane.dtype])
+        n = plane.numel() * dtype.itemsize
+        view = data[off : off + n].view(dtype).reshape(tuple(plane.shape))
+        out.append(view.copy() if copy else view)
+        off += n
+    return out

@@ -51,6 +51,10 @@ def test_port_imports_no_jax_and_builds_nothing():
         "control.amcp", "control.mixer_cmds", "control.basic_cmds", "control.heads",
         "utils.hostio", "utils.avi", "consumer.file_consumer", "consumer.preview_consumer",
         "consumer.mjpeg_consumer", "producer.raw_file", "producer.route",
+        # the last producers and consumers (A8b)
+        "utils.fixtures", "utils.jpeg", "producer.wav_file", "producer.avi_file", "producer.image_seq",
+        "producer.mjpeg", "producer.sdi_capture", "consumer.sdi_consumer", "producer.ffmpeg",
+        "consumer.ffmpeg_consumer",
     ]
     for name in runtime:
         assert f"phaneron_tpu_torch.{name}" in res["modules"], name

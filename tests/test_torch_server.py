@@ -2,7 +2,8 @@
 (configs/quad_1080i_1chip.json: four interlaced channels into two file
 consumers, a preview and an MJPEG stream, AMCP and OSC) at a tiny
 interlaced format on the CPU, next to the JAX package's server on the same
-config; placement, no fallback, and the consumers not ported yet."""
+config; placement, no fallback, and the consumers that need a binary or
+hardware (decklink without an SDI backend, ffmpeg without a binary)."""
 
 import asyncio
 import json
@@ -113,14 +114,15 @@ def test_default_config_serves_as_the_jax_server(tmp_path, capsys):
     """The same AMCP script gives the same response lines through both
     servers; the port's four channels deliver every tick: each file holds
     one frame a pair of field ticks (its sidecar says interlaced), the
-    preview serves an rgba8 frame and the MJPEG port JPEG parts; DECKLINK,
-    not ported yet, answers 400 and the server goes on."""
+    preview serves an rgba8 frame and the MJPEG port JPEG parts; ADD
+    DECKLINK, with no SDI backend here, answers 400 (the SDI consumer's
+    RuntimeError, as JAX's) and the server goes on."""
     jax_out = run(_serve(True, tmp_path / "jax", 0.5))
     out = run(_serve(False, tmp_path / "port", 1.0))
     assert out["lines"] == jax_out["lines"]
     assert "".join(out["lines"]).count("202 PLAY OK") == 6
     assert "400 ERROR\r\n" in out["lines"] and "ADD 2 DECKLINK NOT IMPLEMENTED\r\n" in out["lines"]
-    assert "not ported yet: ROADMAP.md A8b" in capsys.readouterr().out
+    assert "SDI output requires DeckLink hardware" in capsys.readouterr().out
     fbytes = get_format("v210").num_bytes(256, 64)[0]
     for n in (1, 2):
         (cons,) = out["consumers"][n - 1]
@@ -226,8 +228,22 @@ def test_chip_placement_wraps(monkeypatch, count, chip, want):
 
 
 @pytest.mark.parametrize("name", ["decklink", "ffmpeg", "DeckLink"])
-def test_unported_consumers_raise_naming_a8b(name):
+def test_unported_consumers_raise_naming_a8b(name, monkeypatch, tmp_path):
+    """The consumers that need hardware or a binary raise RuntimeError
+    (the server prints it and keeps serving): decklink without an SDI
+    backend at initialise, as JAX's; ffmpeg without a binary at once (no
+    fallback to the file consumer, which JAX's registry makes)."""
+    from phaneron_tpu_torch.consumer.ffmpeg_consumer import FFmpegConsumer
+    from phaneron_tpu_torch.consumer.sdi_consumer import SDIConsumer
     from phaneron_tpu_torch.server import default_consumer_registry
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8b"):
-        default_consumer_registry().create(name, {})
+    monkeypatch.setenv("PATH", str(tmp_path))  # no ffmpeg on it
+    registry = default_consumer_registry()
+    decklink = name.lower() == "decklink"
+    assert registry.factories[name.lower()] is (SDIConsumer if decklink else FFmpegConsumer)
+
+    async def create():
+        await registry.create(name, {}).initialise(tconfig.VideoFormat(*TINY_I))
+
+    with pytest.raises(RuntimeError, match="DeckLink hardware" if decklink else "no ffmpeg binary"):
+        run(create())

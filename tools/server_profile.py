@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 tools/server_profile.py [--seconds 3] [--periods 8]
+    python3 tools/server_profile.py [--seconds 3] [--periods 8] [--ingest-only]
 
 Starts ``PhaneronServer`` on configs/quad_1080i_1chip.json (as
 chip_smoke.py's server phase does: file paths and ports changed in
@@ -16,8 +16,12 @@ max).  Before that it times what a consumer's host work costs the loop:
 pinning a 1080i v210 frame's host buffer, and a 1080p JPEG encode with
 Pillow on a thread (the main thread's longest 1 ms sleep meanwhile shows
 whether the encode holds the GIL) and through utils/jpeg.py's encoder
-process.  Last, with every consumer attached and the paced loops
-stopped, it profiles server periods (each channel's two ticks,
+process.  Then the cluster ingest: the MJPEG stream of channel 4 (four
+BARS boxes) played by channel 2 (``PLAY 2-1 http://...``, the MJPEG
+producer), once with each part decoded in the producer's codec process
+(utils/jpeg.py, as shipped) and once with Pillow decoding on the loader
+thread, the loop's lag probed the same way.  Last, with every consumer
+attached and the paced loops stopped, it profiles server periods (each channel's two ticks,
 render_frame and deliver, with the consumers' drains) under
 torch.profiler (tools/port_profile.py ``profile``): device busy, kernels
 by name, and the host time of each stage — ``layer_poll``,
@@ -49,7 +53,7 @@ SETS = {"none": set(), "file": {"file"}, "screen": {"screen"}, "mjpeg": {"mjpeg"
 
 def host_costs(torch) -> None:
     from phaneron_tpu_torch.utils import hostio
-    from phaneron_tpu_torch.utils.jpeg import JpegEncoder
+    from phaneron_tpu_torch.utils.jpeg import JpegProcess
 
     t0 = time.perf_counter()
     for _ in range(4):
@@ -81,7 +85,7 @@ def host_costs(torch) -> None:
 
         Image.fromarray(np.ascontiguousarray(rgba[:, :, :3]), "RGB").save(io.BytesIO(), "JPEG", quality=85)
 
-    encoder = JpegEncoder()
+    encoder = JpegProcess()
     encoder.encode(rgba, 1920, 1080, 85)  # start the process
     for name, fn in (("Pillow on a thread", pillow),
                      ("utils/jpeg.py process", lambda: encoder.encode(rgba, 1920, 1080, 85))):
@@ -124,8 +128,9 @@ async def stop_set(server, reader) -> None:
     await server.shutdown()
 
 
-async def run_set(name: str, out_dir: str, seconds: float) -> None:
-    server, reader = await start_set(name, out_dir, [])
+async def paced_window(server, seconds: float) -> str:
+    """Every channel's ticks, late_frames and render p50 and the loop's lag
+    (a 5 ms sleep's overshoot) over ``seconds`` of the running server."""
     lags = []
 
     async def probe():
@@ -145,10 +150,59 @@ async def run_set(name: str, out_dir: str, seconds: float) -> None:
     rows = [f"ch{n} {ch.timestamp - before[n][0]} ticks, {ch.clock.late_frames - before[n][1]} late, "
             f"render p50 {ch.stats()['render_p50_ms']:.4f} ms" for n, ch in server.channels.items()]
     lag_ms = [x * 1e3 for x in lags]
-    print(f"consumers {name}: {window:.3f} s window; " + "; ".join(rows) + f"; loop lag p50 "
-          f"{cs.percentile(lag_ms, 50):.4f} p99 {cs.percentile(lag_ms, 99):.4f} max "
-          f"{max(lag_ms, default=float('nan')):.4f} ms ({len(lag_ms)} probes)")
+    return (f"{window:.3f} s window; " + "; ".join(rows) + f"; loop lag p50 "
+            f"{cs.percentile(lag_ms, 50):.4f} p99 {cs.percentile(lag_ms, 99):.4f} max "
+            f"{max(lag_ms, default=float('nan')):.4f} ms ({len(lag_ms)} probes)")
+
+
+async def run_set(name: str, out_dir: str, seconds: float) -> None:
+    server, reader = await start_set(name, out_dir, [])
+    print(f"consumers {name}: " + await paced_window(server, seconds))
     await stop_set(server, reader)
+
+
+class ThreadDecode:
+    """The MJPEG producer's codec, decoding with Pillow on the calling
+    (loader) thread: what the JAX package's producer does."""
+
+    def start(self) -> None:
+        pass
+
+    def decode(self, data, width: int, height: int, mode: int, out) -> bool:
+        from phaneron_tpu_torch.utils.jpeg import decode_rgba
+
+        out[:] = np.frombuffer(decode_rgba(data, width, height, mode), np.uint8)
+        return True
+
+    def close(self) -> None:
+        pass
+
+
+async def run_ingest(decode: str, out_dir: str, seconds: float) -> None:
+    """Channel 4's MJPEG stream ingested by channel 2, its parts decoded
+    in the codec process ('process') or on the loader thread ('thread')."""
+    server, reader = await start_set("mjpeg", out_dir, [])
+    producer = None
+    try:
+        amcp = cs.AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        port = server.channels[4].consumers[0].port
+        await amcp.call(f"PLAY 2-1 http://127.0.0.1:{port}/", ["202 PLAY OK"])
+        await amcp.close()
+        producer = server.channels[2].layers[1].cur.producer
+        if decode == "thread":
+            producer._codec.close()
+            producer._codec = ThreadDecode()
+        await asyncio.sleep(1.0)  # past the first parts
+        slot = server.channels[2].layers[1].cur
+        seen = slot.frames_seen
+        line = await paced_window(server, seconds)
+        print(f"mjpeg ingest, decode on the {decode}: {slot.frames_seen - seen} parts ingested; {line}")
+    finally:
+        # channel 2's tick waits for its next part: its loop ends while
+        # channel 4 still streams, then the others
+        server.channels[2].running = False
+        await asyncio.wait_for(server.channels[2]._task, 30)
+        await stop_set(server, reader)
 
 
 def profile_period(torch, card: str, out_dir: str, periods: int) -> None:
@@ -201,11 +255,15 @@ def profile_period(torch, card: str, out_dir: str, periods: int) -> None:
     loop.close()
 
 
-def main(torch, seconds: float, periods: int) -> None:
+def main(torch, seconds: float, periods: int, ingest_only: bool = False) -> None:
     out_dir = tempfile.mkdtemp(prefix="phaneron_server_profile_")
-    for name in SETS:
-        asyncio.run(run_set(name, out_dir, seconds))
-    profile_period(torch, cs.card_line(), out_dir, periods)
+    if not ingest_only:
+        for name in SETS:
+            asyncio.run(run_set(name, out_dir, seconds))
+    for decode in ("process", "thread", "thread", "process"):
+        asyncio.run(run_ingest(decode, out_dir, seconds))
+    if not ingest_only:
+        profile_period(torch, cs.card_line(), out_dir, periods)
 
 
 if __name__ == "__main__":
@@ -216,7 +274,9 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--periods", type=int, default=8)
+    ap.add_argument("--ingest-only", action="store_true", help="only the MJPEG ingest's two decode placements")
     args = ap.parse_args()
     print(cs.card_line())
-    host_costs(torch)
-    main(torch, args.seconds, args.periods)
+    if not args.ingest_only:
+        host_costs(torch)
+    main(torch, args.seconds, args.periods, args.ingest_only)
