@@ -3608,6 +3608,396 @@ def phase_media_io(torch, dev, card: str, run_path, timing: dict, server_device=
     print(f"media_io phase: {time.perf_counter() - t_phase:.2f} s")
 
 
+# ------------------------------------------------ phase 7i: row-sharded (sp) channels (A10)
+
+SP_COUNTS = (2, 3, 4, 8)  # bands a frame in the band-form checks (1080 at sp=8: 135-row bands, odd starts)
+SP_MATS = {  # the UHD dry run's DVE, a flip, a minifying box (B6's and K5's direct branch), a box past the edge
+    "dry run": dict(scale_x=1.2, scale_y=1.3, offset_y=0.05),
+    "flip": dict(flip_h=True, flip_v=True, scale_x=0.9, scale_y=0.95),
+    "box 0.25": dict(scale_x=0.25, scale_y=0.25, offset_x=0.1, offset_y=-0.2),
+    "past the edge": dict(offset_x=0.3, offset_y=1.3),
+}
+SP_UHD = (UHD_W, UHD_H)  # the UHD dry run's frame
+SP_CHANNEL_FRAMES = 2  # frames (the interlaced channel: frame periods) of each sp channel path
+SP_SERVER_SECONDS = 2.0  # configs/uhd_sp_sharded.json paced
+SP_SERVER_FILE_FRAMES = 40  # the UHD file consumer's frames on disk (0.8 s of 2160p50)
+SP_SERVER_TICKS = 2  # unpaced ticks counted after the paced window
+SP_MULTIHOST_TIMEOUT = 120.0
+BAND_FORMS = ("warp", "packed_warp", "packed_composite", "yadif_ring")
+
+
+def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNTS) -> dict:
+    """Each band form on the card against its kernel's full-frame launch on
+    the same inputs, band by band, max |delta| 0: K4 (single, dissolve
+    under one matrix or two, wipe; C 3 and 4), B6 (single, shared and
+    distinct-matrix pairs; each launch's window/direct counts equal to
+    ``warp_window_counts`` of its band), K5 (packed, rgb3 and rgba kinds,
+    emits packed, both and rgba; each source its own window) and B9 (C 3
+    and 4, opaque, tff and bff, both parities, with and without
+    skip_spatial), at every size and sp, under the SP_MATS matrices.
+    Returns {kernel: {"bands": launches compared, "max_abs_err": 0.0}}."""
+    from phaneron_tpu_torch.graph.pipeline import _warp_rows
+    from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops import warp as warp_mod
+    from phaneron_tpu_torch.ops import yadif as Y
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.ops.kernels import Rows
+    from phaneron_tpu_torch.parallel.mesh import band_bounds
+
+    out = {k: {"bands": 0, "max_abs_err": 0.0} for k in BAND_FORMS}
+
+    def held(name: str, full, got, what: str) -> None:
+        same = full.shape == got.shape and torch.equal(full, got)
+        diff = 0.0 if same else float("inf") if full.shape != got.shape else float(
+            (full.double() - got.double()).abs().max())
+        check(same, f"sp band form {name} ({what}): max |delta| {diff} from the full-frame launch")
+        out[name]["bands"] += 1
+
+    t0 = time.perf_counter()
+    for w, h in sizes:
+        mats = {n: torch.from_numpy(transform_matrix(w, h, **kw)).to(dev) for n, kw in SP_MATS.items()}
+        host = {n: m.cpu().numpy() for n, m in mats.items()}
+        frames = {c: [torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev) for _ in range(3)]
+                  for c in (3, 4)}
+        mask = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
+        words = [torch.from_numpy(random_words(rng, w, h).view(np.int32)).to(dev) for _ in range(5)]
+        mix, mix2 = torch.tensor(0.37, device=dev), torch.tensor(0.8, device=dev)
+        for sp in sps:
+            bands = [(r0, r1) for r0, r1 in band_bounds(h, sp) if r1 > r0]  # a frame of fewer rows than bands
+            win = lambda names, r0, r1: _warp_rows([host[n] for n in names], [(r0, r1)], w, h)[0]
+            for c in (3, 4):  # K4
+                a, b = frames[c][0], frames[c][1]
+                for name in SP_MATS:
+                    m, mb = mats[name], mats["dry run"]
+                    cases = {"single": ((a, m), False, [name]), "dissolve": ((a, m, b, mix), False, [name]),
+                             "dissolve, two matrices": ((a, m, b, mix, mb), False, [name, "dry run"]),
+                             "wipe": ((a, m, b), True, [name])}
+                    for case, (args, wipe, names) in cases.items():
+                        full = warp_mod.warp(*args, **(dict(mask=mask) if wipe else {}))
+                        for r0, r1 in bands:
+                            lo, hi = win(names, r0, r1)
+                            bargs = (args[0][:, lo:hi], args[1]) + (
+                                (args[2][:, lo:hi],) + args[3:] if len(args) > 2 else ())
+                            got = warp_mod.warp(*bargs, **(dict(mask=mask[r0:r1]) if wipe else {}),
+                                                rows=Rows(r0, r1, h, lo))
+                            held("warp", full[:, r0:r1], got, f"{w}x{h} sp={sp} C {c} {case} {name} rows {r0}-{r1}")
+            for name in SP_MATS:  # B6
+                m, mb = mats[name], mats["flip"]
+                for args, names in (((words[0], m, w, h), [name]), ((words[0], m, w, h, words[1], mix), [name]),
+                                    ((words[0], m, w, h, words[1], mix, mb), [name, "flip"])):
+                    full = PW.packed_warp(*args)
+                    pair_mats = [m] + ([mb if len(args) > 6 else m] if len(args) > 4 else [])
+                    for r0, r1 in bands:
+                        lo, hi = win(names, r0, r1)
+                        rows = Rows(r0, r1, h, lo)
+                        bargs = (args[0][lo:hi],) + args[1:4] + ((args[4][lo:hi],) + args[5:] if len(args) > 4 else ())
+                        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+                        what = f"{w}x{h} sp={sp} {len(pair_mats)} source(s) {name} rows {r0}-{r1}"
+                        held("packed_warp", full[:, r0:r1], PW.packed_warp(*bargs, rows=rows, branches=counts), what)
+                        want = [sum(x) for x in zip(*(PW.warp_window_counts(pm, w, h, rows) for pm in pair_mats))]
+                        check(counts.tolist() == want, f"packed_warp band {what}: window/direct {counts.tolist()}, "
+                                                       f"warp_window_counts gives {want}")
+            layer_of = (0, 0, 1, 2, 2)  # K5: a dissolve, a cut and a dissolve, a matrix each
+            for kind in ("packed", "rgb3", "rgba"):
+                srcs = words if kind == "packed" else [frames[3 if kind == "rgb3" else 4][i % 3] for i in range(5)]
+                for lm in (("dry run", "box 0.25", "past the edge"), ("flip", "dry run", "box 0.25")):
+                    ms, mixes = [mats[n] for n in lm], [mix, None, mix2]
+                    for emit, alpha in (("packed", "top"), ("both", "top"), ("rgba", "coverage")):
+                        kw = dict(src_kind=kind, size=(w, h), emit=emit, alpha=alpha)
+                        full = PW.packed_composite(srcs, (2, 1, 2), ms, mixes, **kw)
+                        full = full if isinstance(full, tuple) else (full,)
+                        for r0, r1 in bands:
+                            wins = [win([lm[li]], r0, r1) for li in layer_of]
+                            cut = [s[lo:hi] if kind == "packed" else s[:, lo:hi] for s, (lo, hi) in zip(srcs, wins)]
+                            got = PW.packed_composite(cut, (2, 1, 2), ms, mixes, **kw,
+                                                      rows=Rows(r0, r1, h, tuple(lo for lo, _ in wins)))
+                            got = got if isinstance(got, tuple) else (got,)
+                            for f, g in zip(full, got):
+                                held("packed_composite", f[r0:r1] if f.dtype == torch.int32 else f[:, r0:r1], g,
+                                     f"{w}x{h} sp={sp} {kind} emit {emit} {lm} rows {r0}-{r1}")
+            for c, opaque in ((3, False), (4, False), (4, True)):  # B9
+                ring = frames[c]
+                for tff in (True, False):
+                    for parity in (0, 1):
+                        par = torch.tensor(parity, dtype=torch.int32, device=dev)
+                        for skip in (False, True):
+                            full = Y.yadif_ring(*ring, par, tff, skip, opaque)
+                            for r0, r1 in bands:
+                                lo, hi = Y.ring_window(r0, r1, h)
+                                got = Y.yadif_ring(*(f[:, lo:hi] for f in ring), par, tff, skip, opaque,
+                                                   rows=Rows(r0, r1, h, lo))
+                                held("yadif_ring", full[:, r0:r1], got, f"{w}x{h} sp={sp} C {c} opaque {opaque} "
+                                     f"tff {tff} parity {parity} skip {skip} rows {r0}-{r1}")
+    torch.cuda.synchronize()
+    print(f"sp band forms on the card vs their full-frame launches at {list(sizes)}, sp {list(sps)}: "
+          + ", ".join(f"{k} {v['bands']} band launches max |delta| {v['max_abs_err']}" for k, v in out.items())
+          + f" ({time.perf_counter() - t0:.2f} s)")
+    return out
+
+
+async def sp_channel_pair(fmt, reg, dev, sp: int, load):
+    """A channel row-sharded over [dev] * sp and its twin on dev alone,
+    each given ``load`` (an async fn of the channel)."""
+    from phaneron_tpu_torch.runtime.channel import Channel
+
+    twin = Channel(1, fmt, reg, device=dev)
+    banded = Channel(2, fmt, reg, sp_devices=[dev] * sp)
+    for ch in (twin, banded):
+        await load(ch)
+    return twin, banded
+
+
+def sp_channels(torch, dev, card: str, run_path, arun) -> None:
+    """Row-sharded Channels on the card against their unsharded twins,
+    packed words equal, each driven with the launch counts zeroed:
+    2160p50 BARS at sp=2 (the fused route, a B3 launch a band), 1080p50
+    with a BARS box over a RAMP at sp=4 (B6, K1 and B5 a band), 1080p50 with
+    two boxes at sp=4 (K5's packed kind a band) and 1080i50 with two boxes
+    at sp=4 (each slot's 3-frame ring through B9 a band, K5's rgb3 kind a
+    band; its twin takes the slot's pair route)."""
+    from phaneron_tpu_torch.config import get_video_format
+    from phaneron_tpu_torch.producer.producer import LoadParams, ProducerRegistry
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+
+    reg = ProducerRegistry([create_test_pattern_producer])
+
+    async def bars(ch):
+        await ch.load_source(1, LoadParams("BARS"))
+        ch.play(1)
+
+    async def box_over_ramp(ch):  # a top layer without DVE would cover it all (the fused route)
+        await ch.load_source(1, LoadParams("RAMP"))
+        ch.play(1)
+        await ch.load_source(2, LoadParams("BARS"))
+        ch.play(2)
+        ch.layer(2).set_fill(0.05, 0.1, 0.8, 0.85)
+
+    async def two_boxes(ch):
+        await box_over_ramp(ch)
+        ch.layer(1).set_fill(0.3, -0.1, 0.6, 0.7)
+
+    cases = {  # path -> (format, sp, load, ticks a frame, launches a frame, packed composite modes)
+        "sp_2160p_bars": ("2160p5000", 2, bars, 1, {"fused_v210": 2}, None),
+        "sp_1080p_dve": ("1080p5000", 4, box_over_ramp, 1,
+                         {"packed_warp": 4, "v210_unpack": 4, "combine_pack": 4}, None),
+        "sp_1080p_two_boxes": ("1080p5000", 4, two_boxes, 1, {"packed_composite": 4},
+                               {("packed", "packed", "top"): 4}),
+        "sp_1080i_two_boxes": ("1080i5000", 4, two_boxes, 2,
+                               {"v210_unpack": 2, "yadif_ring": 16, "packed_composite": 8},
+                               {("rgb3", "packed", "top"): 8}),
+    }
+    for path, (fmt_name, sp, load, ticks, per_frame, modes) in cases.items():
+        fmt = get_video_format(fmt_name)
+        twin, banded = arun(sp_channel_pair(fmt, reg, dev, sp, load))
+        warm = 8 if fmt.interlaced else 2  # the rings fill (three pulls) and each structure is prepared
+        for _ in range(warm):
+            arun(twin.render_frame())
+            arun(banded.render_frame())
+        want = [arun(twin.render_frame()).packed[0] for _ in range(SP_CHANNEL_FRAMES * ticks)]
+
+        def drive():
+            for k in range(SP_CHANNEL_FRAMES * ticks):
+                got = arun(banded.render_frame()).packed[0]
+                check(torch.equal(got, want[k]), f"{path}: tick {k} differs from the unsharded twin's words")
+
+        run_path(path, per_frame, SP_CHANNEL_FRAMES, drive, modes=modes)
+        live = banded._last_layer_specs
+        if fmt.interlaced:
+            check(all(ls.deinterlace for ls in live.values()), f"{path}: a slot left the ring: {live}")
+        bands = banded._sp_programs[next(reversed(banded._sp_programs))].last_bands
+        print(f"{path}: {fmt.width}x{fmt.height} at sp={sp} on {card}, {SP_CHANNEL_FRAMES * ticks} ticks equal "
+              f"to the unsharded twin's words; bands {[b['rows'] for b in bands]}, launches a band "
+              f"{bands[0]['launches']}")
+        arun(twin.shutdown())
+        arun(banded.shutdown())
+
+
+def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device=None) -> None:
+    """configs/uhd_sp_sharded.json through the port's server: two 2160p50
+    channels, each row-sharded over a group of four (cuda:0 four times on
+    one card), a file and an MJPEG consumer; over AMCP PLAY 1-1 BARS and
+    PLAY 2-1 route://1 (channel 1's frame resharded onto channel 2's
+    group); SP_SERVER_SECONDS paced: ticks, deliveries and late_frames a
+    channel; then SP_SERVER_TICKS ticks counted (channel 1: K1 and K2 a
+    band, under the ROUTE's emit_rgba; channel 2: K2 a band); the file's
+    last frame 0 codes from a plain channel playing BARS from the same
+    frame."""
+    import asyncio
+    import tempfile
+    from pathlib import Path
+
+    from phaneron_tpu_torch.producer.producer import LoadParams, ProducerRegistry
+    from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
+    from phaneron_tpu_torch.runtime.channel import Channel
+    from phaneron_tpu_torch.server import PhaneronServer
+
+    out_dir = Path(tempfile.mkdtemp(prefix="phaneron_sp_server_"))
+    cfg = server_config(out_dir, config="uhd_sp_sharded.json")
+    for cc in cfg.channels:
+        if cc.device["name"] == "file":
+            cc.device = dict(cc.device, max_frames=SP_SERVER_FILE_FRAMES)
+
+    async def session():
+        server = PhaneronServer(cfg, device=server_device)
+        count_deliveries(server)
+        await server.start()
+        chans = server.channels
+        groups = {n: [str(d) for d in ch._sp_mesh.flat] for n, ch in chans.items()}
+        check(all(len(g) == 4 for g in groups.values()), f"sp server: groups {groups}")
+        # the test pattern's frame behind each frame the file consumer gets,
+        # by the index of its delivery (the channel ran before this)
+        cons, deliver = chans[1].consumers[0], chans[1].consumers[0].deliver
+
+        async def deliver_noted(frame):
+            lay = chans[1].layers.get(1)
+            slot = None if lay is None else lay.cur
+            record["positions"][cons.smoke_delivered] = (None if slot is None or slot.last is None
+                                                         else source_position(slot))
+            return await deliver(frame)
+
+        record["positions"] = {}
+        cons.deliver = deliver_noted
+        amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
+        await amcp.call("PLAY 1-1 BARS", ["202 PLAY OK"])
+        await amcp.call("PLAY 2-1 route://1", ["202 PLAY OK"])
+        for ch in chans.values():
+            await ch.wait_prewarmed()
+        before = {n: (ch.timestamp, ch.clock.late_frames) for n, ch in chans.items()}
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SP_SERVER_SECONDS:
+            await amcp.call("INFO", ["200 INFO OK", *(f"{n} {ch.fmt.name} PLAYING" for n, ch in chans.items()), ""])
+            await asyncio.sleep(SERVER_PROBE_S)
+        seconds = time.perf_counter() - t0
+        stats = {n: ch.stats() for n, ch in chans.items()}
+        await stop_paced(server)
+        rows = []
+        for n, ch in chans.items():
+            delivered = [c.smoke_delivered for c in ch.consumers]
+            check(delivered == [ch.timestamp], f"sp server channel {n}: {ch.timestamp} ticks, delivered {delivered}")
+            rows.append(dict(channel=n, group=groups[n], ticks=ch.timestamp, delivered=delivered[0],
+                             window_ticks=ch.timestamp - before[n][0], late_frames=ch.clock.late_frames - before[n][1],
+                             render_p50_host_ms=stats[n]["render_p50_ms"], render_p99_host_ms=stats[n]["render_p99_ms"]))
+            print(f"sp server paced on {card}: channel {n} ({cfg.channels[n - 1].device['name']}, group {groups[n]}) "
+                  f"{ch.timestamp} ticks, {delivered[0]} delivered; in the {seconds:.3f} s window "
+                  f"{rows[-1]['window_ticks']} ticks, late_frames {rows[-1]['late_frames']}, render p50 "
+                  f"{rows[-1]['render_p50_host_ms']:.4f} p99 {rows[-1]['render_p99_host_ms']:.4f} host ms")
+        await amcp.close()
+        record.update(server=server, rows=rows, seconds=seconds)
+
+    arun(session())
+    server = record["server"]
+    chans = server.channels
+
+    def ticks():
+        for _ in range(SP_SERVER_TICKS):
+            for ch in chans.values():
+                arun(server_tick(ch))
+
+    run_path("sp_server", {"v210_unpack": 4, "v210_pack": 8}, SP_SERVER_TICKS, ticks)
+    routed = chans[2].layers[1].cur.last.payload
+    check(hasattr(routed, "mesh"), "sp server: channel 2's routed frame is not channel 1's bands")
+    cons = chans[1].consumers[0]
+    cons.release()
+    fmt = chans[1].fmt
+    written = last_written(torch, dev, cons, fmt.height)
+
+    n_file = min(SP_SERVER_FILE_FRAMES, chans[1].consumers[0].smoke_delivered)  # the frames the file takes
+    seek = record["positions"].get(n_file - 1)  # the source's frame in the file's last
+    check(seek is not None, f"sp server: the file's last frame ({n_file}) came before PLAY 1-1")
+
+    async def plain():  # BARS from the frame the server's source played into the file's last frame
+        twin = Channel(1, fmt, ProducerRegistry([create_test_pattern_producer]), device=dev, plain=True)
+        await twin.load_source(1, LoadParams("BARS", seek=seek))
+        twin.play(1)
+        frame = await twin.render_frame()
+        await twin.shutdown()
+        return frame.packed[0]
+
+    delta = code_delta(torch, written, arun(plain()), fmt.width, fmt.height)
+    check(cons.written == n_file and delta == 0,
+          f"sp server: {cons.written} frames written, the last {delta} codes from the plain twin")
+    print(f"sp server: channel 1's file holds {cons.written} {fmt.width}x{fmt.height} frames, the last 0 codes "
+          f"from a plain channel playing BARS; channel 2 plays channel 1's frame as channel 1's bands left it")
+    arun(server.shutdown())
+    record.pop("server")
+
+
+def sp_band_overhead(torch, dev, card: str) -> dict:
+    """The UHD dry run's frame (the yadif ring, an axis-aligned DVE, the v210
+    pack) unsharded and row-sharded over [dev] * sp, sp 2 and 4, in turns:
+    ms a frame between CUDA events (time_ms: the host's enqueue included,
+    which banding multiplies) and device ms a frame (device_ms: the frames
+    captured in a CUDA graph and replayed, the card's own cost: the halo
+    copies and more, smaller launches).  What splitting a frame into bands
+    costs on one card."""
+    from phaneron_tpu_torch.graph.pipeline import make_channel_program
+    from phaneron_tpu_torch.parallel.bands import make_sp_channel_program
+    from phaneron_tpu_torch.parallel.dryrun import uhd_spec_and_params
+    from phaneron_tpu_torch.parallel.mesh import make_sp_mesh
+
+    spec, params = uhd_spec_and_params(*SP_UHD, dev)
+    runs = {"sp=1": lambda: make_channel_program(spec)(params)}
+    for sp in (2, 4):
+        prog = make_sp_channel_program(spec, make_sp_mesh([dev] * sp))
+        runs[f"sp={sp}"] = lambda prog=prog: prog(params)
+    ms = {k: [] for k in runs}
+    dms = {k: [] for k in runs}
+    for order in ("sp=1", "sp=2", "sp=4", "sp=4", "sp=2", "sp=1"):
+        ms[order].append(time_ms(torch, runs[order], batches=5, calls=5))
+        dms[order].append(device_ms(torch, runs[order], batches=5, calls=5))
+    out = {k: dict(ms=statistics.median(v), runs=v, device_ms=statistics.median(dms[k]), device_runs=dms[k])
+           for k, v in ms.items()}
+    base = out["sp=1"]
+    print(f"sp band overhead on one card ({card}), the UHD dry run's frame {SP_UHD[0]}x{SP_UHD[1]} "
+          f"(yadif ring + DVE + v210 pack) in turns, ms a frame between CUDA events / device ms a frame: "
+          + "; ".join(f"{k} {v['ms']:.4f} (runs {v['runs']}) / {v['device_ms']:.4f} (runs {v['device_runs']}), "
+                      f"{v['ms'] / base['ms']:.3f}x / {v['device_ms'] / base['device_ms']:.3f}x"
+                      for k, v in out.items()))
+    return out
+
+
+def phase_sp(torch, dev, card: str, run_path, timing: dict, server_device=None) -> dict:
+    """Row-sharded (sp) channels (ROADMAP A10) on the card: the band forms
+    against their full-frame launches (``sp_band_checks``); the three dry
+    runs on [dev] * n (UHD at sp=4, ch x sp ROUTE at n=4, multichip at
+    n=8, which also runs UHD at sp=8 and the ROUTE at n=8), each banded
+    result bit-equal to one band, launch counts zeroed and checked;
+    row-sharded Channels against their twins (``sp_channels``); the
+    server on configs/uhd_sp_sharded.json (``sp_server``); the two-process
+    multihost dry run with both ranks on the card; and the band overhead
+    on one card (``sp_band_overhead``).  Returns the band-form records."""
+    import asyncio
+
+    from phaneron_tpu_torch.parallel import dryrun
+    from phaneron_tpu_torch.parallel.multihost import dryrun_multihost
+
+    t0 = time.perf_counter()
+    bands = sp_band_checks(torch, dev, np.random.default_rng(SEED + 21))
+    # the dry runs: each program's launches, a band each, and its one-device check
+    run_path("sp_dryrun_uhd", {"yadif_ring": 5, "warp": 5, "combine_pack": 5}, 1,
+             lambda: dryrun.dryrun_sp_sharded_uhd([dev] * 4, *SP_UHD))
+    run_path("sp_dryrun_ch_sp_route", {"v210_unpack": 3, "v210_pack": 3, "warp": 3, "combine_pack": 3}, 1,
+             lambda: dryrun.dryrun_ch_sp_route([dev] * 4))
+    run_path("sp_dryrun_multichip", {"packed_warp": 9, "planar422_unpack": 9, "yadif_ring": 9, "warp": 14,
+                                     "combine_pack": 23, "v210_unpack": 5, "v210_pack": 5}, 1,
+             lambda: dryrun.dryrun_multichip(8, [dev] * 8, uhd_size=SP_UHD))
+    loop = asyncio.new_event_loop()
+    arun = loop.run_until_complete
+    try:
+        sp_channels(torch, dev, card, run_path, arun)
+        server = {}
+        sp_server(torch, dev, card, run_path, arun, server, server_device)
+    finally:
+        loop.close()
+    t_mh = time.perf_counter()
+    line = dryrun_multihost(timeout=SP_MULTIHOST_TIMEOUT, device=str(dev))
+    print(f"sp multihost on {card}: {line} ({time.perf_counter() - t_mh:.2f} s)")
+    overhead = sp_band_overhead(torch, dev, card)
+    timing["sp"] = dict(band_overhead=overhead, server=server, seconds=time.perf_counter() - t0)
+    print(f"sp phase: {time.perf_counter() - t0:.2f} s")
+    return bands
+
+
 def main() -> int:
     import torch
 
@@ -4045,6 +4435,9 @@ def main() -> int:
     # -------- phase 7h: the last producers and consumers (SDI, file media, MJPEG ingest, ffmpeg)
     phase_media_io(torch, dev, card, run_path, timing)
 
+    # -------- phase 7i: row-sharded (sp) channels, the band forms, the dry runs (A10)
+    sp_bands = phase_sp(torch, dev, card, run_path, timing)
+
     # -------- phase 8: timing (records, not targets)
     period_ms, plain_period_ms = [], []
     for order in ("plain", "kernel", "kernel", "plain"):
@@ -4457,6 +4850,9 @@ def main() -> int:
         if r["name"] == "packed_warp":
             r["window_direct"] = pw_window_direct
         r["modes"] = modes.get(r["name"], [])
+        band = next((k for k in BAND_FORMS if r["name"] == k or r["name"].startswith(k + "_")), None)
+        if band is not None:  # the kernels with band forms (row-sharded channels)
+            r["band_form"] = sp_bands[band]
     print(json.dumps({"frames": timing}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,14 @@
 // from device memory.
 // Then the v210 encode packs each output row (phn::encode_pack_block, or
 // frame_tile_kernel's encode_pack_tile for a whole tile).
+//
+// Band form (a row-sharded channel, parallel/bands.py): the tiles (192x4
+// over words, 192x6 over rgb3 frames, a row a block over rgba frames)
+// start at the band's first output row, not at a multiple of the tile
+// height, and each source is a window of the rows its layer's taps reach,
+// with its own first row; taps, tile windows and alphas are worked out at
+// the frame's own rows and height, so every output pixel equals the
+// full-frame launch's.
 #include "phn_common.cuh"
 
 namespace {
@@ -112,11 +120,12 @@ constexpr int kFrameWindowTexels = 1792;
 constexpr int kFrameBlocksPerSm = 2;
 
 struct Layers {
-  const void* src[kMaxSrcs];  // bottom..top, n_src per layer
+  const void* src[kMaxSrcs];  // bottom..top, n_src per layer, addressed by frame row
   const float* mat[kMaxLayers];  // (3, 3) each
   const float* mix[kMaxLayers];  // one float each; null for a cut
   int n_src[kMaxLayers];  // 1 cut, 2 dissolve pair
   int n_layers;
+  size_t plane[kMaxSrcs];  // frames: floats between a source's channel planes
 };
 
 // Source kinds (ops/packed_warp.py _KINDS)
@@ -124,14 +133,21 @@ constexpr int kRgb3 = 0;
 constexpr int kPacked = 1;
 constexpr int kRgba = 2;
 
-// One frame's linear RGB (kind rgba: RGBA) at the taps
+// One frame's linear RGB (kind rgba: RGBA) at the taps, its channel
+// planes `plane` floats apart
 template <int kKind>
-__device__ __forceinline__ void sample_frame(const void* src, const phn::Taps& tp, int width,
-                                             int height, float v[4]) {
-  const size_t plane = static_cast<size_t>(width) * height;
+__device__ __forceinline__ void sample_planes(const void* src, size_t plane, const phn::Taps& tp,
+                                              int width, float v[4]) {
   const float* s = static_cast<const float*>(src);
 #pragma unroll
   for (int c = 0; c < (kKind == kRgba ? 4 : 3); ++c) v[c] = phn::sample(s + c * plane, width, tp);
+}
+
+// A whole frame's (width * height apart)
+template <int kKind>
+__device__ __forceinline__ void sample_frame(const void* src, const phn::Taps& tp, int width,
+                                             int height, float v[4]) {
+  sample_planes<kKind>(src, static_cast<size_t>(width) * height, tp, width, v);
 }
 
 // The separable alpha of an opaque source's warp at the taps, warp(ones):
@@ -143,12 +159,16 @@ __device__ __forceinline__ float warp_alpha(const phn::AxisTap& tx, const phn::A
 }
 
 // Frames (kinds rgb3, rgba): one thread a pixel of one row, each tap read
-// from device memory
-template <int kKind>
+// from device memory.  kBand false: a full-frame launch (row0 0, nrows
+// height, every source whole, its planes width * height apart), with no
+// band arithmetic in its code.
+template <int kKind, bool kBand>
 __global__ void frames_kernel(Layers L, int4* __restrict__ words, float* __restrict__ rgba,
-                              phn::Encode e, int width, int height, int groups, int top_alpha) {
+                              phn::Encode e, int width, int height, int groups, int row0,
+                              int nrows, int top_alpha) {
   constexpr int kCh = kKind == kRgba ? 4 : 3;
-  const int row = blockIdx.y;
+  const int band_row = blockIdx.y;  // the row in the output (the band)
+  const int row = kBand ? row0 + band_row : band_row;  // the frame's row
   const int x = blockIdx.x * phn::kPixelsPerBlock + threadIdx.x;
   float out[3] = {0.0f, 0.0f, 0.0f};
   float cover = 0.0f, a = 0.0f;
@@ -157,11 +177,19 @@ __global__ void frames_kernel(Layers L, int4* __restrict__ words, float* __restr
     for (int m = 0; m < L.n_layers; ++m) {
       const phn::Taps tp = phn::axis_taps(L.mat[m], x, row, width, height);
       float v[4];
-      sample_frame<kKind>(L.src[s], tp, width, height, v);
+      if constexpr (kBand) {
+        sample_planes<kKind>(L.src[s], L.plane[s], tp, width, v);
+      } else {
+        sample_frame<kKind>(L.src[s], tp, width, height, v);
+      }
       if (L.n_src[m] == 2) {
         const float mx = *L.mix[m];
         float vb[4];
-        sample_frame<kKind>(L.src[s + 1], tp, width, height, vb);
+        if constexpr (kBand) {
+          sample_planes<kKind>(L.src[s + 1], L.plane[s + 1], tp, width, vb);
+        } else {
+          sample_frame<kKind>(L.src[s + 1], tp, width, height, vb);
+        }
 #pragma unroll
         for (int c = 0; c < kCh; ++c) v[c] = v[c] * mx + vb[c] * (1.0f - mx);
       }
@@ -179,14 +207,14 @@ __global__ void frames_kernel(Layers L, int4* __restrict__ words, float* __restr
       s += L.n_src[m];
     }
     if (rgba != nullptr) {
-      const size_t plane = static_cast<size_t>(width) * height;
-      const size_t o = static_cast<size_t>(row) * width + x;
+      const size_t plane = static_cast<size_t>(width) * (kBand ? nrows : height);
+      const size_t o = static_cast<size_t>(band_row) * width + x;
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[c];
       rgba[3 * plane + o] = top_alpha ? a : cover;
     }
   }
-  if (words != nullptr) phn::encode_pack_block(e, out, x, width, row, groups, words);
+  if (words != nullptr) phn::encode_pack_block(e, out, x, width, band_row, groups, words);
 }
 
 // v210 words (kind packed): a tile of kPixelsPerBlock columns by kTileRows
@@ -200,13 +228,13 @@ __global__ void __launch_bounds__(phn::kPixelsPerBlock, kBlocksPerSm)
     words_kernel(const __grid_constant__ Layers L, int4* __restrict__ words,
                  float* __restrict__ rgba, const __grid_constant__ phn::Decode d,
                  const __grid_constant__ phn::Encode e, int width, int height, int groups,
-                 int top_alpha, unsigned long long* branches) {
+                 int row0, int nrows, int top_alpha, unsigned long long* branches) {
   extern __shared__ float windows[];  // a layer's two windows, kWindowTexels x 3 planes each
   __shared__ phn::AxisTap row_taps[kTileRows];  // the layer's taps of the tile's rows
   const int x_lo = blockIdx.x * phn::kPixelsPerBlock;
   const int x = x_lo + threadIdx.x;
-  const int y_lo = blockIdx.y * kTileRows;
-  const int rows = min(kTileRows, height - y_lo);
+  const int y_lo = row0 + blockIdx.y * kTileRows;
+  const int rows = min(kTileRows, row0 + nrows - y_lo);
   const bool col = x < width;
   float out[kTileRows][3] = {}, cover[kTileRows] = {};
   phn::AxisTap tx{};
@@ -267,15 +295,15 @@ __global__ void __launch_bounds__(phn::kPixelsPerBlock, kBlocksPerSm)
     if (r >= rows) break;
     const int row = y_lo + r;
     if (rgba != nullptr && col) {
-      const size_t plane = static_cast<size_t>(width) * height;
-      const size_t o = static_cast<size_t>(row) * width + x;
+      const size_t plane = static_cast<size_t>(width) * nrows;
+      const size_t o = static_cast<size_t>(row - row0) * width + x;
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[r][c];
       rgba[3 * plane + o] = top_alpha ? warp_alpha(tx, row_taps[r]) : cover[r];
     }
     if (words != nullptr) {
       if (r > 0) __syncthreads();  // the previous row's codes are packed
-      phn::encode_pack_block(e, out[r], x, width, row, groups, words);
+      phn::encode_pack_block(e, out[r], x, width, row - row0, groups, words);
     }
   }
 }
@@ -324,8 +352,8 @@ struct TileRow {
 // kGroupsPerBlock threads a row write its groups' words.
 __device__ __forceinline__ void encode_pack_tile(const phn::Encode& e,
                                                  const float (&rgb)[kFrameRowsPerThread][3], int x,
-                                                 int width, int y_lo, int r_lo, int height,
-                                                 int groups, int4* __restrict__ words) {
+                                                 int width, int y_lo, int r_lo, int row0,
+                                                 int row_end, int groups, int4* __restrict__ words) {
   __shared__ unsigned ys[kFrameTileRows][phn::kPixelsPerBlock];
   __shared__ unsigned cb[kFrameTileRows][phn::kPixelsPerBlock / 2];
   __shared__ unsigned cr[kFrameTileRows][phn::kPixelsPerBlock / 2];
@@ -333,7 +361,7 @@ __device__ __forceinline__ void encode_pack_tile(const phn::Encode& e,
 #pragma unroll
   for (int j = 0; j < kFrameRowsPerThread; ++j) {
     unsigned yc = 0, cbc = 0, crc = 0;
-    if (x < width && y_lo + r_lo + j < height) {
+    if (x < width && y_lo + r_lo + j < row_end) {
       const float rp = phn::l2g(e.g, rgb[j][0]);
       const float gp = phn::l2g(e.g, rgb[j][1]);
       const float bp = phn::l2g(e.g, rgb[j][2]);
@@ -353,8 +381,8 @@ __device__ __forceinline__ void encode_pack_tile(const phn::Encode& e,
   const int tid = threadIdx.y * phn::kPixelsPerBlock + t;
   const int r = tid / phn::kGroupsPerBlock, g = tid - r * phn::kGroupsPerBlock;
   const int gi = blockIdx.x * phn::kGroupsPerBlock + g;
-  if (r >= kFrameTileRows || gi >= groups || y_lo + r >= height) return;
-  words[static_cast<size_t>(y_lo + r) * groups + gi] =
+  if (r >= kFrameTileRows || gi >= groups || y_lo + r >= row_end) return;
+  words[static_cast<size_t>(y_lo + r - row0) * groups + gi] =
       phn::v210_group(ys[r] + 6 * g, cb[r] + 3 * g, cr[r] + 3 * g);
 }
 
@@ -375,16 +403,18 @@ __device__ __forceinline__ float lerp_inside(const float* __restrict__ s, int co
 __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
     frame_tile_kernel(const __grid_constant__ Layers L, int4* __restrict__ words,
                       float* __restrict__ rgba, const __grid_constant__ phn::Encode e, int width,
-                      int height, int groups, int top_alpha, unsigned long long* branches) {
+                      int height, int groups, int row0, int nrows, int top_alpha,
+                      unsigned long long* branches) {
   extern __shared__ __align__(16) float windows[];  // two layers' windows
   __shared__ TileLayer layers[kMaxLayers];
   __shared__ TileRow tile_rows[kMaxLayers][kFrameTileRows];
   const int tid = threadIdx.y * phn::kPixelsPerBlock + threadIdx.x;
   const int x_lo = blockIdx.x * phn::kPixelsPerBlock, x = x_lo + threadIdx.x;
-  const int y_lo = blockIdx.y * kFrameTileRows;
+  const int row_end = row0 + nrows;
+  const int y_lo = row0 + blockIdx.y * kFrameTileRows;
   const int r_lo = threadIdx.y * kFrameRowsPerThread;  // this thread's first row in the tile
   const int x_hi = min(x_lo + phn::kPixelsPerBlock, width) - 1;
-  const int y_hi = min(y_lo + kFrameTileRows, height) - 1;
+  const int y_hi = min(y_lo + kFrameTileRows, row_end) - 1;
   // every layer's window and row offsets, once for the block
   if (tid < L.n_layers) {
     const float* mat = L.mat[tid];
@@ -414,15 +444,15 @@ __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
   // 16-byte aligned is copied a texel a lane)
   const int warp = tid >> 5, lane4 = 4 * (tid & 31);
   const int copy_src = warp / 6, copy_c = (warp >> 1) % 3, copy_r = warp & 1;
-  const size_t copy_plane = copy_c * static_cast<size_t>(width) * height;
   const size_t row_step = 2 * static_cast<size_t>(width);
   const auto copy = [&](int m, int s, float* buf) {
     const TileLayer t = layers[m];
     if (t.windowed && copy_src < L.n_src[m]) {
       const float* src = static_cast<const float*>(L.src[s + copy_src]);
-      const float* g = src + copy_plane + t.first + copy_r * static_cast<size_t>(width);
+      const size_t plane = L.plane[s + copy_src];
+      const float* g = src + copy_c * plane + t.first + copy_r * static_cast<size_t>(width);
       float* d = buf + copy_src * 3 * kFrameWindowTexels + copy_c * t.win.texels() + copy_r * t.win.cols;
-      if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      if ((width & 3) == 0 && (plane & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
         const int chunks = (t.win.cols - lane4 + 127) >> 7;  // this lane's 16-byte chunks a row
         g += lane4;
         d += lane4;
@@ -458,7 +488,7 @@ __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
     const float mx = t.mix;
 #pragma unroll
     for (int j = 0; j < kFrameRowsPerThread; ++j) {
-      if (x >= width || y_lo + r_lo + j >= height) continue;
+      if (x >= width || y_lo + r_lo + j >= row_end) continue;
       const TileRow tr = tile_rows[m][r_lo + j];
       const phn::Taps tp = phn::taps_of(tx, tr.ty);
       float v[3], vb[3];
@@ -475,10 +505,10 @@ __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
         if (n == 2) phn::sample_window(win_b, t.win, tp, vb);
       } else {
         float v4[4];
-        sample_frame<kRgb3>(L.src[s], tp, width, height, v4);
+        sample_planes<kRgb3>(L.src[s], L.plane[s], tp, width, v4);
         for (int c = 0; c < 3; ++c) v[c] = v4[c];
         if (n == 2) {
-          sample_frame<kRgb3>(L.src[s + 1], tp, width, height, v4);
+          sample_planes<kRgb3>(L.src[s + 1], L.plane[s + 1], tp, width, v4);
           for (int c = 0; c < 3; ++c) vb[c] = v4[c];
         }
       }
@@ -498,26 +528,30 @@ __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
 #pragma unroll
   for (int j = 0; j < kFrameRowsPerThread; ++j) {
     const int row = y_lo + r_lo + j;
-    if (rgba != nullptr && x < width && row < height) {
-      const size_t plane = static_cast<size_t>(width) * height;
-      const size_t o = static_cast<size_t>(row) * width + x;
+    if (rgba != nullptr && x < width && row < row_end) {
+      const size_t plane = static_cast<size_t>(width) * nrows;
+      const size_t o = static_cast<size_t>(row - row0) * width + x;
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgba[c * plane + o] = out[j][c];
       rgba[3 * plane + o] = top_alpha ? warp_alpha(tx, tile_rows[L.n_layers - 1][r_lo + j].ty) : cover[j];
     }
   }
-  if (words != nullptr) encode_pack_tile(e, out, x, width, y_lo, r_lo, height, groups, words);
+  if (words != nullptr) encode_pack_tile(e, out, x, width, y_lo, r_lo, row0, row_end, groups, words);
 }
 
 }  // namespace
 
 // srcs: n_srcs sources, bottom..top: (3, height, width) float32 frames
 // (kind 0, rgb3), (height, groups*4) int32 v210 words (kind 1, packed) or
-// (4, height, width) float32 RGBA frames (kind 2, rgba); mats: n_layers
-// (3, 3) float32; mixes: n_layers pointers to one float32 (null for a
-// cut); n_src: n_layers entries of 1 or 2 summing to n_srcs.
-// Outputs, at least one: words (height, groups*4) int32 (emit 'packed'),
-// rgba (4, height, width) float32 (emit 'rgba'); both for emit 'both'.
+// (4, height, width) float32 RGBA frames (kind 2, rgba), each a window of
+// frame rows from src_row0s[s] on (rows `width` floats or `groups` int4
+// apart; a frame's channel planes src_planes[s] floats apart); mats:
+// n_layers (3, 3) float32; mixes: n_layers pointers to one float32 (null
+// for a cut); n_src: n_layers entries of 1 or 2 summing to n_srcs.
+// Outputs, at least one, frame rows row0 .. row0 + rows - 1: words (rows,
+// groups*4) int32 (emit 'packed'), rgba (4, rows, width) float32 (emit
+// 'rgba'); both for emit 'both'.  A full-frame launch: row0 0, rows
+// height, every src_row0 0.
 // top_alpha: the frame's alpha is the top layer's (1) or the run's
 // coverage (0).  dec_coeffs: col[12], gamut[9] and g2l, the gamma'->linear
 // table in device memory (read for kind 1 only); enc_coeffs: col[12],
@@ -527,15 +561,18 @@ __global__ void __launch_bounds__(kFrameThreads, kFrameBlocksPerSm)
 extern "C" int phn_packed_composite(const void* const* srcs, const void* const* mats,
                                     const void* const* mixes, const int* n_src, int n_layers,
                                     int kind, void* words, void* rgba, int width, int height,
-                                    int groups, const float* dec_coeffs, const float* g2l,
-                                    const float* enc_coeffs, int top_alpha, void* branches,
-                                    void* stream) {
+                                    int groups, int row0, int rows, const int* src_row0s,
+                                    const long long* src_planes, const float* dec_coeffs,
+                                    const float* g2l, const float* enc_coeffs, int top_alpha,
+                                    void* branches, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
   if (kind != kRgb3 && kind != kPacked && kind != kRgba)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kind == kPacked && (dec_coeffs == nullptr || g2l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (words == nullptr && rgba == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!phn::band_ok(height, row0, rows, 0, height) || width <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Layers L{};
   L.n_layers = n_layers;
   int s = 0;
@@ -545,7 +582,16 @@ extern "C" int phn_packed_composite(const void* const* srcs, const void* const* 
     L.n_src[m] = n_src[m];
     L.mat[m] = static_cast<const float*>(mats[m]);
     L.mix[m] = static_cast<const float*>(mixes[m]);
-    for (int r = 0; r < n_src[m]; ++r, ++s) L.src[s] = srcs[s];
+    for (int r = 0; r < n_src[m]; ++r, ++s) {
+      if (src_row0s[s] < 0 || src_row0s[s] >= height) return static_cast<int>(cudaErrorInvalidValue);
+      // each source's window addressed by frame row
+      if (kind == kPacked) {
+        L.src[s] = phn::frame_row0(static_cast<const int4*>(srcs[s]), src_row0s[s], groups);
+      } else {
+        L.src[s] = phn::frame_row0(static_cast<const float*>(srcs[s]), src_row0s[s], width);
+        L.plane[s] = static_cast<size_t>(src_planes[s]);
+      }
+    }
   }
   const phn::Encode e = phn::encode_from(enc_coeffs);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -554,19 +600,27 @@ extern "C" int phn_packed_composite(const void* const* srcs, const void* const* 
   const dim3 block(phn::kPixelsPerBlock);
   const int blocks_x = (groups + phn::kGroupsPerBlock - 1) / phn::kGroupsPerBlock;
   if (kind == kPacked) {
-    words_kernel<<<dim3(blocks_x, (height + kTileRows - 1) / kTileRows), block, kSmemBytes, st>>>(
-        L, w, f, phn::decode_from(dec_coeffs, g2l), e, width, height, groups, top_alpha,
+    words_kernel<<<dim3(blocks_x, (rows + kTileRows - 1) / kTileRows), block, kSmemBytes, st>>>(
+        L, w, f, phn::decode_from(dec_coeffs, g2l), e, width, height, groups, row0, rows, top_alpha,
         static_cast<unsigned long long*>(branches));
   } else if (kind == kRgba) {
-    frames_kernel<kRgba><<<dim3(blocks_x, height), block, 0, st>>>(L, w, f, e, width, height, groups,
-                                                                 top_alpha);
+    bool band = row0 != 0 || rows != height;
+    for (int k = 0; k < s; ++k) band = band || src_row0s[k] != 0 || src_planes[k] != static_cast<long long>(width) * height;
+    if (band) {
+      frames_kernel<kRgba, true><<<dim3(blocks_x, rows), block, 0, st>>>(L, w, f, e, width, height, groups,
+                                                                       row0, rows, top_alpha);
+    } else {
+      frames_kernel<kRgba, false><<<dim3(blocks_x, rows), block, 0, st>>>(L, w, f, e, width, height, groups,
+                                                                        row0, rows, top_alpha);
+    }
   } else {
     const cudaError_t attr = cudaFuncSetAttribute(
         frame_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFrameSmemBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    frame_tile_kernel<<<dim3(blocks_x, (height + kFrameTileRows - 1) / kFrameTileRows),
+    frame_tile_kernel<<<dim3(blocks_x, (rows + kFrameTileRows - 1) / kFrameTileRows),
                         dim3(phn::kPixelsPerBlock, kFrameThreadRows), kFrameSmemBytes, st>>>(
-        L, w, f, e, width, height, groups, top_alpha, static_cast<unsigned long long*>(branches));
+        L, w, f, e, width, height, groups, row0, rows, top_alpha,
+        static_cast<unsigned long long*>(branches));
   }
   return static_cast<int>(cudaGetLastError());
 }

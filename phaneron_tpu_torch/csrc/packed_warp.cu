@@ -43,6 +43,12 @@
 // On the H100 the decode's gathers take about a third of the time and the
 // sampling and stores most of the rest (tools/kernel_variants.py b6;
 // PERF.md).
+//
+// Band form (a row-sharded channel, parallel/bands.py): the tiles start
+// at the band's first output row and the words are a window of the rows
+// its taps reach; every tap, tile window and inside test is worked out at
+// the frame's own rows and height (ops/packed_warp.py warp_window_counts
+// counts a band's tiles the same way).
 #include "phn_common.cuh"
 
 // The tile rows and window size, which ops/packed_warp.py owns
@@ -177,14 +183,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                        const float* __restrict__ mat_a, const float* __restrict__ mat_b,
                        const float* __restrict__ mix, float* __restrict__ out,
                        const __grid_constant__ phn::Decode d, int width, int height, int groups,
-                       unsigned long long* __restrict__ branches) {
+                       int row0, int nrows, unsigned long long* __restrict__ branches) {
   extern __shared__ float windows[];  // source a's window, then b's: 3 planes of kWindowTexels each
   __shared__ phn::AxisTap row_taps[2][kTileRows];  // the tile's row taps under each matrix
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   const int x_lo = blockIdx.x * kTileW;
   const int x = x_lo + threadIdx.x;
-  const int y_lo = blockIdx.y * kTileRows;
-  const int rows = min(kTileRows, height - y_lo);
+  const int y_lo = row0 + blockIdx.y * kTileRows;
+  const int rows = min(kTileRows, row0 + nrows - y_lo);
   const int x_hi = min(x_lo + kTileW, width) - 1, y_hi = y_lo + rows - 1;
   const bool pair = b != nullptr;
   const int nb = pair && mat_b != mat_a ? 1 : 0;  // source b's taps
@@ -208,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const phn::AxisTap txa = phn::axis_tap(mat_a[0], mat_a[2], x, width);
   const phn::AxisTap txb = nb ? phn::axis_tap(mat_b[0], mat_b[2], x, width) : txa;
   const float mx = pair ? *mix : 0.0f;
-  const size_t plane = static_cast<size_t>(width) * height;
+  const size_t plane = static_cast<size_t>(width) * nrows;
 #pragma unroll
   for (int i = 0; i < kTileRows / kThreadRows; ++i) {
     const int r = threadIdx.y + kThreadRows * i;
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
       for (int c = 0; c < 4; ++c) v[c] = v[c] * mx + vb[c] * (1.0f - mx);
     }
-    const size_t o = static_cast<size_t>(y_lo + r) * width + x;
+    const size_t o = static_cast<size_t>(y_lo + r - row0) * width + x;
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[c * plane + o] = v[c];
   }
@@ -231,29 +237,38 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
 }  // namespace
 
-// a, b: (height, groups*4) int32 v210 words (b null for a single warp);
-// mat_a, mat_b: (3, 3) float32 (mat_b == mat_a for a shared-matrix
-// pair); mix: one float32 (ignored without b); out: (4, height, width)
-// float32.  coeffs: col[12], gamut[9]; g2l: the gamma'->linear table in
-// device memory.  branches: null, or two uint64 in device memory to which
-// the (tile, source) pairs sampled from a decoded window [0] and straight
-// from the words [1] are added.  Returns the first CUDA error.
+// a, b: v210 words, frame rows src_row0 .. src_row0 + src_rows - 1 of a
+// (height, groups*4) int32 frame (b null for a single warp); mat_a, mat_b:
+// (3, 3) float32 (mat_b == mat_a for a shared-matrix pair); mix: one
+// float32 (ignored without b); out: (4, rows, width) float32, frame rows
+// row0 .. row0 + rows - 1 of the (4, height, width) result (a full-frame
+// launch: row0 0, rows height, src_row0 0, src_rows height).  coeffs:
+// col[12], gamut[9]; g2l: the gamma'->linear table in device memory.
+// branches: null, or two uint64 in device memory to which the (tile,
+// source) pairs sampled from a decoded window [0] and straight from the
+// words [1] are added.  Returns the first CUDA error.
 extern "C" int phn_packed_warp(const void* a, const void* b, const void* mat_a,
                                const void* mat_b, const void* mix, void* out, int width,
-                               int height, int groups, const float* coeffs, const float* g2l,
+                               int height, int groups, int row0, int rows, int src_row0,
+                               int src_rows, const float* coeffs, const float* g2l,
                                void* branches, void* stream) {
   if (b != nullptr && (mat_b == nullptr || mix == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!phn::band_ok(height, row0, rows, src_row0, src_rows) || width <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   static int resident[phn::kMaxDevices];  // the shared-memory limit raised once a device
   cudaError_t err;
   if (phn::resident_blocks(packed_warp_kernel, kThreads, kSmemBytes, resident, &err) == 0)
     return static_cast<int>(err);
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileRows - 1) / kTileRows);
+  // the windows addressed by frame row (a band's tiles start at row0; a
+  // tile that straddles the band's last row is clipped to it)
+  const int4* wa = phn::frame_row0(static_cast<const int4*>(a), src_row0, groups);
+  const int4* wb = b != nullptr ? phn::frame_row0(static_cast<const int4*>(b), src_row0, groups) : nullptr;
+  const dim3 grid((width + kTileW - 1) / kTileW, (rows + kTileRows - 1) / kTileRows);
   packed_warp_kernel<<<grid, dim3(kTileW, kThreadRows), kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(a), static_cast<const int4*>(b),
-      static_cast<const float*>(mat_a), static_cast<const float*>(mat_b),
+      wa, wb, static_cast<const float*>(mat_a), static_cast<const float*>(mat_b),
       static_cast<const float*>(mix), static_cast<float*>(out),
-      phn::decode_from(coeffs, g2l), width, height, groups,
+      phn::decode_from(coeffs, g2l), width, height, groups, row0, rows,
       static_cast<unsigned long long*>(branches));
   return static_cast<int>(cudaGetLastError());
 }

@@ -242,6 +242,29 @@ inline int resident_blocks(Kernel kernel, int threads, int smem, int (&cache)[kM
   return blocks;
 }
 
+// ---- band forms (a row-sharded channel): a launch writes output rows
+// [row0, row0 + rows) of a frame `height` rows tall, and reads its sources
+// from windows that hold only the rows its taps reach.  Every coordinate
+// stays the frame's own (taps, field parity, the clamp at the frame's
+// edges), so an output pixel's arithmetic is that of the full-frame launch.
+//
+// The frame-row-0 address of a window whose first row is frame row row0,
+// rows row_elems elements apart: the kernel indexes it with frame rows and
+// only ever reads the window's.  (Integer arithmetic: the address may lie
+// before the window's allocation, and is never dereferenced there.)
+template <typename T>
+inline T* frame_row0(T* window, int row0, size_t row_elems) {
+  return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(window) -
+                              static_cast<uintptr_t>(row0) * row_elems * sizeof(T));
+}
+
+// The band arguments every band form checks: output rows inside the frame
+// and a source window [src_row0, src_row0 + src_rows) inside it too
+inline bool band_ok(int height, int row0, int rows, int src_row0, int src_rows) {
+  return height > 0 && row0 >= 0 && rows > 0 && row0 + rows <= height && src_row0 >= 0 &&
+         src_rows > 0 && src_row0 + src_rows <= height;
+}
+
 // One code row of the encode matrix, rounded and saturated
 __device__ __forceinline__ int encode_row(const Encode& e, int c, float rp, float gp,
                                           float bp) {

@@ -33,6 +33,12 @@
 // (tools/kernel_variants.py k4; PERF.md).  The matrices, mix and mask are
 // read from device memory, so animating them needs no host
 // synchronisation.
+//
+// Band form (a row-sharded channel, parallel/bands.py): the launch writes
+// output rows [row0, row0 + rows) from source windows that hold the rows
+// the band's taps reach (ops/packed_warp.py axis_window).  Taps are taken
+// at the frame's own rows and height, and a tap's row indexes the window
+// as ty - src_row0, so every output pixel equals the full-frame launch's.
 #include "phn_common.cuh"
 
 namespace {
@@ -41,21 +47,28 @@ constexpr int kBlockW = 32;  // threads: a warp's row of pixels
 constexpr int kBlockH = 8;  // by kBlockH rows
 constexpr int kSingle = 0, kDissolve = 1, kWipe = 2;  // modes
 
-template <int kCh, int kMode>
+// kBand false: a full-frame launch, the band of every row (row0 0, rows
+// height, the sources whole and their planes width * height apart), with
+// no band arithmetic in its code
+template <int kCh, int kMode, bool kBand>
 __global__ void __launch_bounds__(kBlockW * kBlockH)
     warp_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const float* __restrict__ mat, const float* __restrict__ mat_b,
                 const float* __restrict__ mix, const float* __restrict__ mask,
-                float* __restrict__ out, int height, int width) {
+                float* __restrict__ out, int height, int width, int row0, int rows,
+                int src_plane) {
   const int x = blockIdx.x * kBlockW + threadIdx.x;
-  const int y = blockIdx.y * kBlockH + threadIdx.y;
-  if (x >= width || y >= height) return;
-  const size_t plane = static_cast<size_t>(width) * height;
-  const size_t o = static_cast<size_t>(y) * width + x;
+  const int ly = blockIdx.y * kBlockH + threadIdx.y;  // the row in the output (the band)
+  const int n = kBand ? rows : height;
+  if (x >= width || ly >= n) return;
+  const int y = kBand ? row0 + ly : ly;  // the frame's row
+  const size_t plane = static_cast<size_t>(width) * n;
+  const size_t splane = kBand ? static_cast<size_t>(src_plane) : plane;
+  const size_t o = static_cast<size_t>(ly) * width + x;
   const phn::Taps t = phn::axis_taps(mat, x, y, width, height);
   float v[kCh];
 #pragma unroll
-  for (int c = 0; c < kCh; ++c) v[c] = phn::sample(a + c * plane, width, t);
+  for (int c = 0; c < kCh; ++c) v[c] = phn::sample(a + c * splane, width, t);
   if (kMode == kSingle) {
 #pragma unroll
     for (int c = 0; c < kCh; ++c) out[c * plane + o] = v[c];
@@ -64,7 +77,7 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
   const phn::Taps tb = phn::axis_taps(mat_b, x, y, width, height);
   float vb[kCh];
 #pragma unroll
-  for (int c = 0; c < kCh; ++c) vb[c] = phn::sample(b + c * plane, width, tb);
+  for (int c = 0; c < kCh; ++c) vb[c] = phn::sample(b + c * splane, width, tb);
   // dissolve: weights (mix, 1 - mix); wipe: (1 - m, m), summed b first
   const float m = kMode == kWipe ? mask[o] : *mix;
 #pragma unroll
@@ -72,44 +85,70 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
     out[c * plane + o] = kMode == kWipe ? vb[c] * m + v[c] * (1.0f - m) : v[c] * m + vb[c] * (1.0f - m);
 }
 
-template <int kCh>
-void launch(int mode, const float* a, const float* b, const float* mat, const float* mat_b,
-            const float* mix, const float* mask, float* out, int height, int width,
-            cudaStream_t st) {
+template <int kCh, int kMode>
+void launch_mode(bool band, const float* a, const float* b, const float* mat, const float* mat_b,
+                 const float* mix, const float* mask, float* out, int height, int width, int row0,
+                 int rows, int src_plane, cudaStream_t st) {
   const dim3 block(kBlockW, kBlockH);
-  const dim3 grid((width + kBlockW - 1) / kBlockW, (height + kBlockH - 1) / kBlockH);
-  if (mode == kSingle) {
-    warp_kernel<kCh, kSingle><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
-  } else if (mode == kDissolve) {
-    warp_kernel<kCh, kDissolve><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
+  const dim3 grid((width + kBlockW - 1) / kBlockW, (rows + kBlockH - 1) / kBlockH);
+  if (band) {
+    warp_kernel<kCh, kMode, true><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width,
+                                                          row0, rows, src_plane);
   } else {
-    warp_kernel<kCh, kWipe><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width);
+    warp_kernel<kCh, kMode, false><<<grid, block, 0, st>>>(a, b, mat, mat_b, mix, mask, out, height, width,
+                                                           row0, rows, src_plane);
+  }
+}
+
+template <int kCh>
+void launch(int mode, bool band, const float* a, const float* b, const float* mat, const float* mat_b,
+            const float* mix, const float* mask, float* out, int height, int width, int row0,
+            int rows, int src_plane, cudaStream_t st) {
+  if (mode == kSingle) {
+    launch_mode<kCh, kSingle>(band, a, b, mat, mat_b, mix, mask, out, height, width, row0, rows, src_plane, st);
+  } else if (mode == kDissolve) {
+    launch_mode<kCh, kDissolve>(band, a, b, mat, mat_b, mix, mask, out, height, width, row0, rows, src_plane, st);
+  } else {
+    launch_mode<kCh, kWipe>(band, a, b, mat, mat_b, mix, mask, out, height, width, row0, rows, src_plane, st);
   }
 }
 
 }  // namespace
 
-// a, b: (channels, height, width) float32, channels 3 or 4 (b null for a
-// single warp); mat, mat_b: (3, 3) float32 (mat_b null: b under mat); mix:
-// one float32 (dissolve); mask: (height, width) float32 (wipe; null for a
-// dissolve); out: like a.  Returns cudaGetLastError().
+// a, b: the source windows, `channels` planes of src_rows rows by `width`
+// columns, frame rows src_row0 .. src_row0 + src_rows - 1, each row
+// `width` floats after the last and the planes of both src_plane floats
+// apart (b null for a single warp); mat, mat_b: (3, 3) float32 (mat_b
+// null: b under mat); mix: one float32 (dissolve); mask: (rows, width)
+// float32 (wipe; null for a dissolve); out: (channels, rows, width), frame
+// rows row0 .. row0 + rows - 1 of the (channels, height, width) result.  A
+// full-frame launch is row0 0, rows height, src_row0 0, src_rows height.
+// Returns cudaGetLastError().
 extern "C" int phn_warp(const void* a, const void* b, const void* mat, const void* mat_b,
                         const void* mix, const void* mask, void* out, int channels, int height,
-                        int width, void* stream) {
+                        int width, int row0, int rows, int src_row0, int src_rows, int src_plane,
+                        void* stream) {
   if (b != nullptr && (mix == nullptr) == (mask == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (channels != 3 && channels != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (!phn::band_ok(height, row0, rows, src_row0, src_rows) || width <= 0 ||
+      src_plane < src_rows * width)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int mode = b == nullptr ? kSingle : (mask != nullptr ? kWipe : kDissolve);
-  const auto fa = static_cast<const float*>(a), fb = static_cast<const float*>(b);
+  // the windows addressed by frame row
+  const auto fa = phn::frame_row0(static_cast<const float*>(a), src_row0, width);
+  const auto fb = b != nullptr ? phn::frame_row0(static_cast<const float*>(b), src_row0, width) : nullptr;
   const auto fm = static_cast<const float*>(mat);
   const auto fmb = mat_b != nullptr ? static_cast<const float*>(mat_b) : fm;
   const auto fmix = static_cast<const float*>(mix), fmask = static_cast<const float*>(mask);
   const auto o = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool band = !(row0 == 0 && rows == height && src_row0 == 0 && src_rows == height &&
+                      static_cast<long long>(src_plane) == static_cast<long long>(width) * height);
   if (channels == 4) {
-    launch<4>(mode, fa, fb, fm, fmb, fmix, fmask, o, height, width, st);
+    launch<4>(mode, band, fa, fb, fm, fmb, fmix, fmask, o, height, width, row0, rows, src_plane, st);
   } else {
-    launch<3>(mode, fa, fb, fm, fmb, fmix, fmask, o, height, width, st);
+    launch<3>(mode, band, fa, fb, fm, fmb, fmix, fmask, o, height, width, row0, rows, src_plane, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

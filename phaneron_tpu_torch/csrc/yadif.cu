@@ -304,16 +304,18 @@ constexpr int kRingChunks = kRingCols / 4;  // 16-byte chunks of a tile row
 static_assert(kRingCols % 4 == 0 && kRingPlaneFloats % 4 == 0, "16-byte staged rows");
 
 // Copy `rows` rows of one channel plane, frame rows y0, y0+2, ... each
-// clamped to the frame, columns x0 .. x0+kCols-1 clamped at its sides,
-// into dst (rows x kCols).  vec: every row starts 16-byte aligned.
+// clamped to rows [lo, hi] (the frame's, or a band's source window, which
+// holds every row the band's outputs reach), columns x0 .. x0+kCols-1
+// clamped at its sides, into dst (rows x kCols).  vec: every row starts
+// 16-byte aligned.
 template <int kCols>
 __device__ __forceinline__ void stage_field(const float* src, float* dst, int y0, int rows, int x0,
-                                            int width, int height, bool vec) {
+                                            int width, int lo, int hi, bool vec) {
   constexpr int kChunks = kCols / 4;
   for (int i = threadIdx.y * kRingCols + threadIdx.x; i < rows * kChunks; i += kRingThreads) {
     const int r = i / kChunks, k = i - r * kChunks;
     const int x = x0 + 4 * k;
-    const float* row = src + static_cast<size_t>(min(max(y0 + 2 * r, 0), height - 1)) * width;
+    const float* row = src + static_cast<size_t>(min(max(y0 + 2 * r, lo), hi)) * width;
     float* d = dst + r * kCols + 4 * k;
     if (vec && x >= 0 && x + 4 <= width) {
       phn::cp_async16(d, row + x);
@@ -329,24 +331,34 @@ __device__ __forceinline__ void stage_field(const float* src, float* dst, int y0
 // rows), from frame row b
 __device__ __forceinline__ void stage_ring_plane(const float* prev, const float* cur,
                                                  const float* next, float* buf, int x_lo, int b,
-                                                 bool is_second, int width, int height,
+                                                 bool is_second, int width, int lo, int hi,
                                                  bool vec) {
-  stage_field<kRingCurCols>(cur, buf, b + 1, kKeptRows, x_lo - kHalo, width, height, vec);
+  stage_field<kRingCurCols>(cur, buf, b + 1, kKeptRows, x_lo - kHalo, width, lo, hi, vec);
   buf += kCurKeptFloats;
-  stage_field<kRingCols>(prev, buf, b + 1, kKeptRows, x_lo, width, height, vec);
+  stage_field<kRingCols>(prev, buf, b + 1, kKeptRows, x_lo, width, lo, hi, vec);
   buf += kSideKeptFloats;
-  stage_field<kRingCols>(next, buf, b + 1, kKeptRows, x_lo, width, height, vec);
+  stage_field<kRingCols>(next, buf, b + 1, kKeptRows, x_lo, width, lo, hi, vec);
   buf += kSideKeptFloats;
-  stage_field<kRingCols>(cur, buf, b, kPredRows, x_lo, width, height, vec);
+  stage_field<kRingCols>(cur, buf, b, kPredRows, x_lo, width, lo, hi, vec);
   buf += kPredFloats;
-  stage_field<kRingCols>(is_second ? next : prev, buf, b, kPredRows, x_lo, width, height, vec);
+  stage_field<kRingCols>(is_second ? next : prev, buf, b, kPredRows, x_lo, width, lo, hi, vec);
 }
+
+// A ring launch's rows: it writes frame rows [row0, row_end) of out (the
+// whole frame, or a band), reads ring rows clamped to [lo, hi] (the frame's
+// [0, height - 1], or the band's window), and each ring frame's channel
+// planes lie plane floats apart (out's out_plane)
+struct RingRows {
+  int row0, row_end, lo, hi;
+  size_t plane, out_plane;
+};
 
 // The predicted rows of one channel plane (out at its offset) for this
 // thread's column x and row pairs s0 .. s0+kRingSteps-1, from the staged
 // plane in buf
 __device__ __forceinline__ void ring_predicted(const float* buf, float* __restrict__ out, int x,
-                                               int y_lo, int q, bool is_second, const Frame& f) {
+                                               int y_lo, int q, bool is_second, const Frame& f,
+                                               const RingRows& rr) {
   const int s0 = threadIdx.y * kRingSteps;
   // kept row s0 is row y-1 of the thread's first predicted row y, and
   // predicted row s0 its row y-2
@@ -384,7 +396,7 @@ __device__ __forceinline__ void ring_predicted(const float* buf, float* __restri
     hij[1] = hij[2];
     hij[2] = hij_s[(s + 2) * kRingCols];
     const int y = y_lo + 2 * (s0 + s) + q;
-    if (x >= f.width || y >= f.height) continue;
+    if (x >= f.width || y < rr.row0 || y >= rr.row_end) continue;
     const float spatial = spatial_from_taps(c[0][0], c[0][1], c[0][2], c[0][3], c[0][4], c[0][5],
                                             c[0][6], c[1][0], c[1][1], c[1][2], c[1][3], c[1][4],
                                             c[1][5], c[1][6]);
@@ -397,12 +409,13 @@ __device__ __forceinline__ void ring_predicted(const float* buf, float* __restri
 // The kept rows y_lo + 2s + par of one channel plane (out at its offset):
 // cur's staged kept row s + par, 16 bytes a thread where vec
 __device__ __forceinline__ void ring_kept(const float* buf, float* __restrict__ out, int x_lo,
-                                          int y_lo, int par, const Frame& f, bool vec) {
+                                          int y_lo, int par, const Frame& f, const RingRows& rr,
+                                          bool vec) {
   for (int i = threadIdx.y * kRingCols + threadIdx.x; i < kRingPairs * kRingChunks;
        i += kRingThreads) {
     const int s = i / kRingChunks, k = i - s * kRingChunks;
     const int y = y_lo + 2 * s + par, x = x_lo + 4 * k;
-    if (y >= f.height || x >= f.width) continue;
+    if (y < rr.row0 || y >= rr.row_end || x >= f.width) continue;
     const float* src = buf + (s + par) * kRingCurCols + kHalo + 4 * k;
     float* dst = out + static_cast<size_t>(y) * f.width + x;
     if (vec && x + 4 <= f.width) {
@@ -416,23 +429,25 @@ __device__ __forceinline__ void ring_kept(const float* buf, float* __restrict__ 
 __global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
     yadif_ring_kernel(const float* __restrict__ prev, const float* __restrict__ cur,
                       const float* __restrict__ next, const int* __restrict__ parity,
-                      float* __restrict__ out, Frame f, int tff, int vec) {
+                      float* __restrict__ out, Frame f, RingRows rr, int tff, int vec) {
   extern __shared__ __align__(16) float stage[];  // two planes' buffers
   const int par = __ldg(parity) & 1;
   const int q = 1 - par;
   const bool is_second = (par ^ tff) == 0;
-  const int x_lo = blockIdx.x * kRingCols, y_lo = blockIdx.y * kRingRows;
+  // tiles start at an even frame row (a band's first row rounded down), so
+  // a row's parity is its frame row's
+  const int x_lo = blockIdx.x * kRingCols, y_lo = (rr.row0 & ~1) + blockIdx.y * kRingRows;
   const int b = y_lo - 2 + q;
   const int x = x_lo + threadIdx.x;
-  const size_t plane = static_cast<size_t>(f.width) * f.height;
-  stage_ring_plane(prev, cur, next, stage, x_lo, b, is_second, f.width, f.height, vec);
+  const size_t plane = rr.plane;
+  stage_ring_plane(prev, cur, next, stage, x_lo, b, is_second, f.width, rr.lo, rr.hi, vec);
   phn::cp_async_commit();
 #pragma unroll 1
   for (int c = 0; c < 3; ++c) {
     if (c < 2) {
       const size_t o = (c + 1) * plane;
       stage_ring_plane(prev + o, cur + o, next + o, stage + ((c + 1) & 1) * kRingPlaneFloats,
-                       x_lo, b, is_second, f.width, f.height, vec);
+                       x_lo, b, is_second, f.width, rr.lo, rr.hi, vec);
       phn::cp_async_commit();
       phn::cp_async_wait<1>();
     } else {
@@ -440,8 +455,8 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
     }
     __syncthreads();  // plane c is staged
     const float* buf = stage + (c & 1) * kRingPlaneFloats;
-    ring_predicted(buf, out + c * plane, x, y_lo, q, is_second, f);
-    ring_kept(buf, out + c * plane, x_lo, y_lo, par, f, vec);
+    ring_predicted(buf, out + c * rr.out_plane, x, y_lo, q, is_second, f, rr);
+    ring_kept(buf, out + c * rr.out_plane, x_lo, y_lo, par, f, rr, vec);
     __syncthreads();  // its buffer is free for plane c + 2
   }
   if (f.channels == 4) {
@@ -449,14 +464,15 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
          i += kRingThreads) {
       const int r = i / kRingChunks, k = i - r * kRingChunks;
       const int y = y_lo + r, xa = x_lo + 4 * k;
-      if (y >= f.height || xa >= f.width) continue;
-      const size_t o = 3 * plane + static_cast<size_t>(y) * f.width + xa;
+      if (y < rr.row0 || y >= rr.row_end || xa >= f.width) continue;
+      const size_t at = static_cast<size_t>(y) * f.width + xa;
+      float* o = out + 3 * rr.out_plane + at;
+      const float* a = cur + 3 * plane + at;
       if (vec && xa + 4 <= f.width) {
-        *reinterpret_cast<float4*>(out + o) =
-            f.opaque ? make_float4(1.0f, 1.0f, 1.0f, 1.0f)
-                     : __ldg(reinterpret_cast<const float4*>(cur + o));
+        *reinterpret_cast<float4*>(o) =
+            f.opaque ? make_float4(1.0f, 1.0f, 1.0f, 1.0f) : __ldg(reinterpret_cast<const float4*>(a));
       } else {
-        for (int e = 0; e < 4 && xa + e < f.width; ++e) out[o + e] = f.opaque ? 1.0f : cur[o + e];
+        for (int e = 0; e < 4 && xa + e < f.width; ++e) o[e] = f.opaque ? 1.0f : a[e];
       }
     }
   }
@@ -470,25 +486,47 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// prev, cur, next, out: (channels, height, width) float32; parity: one
-// int32 in device memory, 0 or 1 (its low bit is read).  Returns
-// cudaGetLastError().
+// prev, cur, next: windows of frame rows src_row0 .. src_row0 + src_rows - 1
+// of the (channels, height, width) float32 ring, rows `width` floats apart
+// and channel planes prev_plane, cur_plane and next_plane floats apart;
+// parity: one int32 in device memory, 0 or 1 (its low bit is read); out:
+// (channels, rows, width), frame rows row0 .. row0 + rows - 1 of the
+// result.  A band's window holds its rows and two more each side, where
+// the frame has them: rows are clamped to the frame's edges, never the
+// band's.  A full-frame launch: row0 0, rows height, src_row0 0, src_rows
+// height, planes width * height.  Returns cudaGetLastError().
 extern "C" int phn_yadif_ring(const void* prev, const void* cur, const void* next,
                               const void* parity, void* out, int channels, int height,
-                              int width, int tff, int skip_spatial, int opaque, void* stream) {
+                              int width, int row0, int rows, int src_row0, int src_rows,
+                              long long prev_plane, long long cur_plane, long long next_plane,
+                              int tff, int skip_spatial, int opaque, void* stream) {
   if (!valid(channels, height, width)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!phn::band_ok(height, row0, rows, src_row0, src_rows)) return static_cast<int>(cudaErrorInvalidValue);
+  // the window must hold every row the band reads, as far as the frame has it
+  const int need_lo = row0 >= 2 ? row0 - 2 : 0;
+  const int need_hi = row0 + rows + 2 <= height ? row0 + rows + 2 : height;
+  if (src_row0 > need_lo || src_row0 + src_rows < need_hi)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel walks the three frames with one plane stride: they must agree
+  if (prev_plane != cur_plane || next_plane != cur_plane) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = cudaFuncSetAttribute(
       yadif_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Frame f{channels, height, width, skip_spatial != 0, opaque != 0};
-  const int vec = width % 4 == 0 && aligned16(prev) && aligned16(cur) && aligned16(next) &&
-                  aligned16(out);
-  const dim3 grid((width + kRingCols - 1) / kRingCols, (height + kRingRows - 1) / kRingRows);
+  const RingRows rr{row0, row0 + rows, src_row0, src_row0 + src_rows - 1,
+                    static_cast<size_t>(cur_plane), static_cast<size_t>(width) * rows};
+  // the windows and the output addressed by frame row
+  const float* p = phn::frame_row0(static_cast<const float*>(prev), src_row0, width);
+  const float* c = phn::frame_row0(static_cast<const float*>(cur), src_row0, width);
+  const float* n = phn::frame_row0(static_cast<const float*>(next), src_row0, width);
+  float* o = phn::frame_row0(static_cast<float*>(out), row0, width);
+  const int vec = width % 4 == 0 && cur_plane % 4 == 0 && aligned16(prev) && aligned16(cur) &&
+                  aligned16(next) && aligned16(out);
+  const int y_base = row0 & ~1;
+  const dim3 grid((width + kRingCols - 1) / kRingCols, (row0 + rows - y_base + kRingRows - 1) / kRingRows);
   yadif_ring_kernel<<<grid, dim3(kRingCols, kRingRowGroups), kRingSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(prev), static_cast<const float*>(cur),
-      static_cast<const float*>(next), static_cast<const int*>(parity),
-      static_cast<float*>(out), f, tff != 0, vec);
+                      static_cast<cudaStream_t>(stream)>>>(p, c, n, static_cast<const int*>(parity), o,
+                                                           f, rr, tff != 0, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -76,6 +76,15 @@ unasked.  ``plain=True`` on the channel, unpack, pack and pair-deinterlace
 programs runs every stage's plain version on the inputs' device: the
 reference the kernel path is checked against on the card.
 
+A row-sharded (sp) channel runs the same routes band by band
+(parallel/bands.py ``make_sp_channel_program``): ``_channel_frame`` and
+the fused program take a ``Band``, output rows [row0, row1) of the frame,
+and every stage runs on the rows that band reads (``band_windows``): the
+row-local kernels (K1, K3, B12 widened to whole row pairs, K2, B5, B11,
+B13, B3) on the band's rows, and K4, B6, K5 and B9 as band forms that
+read windows of the rows their taps reach (ops/kernels.py ``Rows``).  A
+rotated layer has no band form yet and raises (ROADMAP A10b).
+
 Specs are hashable NamedTuples with the JAX package's fields, so a JAX
 spec converts with ``spec_from_fields(jax_spec._asdict())``
 (graph/convert.py).  Params are ``{"layers": [per-layer dicts, bottom to
@@ -99,7 +108,8 @@ from ..ops import io as fio
 from ..ops import kernels, packed_warp, rotate as rotate_mod, warp as warp_mod, yadif
 from ..ops.composite import combine, combine_rgb, mix_frames, transparent, wipe_mask
 from ..ops.formats import get_format
-from ..ops.geometry import resize_frame
+from ..ops.geometry import fit_rows, fit_window, resize_frame
+from ..ops.kernels import Rows
 from ..runtime.frame import RGBA_F32
 
 __all__ = [
@@ -114,6 +124,9 @@ __all__ = [
     "make_interlaced_word_pack_program",
     "make_yadif_pair_field_program",
     "make_yadif_program",
+    "Band",
+    "band_windows",
+    "A10B",
 ]
 
 
@@ -257,6 +270,84 @@ def _params_device(params: dict) -> torch.device:
     raise ValueError("channel params: layer 0 holds neither 'src' nor 'src_ring'")
 
 
+A10B = "A10b (a rotated layer on a row-sharded channel: the rotation kernel has no band form yet)"
+
+
+class Band(NamedTuple):
+    """One band of a row-sharded channel frame: output rows [row0, row1)
+    of the ``height``-row frame, computed on ``device``.  ``windows`` maps
+    each source slot (layer index, key) to the rows [lo, hi) of its frame
+    at channel geometry that the band reads (``band_windows``);
+    ``fetch(leaf, lo, hi)`` gives rows [lo, hi) of a plane, frame or ring
+    leaf of the params (along its rows axis) on ``device``: a view where
+    the band holds them, else copied from the bands that do."""
+
+    row0: int
+    row1: int
+    height: int
+    device: torch.device
+    windows: dict
+    fetch: Callable
+
+    @property
+    def n(self) -> int:
+        return self.row1 - self.row0
+
+    def rows(self, src_row0=0) -> Rows:
+        return Rows(self.row0, self.row1, self.height, src_row0)
+
+
+def _warp_rows(mats, bounds, width: int, height: int) -> list:
+    """[(lo, hi)] a band of ``bounds`` [(row0, row1)]: the rows the valid
+    taps of output rows [row0, row1) reach under any of the axis-aligned
+    host matrices (ops/packed_warp.py axis_window, the texel span the
+    kernels' windows hold, worked out for every band at once); one row
+    where no tap lands inside the frame."""
+    r0 = torch.tensor([b[0] for b in bounds])
+    r1 = torch.tensor([b[1] - 1 for b in bounds])
+    lo, hi = [None] * len(bounds), [None] * len(bounds)
+    for m in mats:
+        x0, x1, y0, y1 = packed_warp.axis_window(
+            torch.as_tensor(m, dtype=torch.float32), 0, width - 1, r0, r1, width, height)
+        if int(x0) > int(x1):  # no column tap inside the frame: no tap at all
+            continue
+        for k, (a, b) in enumerate(zip(y0.tolist(), y1.tolist())):
+            if a <= b:
+                lo[k] = a if lo[k] is None else min(lo[k], a)
+                hi[k] = b + 1 if hi[k] is None else max(hi[k], b + 1)
+    out = []
+    for (row0, _), a, b in zip(bounds, lo, hi):
+        a = min(row0, height - 1) if a is None else a
+        out.append((a, a + 1 if b is None else b))
+    return out
+
+
+def band_windows(spec: ChannelSpec, mats: list, bounds) -> list:
+    """One {(layer index, slot key): (lo, hi)} a band of ``bounds``
+    [(row0, row1)]: the rows of each source slot's frame at channel
+    geometry that the band's output rows read.  A layer without DVE and a
+    wipe's mask read their own rows; an axis-aligned DVE layer the rows
+    its matrices' taps reach (``mats[li]``: host copies of the layer's
+    "matrix" and, for a pair under two matrices, "matrix_b"), one window
+    for both sources of a pair.  A rotated layer raises
+    NotImplementedError naming ROADMAP A10b."""
+    out = [{} for _ in bounds]
+    for li, ls in enumerate(spec.layers):
+        wins = list(bounds)
+        if ls.has_transform:
+            if not ls.axis_aligned:
+                raise NotImplementedError(f"row-sharded channel: ROADMAP.md {A10B}")
+            m = mats[li]
+            ms = [m["matrix"]]
+            if not ls.warp_same_mat and m.get("matrix_b") is not None:
+                ms.append(m["matrix_b"])
+            wins = _warp_rows(ms, bounds, spec.width, spec.height)
+        for k, win in enumerate(wins):
+            for key, _ in _slot_formats(ls):
+                out[k][(li, key)] = tuple(bounds[k]) if key == "mask" else win
+    return out
+
+
 def _fit_channel(frame: torch.Tensor, spec: ChannelSpec) -> torch.Tensor:
     """Stretch-fit an unpacked frame whose geometry differs from the
     channel's (JAX ``_fit_channel``)."""
@@ -298,7 +389,8 @@ def _pack_frame(
 
 
 def _sources(
-    spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset = frozenset()
+    spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset = frozenset(),
+    band: Optional[Band] = None,
 ) -> dict:
     """Every source slot of the frame -> {(layer index, slot key): frame}
     at channel geometry.  A deinterlaced slot runs yadif over its ring at
@@ -310,7 +402,10 @@ def _sources(
     (a wipe mask unpacks at channel size, as in JAX); every frame not at
     channel geometry is then stretch-fit (``_fit_channel``).  The slots
     of the layers in ``skip`` are left raw: the packed warp or the packed
-    composite decodes them."""
+    composite decodes them.  With a ``band`` each slot's frame holds the
+    rows ``band.windows`` gives (``_band_sources``)."""
+    if band is not None:
+        return _band_sources(spec, params, st, skip, band)
     out = {}
     v210_slots: dict[tuple[int, int], list] = {}  # (w, h) -> slots
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
@@ -338,38 +433,114 @@ def _sources(
     return {slot: _fit_channel(frame, spec) for slot, frame in out.items()}
 
 
+def _plane_rows(st: _Stages, fmt_name: str, planes, lo: int, hi: int, width: int, height: int,
+                spec: ChannelSpec, band: Band) -> torch.Tensor:
+    """Rows [lo, hi) of a non-v210 source, unpacked from the rows of its
+    planes (the unpacks are row-local): a 4:2:0 source unpacks whole row
+    pairs, its band widened to even rows, then cropped."""
+    a, b = lo, hi
+    sub = [1] * len(planes)
+    if fmt_name in kernels.PLANAR420:
+        a, b = lo - lo % 2, min(hi + hi % 2, height)
+        sub = [1] + [2] * (len(planes) - 1)
+    rows = [band.fetch(p, a // k, -(-b // k)) for p, k in zip(planes, sub)]
+    frame = _unpack_planes(st, fmt_name, rows, width, b - a, spec.col_spec, spec.out_col_spec,
+                           spec.gamma_mode)
+    return frame if (a, b) == (lo, hi) else frame[:, lo - a:hi - a].contiguous()
+
+
+def _band_sources(spec: ChannelSpec, params: dict, st: _Stages, skip: frozenset, band: Band) -> dict:
+    """``_sources`` for one band: each slot's frame at channel geometry,
+    rows ``band.windows[slot]`` of it.  A source at its own geometry
+    makes the rows the stretch fit reads (``fit_window``) and fits them
+    (``fit_rows``); a deinterlaced slot runs the yadif ring's band form
+    over the ring rows those rows read (``yadif.ring_window``); v210 slots
+    whose windows have as many rows unpack in one K1 launch."""
+    out, fits = {}, {}
+    v210_slots: dict[tuple[int, int], list] = {}  # (w, rows) -> [(slot, words)]
+    for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+        if li in skip:
+            continue
+        own = tuple(ls.src_size or (spec.width, spec.height))
+        for key, fmt in _slot_formats(ls):
+            slot, (lo, hi) = (li, key), band.windows[(li, key)]
+            ring = lp.get(f"{key}_ring") if ls.deinterlace else None
+            frame = ring[0] if ring is not None else lp[key] if fmt == RGBA_F32 else None
+            if frame is not None:
+                sw, sh = frame.shape[-1], frame.shape[-2]
+            else:
+                sw, sh = (spec.width, spec.height) if key == "mask" else own
+            fit = (sw, sh) != (spec.width, spec.height)
+            a, b = fit_window(spec.height, sh, lo, hi) if fit else (lo, hi)
+            if fit:
+                fits[slot] = (a, sh)
+            if ring is not None:
+                ra, rb = yadif.ring_window(a, b, sh)
+                opaque = ls.src_opaque and ring[0].shape[0] == 4
+                out[slot] = st.yadif_ring(*(band.fetch(f, ra, rb) for f in ring), lp["parity"], spec.tff,
+                                          opaque=opaque, rows=Rows(a, b, sh, ra))
+            elif fmt == RGBA_F32:
+                got = band.fetch(frame, a, b)
+                # a layer without DVE hands its frame to the combine, which reads it whole
+                out[slot] = got if ls.has_transform else got.contiguous()
+            elif fmt == _V210:
+                v210_slots.setdefault((sw, b - a), []).append((slot, band.fetch(lp[key][0], a, b)))
+            else:
+                out[slot] = _plane_rows(st, fmt, lp[key], a, b, sw, sh, spec, band)
+    for (w, n), items in v210_slots.items():
+        frames = st.v210_unpack([words for _, words in items], w, n, spec.col_spec, spec.out_col_spec)
+        out.update(zip((slot for slot, _ in items), frames))
+    for slot, (a, sh) in fits.items():
+        lo, hi = band.windows[slot]
+        out[slot] = fit_rows(out[slot], a, sh, spec.height, spec.width, lo, hi)
+    return out
+
+
 def _with_alpha_one(rgb3: torch.Tensor) -> torch.Tensor:
     """(3, H, W) -> (4, H, W) with alpha == 1: the route for layer
     structures whose warped alpha is not separable."""
     return torch.cat([rgb3, torch.ones_like(rgb3[:1])])
 
 
+def _words(lp: dict, li: int, key: str, band: Optional[Band]) -> torch.Tensor:
+    """A v210 slot's words (a band's: the rows of its window)."""
+    return lp[key][0] if band is None else band.fetch(lp[key][0], *band.windows[(li, key)])
+
+
+def _band_kw(band: Optional[Band], li: int) -> dict:
+    """The band-form argument of layer li's DVE kernel: {} for a full
+    frame, else ``rows`` from its sources' window."""
+    return {} if band is None else dict(rows=band.rows(band.windows[(li, "src")][0]))
+
+
 def _process_layer_rgb3(
-    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
+    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages,
+    band: Optional[Band] = None,
 ) -> Optional[tuple]:
     """3-channel route for an opaque alpha-free source (JAX
     ``_process_layer_rgb3``): warp RGB only and carry the separable warp
     alpha as (wy, wx) vectors.  Returns (rgb (3,H,W), wy (H,), wx (W,)),
-    or None when the structure needs a real alpha plane."""
+    or None when the structure needs a real alpha plane (a band's rows
+    with a ``band``)."""
     h, w = spec.height, spec.width
     rgb = srcs[(li, "src")]
     if not ls.has_transform:
         if ls.transition != "none":
             return None
         ones = lambda n: torch.ones((n,), dtype=torch.float32, device=rgb.device)
-        return (rgb, ones(h), ones(w))
+        return (rgb, ones(h if band is None else band.n), ones(w))
     if ls.transition not in ("none", "dissolve") or not ls.axis_aligned:
         return None  # a wipe or a rotation: alpha is not separable
     if ls.transition == "dissolve" and not ls.warp_same_mat:
         return None  # the mix of two warps: a sum of two outer products
-    mat = lp["matrix"]
-    wy, wx = warp_mod.warp_alpha_vectors(h, w, mat)
+    mat, kw = lp["matrix"], _band_kw(band, li)
+    wy, wx = warp_mod.warp_alpha_vectors(h, w, mat, kw.get("rows"))
     if ls.transition == "dissolve":
         rgb_b = srcs[(li, "src_b")]
         if rgb_b.shape[0] == 4:
             rgb_b = rgb_b[:3]  # opaque contract: alpha == 1
-        return (st.warp(rgb, mat, rgb_b, lp["mix"]), wy, wx)
-    return (st.warp(rgb, mat), wy, wx)
+        return (st.warp(rgb, mat, rgb_b, lp["mix"], **kw), wy, wx)
+    return (st.warp(rgb, mat, **kw), wy, wx)
 
 
 def _slot_kind(ls: LayerSpec, lp: dict, key: str, fmt: str) -> str:
@@ -453,16 +624,17 @@ def _packed_composite_run(spec: ChannelSpec, params: dict) -> Optional[_Run]:
     return _Run(start, end, "rgba", kinds[start], "top")
 
 
-def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Run) -> tuple:
+def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Run,
+                           band: Optional[Band] = None) -> tuple:
     """(srcs, layer_cfg, mats, mixes) of the run's packed composite launch
     (JAX ``_dispatch_packed_composite``): the sources are the layers' v210
-    words for the 'packed' kind and their frames in ``srcs`` for 'rgb3'
-    and 'rgba'."""
+    words for the 'packed' kind (a band's: the window rows of them) and
+    their frames in ``srcs`` for 'rgb3' and 'rgba'."""
     flat, cfg, mats, mixes = [], [], [], []
     for li in range(run.start, run.end):
         ls, lp = spec.layers[li], params["layers"][li]
         keys = [key for key, _ in _slot_formats(ls)]
-        flat += [lp[key][0] if run.kind == "packed" else srcs[(li, key)] for key in keys]
+        flat += [_words(lp, li, key, band) if run.kind == "packed" else srcs[(li, key)] for key in keys]
         cfg.append(len(keys))
         mats.append(lp["matrix"])
         mixes.append(lp["mix"] if len(keys) == 2 else None)
@@ -470,18 +642,25 @@ def _packed_composite_args(spec: ChannelSpec, params: dict, srcs: dict, run: _Ru
 
 
 def _dispatch_packed_composite(
-    spec: ChannelSpec, params: dict, srcs: dict, run: _Run, st: _Stages
+    spec: ChannelSpec, params: dict, srcs: dict, run: _Run, st: _Stages,
+    band: Optional[Band] = None,
 ):
     """One packed composite launch over the run, emitting ``run.emit``
-    with ``run.alpha``."""
+    with ``run.alpha`` (a band's rows, each source from its window's first
+    row, with a ``band``)."""
+    kw = {}
+    if band is not None:
+        kw["rows"] = band.rows(tuple(band.windows[(li, key)][0] for li in range(run.start, run.end)
+                                     for key, _ in _slot_formats(spec.layers[li])))
     return st.packed_composite(
-        *_packed_composite_args(spec, params, srcs, run), spec.out_col_spec,
+        *_packed_composite_args(spec, params, srcs, run, band), spec.out_col_spec,
         src_kind=run.kind, size=(spec.width, spec.height), col_spec=spec.col_spec,
-        emit=run.emit, alpha=run.alpha,
+        emit=run.emit, alpha=run.alpha, **kw,
     )
 
 
-def _top_alpha_fixup(rgba: torch.Tensor, spec: ChannelSpec, params: dict, top: int) -> torch.Tensor:
+def _top_alpha_fixup(rgba: torch.Tensor, spec: ChannelSpec, params: dict, top: int,
+                     band: Optional[Band] = None) -> torch.Tensor:
     """The emitted frame's alpha is the top layer's (combine.ts:47-59): when
     the packed composite run holds the stack top, its coverage alpha is
     replaced by that layer's separable warp alpha wy x wx (JAX
@@ -489,43 +668,49 @@ def _top_alpha_fixup(rgba: torch.Tensor, spec: ChannelSpec, params: dict, top: i
     plane, so for the opaque 'rgb3' and 'packed' kinds only).  A run that
     is the whole stack emits the top alpha itself; this serves a run that
     holds the top over staged layers."""
-    wy, wx = warp_mod.warp_alpha_vectors(spec.height, spec.width, params["layers"][top]["matrix"])
+    wy, wx = warp_mod.warp_alpha_vectors(spec.height, spec.width, params["layers"][top]["matrix"],
+                                         None if band is None else band.rows())
     ch = torch.arange(4, device=rgba.device)[:, None, None]
     return torch.where(ch == 3, (wy[:, None] * wx[None, :])[None], rgba)
 
 
-def _packed_warp_layer(ls: LayerSpec, lp: dict, spec: ChannelSpec, st: _Stages):
+def _packed_warp_layer(ls: LayerSpec, lp: dict, li: int, spec: ChannelSpec, st: _Stages,
+                      band: Optional[Band] = None):
     """A B6 layer (``_packed_layer_ok``): decode at the warp taps straight
-    from its words (JAX ``_process_layer``'s packed branch)."""
-    kw = dict(col_spec=spec.col_spec, out_col_spec=spec.out_col_spec)
+    from its words (JAX ``_process_layer``'s packed branch); with a
+    ``band``, from the window rows of its words."""
+    kw = dict(col_spec=spec.col_spec, out_col_spec=spec.out_col_spec, **_band_kw(band, li))
+    src = _words(lp, li, "src", band)
     mat = lp["matrix"]
     if ls.transition == "none":
-        return st.packed_warp(lp["src"][0], mat, spec.width, spec.height, **kw)
+        return st.packed_warp(src, mat, spec.width, spec.height, **kw)
     mat_b = None if ls.warp_same_mat else lp.get("matrix_b", mat)
     return st.packed_warp(
-        lp["src"][0], mat, spec.width, spec.height, lp["src_b"][0], lp["mix"], mat_b, **kw
+        src, mat, spec.width, spec.height, _words(lp, li, "src_b", band), lp["mix"], mat_b, **kw
     )
 
 
 def _process_layer(
-    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages
+    ls: LayerSpec, lp: dict, srcs: dict, li: int, spec: ChannelSpec, st: _Stages,
+    band: Optional[Band] = None,
 ):
     """One layer -> a (4, H, W) RGBA frame or an (rgb, wy, wx) tuple.  A
     DVE layer runs K4 when axis-aligned and ``rotate`` (B14) when not, a
     dissolve or wipe pair in the same launch; without DVE a dissolve is
-    ``mix_frames`` and a wipe ``wipe_mask`` (torch ops; XLA in JAX)."""
+    ``mix_frames`` and a wipe ``wipe_mask`` (torch ops; XLA in JAX).  With
+    a ``band``, its rows (K4 and B6 as band forms)."""
     if _packed_layer_ok(ls):
-        return _packed_warp_layer(ls, lp, spec, st)
+        return _packed_warp_layer(ls, lp, li, spec, st, band)
     rgba = srcs[(li, "src")]
     if rgba.shape[0] == 3:
-        out3 = _process_layer_rgb3(ls, lp, srcs, li, spec, st)
+        out3 = _process_layer_rgb3(ls, lp, srcs, li, spec, st, band)
         if out3 is not None:
             return out3
         rgba = _with_alpha_one(rgba)
     dve = st.warp if ls.axis_aligned else st.rotate
-    mat = lp.get("matrix")
+    mat, kw = lp.get("matrix"), _band_kw(band, li)
     if ls.transition == "none":
-        return dve(rgba, mat) if ls.has_transform else rgba
+        return dve(rgba, mat, **kw) if ls.has_transform else rgba
     rgba_b = srcs[(li, "src_b")]
     if rgba_b.shape[0] == 3:
         rgba_b = _with_alpha_one(rgba_b)
@@ -537,8 +722,8 @@ def _process_layer(
     # matrix; pipeline.py:409-476)
     mat_b = None if ls.axis_aligned and ls.warp_same_mat else lp.get("matrix_b", mat)
     if mask is None:
-        return dve(rgba, mat, rgba_b, lp["mix"], mat_b)
-    return dve(rgba, mat, rgba_b, mat_b=mat_b, mask=mask[0])
+        return dve(rgba, mat, rgba_b, lp["mix"], mat_b, **kw)
+    return dve(rgba, mat, rgba_b, mat_b=mat_b, mask=mask[0], **kw)
 
 
 def _rgba_of(layer) -> torch.Tensor:
@@ -550,20 +735,25 @@ def _rgba_of(layer) -> torch.Tensor:
     return torch.cat([rgb, (wy[:, None] * wx[None, :])[None]])
 
 
-def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
+def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False,
+                   band: Optional[Band] = None):
     """params -> the packed output planes of one frame, or under
     ``emit_rgba`` {"packed": planes, "rgba": the composited (4, H, W)
-    frame} (routes 2 and 3 of the module docstring)."""
-    device = _params_device(params)
+    frame} (routes 2 and 3 of the module docstring).  With a ``band``, its
+    rows of them: its params hold their replicated leaves on the band's
+    device and their planes, frames and rings as leaves ``band.fetch``
+    reads."""
+    device = _params_device(params) if band is None else band.device
     check_structure(spec, device)
     st = _PLAIN if plain else _KERNELS
     run = _packed_composite_run(spec, params)
     # B6 layers (a 'packed' run's among them) read their words raw; an
     # rgb3 run's slots (rgba_f32 fields, yadif rings) are made here
     b6 = frozenset(li for li, ls in enumerate(spec.layers) if _packed_layer_ok(ls))
-    srcs = _sources(spec, params, st, skip=b6)
+    srcs = _sources(spec, params, st, skip=b6, band=band)
+    height = spec.height if band is None else band.n
     if run is not None and run.alpha == "top":  # the whole stack in one launch
-        out = _dispatch_packed_composite(spec, params, srcs, run, st)
+        out = _dispatch_packed_composite(spec, params, srcs, run, st, band)
         if run.emit == "packed":
             return [out]
         if run.emit == "both":
@@ -574,9 +764,9 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
     for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
         if run is not None and run.start <= li < run.end:
             if li == run.start:  # the run as one layer: RGB and coverage alpha
-                layers.append(_dispatch_packed_composite(spec, params, srcs, run, st))
+                layers.append(_dispatch_packed_composite(spec, params, srcs, run, st, band))
             continue
-        layers.append(_process_layer(ls, lp, srcs, li, spec, st))
+        layers.append(_process_layer(ls, lp, srcs, li, spec, st, band))
     if spec.out_format == _V210 and not spec.emit_rgba:
         if len(layers) <= kernels.MAX_LAYERS:
             return [st.combine_pack(layers, spec.out_col_spec)]
@@ -586,11 +776,11 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False):
     if any(isinstance(f, tuple) for f in layers):
         composited = _with_alpha_one(combine_rgb(layers))
     else:
-        composited = combine([transparent(spec.height, spec.width, device)] + layers)
+        composited = combine([transparent(height, spec.width, device)] + layers)
         if run is not None and run.end == len(spec.layers):
             # the run holds the stack top: its coverage alpha drove the
             # 'over'; the emitted alpha is the top layer's
-            composited = _top_alpha_fixup(composited, spec, params, run.end - 1)
+            composited = _top_alpha_fixup(composited, spec, params, run.end - 1, band)
     packed = _pack_frame(st, spec.out_format, composited, spec.out_col_spec, spec.gamma_mode)
     return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed
 
@@ -611,11 +801,14 @@ def _fused_v210_program(spec: ChannelSpec, plain: bool):
     kw = dict(col_spec=spec.col_spec, out_col_spec=spec.out_col_spec)
     dissolve = spec.layers[-1].transition == "dissolve"
 
-    def program(params: dict) -> list:
+    def program(params: dict, band: Optional[Band] = None) -> list:
         top = params["layers"][-1]
+        # words to words, row by row: a band's rows of the words give its rows
+        words = lambda key: top[key][0] if band is None else band.fetch(top[key][0], band.row0, band.row1)
+        h = spec.height if band is None else band.n
         if dissolve:
-            return [fused(top["src"][0], spec.width, spec.height, top["src_b"][0], top["mix"], **kw)]
-        return [fused(top["src"][0], spec.width, spec.height, **kw)]
+            return [fused(words("src"), spec.width, h, words("src_b"), top["mix"], **kw)]
+        return [fused(words("src"), spec.width, h, **kw)]
 
     def prepare(device) -> None:
         device = torch.device(device)
@@ -636,7 +829,8 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     (route 1), whatever its lower layers; every other structure is
     checked (``check_structure``) and runs ``_channel_frame``.
     ``plain=True`` runs the plain version of every kernel stage instead
-    (the on-card reference).  ``program.prepare(device)`` does the
+    (the on-card reference).  ``program(params, band)`` computes one
+    band's rows (``Band``; parallel/bands.py).  ``program.prepare(device)`` does the
     one-time device work of the structure before its first frame (the
     fused v210 kernel's transfer corrections; the l2g corrections that the
     output's pack reads: K2 or B5 into v210, whose use the frame's sources
@@ -645,8 +839,8 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     if _fused_v210_ok(spec):
         return _fused_v210_program(spec, plain)
 
-    def program(params: dict) -> list:
-        return _channel_frame(spec, params, plain)
+    def program(params: dict, band: Optional[Band] = None) -> list:
+        return _channel_frame(spec, params, plain, band)
 
     encoded_out = spec.out_format in (_V210,) + kernels.PLANAR422 + kernels.PLANAR420
 

@@ -49,9 +49,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every exported function: pointers and the stream as
-# c_void_p (a plain int would be cut to 32 bits), sizes as c_int
+# c_void_p (a plain int would be cut to 32 bits), sizes as c_int, plane
+# strides as c_longlong
 _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P, _P),
@@ -59,16 +60,17 @@ _SIGNATURES = {
     "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _P),
     "phn_yadif_pair": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
+    "phn_packed_composite": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                             _P),
     "phn_fused_v210": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "phn_fused_v210_corrections": (_P, _P, _P, _P, _P),
     "phn_l2g_corrections": (_P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 

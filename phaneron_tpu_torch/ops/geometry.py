@@ -29,6 +29,8 @@ __all__ = [
     "warp_affine",
     "warp_axis_aligned",
     "resize_frame",
+    "fit_window",
+    "fit_rows",
     "flip_vals",
 ]
 
@@ -141,12 +143,12 @@ def _sample_bilinear(src: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> t
     return top * (1.0 - fy) + bot * fy
 
 
-def _out_coords(size: int, device) -> torch.Tensor:
-    """x / size - 0.5 for x in [0, size).  The divisor is a tensor: PyTorch
-    divides a CUDA tensor by a Python scalar as a multiply by its
-    reciprocal, which is not the IEEE quotient the kernel and the JAX
-    package use and moves texel positions by an ulp."""
-    x = torch.arange(size, dtype=torch.float32, device=device)
+def _out_coords(size: int, device, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """x / size - 0.5 for x in [lo, hi) (default [0, size)).  The divisor is
+    a tensor: PyTorch divides a CUDA tensor by a Python scalar as a
+    multiply by its reciprocal, which is not the IEEE quotient the kernel
+    and the JAX package use and moves texel positions by an ulp."""
+    x = torch.arange(lo, size if hi is None else hi, dtype=torch.float32, device=device)
     return x / torch.full_like(x, float(size)) - 0.5
 
 
@@ -161,30 +163,43 @@ def warp_affine(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return _sample_bilinear(src, px.expand(h, w), py.expand(h, w))
 
 
-def _interp_1d(src: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
-    """Bilinear interpolation along one dim: two gathers + lerp, border 0."""
-    size = src.shape[dim]
+def _interp_1d(src: torch.Tensor, pos: torch.Tensor, dim: int, size: int | None = None,
+               offset: int = 0) -> torch.Tensor:
+    """Bilinear interpolation along one dim: two gathers + lerp, border 0.
+    ``src`` may be a window of a frame ``size`` texels long along ``dim``
+    whose first texel is ``offset`` (a band form): taps are the frame's,
+    and a tap indexes the window at its texel less ``offset``."""
+    size = src.shape[dim] if size is None else size
+    held = src.shape[dim]
     i0, frac = _bilinear_setup(pos, size)
     shape = [1] * src.ndim
     shape[dim] = -1
 
     def tap(idx):
         valid = ((idx >= 0) & (idx < size)).to(src.dtype).reshape(shape)
-        return torch.index_select(src, dim, torch.clamp(idx, 0, size - 1)) * valid
+        local = torch.clamp(torch.clamp(idx, 0, size - 1) - offset, 0, held - 1)
+        return torch.index_select(src, dim, local) * valid
 
     f = frac.reshape(shape)
     return tap(i0) * (1.0 - f) + tap(i0 + 1) * f
 
 
-def warp_axis_aligned(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+def warp_axis_aligned(src: torch.Tensor, mat: torch.Tensor, rows=None) -> torch.Tensor:
     """Axis-aligned warp (scale/translate/flip, mat[0,1] == mat[1,0] == 0)
     as separable row then column interpolation.  Same indices and
-    weights as warp_affine."""
-    h, w = src.shape[-2], src.shape[-1]
+    weights as warp_affine.
+
+    Band form (``rows``, ops/kernels.py Rows): ``src`` holds frame rows from
+    ``rows.src_row0`` on (the rows the band's taps reach, ops/packed_warp.py
+    axis_window) and the result is output rows [rows.row0, rows.row1) of
+    the ``rows.height``-row frame, each equal to that row of the full
+    frame's warp."""
+    w = src.shape[-1]
+    row0, row1, h, src_row0 = (0, src.shape[-2], src.shape[-2], 0) if rows is None else rows
     px = mat[0, 0] * _out_coords(w, src.device) + mat[0, 2] + 0.5  # (W,)
-    py = mat[1, 1] * _out_coords(h, src.device) + mat[1, 2] + 0.5  # (H,)
-    rows = _interp_1d(src, py, dim=1)
-    return _interp_1d(rows, px, dim=2)
+    py = mat[1, 1] * _out_coords(h, src.device, row0, row1) + mat[1, 2] + 0.5  # (rows,)
+    out_rows = _interp_1d(src, py, dim=1, size=h, offset=src_row0)
+    return _interp_1d(out_rows, px, dim=2)
 
 
 def resize_frame(
@@ -220,3 +235,46 @@ def resize_frame(
     py = coords(out_height) * (flip[3] / scale) + off_y  # (H_out,)
     cols = _interp_1d(src, px, dim=2)
     return _interp_1d(cols, py, dim=1)
+
+
+def _fit_rows_pos(out_height: int, lo: int, hi: int, device) -> torch.Tensor:
+    """The source positions of output rows [lo, hi) of the default stretch
+    fit (``resize_frame`` with no scale, offset or flip), computed as it
+    computes them: the centre, offset and flip terms on tensors, then
+    y / out_height * (flip / scale) + off."""
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    flip = f32(flip_vals(False, False))
+    scale, off = f32(1.0), f32(0.0)
+    off_y = ((-0.5 - off) / scale + 0.5) * flip[3] + flip[2]
+    y = torch.arange(out_height, dtype=torch.float32, device=device)[lo:hi]
+    return y / torch.full_like(y, float(out_height)) * (flip[3] / scale) + off_y
+
+
+def fit_window(out_height: int, src_height: int, lo: int, hi: int) -> tuple[int, int]:
+    """[first, last + 1) of the source rows that output rows [lo, hi) of the
+    default stretch fit read, clipped to the source (a band's window; at
+    least one row)."""
+    u = _fit_rows_pos(out_height, lo, hi, "cpu") * src_height - 0.5
+    first = int(torch.floor(u.min()))
+    last = int(torch.floor(u.max())) + 1
+    first, last = max(first, 0), min(last, src_height - 1)
+    if first > last:  # no tap inside the source: any one row
+        first = last = min(max(lo, 0), src_height - 1)
+    return first, last + 1
+
+
+def fit_rows(src: torch.Tensor, src_row0: int, src_height: int, out_height: int, out_width: int,
+             lo: int, hi: int) -> torch.Tensor:
+    """Band form of the default stretch fit, ``resize_frame(frame,
+    out_height, out_width)``: ``src`` holds the source frame's rows from
+    ``src_row0`` on (``fit_window``), the result is output rows [lo, hi),
+    each equal to that row of the full frame's fit."""
+    dev = src.device
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    flip = f32(flip_vals(False, False))
+    scale, off = f32(1.0), f32(0.0)
+    off_x = ((-0.5 - off) / scale + 0.5) * flip[1] + flip[0]
+    x = torch.arange(out_width, dtype=torch.float32, device=dev)
+    px = x / torch.full_like(x, float(out_width)) * (flip[1] / scale) + off_x
+    cols = _interp_1d(src, px, dim=2)
+    return _interp_1d(cols, _fit_rows_pos(out_height, lo, hi, dev), dim=1, size=src_height, offset=src_row0)

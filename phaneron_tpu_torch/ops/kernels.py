@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +81,8 @@ __all__ = [
     "combine_pack_plain",
     "MAX_SRCS",
     "MAX_LAYERS",
+    "Rows",
+    "check_window",
 ]
 
 MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
@@ -90,6 +92,56 @@ PLANAR420 = ("yuv420p", "nv12")  # B12, B13
 
 
 # ------------------------------------------------------------- helpers
+
+
+class Rows(NamedTuple):
+    """The rows of a band form (a row-sharded channel, parallel/bands.py):
+    the launch computes output rows [row0, row1) of a frame ``height`` rows
+    tall, from sources that are windows of the frame's rows whose first row
+    is ``src_row0`` (the packed composite: a tuple, one first row a source).
+    Coordinates stay the frame's own, so each output row equals that row of
+    the full-frame call.  ``Rows.full(h)`` is the whole frame."""
+
+    row0: int
+    row1: int
+    height: int
+    src_row0: int | tuple = 0
+
+    @classmethod
+    def full(cls, height: int) -> "Rows":
+        return cls(0, height, height, 0)
+
+    @property
+    def n(self) -> int:
+        """The output rows."""
+        return self.row1 - self.row0
+
+    def check(self, name: str, src_rows: int, src_row0: int | None = None) -> None:
+        """Raise unless the output rows and a source window of ``src_rows``
+        rows from ``src_row0`` (default: this band's) lie inside the frame."""
+        r0 = self.src_row0 if src_row0 is None else src_row0
+        if not (0 <= self.row0 < self.row1 <= self.height):
+            raise ValueError(f"{name}: rows [{self.row0}, {self.row1}) outside a {self.height}-row frame")
+        if not (0 <= r0 and src_rows > 0 and r0 + src_rows <= self.height):
+            raise ValueError(f"{name}: a source window of {src_rows} rows from row {r0} leaves the "
+                             f"{self.height}-row frame")
+
+
+def check_window(t: torch.Tensor, name: str, device: torch.device, shape: tuple[int, ...]) -> None:
+    """check_arg for a float32 (C, rows, W) source window that a band form
+    reads through its plane stride: each row contiguous and ``W`` floats
+    after the last, the planes ``t.stride(0)`` floats apart (a view of a
+    taller frame's rows passes without a copy)."""
+    if t.device != device:
+        raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1] or t.stride(0) < t.shape[-2] * t.shape[-1]:
+        raise ValueError(f"{name}: rows must be contiguous and planes must not overlap")
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name}: data must be 4-byte aligned")
 
 
 def is_cpu(t: torch.Tensor, name: str) -> bool:

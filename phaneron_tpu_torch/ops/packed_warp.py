@@ -48,6 +48,12 @@ The TPU gates (``packed_warp_fits``, ``packed_composite_fits``,
 kernels take any geometry, so at 1080p the port takes these routes where
 the JAX package on a TPU stays staged, with the same numbers within each
 contract.
+
+Band forms (``rows``, ops/kernels.py Rows; a row-sharded channel,
+parallel/bands.py): each source is a window of the rows the band's taps
+reach (``axis_window``; v210 words or frames), and the result is the
+band's output rows, each equal to that row of the full-frame call; the
+plain versions compute from the windows alone.
 """
 
 from __future__ import annotations
@@ -62,10 +68,12 @@ from .composite import combine_rgb, mix_frames
 from .formats import v210 as v210fmt
 from .geometry import warp_axis_aligned
 from .kernels import (
+    Rows,
     _check_mix,
     _encode_coeffs,
     check_arg,
     check_launch,
+    check_window,
     is_cpu,
     stream_handle,
     v210_decode_args,
@@ -142,18 +150,20 @@ def axis_window(mat, x_lo, x_hi, y_lo, y_hi, width: int, height: int) -> tuple:
     return x0, x1, y0, y1
 
 
-def warp_window_counts(mat, width: int, height: int) -> list:
+def warp_window_counts(mat, width: int, height: int, rows: Rows | None = None) -> list:
     """[window, direct]: the tiles in which the packed warp kernel samples
     one source under ``mat`` from its decoded shared-memory window and
     straight from the words.  A tile's window (``axis_window``, its
     columns whole 6-texel groups) fits when its texels are at most
     WARP_WINDOW_TEXELS, as csrc/packed_warp.cu decides tile by tile.  An
-    empty window fits."""
+    empty window fits.  With ``rows`` (a band form) the tiles start at the
+    band's first row and the last is clipped to its last."""
     mat = torch.as_tensor(mat, dtype=torch.float32)
+    row0, row1 = (0, height) if rows is None else (rows.row0, rows.row1)
     xl = torch.arange(0, width, WARP_TILE_W, device=mat.device)
-    yl = torch.arange(0, height, WARP_TILE_ROWS, device=mat.device)[:, None]
+    yl = torch.arange(row0, row1, WARP_TILE_ROWS, device=mat.device)[:, None]
     x0, x1, y0, y1 = axis_window(mat, xl, torch.clamp(xl + WARP_TILE_W - 1, max=width - 1), yl,
-                                 torch.clamp(yl + WARP_TILE_ROWS - 1, max=height - 1), width, height)
+                                 torch.clamp(yl + WARP_TILE_ROWS - 1, max=row1 - 1), width, height)
     cols = (x1 // 6 - x0 // 6 + 1) * 6
     texels = torch.where((x0 > x1) | (y0 > y1), 0, (y1 - y0 + 1) * cols).expand(yl.shape[0], xl.shape[0])
     fits = int((texels <= WARP_WINDOW_TEXELS).sum())
@@ -172,23 +182,26 @@ def _mat_on(mat, device: torch.device, name: str) -> torch.Tensor:
 def packed_warp_plain(
     words: torch.Tensor, mat, width: int, height: int, words_b: torch.Tensor | None = None,
     mix=None, mat_b=None, col_spec: str = "709", out_col_spec: str = "709",
+    rows: Rows | None = None,
 ) -> torch.Tensor:
     """Plain version of packed_warp: v210_unpack_plain (4 ch) ->
-    warp_axis_aligned (-> mix_frames)."""
+    warp_axis_aligned (-> mix_frames); with ``rows`` the unpack decodes the
+    words' window rows only (it is row-local) and the warp is its band
+    form."""
     srcs = v210_unpack_plain(
-        [words] + ([words_b] if words_b is not None else []), width, height,
+        [words] + ([words_b] if words_b is not None else []), width, words.shape[0],
         col_spec, out_col_spec,
     )
-    out = warp_axis_aligned(srcs[0], mat)
+    out = warp_axis_aligned(srcs[0], mat, rows)
     if words_b is None:
         return out
-    return mix_frames(out, warp_axis_aligned(srcs[1], mat if mat_b is None else mat_b), mix)
+    return mix_frames(out, warp_axis_aligned(srcs[1], mat if mat_b is None else mat_b, rows), mix)
 
 
 def packed_warp(
     words: torch.Tensor, mat, width: int, height: int, words_b: torch.Tensor | None = None,
     mix=None, mat_b=None, col_spec: str = "709", out_col_spec: str = "709",
-    branches: torch.Tensor | None = None,
+    branches: torch.Tensor | None = None, rows: Rows | None = None,
 ) -> torch.Tensor:
     """Axis-aligned bilinear DVE warp of a v210 source, (H, pitch_bytes/4)
     int32 words, by the (3, 3) matrix ``mat`` (m00, m02, m11, m12 read),
@@ -199,18 +212,28 @@ def packed_warp(
     ``branches``, a (2,) int64 tensor on the words' device, gets the
     (tile, source) pairs the kernel sampled from a decoded shared-memory
     window and straight from the words added: [window, direct] (a
-    measurement hook, read by chip_smoke.py)."""
+    measurement hook, read by chip_smoke.py).
+
+    Band form: with ``rows`` (ops/kernels.py Rows, ``rows.height`` ==
+    ``height``) the words hold frame rows from ``rows.src_row0`` on and the
+    result is (4, rows, W), output rows [rows.row0, rows.row1)."""
     if (words_b is None) != (mix is None):
         raise ValueError("packed_warp: words_b and mix go together")
     if words_b is None and mat_b is not None:
         raise ValueError("packed_warp: mat_b needs words_b")
+    if rows is not None and rows.height != height:
+        raise ValueError(f"packed_warp: rows of a {rows.height}-row frame, height {height}")
+    if rows is not None:
+        rows.check("packed_warp", words.shape[0])
     if is_cpu(words, "packed_warp"):
         return packed_warp_plain(
-            words, mat, width, height, words_b, mix, mat_b, col_spec, out_col_spec
+            words, mat, width, height, words_b, mix, mat_b, col_spec, out_col_spec, rows
         )
+    # a full-frame call holds every row; a band's window, the rows it reaches
+    shape = (height if rows is None else words.shape[0], v210fmt.pitch(width) // 6 * 4)
+    rows = Rows.full(height) if rows is None else rows
     dev = words.device
-    groups = v210fmt.pitch(width) // 6
-    shape = (height, groups * 4)
+    groups = shape[1] // 4
     check_arg(words, "packed_warp words", dev, torch.int32, shape, align=16)
     mat = _mat_on(mat, dev, "packed_warp mat")
     b_ptr = mat_b_ptr = mix_ptr = None
@@ -221,13 +244,13 @@ def packed_warp(
         b_ptr, mat_b_ptr, mix_ptr = words_b.data_ptr(), mat_b.data_ptr(), mix.data_ptr()
     if branches is not None:
         check_arg(branches, "packed_warp branches", dev, torch.int64, (2,), align=8)
-    out = torch.empty((4, height, width), dtype=torch.float32, device=dev)
+    out = torch.empty((4, rows.n, width), dtype=torch.float32, device=dev)
     coeffs, g2l = v210_decode_args(col_spec, out_col_spec, dev)
     with torch.cuda.device(dev):
         rc = library().phn_packed_warp(
             words.data_ptr(), b_ptr, mat.data_ptr(), mat_b_ptr, mix_ptr, out.data_ptr(),
-            width, height, groups, coeffs, g2l, None if branches is None else branches.data_ptr(),
-            stream_handle(dev),
+            width, height, groups, rows.row0, rows.n, rows.src_row0, shape[0], coeffs, g2l,
+            None if branches is None else branches.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "packed_warp")
     packed_warp.launches += 1
@@ -241,8 +264,10 @@ packed_warp.launches = 0
 
 
 def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
-                  src_kind: str, size, emit: str, alpha: str) -> tuple[int, int]:
-    """(height, width) of the layers, after the structural checks."""
+                  src_kind: str, size, emit: str, alpha: str,
+                  rows: Rows | None = None) -> tuple[int, int]:
+    """(height, width) of the frame, after the structural checks (with
+    ``rows``, the band form's: each source's window inside the frame)."""
     if src_kind not in _KINDS:
         raise ValueError(f"packed_composite: src_kind must be one of {_KINDS}, got {src_kind!r}")
     if emit not in _EMITS:
@@ -262,11 +287,31 @@ def _check_layers(srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, 
     if src_kind == "packed":
         if size is None:
             raise ValueError("packed_composite: packed sources need size=(width, height)")
-        return size[1], size[0]
-    channels = 4 if src_kind == "rgba" else 3
-    if len(shape) != 3 or shape[0] != channels:
-        raise ValueError(f"packed_composite: expected ({channels}, H, W) sources, got {shape}")
-    return shape[1], shape[2]
+        h, w = size[1], size[0]
+    else:
+        channels = 4 if src_kind == "rgba" else 3
+        if len(shape) != 3 or shape[0] != channels:
+            raise ValueError(f"packed_composite: expected ({channels}, H, W) sources, got {shape}")
+        h, w = shape[1], shape[2]
+    if rows is not None:
+        if src_kind == "packed" and rows.height != h:
+            raise ValueError(f"packed_composite: rows of a {rows.height}-row frame, size {size}")
+        h = rows.height
+        for s, r0 in zip(srcs, _src_rows0(rows, len(srcs))):
+            rows.check("packed_composite", s.shape[-2 if src_kind != "packed" else 0], r0)
+    return h, w
+
+
+def _src_rows0(rows: Rows | None, n: int) -> tuple:
+    """Each source's first frame row: ``rows.src_row0``, one for all or a
+    tuple of n (0 for a full-frame call)."""
+    if rows is None:
+        return (0,) * n
+    r0 = rows.src_row0
+    r0 = tuple(r0) if isinstance(r0, (tuple, list)) else (r0,) * n
+    if len(r0) != n:
+        raise ValueError(f"packed_composite: {len(r0)} source rows for {n} sources")
+    return r0
 
 
 def _layer_alpha(layer) -> torch.Tensor:
@@ -293,19 +338,24 @@ def coverage(layers: Sequence) -> torch.Tensor:
 def packed_composite_plain(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
-    emit: str = "packed", alpha: str = "coverage",
+    emit: str = "packed", alpha: str = "coverage", rows: Rows | None = None,
 ):
     """Plain version of packed_composite: [v210_unpack_plain (3 ch) ->] the
     staged warp (all four channels for 'rgba' sources) -> combine_rgb ->
     v210 pack path, and for the rgba emits the frame (combine_rgb, then
-    ``coverage`` or the top layer's alpha)."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
+    ``coverage`` or the top layer's alpha).  With ``rows`` the unpack
+    decodes each source's window rows (it is row-local), the warps are
+    their band forms, and the rest is row-local."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha, rows)
     if src_kind == "packed":
-        srcs = v210_unpack_plain(srcs, w, h, col_spec, out_col_spec, channels=3)
+        srcs = [v210_unpack_plain([s], w, s.shape[0], col_spec, out_col_spec, channels=3)[0] for s in srcs]
+    band = [None if rows is None else rows._replace(src_row0=r0) for r0 in _src_rows0(rows, len(srcs))]
     layers, s = [], 0
     for n, mat, mix in zip(layer_cfg, mats, mixes):
-        v = warp_plain(srcs[s], mat) if n == 1 else warp_plain(srcs[s], mat, srcs[s + 1], mix)
-        layers.append(v if src_kind == "rgba" else (v, *warp_alpha_vectors(h, w, mat)))
+        v = warp_plain(srcs[s], mat, rows=band[s])
+        if n == 2:
+            v = mix_frames(v, warp_plain(srcs[s + 1], mat, rows=band[s + 1]), mix)
+        layers.append(v if src_kind == "rgba" else (v, *warp_alpha_vectors(h, w, mat, rows)))
         s += n
     rgb = combine_rgb(layers)
     words = v210_pack_plain(rgb, out_col_spec) if emit != "rgba" else None
@@ -320,6 +370,7 @@ def packed_composite(
     srcs: Sequence[torch.Tensor], layer_cfg: Sequence[int], mats, mixes,
     out_col_spec: str = "709", src_kind: str = "rgb3", size=None, col_spec: str = "709",
     emit: str = "packed", alpha: str = "coverage", branches: torch.Tensor | None = None,
+    rows: Rows | None = None,
 ):
     """Layers bottom to top -> v210 words (H, pitch_bytes/4) int32
     (``emit='packed'``), the composited (4, H, W) float32 frame
@@ -344,32 +395,44 @@ def packed_composite(
     window too large for it straight from device memory.  ``branches``, a
     (2,) int64 tensor on the sources' device, gets the (tile, source) pairs
     of each branch added: [window, direct] (for 'packed' and 'rgb3'
-    sources; a measurement hook, read by chip_smoke.py)."""
-    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha)
+    sources; a measurement hook, read by chip_smoke.py).
+
+    Band form: with ``rows`` (ops/kernels.py Rows) each source holds frame
+    rows from its own first row on (``rows.src_row0``: one for all, or a
+    tuple with one a source; frames each row contiguous, the planes any
+    stride apart) and the outputs are output rows [rows.row0, rows.row1)
+    of the ``rows.height``-row frame."""
+    h, w = _check_layers(srcs, layer_cfg, mats, mixes, src_kind, size, emit, alpha, rows)
     if is_cpu(srcs[0], "packed_composite"):
         return packed_composite_plain(
-            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec, emit, alpha
+            srcs, layer_cfg, mats, mixes, out_col_spec, src_kind, size, col_spec, emit, alpha, rows
         )
     if len(layer_cfg) > MAX_LAYERS:
         raise ValueError(f"packed_composite: at most {MAX_LAYERS} layers per launch")
     dev = srcs[0].device
     groups = v210fmt.pitch(w) // 6
     packed = src_kind == "packed"
+    starts, band = _src_rows0(rows, len(srcs)), rows is not None
+    rows = Rows.full(h) if rows is None else rows
     for s in srcs:
+        # a full-frame call holds every row; a band's window, the rows it reaches
+        src_rows = s.shape[0 if packed else 1] if band else h
         if packed:
-            check_arg(s, "packed_composite words", dev, torch.int32, (h, groups * 4), align=16)
+            check_arg(s, "packed_composite words", dev, torch.int32, (src_rows, groups * 4), align=16)
         else:
-            check_arg(s, "packed_composite src", dev, torch.float32, tuple(srcs[0].shape))
+            check_window(s, "packed_composite src", dev, (srcs[0].shape[0], src_rows, w))
     mats = [_mat_on(m, dev, "packed_composite mat") for m in mats]
     mixes = [None if n == 1 else _check_mix(x, dev) for n, x in zip(layer_cfg, mixes)]
     words = rgba = None
     if emit != "rgba":
-        words = torch.empty((h, groups * 4), dtype=torch.int32, device=dev)
+        words = torch.empty((rows.n, groups * 4), dtype=torch.int32, device=dev)
     if emit != "packed":
-        rgba = torch.empty((4, h, w), dtype=torch.float32, device=dev)
+        rgba = torch.empty((4, rows.n, w), dtype=torch.float32, device=dev)
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
     src_p, mat_p, mix_p = ptrs(srcs), ptrs(mats), ptrs(mixes)
     n_src = (ctypes.c_int * len(layer_cfg))(*layer_cfg)
+    src_row0s = (ctypes.c_int * len(srcs))(*starts)
+    planes = (ctypes.c_longlong * len(srcs))(*(0 if packed else s.stride(0) for s in srcs))
     dec, g2l = v210_decode_args(col_spec, out_col_spec, dev) if packed else (None, None)
     if branches is not None:
         check_arg(branches, "packed_composite branches", dev, torch.int64, (2,), align=8)
@@ -378,7 +441,8 @@ def packed_composite(
         rc = library().phn_packed_composite(
             ctypes.addressof(src_p), ctypes.addressof(mat_p), ctypes.addressof(mix_p),
             ctypes.addressof(n_src), len(layer_cfg), _KINDS.index(src_kind), ptr(words), ptr(rgba),
-            w, h, groups, dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)),
+            w, h, groups, rows.row0, rows.n, ctypes.addressof(src_row0s), ctypes.addressof(planes),
+            dec, g2l, ctypes.addressof(_encode_coeffs(out_col_spec)),
             int(alpha == "top"), ptr(branches), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")

@@ -27,6 +27,14 @@ versions for CPU tensors; ``wrapper.launches`` counts kernel launches.
 With ``opaque`` (C = 4 only) the alpha written is the constant 1, as
 every non-RGB unpack emits.  Halving is ``/ 2.0``, which is exact in
 IEEE arithmetic whether PyTorch divides or multiplies by 0.5.
+
+Band form of the ring (``rows``, ops/kernels.py Rows; a row-sharded
+channel, parallel/bands.py): the ring frames are windows of the frame's
+rows from ``rows.src_row0`` on that hold the band's rows and two more on
+each side where the frame has them (``ring_window``), and the result is
+output rows [rows.row0, rows.row1).  A row's field parity is its frame
+row's and the clamp is at the frame's edges, never the band's, so each
+row equals that row of the full-frame pass.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from ._build import library
-from .kernels import check_arg, check_launch, is_cpu, stream_handle
+from .kernels import Rows, check_arg, check_launch, check_window, is_cpu, stream_handle
 
 __all__ = [
     "yadif_frame",
@@ -42,16 +50,28 @@ __all__ = [
     "yadif_ring_plain",
     "yadif_pair",
     "yadif_pair_plain",
+    "ring_window",
 ]
 
 
-def _shift(img: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+def ring_window(row0: int, row1: int, height: int) -> tuple[int, int]:
+    """[first, last + 1) of the ring rows that output rows [row0, row1)
+    read: two more each side, within the frame (the taps reach y-2..y+2)."""
+    return max(row0 - 2, 0), min(row1 + 2, height)
+
+
+def _shift(img: torch.Tensor, dx: int, dy: int, rows: Rows | None = None) -> torch.Tensor:
     """out[..., y, x] = img[..., clamp(y+dy), clamp(x+dx)]: the kernel's
-    CLK_ADDRESS_CLAMP_TO_EDGE sampling (yadifCl.ts:29-32)."""
+    CLK_ADDRESS_CLAMP_TO_EDGE sampling (yadifCl.ts:29-32).  With ``rows``
+    (a band form) img holds frame rows from rows.src_row0 on and out the
+    frame rows [rows.row0, rows.row1), clamped at the frame's edges."""
     h, w = img.shape[-2], img.shape[-1]
-    if dy:
-        rows = torch.clamp(torch.arange(h, device=img.device) + dy, 0, h - 1)
-        img = img.index_select(-2, rows)
+    if rows is not None:
+        y = torch.arange(rows.row0, rows.row1, device=img.device) + dy
+        img = img.index_select(-2, torch.clamp(y, 0, rows.height - 1) - rows.src_row0)
+    elif dy:
+        idx = torch.clamp(torch.arange(h, device=img.device) + dy, 0, h - 1)
+        img = img.index_select(-2, idx)
     if dx:
         cols = torch.clamp(torch.arange(w, device=img.device) + dx, 0, w - 1)
         img = img.index_select(-1, cols)
@@ -120,42 +140,46 @@ def _temporal_clamp(A, B, C, D, E, F, G, H, I, J, K, L, spatial, skip_spatial):
     return pred
 
 
-def yadif_frame(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False):
+def yadif_frame(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False,
+                rows: Rows | None = None):
     """One yadif pass over a full frame (yadifCl.ts:105-167): (C, H, W)
     prev/cur/next -> (C, H, W).  Rows ``y % 2 == parity`` keep ``cur``;
     the other field's rows get the spatial prediction clamped by the
-    temporal predictor."""
+    temporal predictor.  With ``rows`` the band form (module docstring):
+    the frames are windows, the result (C, rows, W)."""
     parity = torch.as_tensor(parity, dtype=torch.int32, device=cur.device)
     is_second = (parity ^ int(tff)) == 0  # yadifCl.ts:144
 
-    s = lambda dx, dy: _shift(cur, dx, dy)
+    s = lambda dx, dy: _shift(cur, dx, dy, rows)
     spatial = _spatial_from_taps(
         *(s(dx, -1) for dx in (-3, -2, -1, 0, 1, 2, 3)),
         *(s(dx, 1) for dx in (-3, -2, -1, 0, 1, 2, 3)),
     )
 
-    sv = lambda img, dy: _shift(img, 0, dy)
+    sv = lambda img, dy: _shift(img, 0, dy, rows)
     pick = lambda a, b: torch.where(is_second, a, b)
+    cur_rows = sv(cur, 0)
     A = sv(prev, -1)
     B = sv(prev, 1)
     C = pick(sv(cur, -2), sv(prev, -2))
-    D = pick(cur, prev)
+    D = pick(cur_rows, sv(prev, 0))
     E = pick(sv(cur, 2), sv(prev, 2))
     F = sv(cur, -1)
     G = sv(cur, 1)
     H = pick(sv(next_, -2), sv(cur, -2))
-    I = pick(next_, cur)
+    I = pick(sv(next_, 0), cur_rows)
     J = pick(sv(next_, 2), sv(cur, 2))
     K = sv(next_, -1)
     L = sv(next_, 1)
 
     pred = _temporal_clamp(A, B, C, D, E, F, G, H, I, J, K, L, spatial, skip_spatial)
     if cur.shape[0] == 4:
-        pred[3] = cur[3]  # alpha passes through from cur (yadifCl.ts:163-164)
+        pred[3] = cur_rows[3]  # alpha passes through from cur (yadifCl.ts:163-164)
 
-    rows = torch.arange(cur.shape[-2], dtype=torch.int32, device=cur.device)
-    keep = ((rows % 2) == parity)[None, :, None]
-    return torch.where(keep, cur, pred)
+    row0, row1 = (0, cur.shape[-2]) if rows is None else (rows.row0, rows.row1)
+    y = torch.arange(row0, row1, dtype=torch.int32, device=cur.device)
+    keep = ((y % 2) == parity)[None, :, None]
+    return torch.where(keep, cur_rows, pred)
 
 
 def _check_ring(name: str, prev, cur, next_) -> None:
@@ -166,9 +190,9 @@ def _check_ring(name: str, prev, cur, next_) -> None:
 
 
 def yadif_ring_plain(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False,
-                     opaque: bool = False) -> torch.Tensor:
+                     opaque: bool = False, rows: Rows | None = None) -> torch.Tensor:
     """Plain version of yadif_ring."""
-    out = yadif_frame(prev, cur, next_, parity, tff, skip_spatial)
+    out = yadif_frame(prev, cur, next_, parity, tff, skip_spatial, rows)
     if opaque and out.shape[0] == 4:
         out[3] = 1.0
     return out
@@ -191,20 +215,40 @@ def _ring_args(name: str, prev, cur, next_):
 
 
 def yadif_ring(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False,
-               opaque: bool = False) -> torch.Tensor:
+               opaque: bool = False, rows: Rows | None = None) -> torch.Tensor:
     """Yadif at one parity (0 or 1) over the ring (prev, cur, next_),
     each (C, H, W) float32 -> (C, H, W).  ``parity`` is read from device
-    memory on the card, so alternating fields needs no host sync."""
+    memory on the card, so alternating fields needs no host sync.
+
+    Band form: with ``rows`` (ops/kernels.py Rows) the ring frames hold
+    frame rows from ``rows.src_row0`` on, at least ``ring_window``'s (each
+    row contiguous, the planes any stride apart, the same for the three),
+    and the result is (C, rows, W), output rows [rows.row0, rows.row1)."""
     _check_ring("yadif_ring", prev, cur, next_)
+    if rows is not None:
+        rows.check("yadif_ring", cur.shape[1])
+        lo, hi = ring_window(rows.row0, rows.row1, rows.height)
+        if rows.src_row0 > lo or rows.src_row0 + cur.shape[1] < hi:
+            raise ValueError(f"yadif_ring: the window of rows from {rows.src_row0} misses rows "
+                             f"[{lo}, {hi}) that the band reads")
     if is_cpu(cur, "yadif_ring"):
-        return yadif_ring_plain(prev, cur, next_, parity, tff, skip_spatial, opaque)
-    dev, c, h, w = _ring_args("yadif_ring", prev, cur, next_)
+        return yadif_ring_plain(prev, cur, next_, parity, tff, skip_spatial, opaque, rows)
+    if rows is None:
+        dev, c, h, w = _ring_args("yadif_ring", prev, cur, next_)
+        rows = Rows.full(h)
+    else:
+        dev, (c, h, w) = cur.device, cur.shape
+        for t, arg in ((prev, "prev"), (cur, "cur"), (next_, "next_")):
+            check_window(t, f"yadif_ring {arg}", dev, (c, h, w))
+        if not prev.stride(0) == cur.stride(0) == next_.stride(0):
+            prev, cur, next_ = (t.contiguous() for t in (prev, cur, next_))
     par = torch.as_tensor(parity, dtype=torch.int32, device=dev).reshape(1)
-    out = torch.empty_like(cur)
+    out = torch.empty((c, rows.n, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = library().phn_yadif_ring(
             prev.data_ptr(), cur.data_ptr(), next_.data_ptr(), par.data_ptr(), out.data_ptr(),
-            c, h, w, int(tff), int(skip_spatial), int(opaque), stream_handle(dev),
+            c, rows.height, w, rows.row0, rows.n, rows.src_row0, h, prev.stride(0), cur.stride(0),
+            next_.stride(0), int(tff), int(skip_spatial), int(opaque), stream_handle(dev),
         )
     check_launch(rc, "yadif_ring")
     yadif_ring.launches += 1

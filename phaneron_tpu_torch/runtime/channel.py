@@ -16,7 +16,16 @@ given another device (``device="cpu"`` runs it in plain PyTorch, as the
 tests do); without a CUDA device it raises instead of falling back to
 the CPU.  ``plain=True`` runs every program's plain version on the
 channel's device: the reference the kernel path is checked against on
-the card.  The first frame of a structure is prepared
+the card.
+
+``sp_devices`` (more than one) makes a row-sharded channel: its frame
+program runs band by band over that device group
+(parallel/bands.py ``make_sp_channel_program``), its params sharded over
+the group's mesh each tick (``_pin``), its interlaced sources on the
+in-program yadif ring (runtime/layer.py), and its planes gathered onto
+the group's first device, where its producers upload and its consumers
+read.  A ROUTE tap of it gets its frame as the bands left it, which a
+row-sharded channel reshards band to band and any other gathers.  The first frame of a structure is prepared
 (``program.prepare``) and run on a worker thread; later frames of it
 run inline and never make the host wait for the card.
 """
@@ -36,6 +45,8 @@ from ..consumer.consumer import ChannelFrame, Consumer
 from ..graph.pipeline import ChannelSpec, LayerSpec, make_channel_program, make_pack_program
 from ..graph.warmup import prewarm
 from ..ops.composite import transparent
+from ..parallel.bands import check_sp, make_sp_channel_program
+from ..parallel.mesh import Sharded, make_sp_mesh, shard_params_sp
 from ..producer.producer import LoadParams, ProducerRegistry
 from ..runtime.clock import FrameClock
 from ..runtime.frame import RGBA_F32, AudioFrame, VideoFrame
@@ -108,10 +119,14 @@ class Channel:
         plain: bool = False,
         sp_devices=None,
     ):
+        # scanline (sp) sharding over a device group: every frame program
+        # runs band by band over it (a group may name one device more than once)
+        self._sp_mesh = None
         if sp_devices is not None and len(sp_devices) > 1:
-            raise NotImplementedError(
-                "Channel: row-sharded (sp) channels are not ported yet: ROADMAP.md A10"
-            )
+            check_sp(fmt.height, len(sp_devices), out_format)
+            self._sp_mesh = make_sp_mesh([_channel_device(d) for d in sp_devices])
+            device = self._sp_mesh.flat[0]
+        self._sp_programs: dict = {}  # spec -> its row-sharded program
         self.chan_id = chan_id
         self.fmt = fmt
         self.producer_registry = producer_registry
@@ -145,7 +160,8 @@ class Channel:
 
     def layer(self, num: int) -> Layer:
         if num not in self.layers:
-            lay = Layer(self.fmt, self.col_spec, self.gamma_mode, self.device, self.plain)
+            lay = Layer(self.fmt, self.col_spec, self.gamma_mode, self.device, self.plain,
+                        ring=self._sp_mesh is not None)
             lay.on_end(lambda _l, n=num: self._maybe_restart(n))
             self.layers[num] = lay
         return self.layers[num]
@@ -267,7 +283,8 @@ class Channel:
         deint = producer.fmt.interlaced and producer.pix_format != RGBA_F32
         fmt = RGBA_F32 if deint else producer.pix_format
         # src_opaque from the WIRE format, as layer_spec_fields sets it
-        base = LayerSpec(src_format=fmt, src_opaque=deint and opaque_format(producer.pix_format))
+        base = LayerSpec(src_format=fmt, deinterlace=deint and self._sp_mesh is not None,
+                         src_opaque=deint and opaque_format(producer.pix_format))
         predicted = [base, base._replace(has_transform=True)]
         if transition is not None and transition.type in ("dissolve", "wipe"):
             predicted.append(base._replace(
@@ -370,9 +387,18 @@ class Channel:
     def _pin(self, contribs):
         """Move contribution tensors to this channel's device: a no-op for
         tensors already there; a ROUTE frame from a channel on another
-        device is copied without a host wait."""
+        device is copied without a host wait, one a row-sharded channel
+        left in bands gathered.  A row-sharded channel shards them over
+        its mesh instead (``shard_params_sp``): a ROUTE frame left in
+        bands by another mesh is resharded band to band."""
+        if self._sp_mesh is not None:
+            for c in contribs:
+                c.params = shard_params_sp(c.params, self._sp_mesh)
+            return contribs
 
         def put(x):
+            if isinstance(x, Sharded):
+                return x.gather(self.device)
             if isinstance(x, torch.Tensor):
                 return x if x.device == self.device else x.to(self.device, non_blocking=True)
             if isinstance(x, (list, tuple)):
@@ -383,10 +409,19 @@ class Channel:
             c.params = {k: put(v) for k, v in c.params.items()}
         return contribs
 
+    def _sp_program(self, spec: ChannelSpec):
+        prog = self._sp_programs.get(spec)
+        if prog is None:
+            prog = self._sp_programs[spec] = make_sp_channel_program(spec, self._sp_mesh, self.plain)
+        return prog
+
     def _dispatch(self, spec: ChannelSpec, contribs):
         """Run the frame program: (packed planes, rgba frame or None).  An
         empty channel packs a transparent frame (the frame program of no
-        layers: black, alpha 0)."""
+        layers: black, alpha 0).  A row-sharded channel runs its bands."""
+        if self._sp_mesh is not None:
+            out = self._sp_program(spec)({"layers": [c.params for c in self._pin(contribs)]})
+            return (out["packed"], out["rgba"]) if isinstance(out, dict) else (out, None)
         if not spec.layers:
             rgba = transparent(self.fmt.height, self.fmt.width, self.device)
             pack = make_pack_program(self.out_format, self.fmt.width, self.fmt.height,
@@ -401,7 +436,9 @@ class Channel:
     def _dispatch_cold(self, spec: ChannelSpec, contribs):
         """A structure's first frame, on a worker thread: its one-time
         device work first, so that later frames hold no host wait."""
-        if spec.layers:
+        if self._sp_mesh is not None:
+            self._sp_program(spec).prepare()
+        elif spec.layers:
             make_channel_program(spec, plain=self.plain).prepare(self.device)
         return self._dispatch(spec, contribs)
 
@@ -450,12 +487,14 @@ class Channel:
         )
 
         # ROUTE taps: the frame's tensors are shared, not copied (no one
-        # writes into them, consumer/consumer.py)
+        # writes into them, consumer/consumer.py); a row-sharded channel's
+        # frame as its bands left it
         if self.taps and rgba is not None:
+            banded = self._sp_program(spec).last_rgba if self._sp_mesh is not None else None
             vf = VideoFrame(
                 timestamp=self.timestamp,
                 format=RGBA_F32,
-                payload=rgba,
+                payload=rgba if banded is None else banded,
                 width=self.fmt.width,
                 height=self.fmt.height,
             )

@@ -17,8 +17,11 @@ An interlaced wire source deinterlaces in its slot: one yadif pair launch
 (``make_yadif_pair_field_program``) gives both field ticks of a frame
 period, and the channel program sees progressive ``rgba_f32`` fields.
 The port's pair kernel covers every geometry, so every interlaced wire
-source takes this route (the JAX package gates it on VMEM, and keeps the
-in-program ring for row-sharded channels, ROADMAP A10).
+source of a channel on one device takes this route (the JAX package
+gates it on VMEM).  A row-sharded channel's slots (``ring=True``) keep
+the in-program ring, as the JAX package's do: each tick hands the
+channel program the 3-frame ring as ``src_ring`` with its field
+``parity``, and the program's yadif ring runs band by band.
 
 Per tick the slot hands the channel device tensors only: the matrices
 from ``Mixer.matrix_on`` (uploaded once a change from pinned memory) and
@@ -69,9 +72,12 @@ class SourceSlot:
         gamma_mode: str = "analytic",
         device: torch.device | str = "cuda",
         plain: bool = False,
+        ring: bool = False,
     ):
         self.producer = producer
         self.mixer = mixer
+        self.keep_ring = ring  # a row-sharded channel's: hand the ring, not the pair's fields
+        self._parities: Optional[tuple] = None  # 0-d int32 parity 0 and 1 on the device
         self.channel_fmt = channel_fmt
         self.col_spec = col_spec
         self.gamma_mode = gamma_mode
@@ -157,6 +163,14 @@ class SourceSlot:
             if len(self.ring) < 3:
                 return None
             is_second = tick_in_frame % 2 == 1
+            if self.keep_ring:
+                # field parity: the first field (tff) keeps even rows
+                # (yadif.ts:104), the second odd; the ring rides as a tuple
+                if self._parities is None:
+                    self._parities = tuple(torch.full((), p, dtype=torch.int32, device=self.device)
+                                           for p in (0, 1))
+                parity = (1 if self.last.tff else 0) ^ (0 if is_second else 1)
+                return {"src_ring": tuple(self.ring), "parity": self._parities[parity]}
             if self._pair_fields is None:
                 prog = make_yadif_pair_field_program(
                     self.last.height,
@@ -183,12 +197,12 @@ class SourceSlot:
             self.channel_fmt.height,
         ):
             src_size = (self.last.width, self.last.height)
-        # a deinterlaced slot hands the channel progressive fields
-        # (src_opaque records the 3-channel alpha-free frame shape so
-        # prewarm predicts the right structure)
+        # a deinterlaced slot hands the channel progressive fields, or
+        # its ring (src_opaque records the 3-channel alpha-free frame shape
+        # so prewarm predicts the right structure)
         return {
             "src_format": RGBA_F32 if deint else fmt,
-            "deinterlace": False,
+            "deinterlace": deint and self.keep_ring,
             "src_size": src_size,
             "src_opaque": deint and opaque_format(fmt),
         }
@@ -245,8 +259,10 @@ class Layer:
         gamma_mode="analytic",
         device: torch.device | str = "cuda",
         plain: bool = False,
+        ring: bool = False,
     ):
         self.channel_fmt = channel_fmt
+        self.ring = ring  # slots keep the in-program yadif ring (a row-sharded channel)
         self.col_spec = col_spec
         self.gamma_mode = gamma_mode
         self.device = torch.device(device)
@@ -266,7 +282,7 @@ class Layer:
     def _slot(self, producer, mixer) -> SourceSlot:
         return SourceSlot(
             producer, mixer, self.channel_fmt, self.col_spec, self.gamma_mode,
-            device=self.device, plain=self.plain,
+            device=self.device, plain=self.plain, ring=self.ring,
         )
 
     def load(
@@ -394,8 +410,9 @@ class Layer:
             return None
 
         # (JAX's mixed dissolve, where one side's geometry misses the pair
-        # kernel and both sides take the ring, cannot happen here: every
-        # interlaced wire source takes the pair route; the ring is A10's)
+        # kernel and both sides take the ring, cannot happen here: a
+        # channel's interlaced wire sources all take the pair route, or on
+        # a row-sharded channel all keep the ring)
         cur_params = await self.cur.tick()
         cur_fields = self.cur.layer_spec_fields()
         mixer = self.cur.mixer
@@ -434,7 +451,11 @@ class Layer:
             if cur_params:
                 params.update(cur_params)
             nf = self.next.layer_spec_fields()
-            params["src_b"] = next_params["src"]
+            if "src_ring" in next_params:
+                params["src_b_ring"] = next_params["src_ring"]
+                params["parity"] = next_params["parity"]
+            else:
+                params["src_b"] = next_params["src"]
 
             same_mat = True
             if has_tf:

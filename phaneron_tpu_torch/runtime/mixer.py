@@ -107,13 +107,16 @@ class Mixer:
         once a change: from pinned memory without a host wait on a CUDA
         device (a copy from pageable memory would wait for every kernel
         queued before it).  The tensor is never written: a change makes a
-        new one."""
+        new one.  It carries ``matrix`` as its ``host`` attribute: a
+        row-sharded channel works its bands' source windows out from it
+        on the host (parallel/mesh.py ``host_copy``)."""
         mat = self.matrix
         if self._matrix_src is not mat or self._matrix_on.device != device:
             host = torch.from_numpy(mat)
             if device.type == "cuda":
                 host = host.pin_memory()
             self._matrix_on = host.to(device, non_blocking=True)
+            self._matrix_on.host = mat
             self._matrix_src = mat
         return self._matrix_on
 

@@ -12,8 +12,8 @@ Channels run on ``cuda:0``, or on ``cuda:n`` for a config channel's
 ``chip: n``; without CUDA the server raises: there is no CPU fallback.
 ``PhaneronServer(config, device="cpu")`` runs every channel in plain
 PyTorch on the CPU, as the tests do.  A config channel with ``sp > 1`` or
-``chips`` (a row-sharded channel) raises NotImplementedError naming
-ROADMAP.md A10.
+``chips`` is row-sharded over that device group (runtime/channel.py
+``sp_devices``).
 
 The registries hold the JAX server's entries in its order.  Consumers:
 file, ffmpeg, mjpeg and stream, screen (preview), decklink.  Producers,
@@ -123,15 +123,19 @@ class PhaneronServer:
         """(device, sp_devices) of a config channel: ``chip: n`` is
         ``cuda:(n % device count)`` as the JAX server wraps it (unwrapped
         where no CUDA device is seen: the channel raises); ``sp > 1`` or
-        ``chips`` name a device group."""
+        ``chips`` name a device group, each index wrapped the same way (so
+        on one card a group names it once a band), or the server's one
+        device once a band under its device override."""
+        count = torch.cuda.device_count()
+        wrap = lambda j: torch.device("cuda", j % count if count else j)
         if cc.sp > 1 or cc.chips:
             idxs = cc.chips or list(range(cc.chip or 0, (cc.chip or 0) + cc.sp))
-            return None, [torch.device("cuda", j) for j in idxs]
+            if self.device is not None:
+                return None, [self.device] * len(idxs)
+            return None, [wrap(j) for j in idxs]
         if self.device is not None:
             return self.device, None
-        count = torch.cuda.device_count()
-        chip = cc.chip or 0
-        return torch.device("cuda", chip % count if count else chip), None
+        return wrap(cc.chip or 0), None
 
     async def start(self) -> None:
         # channels, one per configured consumer (index.ts:156-168);

@@ -55,6 +55,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         "utils.fixtures", "utils.jpeg", "producer.wav_file", "producer.avi_file", "producer.image_seq",
         "producer.mjpeg", "producer.sdi_capture", "consumer.sdi_consumer", "producer.ffmpeg",
         "consumer.ffmpeg_consumer",
+        # multi-device (A10)
+        "parallel", "parallel.mesh", "parallel.bands", "parallel.dryrun", "parallel.multihost",
     ]
     for name in runtime:
         assert f"phaneron_tpu_torch.{name}" in res["modules"], name

@@ -315,7 +315,8 @@ def test_registry_gives_producers_the_channel_device():
 def test_channel_runs_on_cuda_unless_given_the_cpu():
     """No device: cuda:0, or a RuntimeError where CUDA is missing (never a
     CPU fallback); device='cpu' runs on the CPU; a row-sharded channel
-    names ROADMAP A10."""
+    runs on its device group, the CPU only when the group names it, and
+    raises on a CUDA group where CUDA is missing."""
     reg = tproducer.ProducerRegistry([tpattern.create_test_pattern_producer])
     fmt = VideoFormat(*FMT_ARGS["tiny"])
     if torch.cuda.is_available():
@@ -326,8 +327,11 @@ def test_channel_runs_on_cuda_unless_given_the_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tchannel.Channel(1, fmt, reg, device="cuda")
     assert tchannel.Channel(1, fmt, reg, device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tchannel.Channel(1, fmt, reg, device="cpu", sp_devices=["cuda:0", "cuda:1"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tchannel.Channel(1, fmt, reg, device="cpu", sp_devices=["cuda:0", "cuda:1"])
+    sharded = tchannel.Channel(1, fmt, reg, sp_devices=["cpu", "cpu"])
+    assert sharded.device == torch.device("cpu") and sharded._sp_mesh.shape == {"sp": 2}
 
 
 def test_run_paces_and_delivers_every_tick():

@@ -178,7 +178,8 @@ def test_heads_url_loads_a_rundown_at_start(tmp_path):
 def test_no_cpu_fallback_and_placement(tmp_path, monkeypatch):
     """Without CUDA, PhaneronServer() and main() raise; config ``chip: n``
     is cuda:n where no CUDA device is seen (the channel raises); ``sp > 1``
-    reaches the channel's NotImplementedError (A10)."""
+    makes a row-sharded channel, on the server's device once a band under
+    its device override."""
     from phaneron_tpu_torch.server import PhaneronServer, main
 
     cfg = tconfig.ServerConfig.load(ROOT / "configs" / "quad_1080i_1chip.json")
@@ -203,11 +204,11 @@ def test_no_cpu_fallback_and_placement(tmp_path, monkeypatch):
         server = PhaneronServer(sp_cfg, device="cpu")
         try:
             await server.start()
+            return server.channels[1]._sp_mesh
         finally:
             await server.shutdown()
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        run(start_sp())
+    assert run(start_sp()).flat == [torch.device("cpu")] * 2
 
 
 @pytest.mark.parametrize("count, chip, want", [(1, 2, 0), (4, 2, 2), (4, 5, 1), (2, 1, 1)])

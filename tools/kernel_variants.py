@@ -604,6 +604,17 @@ V210_OLD_PARTS = ("whole", "stores only", "no powf", "loads, trivial arithmetic"
 # the edge sweep: (width, height)
 V210_EDGES = [(w, 3) for w in range(1, 14)] + [(1918, 3), (1280, 16), (200, 7)]
 
+
+# The C interfaces the old mappings (tools/*_variants.cu) were written
+# against: the kernels' full-frame entries before their band forms added
+# the row arguments (ops/_build.py _SIGNATURES holds the current ones)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FULL_FRAME_SIGNATURES = {
+    "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+}
+
 def set_consts(text: str, consts: dict) -> str:
     for const, value in consts.items():
         head = f"constexpr int {const} = "
@@ -845,7 +856,7 @@ def section_yadif(torch, dev, rng, libs, card) -> list:
     # the ring kernel at parity 1 (in device memory): its old mapping's parts
     par = torch.tensor(1, dtype=torch.int32, device=dev)
     old = ctypes.CDLL(str(libs["yadif old"])).yadif_old_ring
-    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_yadif_ring"])
+    old.argtypes = [ctypes.c_int] + list(_FULL_FRAME_SIGNATURES["phn_yadif_ring"])
     want = Y.yadif_ring_plain(*ring, 1, cs.TFF)
     times = []
     for part, part_name in enumerate(YADIF_OLD_PARTS):
@@ -975,7 +986,7 @@ def section_rotate(torch, dev, rng, libs, card) -> list:
     from phaneron_tpu_torch.ops import warp as warp_mod
 
     old = ctypes.CDLL(str(libs["rotate old"])).rotate_old_mapping
-    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_warp"])
+    old.argtypes = [ctypes.c_int] + list(_FULL_FRAME_SIGNATURES["phn_warp"])
     lib = {"built": _build.library(), **{n: Lib(libs[f"rotate {n}"], "phn_rotate")
                                          for n in (*ROTATE_VARIANTS, *ROTATE_DIAGNOSTICS)}}
     frame = lambda w, h: torch.from_numpy(rng.random((4, h, w), dtype=np.float32)).to(dev)
@@ -1028,7 +1039,7 @@ def section_b6(torch, dev, rng, libs, card) -> list:
 
     W, H = cs.W, cs.H
     old = ctypes.CDLL(str(libs["b6 old"])).b6_old_mapping
-    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_packed_warp"][:-2]) + [ctypes.c_void_p]
+    old.argtypes = [ctypes.c_int] + list(_FULL_FRAME_SIGNATURES["phn_packed_warp"][:-2]) + [ctypes.c_void_p]
     lib = {"built": _build.library(), **{n: Lib(libs[f"b6 {n}"], "phn_packed_warp")
                                          for n in (*B6_VARIANTS, *B6_DIAGNOSTICS)}}
     setter = ctypes.CDLL(str(libs["b6 g2l approximation"])).b6_set_g2l
@@ -1086,9 +1097,9 @@ def section_k4(torch, dev, rng, libs, card) -> list:
     from phaneron_tpu_torch.ops.geometry import transform_matrix
 
     old = ctypes.CDLL(str(libs["k4 old"])).warp_old_mapping
-    old.argtypes = [ctypes.c_int] + list(_build._SIGNATURES["phn_warp"][:-2]) + [ctypes.c_void_p]
+    old.argtypes = [ctypes.c_int] + list(_FULL_FRAME_SIGNATURES["phn_warp"][:-2]) + [ctypes.c_void_p]
     windows = ctypes.CDLL(str(libs["k4 windows"])).warp_windows
-    windows.argtypes = list(_build._SIGNATURES["phn_warp"][:-1]) + [ctypes.c_void_p, ctypes.c_void_p]
+    windows.argtypes = list(_FULL_FRAME_SIGNATURES["phn_warp"][:-1]) + [ctypes.c_void_p, ctypes.c_void_p]
     lib = {"built": _build.library(), **{n: Lib(libs[f"k4 {n}"], "phn_warp") for n in K4_VARIANTS}}
     frame = lambda c, w, h: torch.from_numpy(rng.random((c, h, w), dtype=np.float32)).to(dev)
     mat = lambda w, h, **kw: to_tensor(transform_matrix(w, h, **kw), dev)
