@@ -3623,7 +3623,19 @@ SP_SERVER_SECONDS = 2.0  # configs/uhd_sp_sharded.json paced
 SP_SERVER_FILE_FRAMES = 40  # the UHD file consumer's frames on disk (0.8 s of 2160p50)
 SP_SERVER_TICKS = 2  # unpaced ticks counted after the paced window
 SP_MULTIHOST_TIMEOUT = 120.0
-BAND_FORMS = ("warp", "packed_warp", "packed_composite", "yadif_ring")
+BAND_FORMS = ("warp", "packed_warp", "packed_composite", "yadif_ring", "rotate")
+SP_ROTATIONS = {  # B14's band sweep: at and near 0, 45, 90, 100 and 180 degrees; taps just past the frame
+    "0 deg x0.9": dict(rotate=0.0, scale_x=0.9, scale_y=0.9),
+    "0.3 deg x2": dict(rotate=0.3 / 360.0, scale_x=2.0, scale_y=2.0),
+    "44.7 deg x0.9": dict(rotate=44.7 / 360.0, scale_x=0.9, scale_y=0.9),
+    "45 deg x0.25 past the bottom": dict(rotate=45 / 360.0, scale_x=0.25, scale_y=0.25, offset_y=1.2),
+    "89.9 deg x0.9": dict(rotate=89.9 / 360.0, scale_x=0.9, scale_y=0.9),
+    "90 deg just past the bottom": dict(rotate=0.25, offset_y=1.01),
+    "100 deg x0.9": dict(rotate=100 / 360.0, scale_x=0.9, scale_y=0.9),
+    "100 deg x0.3 at the corner": dict(rotate=100 / 360.0, scale_x=0.3, scale_y=0.3, offset_x=0.5, offset_y=0.52),
+    "180 deg x2": dict(rotate=0.5, scale_x=2.0, scale_y=2.0),
+    "-179.6 deg x0.9": dict(rotate=-179.6 / 360.0, scale_x=0.9, scale_y=0.9),
+}
 
 
 def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNTS) -> dict:
@@ -3634,10 +3646,17 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
     ``warp_window_counts`` of its band), K5 (packed, rgb3 and rgba kinds,
     emits packed, both and rgba; each source its own window) and B9 (C 3
     and 4, opaque, tff and bff, both parities, with and without
-    skip_spatial), at every size and sp, under the SP_MATS matrices.
+    skip_spatial), at every size and sp, under the SP_MATS matrices; B14
+    (single, dissolve under one matrix or two, wipe under one matrix or
+    two; C 3 and 4) under the SP_ROTATIONS matrices and a matrix of scale
+    0 (every texel coordinate non-finite: NaN out, one window row),
+    bit for bit, each launch's window/direct counts equal to
+    ``window_counts`` of its band and its output equal to the band plain
+    version's (max |delta| 0, a NaN equal to a NaN).
     Returns {kernel: {"bands": launches compared, "max_abs_err": 0.0}}."""
     from phaneron_tpu_torch.graph.pipeline import _warp_rows
     from phaneron_tpu_torch.ops import packed_warp as PW
+    from phaneron_tpu_torch.ops import rotate as R
     from phaneron_tpu_torch.ops import warp as warp_mod
     from phaneron_tpu_torch.ops import yadif as Y
     from phaneron_tpu_torch.ops.geometry import transform_matrix
@@ -3645,6 +3664,7 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
     from phaneron_tpu_torch.parallel.mesh import band_bounds
 
     out = {k: {"bands": 0, "max_abs_err": 0.0} for k in BAND_FORMS}
+    out["rotate"]["plain_max_abs_err"] = 0.0
 
     def held(name: str, full, got, what: str) -> None:
         same = full.shape == got.shape and torch.equal(full, got)
@@ -3654,6 +3674,7 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
         out[name]["bands"] += 1
 
     t0 = time.perf_counter()
+    rot_branches = [0, 0]
     for w, h in sizes:
         mats = {n: torch.from_numpy(transform_matrix(w, h, **kw)).to(dev) for n, kw in SP_MATS.items()}
         host = {n: m.cpu().numpy() for n, m in mats.items()}
@@ -3662,6 +3683,10 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
         mask = torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(dev)
         words = [torch.from_numpy(random_words(rng, w, h).view(np.int32)).to(dev) for _ in range(5)]
         mix, mix2 = torch.tensor(0.37, device=dev), torch.tensor(0.8, device=dev)
+        rot_host = {n: transform_matrix(w, h, **kw) for n, kw in SP_ROTATIONS.items()}
+        inf = np.float32(np.inf)
+        rot_host["scale 0"] = np.array([[inf, -inf, 0.0], [inf, inf, 0.0], [0.0, 0.0, 1.0]], np.float32)
+        rot_mats = {n: torch.from_numpy(m).to(dev) for n, m in rot_host.items()}
         for sp in sps:
             bands = [(r0, r1) for r0, r1 in band_bounds(h, sp) if r1 > r0]  # a frame of fewer rows than bands
             win = lambda names, r0, r1: _warp_rows([host[n] for n in names], [(r0, r1)], w, h)[0]
@@ -3681,6 +3706,46 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
                             got = warp_mod.warp(*bargs, **(dict(mask=mask[r0:r1]) if wipe else {}),
                                                 rows=Rows(r0, r1, h, lo))
                             held("warp", full[:, r0:r1], got, f"{w}x{h} sp={sp} C {c} {case} {name} rows {r0}-{r1}")
+            for c in (3, 4):  # B14
+                a, b = frames[c][0], frames[c][1]
+                for name, m in rot_mats.items():
+                    other = "-179.6 deg x0.9" if name == "100 deg x0.9" else "100 deg x0.9"
+                    mb = rot_mats[other]
+                    cases = {"single": ((a, m), {}, [name], False),
+                             "dissolve": ((a, m, b, mix), {}, [name], True),
+                             "dissolve, two matrices": ((a, m, b, mix, mb), {}, [name, other], True),
+                             "wipe": ((a, m, b), dict(mask=mask), [name], True),
+                             "wipe, two matrices": ((a, m, b), dict(mat_b=mb, mask=mask), [name, other], True)}
+                    for case, (args, kw, names, pair) in cases.items():
+                        full = R.rotate(*args, **kw)
+                        used = [rot_host[n] for n in names]
+                        wins = _warp_rows(used, bands, w, h, rotated=True)
+                        for (r0, r1), (lo, hi) in zip(bands, wins):
+                            rows = Rows(r0, r1, h, lo)
+                            bargs = (args[0][:, lo:hi], args[1]) + (
+                                (args[2][:, lo:hi],) + args[3:] if len(args) > 2 else ())
+                            bkw = dict(kw, mask=mask[r0:r1]) if "mask" in kw else dict(kw)
+                            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+                            got = R.rotate(*bargs, **bkw, branches=counts, rows=rows)
+                            what = f"{w}x{h} sp={sp} C {c} {case} {name} rows {r0}-{r1} window {lo}-{hi}"
+                            ref = full[:, r0:r1]
+                            same = ref.shape == got.shape and torch.equal(ref.view(torch.int32), got.view(torch.int32))
+                            check(same, f"sp band form rotate ({what}): differs from the full-frame launch bit for bit")
+                            out["rotate"]["bands"] += 1
+                            plain = R.rotate_plain(*bargs, **bkw, rows=rows)
+                            check(torch.allclose(plain, got, rtol=0.0, atol=0.0, equal_nan=True),
+                                  f"sp band form rotate ({what}): differs from the band plain version")
+                            n_src = hi - lo
+                            if len(used) == 2:
+                                want = [x + y for x, y in zip(*(R.window_counts(um, w, h, True, rows, n_src)
+                                                                for um in used))]
+                            else:
+                                want = [(2 if pair else 1) * x
+                                        for x in R.window_counts(used[0], w, h, pair, rows, n_src)]
+                            check(counts.tolist() == want, f"rotate band {what}: window/direct {counts.tolist()}, "
+                                                           f"window_counts gives {want}")
+                            for i in (0, 1):
+                                rot_branches[i] += want[i]
             for name in SP_MATS:  # B6
                 m, mb = mats[name], mats["flip"]
                 for args, names in (((words[0], m, w, h), [name]), ((words[0], m, w, h, words[1], mix), [name]),
@@ -3729,19 +3794,22 @@ def sp_band_checks(torch, dev, rng, sizes=((W, H), (UHD_W, UHD_H)), sps=SP_COUNT
                                 held("yadif_ring", full[:, r0:r1], got, f"{w}x{h} sp={sp} C {c} opaque {opaque} "
                                      f"tff {tff} parity {parity} skip {skip} rows {r0}-{r1}")
     torch.cuda.synchronize()
+    check(min(rot_branches) > 0, f"rotate bands: window/direct pairs {rot_branches}, both branches expected")
+    out["rotate"]["window_direct"] = rot_branches
     print(f"sp band forms on the card vs their full-frame launches at {list(sizes)}, sp {list(sps)}: "
           + ", ".join(f"{k} {v['bands']} band launches max |delta| {v['max_abs_err']}" for k, v in out.items())
-          + f" ({time.perf_counter() - t0:.2f} s)")
+          + f"; rotate's bands max |delta| 0 from their plain version too, window/direct (tile, source) pairs "
+          f"{rot_branches}, each launch's equal to window_counts' ({time.perf_counter() - t0:.2f} s)")
     return out
 
 
-async def sp_channel_pair(fmt, reg, dev, sp: int, load):
+async def sp_channel_pair(fmt, reg, dev, sp: int, load, out_format: str = "v210"):
     """A channel row-sharded over [dev] * sp and its twin on dev alone,
     each given ``load`` (an async fn of the channel)."""
     from phaneron_tpu_torch.runtime.channel import Channel
 
-    twin = Channel(1, fmt, reg, device=dev)
-    banded = Channel(2, fmt, reg, sp_devices=[dev] * sp)
+    twin = Channel(1, fmt, reg, out_format=out_format, device=dev)
+    banded = Channel(2, fmt, reg, out_format=out_format, sp_devices=[dev] * sp)
     for ch in (twin, banded):
         await load(ch)
     return twin, banded
@@ -3749,12 +3817,16 @@ async def sp_channel_pair(fmt, reg, dev, sp: int, load):
 
 def sp_channels(torch, dev, card: str, run_path, arun) -> None:
     """Row-sharded Channels on the card against their unsharded twins,
-    packed words equal, each driven with the launch counts zeroed:
+    every packed plane equal, each driven with the launch counts zeroed:
     2160p50 BARS at sp=2 (the fused route, a B3 launch a band), 1080p50
     with a BARS box over a RAMP at sp=4 (B6, K1 and B5 a band), 1080p50 with
-    two boxes at sp=4 (K5's packed kind a band) and 1080i50 with two boxes
+    two boxes at sp=4 (K5's packed kind a band), 1080i50 with two boxes
     at sp=4 (each slot's 3-frame ring through B9 a band, K5's rgb3 kind a
-    band; its twin takes the slot's pair route)."""
+    band; its twin takes the slot's pair route), 2160p50 one_rotation at
+    sp=4 (K5's packed kind with coverage, K1, B14's band form and B5 a
+    band) and 1080p50 into nv12 at sp=8 with a box turned 30 degrees over
+    a RAMP (bands of 134 and 136 rows: K1, B14's band form and B13 a
+    band)."""
     from phaneron_tpu_torch.config import get_video_format
     from phaneron_tpu_torch.producer.producer import LoadParams, ProducerRegistry
     from phaneron_tpu_torch.producer.test_pattern import create_test_pattern_producer
@@ -3776,6 +3848,18 @@ def sp_channels(torch, dev, card: str, run_path, arun) -> None:
         await box_over_ramp(ch)
         ch.layer(1).set_fill(0.3, -0.1, 0.6, 0.7)
 
+    async def one_rotation(ch):  # bench.py's one_rotation: a DVE run under a layer turned 100 degrees
+        await two_boxes(ch)
+        await ch.load_source(3, LoadParams("BARS"))
+        ch.play(3)
+        ch.layer(3).set_fill(0.05, 0.05, 0.9, 0.9)
+        ch.layer(3).set_rotation(100 / 360.0)
+
+    async def rotated_box(ch):
+        await box_over_ramp(ch)
+        ch.layer(2).set_fill(0.2, 0.2, 0.6, 0.6)
+        ch.layer(2).set_rotation(30 / 360.0)
+
     cases = {  # path -> (format, sp, load, ticks a frame, launches a frame, packed composite modes)
         "sp_2160p_bars": ("2160p5000", 2, bars, 1, {"fused_v210": 2}, None),
         "sp_1080p_dve": ("1080p5000", 4, box_over_ramp, 1,
@@ -3785,20 +3869,27 @@ def sp_channels(torch, dev, card: str, run_path, arun) -> None:
         "sp_1080i_two_boxes": ("1080i5000", 4, two_boxes, 2,
                                {"v210_unpack": 2, "yadif_ring": 16, "packed_composite": 8},
                                {("rgb3", "packed", "top"): 8}),
+        "sp_2160p_one_rotation": ("2160p5000", 4, one_rotation, 1,
+                                  {"packed_composite": 4, "v210_unpack": 4, "rotate": 4, "combine_pack": 4},
+                                  {("packed", "rgba", "coverage"): 4}),
+        "sp_1080p_nv12_rotated_box": ("1080p5000", 8, rotated_box, 1,
+                                      {"v210_unpack": 16, "rotate": 8, "planar420_pack": 8}, None),
     }
+    out_formats = {"sp_1080p_nv12_rotated_box": "nv12"}
     for path, (fmt_name, sp, load, ticks, per_frame, modes) in cases.items():
         fmt = get_video_format(fmt_name)
-        twin, banded = arun(sp_channel_pair(fmt, reg, dev, sp, load))
+        twin, banded = arun(sp_channel_pair(fmt, reg, dev, sp, load, out_formats.get(path, "v210")))
         warm = 8 if fmt.interlaced else 2  # the rings fill (three pulls) and each structure is prepared
         for _ in range(warm):
             arun(twin.render_frame())
             arun(banded.render_frame())
-        want = [arun(twin.render_frame()).packed[0] for _ in range(SP_CHANNEL_FRAMES * ticks)]
+        want = [arun(twin.render_frame()).packed for _ in range(SP_CHANNEL_FRAMES * ticks)]
 
         def drive():
             for k in range(SP_CHANNEL_FRAMES * ticks):
-                got = arun(banded.render_frame()).packed[0]
-                check(torch.equal(got, want[k]), f"{path}: tick {k} differs from the unsharded twin's words")
+                got = arun(banded.render_frame()).packed
+                check(len(got) == len(want[k]) and all(torch.equal(g, x) for g, x in zip(got, want[k])),
+                      f"{path}: tick {k} differs from the unsharded twin's planes")
 
         run_path(path, per_frame, SP_CHANNEL_FRAMES, drive, modes=modes)
         live = banded._last_layer_specs
@@ -3815,13 +3906,14 @@ def sp_channels(torch, dev, card: str, run_path, arun) -> None:
 def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device=None) -> None:
     """configs/uhd_sp_sharded.json through the port's server: two 2160p50
     channels, each row-sharded over a group of four (cuda:0 four times on
-    one card), a file and an MJPEG consumer; over AMCP PLAY 1-1 BARS and
-    PLAY 2-1 route://1 (channel 1's frame resharded onto channel 2's
-    group); SP_SERVER_SECONDS paced: ticks, deliveries and late_frames a
-    channel; then SP_SERVER_TICKS ticks counted (channel 1: K1 and K2 a
-    band, under the ROUTE's emit_rgba; channel 2: K2 a band); the file's
-    last frame 0 codes from a plain channel playing BARS from the same
-    frame."""
+    one card), a file and an MJPEG consumer; over AMCP PLAY 1-1 BARS,
+    MIXER 1-1 ROTATION 30 and PLAY 2-1 route://1 (channel 1's frame
+    resharded onto channel 2's group); SP_SERVER_SECONDS paced: ticks,
+    deliveries and late_frames a channel; then SP_SERVER_TICKS ticks
+    counted (channel 1: K1, B14's band form and K2 a band, under the
+    ROUTE's emit_rgba; channel 2: K2 a band); the file's last frame 0
+    codes from a plain channel playing BARS from the same frame, turned
+    as channel 1's layer was when that frame was made."""
     import asyncio
     import tempfile
     from pathlib import Path
@@ -3852,13 +3944,14 @@ def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device
             lay = chans[1].layers.get(1)
             slot = None if lay is None else lay.cur
             record["positions"][cons.smoke_delivered] = (None if slot is None or slot.last is None
-                                                         else source_position(slot))
+                                                         else (source_position(slot), slot.mixer.params["rotate"]))
             return await deliver(frame)
 
         record["positions"] = {}
         cons.deliver = deliver_noted
         amcp = AmcpClient(*await asyncio.open_connection("127.0.0.1", server.amcp.port))
         await amcp.call("PLAY 1-1 BARS", ["202 PLAY OK"])
+        await amcp.call("MIXER 1-1 ROTATION 30", ["202 MIXER OK"])
         await amcp.call("PLAY 2-1 route://1", ["202 PLAY OK"])
         for ch in chans.values():
             await ch.wait_prewarmed()
@@ -3893,7 +3986,7 @@ def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device
             for ch in chans.values():
                 arun(server_tick(ch))
 
-    run_path("sp_server", {"v210_unpack": 4, "v210_pack": 8}, SP_SERVER_TICKS, ticks)
+    run_path("sp_server", {"v210_unpack": 4, "rotate": 4, "v210_pack": 8}, SP_SERVER_TICKS, ticks)
     routed = chans[2].layers[1].cur.last.payload
     check(hasattr(routed, "mesh"), "sp server: channel 2's routed frame is not channel 1's bands")
     cons = chans[1].consumers[0]
@@ -3902,13 +3995,16 @@ def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device
     written = last_written(torch, dev, cons, fmt.height)
 
     n_file = min(SP_SERVER_FILE_FRAMES, chans[1].consumers[0].smoke_delivered)  # the frames the file takes
-    seek = record["positions"].get(n_file - 1)  # the source's frame in the file's last
-    check(seek is not None, f"sp server: the file's last frame ({n_file}) came before PLAY 1-1")
+    noted = record["positions"].get(n_file - 1)  # the source's frame in the file's last, and its turn
+    check(noted is not None, f"sp server: the file's last frame ({n_file}) came before PLAY 1-1")
+    seek, turns = noted
+    check(turns == 30 / 360.0, f"sp server: the file's last frame was made at rotation {turns * 360} degrees")
 
     async def plain():  # BARS from the frame the server's source played into the file's last frame
         twin = Channel(1, fmt, ProducerRegistry([create_test_pattern_producer]), device=dev, plain=True)
         await twin.load_source(1, LoadParams("BARS", seek=seek))
         twin.play(1)
+        twin.layer(1).set_rotation(turns)
         frame = await twin.render_frame()
         await twin.shutdown()
         return frame.packed[0]
@@ -3917,43 +4013,53 @@ def sp_server(torch, dev, card: str, run_path, arun, record: dict, server_device
     check(cons.written == n_file and delta == 0,
           f"sp server: {cons.written} frames written, the last {delta} codes from the plain twin")
     print(f"sp server: channel 1's file holds {cons.written} {fmt.width}x{fmt.height} frames, the last 0 codes "
-          f"from a plain channel playing BARS; channel 2 plays channel 1's frame as channel 1's bands left it")
+          f"from a plain channel playing BARS turned 30 degrees; channel 2 plays channel 1's frame as channel 1's "
+          f"bands left it")
     arun(server.shutdown())
     record.pop("server")
 
 
 def sp_band_overhead(torch, dev, card: str) -> dict:
-    """The UHD dry run's frame (the yadif ring, an axis-aligned DVE, the v210
-    pack) unsharded and row-sharded over [dev] * sp, sp 2 and 4, in turns:
-    ms a frame between CUDA events (time_ms: the host's enqueue included,
-    which banding multiplies) and device ms a frame (device_ms: the frames
+    """Two UHD frames unsharded and row-sharded over [dev] * sp, sp 2 and
+    4, in turns: the dry run's frame (the yadif ring, an axis-aligned DVE,
+    the v210 pack) and the one_rotation frame (K5's packed run with
+    coverage, K1, B14 turned 100 degrees, B5).  Each is timed as ms a
+    frame between CUDA events (time_ms: the host's enqueue included, which
+    banding multiplies) and device ms a frame (device_ms: the frames
     captured in a CUDA graph and replayed, the card's own cost: the halo
     copies and more, smaller launches).  What splitting a frame into bands
-    costs on one card."""
+    costs on one card.  Returns {frame: {sp: record}}."""
     from phaneron_tpu_torch.graph.pipeline import make_channel_program
     from phaneron_tpu_torch.parallel.bands import make_sp_channel_program
     from phaneron_tpu_torch.parallel.dryrun import uhd_spec_and_params
     from phaneron_tpu_torch.parallel.mesh import make_sp_mesh
 
-    spec, params = uhd_spec_and_params(*SP_UHD, dev)
-    runs = {"sp=1": lambda: make_channel_program(spec)(params)}
-    for sp in (2, 4):
-        prog = make_sp_channel_program(spec, make_sp_mesh([dev] * sp))
-        runs[f"sp={sp}"] = lambda prog=prog: prog(params)
-    ms = {k: [] for k in runs}
-    dms = {k: [] for k in runs}
-    for order in ("sp=1", "sp=2", "sp=4", "sp=4", "sp=2", "sp=1"):
-        ms[order].append(time_ms(torch, runs[order], batches=5, calls=5))
-        dms[order].append(device_ms(torch, runs[order], batches=5, calls=5))
-    out = {k: dict(ms=statistics.median(v), runs=v, device_ms=statistics.median(dms[k]), device_runs=dms[k])
-           for k, v in ms.items()}
-    base = out["sp=1"]
-    print(f"sp band overhead on one card ({card}), the UHD dry run's frame {SP_UHD[0]}x{SP_UHD[1]} "
-          f"(yadif ring + DVE + v210 pack) in turns, ms a frame between CUDA events / device ms a frame: "
-          + "; ".join(f"{k} {v['ms']:.4f} (runs {v['runs']}) / {v['device_ms']:.4f} (runs {v['device_runs']}), "
-                      f"{v['ms'] / base['ms']:.3f}x / {v['device_ms'] / base['device_ms']:.3f}x"
-                      for k, v in out.items()))
-    return out
+    one_rotation = straggler_spec_params(torch, dev, *SP_UHD, "one_rotation")
+    for lp in one_rotation[1]["layers"]:  # the host copy the bands' windows come from, as Mixer.matrix_on leaves it
+        lp["matrix"].host = lp["matrix"].cpu().numpy()
+    frames = {"dry run (yadif ring + DVE + v210 pack)": uhd_spec_and_params(*SP_UHD, dev),
+              "one_rotation (K5 run + K1 + rotate 100 degrees + B5)": one_rotation}
+    result = {}
+    for label, (spec, params) in frames.items():
+        runs = {"sp=1": lambda spec=spec, params=params: make_channel_program(spec)(params)}
+        for sp in (2, 4):
+            prog = make_sp_channel_program(spec, make_sp_mesh([dev] * sp))
+            runs[f"sp={sp}"] = lambda prog=prog, params=params: prog(params)
+        ms = {k: [] for k in runs}
+        dms = {k: [] for k in runs}
+        for order in ("sp=1", "sp=2", "sp=4", "sp=4", "sp=2", "sp=1"):
+            ms[order].append(time_ms(torch, runs[order], batches=5, calls=5))
+            dms[order].append(device_ms(torch, runs[order], batches=5, calls=5))
+        out = {k: dict(ms=statistics.median(v), runs=v, device_ms=statistics.median(dms[k]), device_runs=dms[k])
+               for k, v in ms.items()}
+        base = out["sp=1"]
+        print(f"sp band overhead on one card ({card}), {label} {SP_UHD[0]}x{SP_UHD[1]} in turns, ms a frame "
+              f"between CUDA events / device ms a frame: "
+              + "; ".join(f"{k} {v['ms']:.4f} (runs {v['runs']}) / {v['device_ms']:.4f} (runs {v['device_runs']}), "
+                          f"{v['ms'] / base['ms']:.3f}x / {v['device_ms'] / base['device_ms']:.3f}x"
+                          for k, v in out.items()))
+        result[label] = out
+    return result
 
 
 def phase_sp(torch, dev, card: str, run_path, timing: dict, server_device=None) -> dict:

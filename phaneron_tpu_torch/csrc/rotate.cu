@@ -50,6 +50,17 @@
 // frame in a tile is +0 there and is not sampled.  Matrices, mix and mask
 // are read from device memory, so animating them needs no host
 // synchronisation.
+//
+// Band form (a row-sharded channel, parallel/bands.py): the launch writes
+// output rows [row0, row0 + rows) from source windows that hold frame rows
+// [src_row0, src_row0 + src_rows), the rows every valid tap of the band
+// reaches (graph/pipeline.py band_windows: ops/rotate.py affine_window of
+// the band as one tile).  Its persistent blocks walk the
+// band's tiles only, from row0.  Taps are taken at the frame's rows and
+// height; a tap row is valid inside the window, and each tile's window is
+// clipped to it, so no read leaves the window and every output pixel
+// equals the full-frame launch's.  The full-frame launch is a template of
+// its own with no band arithmetic in its code.
 #include "phn_common.cuh"
 
 // The tile and window sizes, which ops/rotate.py owns (TILE_H,
@@ -85,6 +96,14 @@ struct Shape {
   static constexpr int kBuffers = kPair ? kPairBuffers : kSingleBuffers;
 };
 
+// The band of a launch: output rows [row0, row0 + rows), the sources'
+// rows [src_lo, src_hi), their planes src_plane floats apart.  A
+// full-frame launch (kBand false) reads none of it.
+struct Band {
+  int row0, rows, src_lo, src_hi;
+  size_t src_plane;
+};
+
 // One matrix's rows as the kernel reads them, kept in registers
 struct Mat {
   float m00, m01, m02, m10, m11, m12;
@@ -116,6 +135,13 @@ __device__ __forceinline__ phn::Taps affine_taps(const Mat& m, float ix, float i
   t.vy0 = t.y0 >= 0 && t.y0 < height;
   t.vy1 = t.y0 + 1 >= 0 && t.y0 + 1 < height;
   return t;
+}
+
+// A band's taps: a tap row is valid inside the rows [s_lo, s_hi) its
+// sources hold (inside the frame's, so this replaces the frame's test)
+__device__ __forceinline__ void clip_rows(phn::Taps& t, int s_lo, int s_hi) {
+  t.vy0 = t.y0 >= s_lo && t.y0 < s_hi;
+  t.vy1 = t.y0 + 1 >= s_lo && t.y0 + 1 < s_hi;
 }
 
 // x / size - 0.5: the centred coordinate of output index i
@@ -156,19 +182,22 @@ struct Window {
   unsigned long long magic;
 };
 
-// The source windows of the tile (x_lo, y_lo) of kH rows, for warp 0 of
-// the block: lanes 0-3 take the taps of the tile's four corner pixels under
-// ma, lanes 4-7 under mb, whose floors bound every tap floor in the tile
-// (each step of affine_taps rounds monotonically in x for fixed y and in y
-// for fixed x); a window spans them and their floors + 1, clipped to the
-// frame (ops/rotate.py affine_window).  It fits when its rows times its
-// pitch are at most kTexels (ops/rotate.py window_counts).  Lane 0 returns source a's window, lane 4
-// source b's.
+// The source windows of the tile (x_lo, y_lo) of kH rows (its last row
+// before y_end, the frame's or the band's end), for warp 0 of the block:
+// lanes 0-3 take the taps of the tile's four corner pixels under ma, lanes
+// 4-7 under mb, whose floors bound every tap floor in the tile (each step
+// of affine_taps rounds monotonically in x for fixed y and in y for fixed
+// x); a window spans them and their floors + 1, clipped to the frame's
+// columns and to the rows [s_lo, s_hi) the sources hold (ops/rotate.py
+// affine_window).  It fits when its rows times its pitch are at most
+// kTexels (ops/rotate.py window_counts).  Lane 0 returns source a's
+// window, lane 4 source b's.
 template <int kH, int kTexels>
 __device__ __forceinline__ Window tile_window(const Mat& ma, const Mat& mb, int x_lo, int y_lo,
-                                              int width, int height) {
+                                              int y_end, int s_lo, int s_hi, int width,
+                                              int height) {
   const int lane = threadIdx.x;
-  const int x_hi = min(x_lo + kTileW, width) - 1, y_hi = min(y_lo + kH, height) - 1;
+  const int x_hi = min(x_lo + kTileW, width) - 1, y_hi = min(y_lo + kH, y_end) - 1;
   const bool b = lane & 4;
   const phn::Taps t = affine_taps(b ? mb : ma, centred(lane & 1 ? x_hi : x_lo, width),
                                   centred(lane & 2 ? y_hi : y_lo, height), width, height);
@@ -183,7 +212,7 @@ __device__ __forceinline__ Window tile_window(const Mat& ma, const Mat& mb, int 
     y_max = max(y_max, __shfl_xor_sync(0xffffffffu, y_max, k));
   }
   const int x_first = max(x_min, 0), x_last = min(x_max + 1, width - 1);
-  const int y_first = max(y_min, 0), y_last = min(y_max + 1, height - 1);
+  const int y_first = max(y_min, s_lo), y_last = min(y_max + 1, s_hi - 1);
   if (x_first > x_last || y_first > y_last)
     return Window{0, 0, 1, 0, 1, 1, 1, ((finite >> (lane & 4)) & 15u) == 15u, 1ull << 32};
   const int unit = kCopyTexels == 2 && (width & 1) == 0 ? 2 : 1;
@@ -198,9 +227,10 @@ __device__ __forceinline__ Window tile_window(const Mat& ma, const Mat& mb, int 
                 static_cast<unsigned long long>(magic)};
 }
 
-// Issue the copies of window w of every channel plane of src into smem
-// (plane c at c * kTexels): the block's threads take its copies (w.unit
-// texels each) in row-major order, a copy's channels one after another
+// Issue the copies of window w of every channel plane of src (planes
+// `plane` floats apart, rows addressed by frame row) into smem (plane c at
+// c * kTexels): the block's threads take its copies (w.unit texels each)
+// in row-major order, a copy's channels one after another
 template <int kCh, int kTexels>
 __device__ __forceinline__ void copy_window(const float* __restrict__ src, const Window& w,
                                             float* __restrict__ smem, int width, size_t plane) {
@@ -233,47 +263,55 @@ __device__ __forceinline__ float sample(const float* __restrict__ src,
 }
 
 // A thread's pixels of the tile (x_lo, y_lo): column x_lo + threadIdx.x,
-// rows y_lo + threadIdx.y + kThreadRows * r; a source sampled from its
-// window (kWinA, kWinB) or from the frame
-template <int kCh, bool kPair, bool kWinA, bool kWinB>
+// rows y_lo + threadIdx.y + kThreadRows * r before y_end, written at
+// output row y - out_row0 (planes `plane` floats apart); a source sampled
+// from its window (kWinA, kWinB) or from the frame (planes `splane`
+// floats apart; kBand: tap rows valid in [s_lo, s_hi))
+template <int kCh, bool kPair, bool kBand, bool kWinA, bool kWinB>
 __device__ __forceinline__ void sample_tile(const float* __restrict__ a, const float* __restrict__ b,
                                             const float* __restrict__ mix,
                                             const float* __restrict__ mask, float* __restrict__ out,
                                             int height, int width, const Mat& ma, const Mat& mb,
                                             bool same_mat, const float* __restrict__ win_a,
                                             const float* __restrict__ win_b, const Window& wa,
-                                            const Window& wb, int x_lo, int y_lo) {
+                                            const Window& wb, int x_lo, int y_lo, int y_end,
+                                            int out_row0, size_t plane, size_t splane, int s_lo,
+                                            int s_hi) {
   using S = Shape<kPair>;
   const int x = x_lo + threadIdx.x;
   if (x >= width) return;
-  const size_t plane = static_cast<size_t>(width) * height;
   const float ix = centred(x, width);
 #pragma unroll
   for (int r = 0; r < S::kH / kThreadRows; ++r) {
     const int y = y_lo + threadIdx.y + kThreadRows * r;
-    if (y >= height) break;
+    if (y >= y_end) break;
     const float iy = centred(y, height);
-    const size_t o = static_cast<size_t>(y) * width + x;
+    const size_t o = static_cast<size_t>(y - out_row0) * width + x;
     if (!kPair) {
       if (wa.zero) {
 #pragma unroll
         for (int c = 0; c < kCh; ++c) out[c * plane + o] = 0.0f;
         continue;
       }
-      const phn::Taps ta = affine_taps(ma, ix, iy, width, height);
+      phn::Taps ta = affine_taps(ma, ix, iy, width, height);
+      if (kBand) clip_rows(ta, s_lo, s_hi);
 #pragma unroll
       for (int c = 0; c < kCh; ++c)
-        out[c * plane + o] = sample<kWinA, S::kTexels>(a, win_a, wa, c, width, plane, ta);
+        out[c * plane + o] = sample<kWinA, S::kTexels>(a, win_a, wa, c, width, splane, ta);
       continue;
     }
     phn::Taps ta{}, tb{};
     if (!wa.zero) ta = affine_taps(ma, ix, iy, width, height);
     if (!wb.zero) tb = same_mat ? ta : affine_taps(mb, ix, iy, width, height);
+    if (kBand) {  // a source whose window is empty (zero) reads no tap
+      clip_rows(ta, s_lo, s_hi);
+      clip_rows(tb, s_lo, s_hi);
+    }
     const float m = mask != nullptr ? mask[o] : *mix;
 #pragma unroll
     for (int c = 0; c < kCh; ++c) {
-      const float v = wa.zero ? 0.0f : sample<kWinA, S::kTexels>(a, win_a, wa, c, width, plane, ta);
-      const float vb = wb.zero ? 0.0f : sample<kWinB, S::kTexels>(b, win_b, wb, c, width, plane, tb);
+      const float v = wa.zero ? 0.0f : sample<kWinA, S::kTexels>(a, win_a, wa, c, width, splane, ta);
+      const float vb = wb.zero ? 0.0f : sample<kWinB, S::kTexels>(b, win_b, wb, c, width, splane, tb);
       out[c * plane + o] = mask != nullptr ? vb * m + v * (1.0f - m) : v * m + vb * (1.0f - m);
     }
   }
@@ -285,21 +323,26 @@ __device__ __forceinline__ void sample_tile(const float* __restrict__ a, const f
 // (a second barrier); warp 0 works out the windows of the tile after next
 // (three descriptor slots).  b null: a single warp
 // (kPair false); mat_b == mat: a pair under one matrix.  branches (may be
-// null): window[0] and direct[1] counts, one per tile and source.
-template <int kCh, bool kPair>
+// null): window[0] and direct[1] counts, one per tile and source.  kBand:
+// the band's tiles, from sources addressed by frame row (`band`); else
+// the frame's, `band` unread.
+template <int kCh, bool kPair, bool kBand>
 __global__ void __launch_bounds__(kThreads)
     rotate_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ mat, const float* __restrict__ mat_b,
                   const float* __restrict__ mix, const float* __restrict__ mask,
                   float* __restrict__ out, int height, int width,
-                  unsigned long long* __restrict__ branches) {
+                  unsigned long long* __restrict__ branches, Band band) {
   using S = Shape<kPair>;
   extern __shared__ float windows[];  // [buffer][source][channel][S::kTexels]
   __shared__ Window desc[3][2];  // [tile slot][source]
+  const int row0 = kBand ? band.row0 : 0, n_rows = kBand ? band.rows : height, y_end = row0 + n_rows;
+  const int s_lo = kBand ? band.src_lo : 0, s_hi = kBand ? band.src_hi : height;
   const int tiles_x = (width + kTileW - 1) / kTileW;
-  const int n_tiles = tiles_x * ((height + S::kH - 1) / S::kH);
+  const int n_tiles = tiles_x * ((n_rows + S::kH - 1) / S::kH);
   constexpr int kBuffer = S::kSources * kCh * S::kTexels;
-  const size_t plane = static_cast<size_t>(width) * height;
+  const size_t plane = static_cast<size_t>(width) * n_rows;
+  const size_t splane = kBand ? band.src_plane : plane;
   const bool same_mat = mat_b == mat;
   const Mat ma = load_mat(mat), mb = load_mat(mat_b);
 
@@ -308,7 +351,8 @@ __global__ void __launch_bounds__(kThreads)
     const int tile = blockIdx.x + k * gridDim.x;
     if (threadIdx.y != 0 || tile >= n_tiles) return;
     const Window w = tile_window<S::kH, S::kTexels>(ma, mb, (tile % tiles_x) * kTileW,
-                                                    (tile / tiles_x) * S::kH, width, height);
+                                                    row0 + (tile / tiles_x) * S::kH, y_end, s_lo, s_hi,
+                                                    width, height);
     if (threadIdx.x == 0 || (kPair && threadIdx.x == 4)) {
       desc[k % 3][threadIdx.x >> 2] = w;
       if (branches != nullptr) atomicAdd(branches + (w.fits ? 0 : 1), 1ull);
@@ -318,8 +362,8 @@ __global__ void __launch_bounds__(kThreads)
   auto copy = [&](int k) {
     if (blockIdx.x + k * gridDim.x >= n_tiles) return;
     float* buf = windows + (k % S::kBuffers) * kBuffer;
-    copy_window<kCh, S::kTexels>(a, desc[k % 3][0], buf, width, plane);
-    if (kPair) copy_window<kCh, S::kTexels>(b, desc[k % 3][1], buf + kCh * S::kTexels, width, plane);
+    copy_window<kCh, S::kTexels>(a, desc[k % 3][0], buf, width, splane);
+    if (kPair) copy_window<kCh, S::kTexels>(b, desc[k % 3][1], buf + kCh * S::kTexels, width, splane);
   };
 
   describe(0);
@@ -340,19 +384,19 @@ __global__ void __launch_bounds__(kThreads)
     const Window wa = desc[k % 3][0], wb = desc[k % 3][kPair ? 1 : 0];
     const float* sa = windows + (k % S::kBuffers) * kBuffer;
     const float* sb = sa + kCh * S::kTexels;
-    const int x_lo = (tile % tiles_x) * kTileW, y_lo = (tile / tiles_x) * S::kH;
+    const int x_lo = (tile % tiles_x) * kTileW, y_lo = row0 + (tile / tiles_x) * S::kH;
     if (wa.fits && (!kPair || wb.fits)) {
-      sample_tile<kCh, kPair, true, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
-                                          wa, wb, x_lo, y_lo);
+      sample_tile<kCh, kPair, kBand, true, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                          wa, wb, x_lo, y_lo, y_end, row0, plane, splane, s_lo, s_hi);
     } else if (wa.fits) {
-      sample_tile<kCh, kPair, true, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
-                                           wa, wb, x_lo, y_lo);
+      sample_tile<kCh, kPair, kBand, true, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                           wa, wb, x_lo, y_lo, y_end, row0, plane, splane, s_lo, s_hi);
     } else if (kPair && wb.fits) {
-      sample_tile<kCh, kPair, false, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
-                                           wa, wb, x_lo, y_lo);
+      sample_tile<kCh, kPair, kBand, false, true>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa, sb,
+                                           wa, wb, x_lo, y_lo, y_end, row0, plane, splane, s_lo, s_hi);
     } else {
-      sample_tile<kCh, kPair, false, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa,
-                                            sb, wa, wb, x_lo, y_lo);
+      sample_tile<kCh, kPair, kBand, false, false>(a, b, mix, mask, out, height, width, ma, mb, same_mat, sa,
+                                            sb, wa, wb, x_lo, y_lo, y_end, row0, plane, splane, s_lo, s_hi);
     }
     if (S::kBuffers == 1) {  // the one buffer is free once every warp has sampled it
       __syncthreads();
@@ -362,49 +406,71 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kCh, bool kPair>
+template <int kCh, bool kPair, bool kBand>
 int launch(const float* a, const float* b, const float* mat, const float* mat_b, const float* mix,
            const float* mask, float* out, int height, int width, unsigned long long* branches,
-           cudaStream_t st) {
+           const Band& band, cudaStream_t st) {
   using S = Shape<kPair>;
   const int smem = S::kBuffers * S::kSources * kCh * S::kTexels * static_cast<int>(sizeof(float));
-  const auto kernel = rotate_kernel<kCh, kPair>;
+  const auto kernel = rotate_kernel<kCh, kPair, kBand>;
   static int resident[phn::kMaxDevices];
   cudaError_t err;
   const int wave = phn::resident_blocks(kernel, kThreads, smem, resident, &err);
   if (wave == 0) return static_cast<int>(err);
-  const int n_tiles = ((width + kTileW - 1) / kTileW) * ((height + S::kH - 1) / S::kH);
+  const int n_tiles = ((width + kTileW - 1) / kTileW) * ((band.rows + S::kH - 1) / S::kH);
   const int blocks = min(n_tiles, wave);
   kernel<<<blocks, dim3(kTileW, kThreadRows), smem, st>>>(a, b, mat, mat_b, mix, mask, out, height, width,
-                                                          branches);
+                                                          branches, band);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kCh, bool kPair>
+int launch_band(bool band_form, const float* a, const float* b, const float* mat, const float* mat_b,
+                const float* mix, const float* mask, float* out, int height, int width,
+                unsigned long long* branches, const Band& band, cudaStream_t st) {
+  return band_form ? launch<kCh, kPair, true>(a, b, mat, mat_b, mix, mask, out, height, width, branches, band, st)
+                   : launch<kCh, kPair, false>(a, b, mat, mat_b, mix, mask, out, height, width, branches, band, st);
 }
 
 }  // namespace
 
-// a, b: (channels, height, width) float32 (b null for a single warp);
-// mat, mat_b: (3, 3) float32 (mat_b null: b under mat); mix: one float32
-// (dissolve); mask: (height, width) float32 (wipe; null for a dissolve);
-// out: like a; branches: null, or two uint64 in device memory to which the
-// (tile, source) pairs sampled from a window and straight from device
-// memory are added.  Returns cudaGetLastError().
+// a, b: the source windows, `channels` planes of src_rows rows by `width`
+// columns, frame rows src_row0 .. src_row0 + src_rows - 1, each row
+// `width` floats after the last and the planes of both src_plane floats
+// apart (b null for a single warp); mat, mat_b: (3, 3) float32 (mat_b
+// null: b under mat); mix: one float32 (dissolve); mask: (rows, width)
+// float32 (wipe; null for a dissolve); out: (channels, rows, width), frame
+// rows row0 .. row0 + rows - 1 of the (channels, height, width) result;
+// branches: null, or two uint64 in device memory to which the (tile,
+// source) pairs sampled from a window and straight from device memory are
+// added.  A full-frame launch is row0 0, rows height, src_row0 0, src_rows
+// height, src_plane width * height.  Returns cudaGetLastError().
 extern "C" int phn_rotate(const void* a, const void* b, const void* mat, const void* mat_b,
                           const void* mix, const void* mask, void* out, int channels,
-                          int height, int width, void* branches, void* stream) {
+                          int height, int width, int row0, int rows, int src_row0, int src_rows,
+                          int src_plane, void* branches, void* stream) {
   if (b != nullptr && (mix == nullptr) == (mask == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (channels != 3 && channels != 4) return static_cast<int>(cudaErrorInvalidValue);
-  const auto fa = static_cast<const float*>(a), fb = static_cast<const float*>(b);
+  if (!phn::band_ok(height, row0, rows, src_row0, src_rows) || width <= 0 ||
+      src_plane < src_rows * width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the windows addressed by frame row
+  const auto fa = phn::frame_row0(static_cast<const float*>(a), src_row0, width);
+  const auto fb = b != nullptr ? phn::frame_row0(static_cast<const float*>(b), src_row0, width) : nullptr;
   const auto fm = static_cast<const float*>(mat);
   const auto fmb = mat_b != nullptr ? static_cast<const float*>(mat_b) : fm;
   const auto fmix = static_cast<const float*>(mix), fmask = static_cast<const float*>(mask);
   const auto o = static_cast<float*>(out);
   const auto br = static_cast<unsigned long long*>(branches);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Band band{row0, rows, src_row0, src_row0 + src_rows, static_cast<size_t>(src_plane)};
+  const bool bf = !(row0 == 0 && rows == height && src_row0 == 0 && src_rows == height &&
+                    static_cast<long long>(src_plane) == static_cast<long long>(width) * height);
   if (b != nullptr) {
-    return channels == 4 ? launch<4, true>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st)
-                         : launch<3, true>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st);
+    return channels == 4 ? launch_band<4, true>(bf, fa, fb, fm, fmb, fmix, fmask, o, height, width, br, band, st)
+                         : launch_band<3, true>(bf, fa, fb, fm, fmb, fmix, fmask, o, height, width, br, band, st);
   }
-  return channels == 4 ? launch<4, false>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st)
-                       : launch<3, false>(fa, fb, fm, fmb, fmix, fmask, o, height, width, br, st);
+  return channels == 4 ? launch_band<4, false>(bf, fa, fb, fm, fmb, fmix, fmask, o, height, width, br, band, st)
+                       : launch_band<3, false>(bf, fa, fb, fm, fmb, fmix, fmask, o, height, width, br, band, st);
 }

@@ -81,9 +81,8 @@ A row-sharded (sp) channel runs the same routes band by band
 the fused program take a ``Band``, output rows [row0, row1) of the frame,
 and every stage runs on the rows that band reads (``band_windows``): the
 row-local kernels (K1, K3, B12 widened to whole row pairs, K2, B5, B11,
-B13, B3) on the band's rows, and K4, B6, K5 and B9 as band forms that
-read windows of the rows their taps reach (ops/kernels.py ``Rows``).  A
-rotated layer has no band form yet and raises (ROADMAP A10b).
+B13, B3) on the band's rows, and K4, B6, K5, B9 and B14 as band forms that
+read windows of the rows their taps reach (ops/kernels.py ``Rows``).
 
 Specs are hashable NamedTuples with the JAX package's fields, so a JAX
 spec converts with ``spec_from_fields(jax_spec._asdict())``
@@ -126,7 +125,6 @@ __all__ = [
     "make_yadif_program",
     "Band",
     "band_windows",
-    "A10B",
 ]
 
 
@@ -270,9 +268,6 @@ def _params_device(params: dict) -> torch.device:
     raise ValueError("channel params: layer 0 holds neither 'src' nor 'src_ring'")
 
 
-A10B = "A10b (a rotated layer on a row-sharded channel: the rotation kernel has no band form yet)"
-
-
 class Band(NamedTuple):
     """One band of a row-sharded channel frame: output rows [row0, row1)
     of the ``height``-row frame, computed on ``device``.  ``windows`` maps
@@ -297,22 +292,28 @@ class Band(NamedTuple):
         return Rows(self.row0, self.row1, self.height, src_row0)
 
 
-def _warp_rows(mats, bounds, width: int, height: int) -> list:
+def _warp_rows(mats, bounds, width: int, height: int, rotated: bool = False) -> list:
     """[(lo, hi)] a band of ``bounds`` [(row0, row1)]: the rows the valid
-    taps of output rows [row0, row1) reach under any of the axis-aligned
-    host matrices (ops/packed_warp.py axis_window, the texel span the
-    kernels' windows hold, worked out for every band at once); one row
-    where no tap lands inside the frame."""
+    taps of output rows [row0, row1) reach under any of the host matrices
+    (the window of the band as one tile, worked out for every band at
+    once: ops/packed_warp.py axis_window, the texel span the axis-aligned
+    kernels' windows hold, or for a ``rotated`` layer ops/rotate.py
+    affine_window, whose corners bound every tap); one row where no tap
+    lands inside the frame.  A matrix whose top two rows are not all
+    finite puts every tap off the frame (its texel coordinates are ±inf
+    or NaN in x or in y everywhere), so it reaches no row."""
     r0 = torch.tensor([b[0] for b in bounds])
     r1 = torch.tensor([b[1] - 1 for b in bounds])
+    window = rotate_mod.affine_window if rotated else packed_warp.axis_window
     lo, hi = [None] * len(bounds), [None] * len(bounds)
     for m in mats:
-        x0, x1, y0, y1 = packed_warp.axis_window(
-            torch.as_tensor(m, dtype=torch.float32), 0, width - 1, r0, r1, width, height)
-        if int(x0) > int(x1):  # no column tap inside the frame: no tap at all
+        m = torch.as_tensor(m, dtype=torch.float32)
+        if not bool(torch.isfinite(m[:2]).all()):
             continue
-        for k, (a, b) in enumerate(zip(y0.tolist(), y1.tolist())):
-            if a <= b:
+        x0, x1, y0, y1 = (v.tolist() for v in torch.broadcast_tensors(
+            *window(m, 0, width - 1, r0, r1, width, height)))
+        for k, (a, b) in enumerate(zip(y0, y1)):
+            if a <= b and x0[k] <= x1[k]:
                 lo[k] = a if lo[k] is None else min(lo[k], a)
                 hi[k] = b + 1 if hi[k] is None else max(hi[k], b + 1)
     out = []
@@ -326,22 +327,22 @@ def band_windows(spec: ChannelSpec, mats: list, bounds) -> list:
     """One {(layer index, slot key): (lo, hi)} a band of ``bounds``
     [(row0, row1)]: the rows of each source slot's frame at channel
     geometry that the band's output rows read.  A layer without DVE and a
-    wipe's mask read their own rows; an axis-aligned DVE layer the rows
-    its matrices' taps reach (``mats[li]``: host copies of the layer's
-    "matrix" and, for a pair under two matrices, "matrix_b"), one window
-    for both sources of a pair.  A rotated layer raises
-    NotImplementedError naming ROADMAP A10b."""
+    wipe's mask read their own rows; a DVE layer the rows its matrices'
+    taps reach (``mats[li]``: host copies of the layer's "matrix" and, for
+    a pair under two matrices, "matrix_b"; a rotated pair reads matrix_b
+    whenever it is given, as ``_process_layer`` does), one window for both
+    sources of a pair.  Under a rotation near 90 degrees a band's window
+    spans most of the source frame."""
     out = [{} for _ in bounds]
     for li, ls in enumerate(spec.layers):
         wins = list(bounds)
         if ls.has_transform:
-            if not ls.axis_aligned:
-                raise NotImplementedError(f"row-sharded channel: ROADMAP.md {A10B}")
             m = mats[li]
             ms = [m["matrix"]]
-            if not ls.warp_same_mat and m.get("matrix_b") is not None:
+            two = not ls.axis_aligned or not ls.warp_same_mat
+            if two and ls.transition in ("dissolve", "wipe") and m.get("matrix_b") is not None:
                 ms.append(m["matrix_b"])
-            wins = _warp_rows(ms, bounds, spec.width, spec.height)
+            wins = _warp_rows(ms, bounds, spec.width, spec.height, rotated=not ls.axis_aligned)
         for k, win in enumerate(wins):
             for key, _ in _slot_formats(ls):
                 out[k][(li, key)] = tuple(bounds[k]) if key == "mask" else win
@@ -698,7 +699,7 @@ def _process_layer(
     DVE layer runs K4 when axis-aligned and ``rotate`` (B14) when not, a
     dissolve or wipe pair in the same launch; without DVE a dissolve is
     ``mix_frames`` and a wipe ``wipe_mask`` (torch ops; XLA in JAX).  With
-    a ``band``, its rows (K4 and B6 as band forms)."""
+    a ``band``, its rows (K4, B6 and B14 as band forms)."""
     if _packed_layer_ok(ls):
         return _packed_warp_layer(ls, lp, li, spec, st, band)
     rgba = srcs[(li, "src")]

@@ -118,24 +118,29 @@ def _bilinear_setup(pos: torch.Tensor, size: int):
     return i0.to(torch.int64), u - i0
 
 
-def _gather2d(src: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
-    """Border-zero 2-D texel fetch from (C, H, W) at integer coords."""
+def _gather2d(src: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Border-zero 2-D texel fetch from (C, H, W) at integer coords; ``src``
+    may be a window of a frame's rows whose first is frame row ``row0``
+    (a band form), and a row outside it reads 0."""
     h, w = src.shape[-2], src.shape[-1]
-    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-    idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+    valid = (xi >= 0) & (xi < w) & (yi >= row0) & (yi < row0 + h)
+    idx = torch.clamp(yi - row0, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
     flat = src.reshape(src.shape[0], -1)
     vals = flat[:, idx.reshape(-1)].reshape(src.shape[0], *idx.shape)
     return vals * valid[None].to(src.dtype)
 
 
-def _sample_bilinear(src: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
-    h, w = src.shape[-2], src.shape[-1]
+def _sample_bilinear(src: torch.Tensor, px: torch.Tensor, py: torch.Tensor, height: int | None = None,
+                     row0: int = 0) -> torch.Tensor:
+    """Bilinear samples of ``src`` at normalized (px, py), border zero;
+    ``src`` may hold the rows of a ``height``-row frame from ``row0`` on."""
+    h, w = src.shape[-2] if height is None else height, src.shape[-1]
     x0, fx = _bilinear_setup(px, w)
     y0, fy = _bilinear_setup(py, h)
-    v00 = _gather2d(src, x0, y0)
-    v10 = _gather2d(src, x0 + 1, y0)
-    v01 = _gather2d(src, x0, y0 + 1)
-    v11 = _gather2d(src, x0 + 1, y0 + 1)
+    v00 = _gather2d(src, x0, y0, row0)
+    v10 = _gather2d(src, x0 + 1, y0, row0)
+    v01 = _gather2d(src, x0, y0 + 1, row0)
+    v11 = _gather2d(src, x0 + 1, y0 + 1, row0)
     fx = fx[None]
     fy = fy[None]
     top = v00 * (1.0 - fx) + v10 * fx
@@ -152,15 +157,24 @@ def _out_coords(size: int, device, lo: int = 0, hi: int | None = None) -> torch.
     return x / torch.full_like(x, float(size)) - 0.5
 
 
-def warp_affine(src: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+def warp_affine(src: torch.Tensor, mat: torch.Tensor, rows=None) -> torch.Tensor:
     """General DVE warp (transform.ts:36-59): output pixel (x, y) samples
-    the input at mat @ (x/w-0.5, y/h-0.5, 1) + 0.5, bilinear, border 0."""
-    h, w = src.shape[-2], src.shape[-1]
+    the input at mat @ (x/w-0.5, y/h-0.5, 1) + 0.5, bilinear, border 0.
+
+    Band form (``rows``, ops/kernels.py Rows): ``src`` holds frame rows from
+    ``rows.src_row0`` on (the rows the band's taps reach, ops/rotate.py
+    affine_window of the band) and the result is output rows [rows.row0,
+    rows.row1) of the ``rows.height``-row frame, sampled from the window
+    alone in frame coordinates: each row equals that row of the full
+    frame's warp."""
+    w = src.shape[-1]
+    row0, row1, h, src_row0 = (0, src.shape[-2], src.shape[-2], 0) if rows is None else rows
     ix = _out_coords(w, src.device)[None, :]
-    iy = _out_coords(h, src.device)[:, None]
+    iy = _out_coords(h, src.device, row0, row1)[:, None]
     px = mat[0, 0] * ix + mat[0, 1] * iy + mat[0, 2] + 0.5
     py = mat[1, 0] * ix + mat[1, 1] * iy + mat[1, 2] + 0.5
-    return _sample_bilinear(src, px.expand(h, w), py.expand(h, w))
+    n = row1 - row0
+    return _sample_bilinear(src, px.expand(n, w), py.expand(n, w), h, src_row0)
 
 
 def _interp_1d(src: torch.Tensor, pos: torch.Tensor, dim: int, size: int | None = None,

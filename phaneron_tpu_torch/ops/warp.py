@@ -117,37 +117,31 @@ def warp(
     if is_cpu(src, "warp"):
         return warp_plain(src, mat, src_b, mix, mat_b, mask, rows)
     out = launch_pair("warp", "phn_warp", src, mat, src_b, mix, mat_b, mask,
-                      rows=Rows.full(src.shape[1]) if rows is None else rows)
+                      Rows.full(src.shape[1]) if rows is None else rows)
     warp.launches += 1
     return out
 
 
 def launch_pair(
-    name: str, entry: str, src: torch.Tensor, mat, src_b, mix, mat_b, mask, extra: tuple = (),
-    rows: Rows | None = None,
+    name: str, entry: str, src: torch.Tensor, mat, src_b, mix, mat_b, mask, rows: Rows,
+    extra: tuple = (),
 ) -> torch.Tensor:
     """Check the CUDA arguments of a pair kernel (csrc/warp.cu phn_warp,
     csrc/rotate.cu phn_rotate: one C interface, to which ``entry`` may add
     the arguments ``extra`` before the stream), launch ``entry`` on the
-    current stream and return its output.  With ``rows`` (phn_warp's band
-    form) the sources are windows read through their plane stride (one
-    for both) and the band's rows, window and stride go before
-    ``extra``."""
+    current stream and return its output.  ``rows`` is the band (a full
+    frame: ``Rows.full``): the sources are windows read through their
+    plane stride (one for both), and the band's rows, window and stride go
+    before ``extra``."""
     dev = src.device
     c, h, w = src.shape
-    out_h = h if rows is None else rows.n
-    if rows is None:
-        check_arg(src, f"{name} src", dev, torch.float32, (c, h, w))
-    else:
-        check_window(src, f"{name} src", dev, (c, h, w))
+    out_h = rows.n
+    check_window(src, f"{name} src", dev, (c, h, w))
     mat = torch.as_tensor(mat, dtype=torch.float32, device=dev)
     check_arg(mat, f"{name} mat", dev, torch.float32, (3, 3))
     ptrs = dict(b=None, mat_b=None, mix=None, mask=None)
     if src_b is not None:
-        if rows is None:
-            check_arg(src_b, f"{name} src_b", dev, torch.float32, (c, h, w))
-        else:
-            check_window(src_b, f"{name} src_b", dev, (c, h, w))
+        check_window(src_b, f"{name} src_b", dev, (c, h, w))
         ptrs["b"] = src_b.data_ptr()
         if mat_b is not None:
             mat_b = torch.as_tensor(mat_b, dtype=torch.float32, device=dev)
@@ -160,12 +154,10 @@ def launch_pair(
             mix = _check_mix(mix, dev)
             ptrs["mix"] = mix.data_ptr()
     out = torch.empty((c, out_h, w), dtype=torch.float32, device=dev)
-    frame = (c, h, w)
-    if rows is not None:
-        if src_b is not None and src_b.stride(0) != src.stride(0):  # the kernel takes one plane stride
-            src, src_b = src.contiguous(), src_b.contiguous()
-            ptrs["b"] = src_b.data_ptr()
-        frame = (c, rows.height, w, rows.row0, rows.n, rows.src_row0, h, src.stride(0))
+    if src_b is not None and src_b.stride(0) != src.stride(0):  # the kernel takes one plane stride
+        src, src_b = src.contiguous(), src_b.contiguous()
+        ptrs["b"] = src_b.data_ptr()
+    frame = (c, rows.height, w, rows.row0, rows.n, rows.src_row0, h, src.stride(0))
     with torch.cuda.device(dev):
         rc = getattr(library(), entry)(
             src.data_ptr(), ptrs["b"], mat.data_ptr(), ptrs["mat_b"], ptrs["mix"], ptrs["mask"],

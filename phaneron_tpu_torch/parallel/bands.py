@@ -3,7 +3,8 @@
 ``shard_params_sp``).
 
 PyTorch has no GSPMD, so the rows are split by hand.  The frame's H rows
-make sp equal bands, band k computed on the mesh's device k:
+make sp bands (``output_bounds``: equal, except that a 4:2:0 output's
+bands end on even rows), band k computed on the mesh's device k:
 
 - it takes **the route** ``make_channel_program`` takes for the spec
   (graph/pipeline.py, routes 1-3): the same program runs each band, given
@@ -12,7 +13,8 @@ make sp equal bands, band k computed on the mesh's device k:
 - for band k, output rows [r0, r1), each source slot's window is the rows
   its stages reach (``band_windows``): a row-local stage its own rows, an
   axis-aligned DVE the rows its matrices' taps reach (worked out on the
-  host from the matrices' host copies, ``mesh.host_copy``), the yadif ring
+  host from the matrices' host copies, ``mesh.host_copy``; under a
+  rotation the box its corners' taps span), the yadif ring
   two more each side (``yadif.ring_window``), a 4:2:0 unpack whole row
   pairs, a stretch fit the source rows it reads;
 - ``Sharded.rows`` brings those rows onto device k from the bands that
@@ -20,16 +22,19 @@ make sp equal bands, band k computed on the mesh's device k:
   of a frame the group's shards were cut from), else device-to-device
   copies, joined;
 - the row-local kernels (K1, K3/B10, B12, K2, B5, B11, B13, B3) run on a
-  band's rows unchanged; K4, B6, K5 and B9 run as band forms that take
-  their windows and work in frame coordinates (ops/kernels.py ``Rows``);
+  band's rows unchanged; K4, B6, K5, B9 and B14 run as band forms that
+  take their windows and work in frame coordinates (ops/kernels.py
+  ``Rows``);
 - the packed planes (and, under ``emit_rgba``, the frame) are gathered
   onto the mesh's first device, so consumers and ROUTE taps receive whole
   planes on one device.
 
-A structure the bands cannot split raises before any launch: a rotated
-layer (ROADMAP A10b), and, in ``check_sp``, a height that sp does not
-divide and a 4:2:0 output whose bands would split a chroma row pair.
-There is no fallback to an unsharded frame.
+B13 packs a chroma row from each row pair, so a 4:2:0 output's bands
+hold whole pairs: their bounds snap to even rows (1080 rows at sp=8 make
+bands of 134 and 136 rows, not 135).  The params stay split into equal
+runs (``shard_params_sp``); each band fetches its rows from them.  The
+one refusal, in ``check_sp``, is a height that sp does not divide, as in
+the JAX package.  There is no fallback to an unsharded frame.
 """
 
 from __future__ import annotations
@@ -46,11 +51,11 @@ from ..graph.pipeline import (
     make_channel_program,
     make_pack_program,
 )
-from ..ops import kernels, packed_warp, warp as warp_mod, yadif
+from ..ops import kernels, packed_warp, rotate as rotate_mod, warp as warp_mod, yadif
 from ..ops.composite import transparent
 from .mesh import Mesh, Shard, Sharded, band_bounds, host_copy, shard_params_sp
 
-__all__ = ["make_sp_channel_program", "check_sp", "BAND_KERNELS"]
+__all__ = ["make_sp_channel_program", "check_sp", "output_bounds", "BAND_KERNELS"]
 
 # the wrappers whose launches a band records, by name
 BAND_KERNELS = {
@@ -60,19 +65,28 @@ BAND_KERNELS = {
     "planar420_pack": kernels.planar420_pack, "yadif_ring": yadif.yadif_ring,
     "packed_composite": packed_warp.packed_composite, "packed_warp": packed_warp.packed_warp,
     "combine_pack": kernels.combine_pack, "fused_v210": kernels.fused_v210,
+    "rotate": rotate_mod.rotate,
 }
 
 
-def check_sp(height: int, sp: int, out_format: str) -> None:
+def check_sp(height: int, sp: int) -> None:
     """Raise ValueError for a channel of ``height`` rows that cannot be
     split into sp bands: sp must divide the height (JAX
-    runtime/channel.py), and a 4:2:0 output packs a chroma row from each
-    row pair, so its bands must hold whole pairs (an even H / sp)."""
+    runtime/channel.py)."""
     if height % sp:
         raise ValueError(f"channel height {height} not divisible by sp={sp}")
-    if out_format in kernels.PLANAR420 and (height // sp) % 2:
-        raise ValueError(f"channel height {height} at sp={sp} makes {height // sp}-row bands: a "
-                         f"{out_format} output packs whole row pairs, so H / sp must be even")
+
+
+def output_bounds(height: int, sp: int, out_format: str) -> list:
+    """[(row0, row1)] of the sp bands of a ``height``-row frame into
+    ``out_format``: ``band_bounds``' equal runs, or for a 4:2:0 output,
+    whose pack makes a chroma row of each row pair, runs of whole pairs
+    (every bound even but the frame's last row; equal runs where H / sp
+    is even).  A frame of fewer pairs than bands leaves some bands
+    empty."""
+    if out_format not in kernels.PLANAR420:
+        return band_bounds(height, sp)
+    return [(min(2 * r0, height), min(2 * r1, height)) for r0, r1 in band_bounds((height + 1) // 2, sp)]
 
 
 def _local(x, device: torch.device):
@@ -112,26 +126,27 @@ def make_sp_channel_program(spec: ChannelSpec, mesh: Mesh, plain: bool = False):
     ``fn.last_rgba`` holds its frame as the bands left it (``Sharded``), for
     a ROUTE into another mesh.  ``fn.prepare()`` prepares the program on
     every device of the mesh."""
-    devices = mesh.flat
-    sp = len(devices)
-    check_sp(spec.height, sp, spec.out_format)
-    bounds = band_bounds(spec.height, sp)
+    check_sp(spec.height, len(mesh.flat))
+    # the bands that hold rows, each with its device
+    placed = [(d, b) for d, b in zip(mesh.flat, output_bounds(spec.height, len(mesh.flat), spec.out_format))
+              if b[1] > b[0]]
+    devices, bounds = [d for d, _ in placed], [b for _, b in placed]
     program = make_channel_program(spec, plain) if spec.layers else None
-    pack = None if spec.layers else make_pack_program(
-        spec.out_format, spec.width, spec.height // sp, spec.out_col_spec, spec.gamma_mode, plain)
+    pack = lambda rows: make_pack_program(spec.out_format, spec.width, rows, spec.out_col_spec,
+                                          spec.gamma_mode, plain)
     fused = spec.layers and _fused_v210_ok(spec)  # route 1 reads its bands' own rows only
-    first = devices[0]
+    first = mesh.flat[0]
 
     def run(params: Optional[dict] = None):
         sharded = shard_params_sp(params, mesh) if spec.layers else None
         mats = [{k: host_copy(lp.get(k)) for k in ("matrix", "matrix_b")} for lp in sharded["layers"]] \
             if spec.layers else []
-        windows = band_windows(spec, mats, bounds) if program is not None and not fused else [{}] * sp
+        windows = band_windows(spec, mats, bounds) if program is not None and not fused else [{}] * len(bounds)
         outs, record = [], []
         for dev, (r0, r1), win in zip(devices, bounds, windows):
             before = {k: w.launches for k, w in BAND_KERNELS.items()}
             if program is None:  # an empty channel: transparent black, packed a band at a time
-                out = pack(transparent(r1 - r0, spec.width, dev))
+                out = pack(r1 - r0)(transparent(r1 - r0, spec.width, dev))
             else:
                 band = Band(r0, r1, spec.height, dev, win, _fetch(dev))
                 out = program(_local(sharded, dev), band)

@@ -123,7 +123,7 @@ class Channel:
         # runs band by band over it (a group may name one device more than once)
         self._sp_mesh = None
         if sp_devices is not None and len(sp_devices) > 1:
-            check_sp(fmt.height, len(sp_devices), out_format)
+            check_sp(fmt.height, len(sp_devices))
             self._sp_mesh = make_sp_mesh([_channel_device(d) for d in sp_devices])
             device = self._sp_mesh.flat[0]
         self._sp_programs: dict = {}  # spec -> its row-sharded program

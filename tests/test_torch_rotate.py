@@ -26,7 +26,13 @@ Contracts:
 - ``affine_window``, the plain version of the rotate kernel's source
   window of an output tile, holds every valid tap of every pixel of the
   tile for any affine matrix (300 seeded draws), and its tensor form
-  equals its form one tile at a time."""
+  equals its form one tile at a time.
+- The band form (a row-sharded channel): ``rotate_plain(..., rows=)``
+  from the window graph/pipeline.py ``_warp_rows`` gives a band (the
+  band's ``affine_window``) equals the full frame's rows bit for bit,
+  NaN where it is NaN, in every mode; the band's window holds every valid
+  tap of every band pixel (300 seeded draws); ``window_counts`` of a band
+  equals the kernel's choice made one band tile at a time."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +43,10 @@ from phaneron_tpu.ops import composite as jcomp
 from phaneron_tpu.ops.geometry import transform_matrix, warp_affine, warp_axis_aligned
 from phaneron_tpu.ops.pallas_rotate import make_rotate_program, rot_bucket_of, rotate_fits
 from phaneron_tpu.ops.pallas_warp import bucket_of, make_warp_pair_program, make_wipe_pair_program
+from phaneron_tpu_torch.graph.pipeline import _warp_rows
 from phaneron_tpu_torch.ops import composite as tcomp
 from phaneron_tpu_torch.ops import geometry as tgeom
+from phaneron_tpu_torch.ops.kernels import Rows
 from phaneron_tpu_torch.ops.rotate import affine_window, rotate, rotate_plain
 from phaneron_tpu_torch.ops.warp import warp, warp_plain
 
@@ -300,6 +308,138 @@ def test_window_counts_equal_the_windows_of_each_tile(w, h, angle, scale, pair):
             direct += texels > R.WINDOW_TEXELS[pair]
     assert R.window_counts(m, w, h, pair) == [fits, direct]
     assert fits + direct == -(-w // R.TILE_W) * -(-h // th)
+
+
+# ------------------------------------------------------ B14's band form
+
+# matrices for the band sweeps: angles at and near 0, 45, 90, 100 and 180
+# degrees; scales and offsets that put taps just outside the frame
+BAND_MATS = [dict(rotate=d / 360.0, scale_x=s, scale_y=s) for d in (0, 0.3, 44.7, 45, 89.9, 90, 100, 180, -179.6)
+             for s in (0.9, 2.0)] + [
+    dict(rotate=0.25, offset_y=1.01), dict(rotate=0.25, offset_y=-1.49, scale_x=1.1),
+    dict(rotate=100 / 360.0, offset_x=0.5, offset_y=0.52, scale_x=0.3, scale_y=0.3),
+    dict(rotate=45 / 360.0, offset_y=1.2, scale_x=0.25, scale_y=0.25)]
+
+
+def _band_frames(w: int, h: int, seed: int) -> tuple:
+    rng = np.random.default_rng(seed)
+    return (_t(rng.random((4, h, w), dtype=np.float32)), _t(rng.random((4, h, w), dtype=np.float32)),
+            _t(rng.random((h, w), dtype=np.float32)))
+
+
+def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit, a NaN equal to a NaN."""
+    return got.shape == want.shape and torch.allclose(got, want, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["single", "dissolve", "dissolve, two matrices", "wipe", "wipe, two matrices"])
+@pytest.mark.parametrize("w,h", [(96, 64), (37, 27)])
+def test_rotate_band_rows_equal_the_full_frame(mode, w, h):
+    """rotate (its plain version) on each band of sp 2, 3, 4 and 8, its
+    sources the window rows graph/pipeline.py _warp_rows gives (one window
+    for both sources of a pair, the union over two matrices), equals those
+    rows of the full-frame rotate bit for bit, under the BAND_MATS sweep
+    and a matrix of scale 0 (non-finite: every pixel NaN, its window one
+    row)."""
+    a, b, mask = _band_frames(w, h, 40 + len(mode))
+    mats = [tgeom.transform_matrix(w, h, **kw) for kw in BAND_MATS]
+    inf = np.float32(np.inf)
+    mats.append(np.array([[inf, -inf, 0.0], [inf, inf, 0.0], [0.0, 0.0, 1.0]], np.float32))  # scale 0
+    mix = torch.tensor(0.35)
+    for i, m in enumerate(mats):
+        mb = mats[(i + 3) % len(mats)] if "two" in mode else None
+        used = [m] + ([mb] if mb is not None else [])
+        args = lambda sa, sb: (sa, _t(m)) if mode == "single" else (sa, _t(m), sb)
+        kw = lambda mk: {} if mode == "single" else dict(
+            mat_b=None if mb is None else _t(mb), **(dict(mask=mk) if mode.startswith("wipe") else dict(mix=mix)))
+        full = rotate(*args(a, b), **kw(mask))
+        for sp in (2, 3, 4, 8):
+            bounds = [(h * k // sp, h * (k + 1) // sp) for k in range(sp)]
+            for (r0, r1), (lo, hi) in zip(bounds, _warp_rows(used, bounds, w, h, rotated=True)):
+                rows = Rows(r0, r1, h, lo)
+                got = rotate(*args(a[:, lo:hi], b[:, lo:hi]), **kw(mask[r0:r1]), rows=rows)
+                assert _same(got, full[:, r0:r1]), f"matrix {i} sp={sp} rows {r0}-{r1}, window {lo}-{hi}"
+                plain = rotate_plain(*args(a[:, lo:hi], b[:, lo:hi]), **kw(mask[r0:r1]), rows=rows)
+                assert _same(plain, got)
+        if not np.isfinite(m).all():
+            assert torch.isnan(full).all()
+            assert _warp_rows(used[:1], [(5, 9)], w, h, rotated=True) == [(5, 6)]
+
+
+def test_band_affine_window_holds_every_valid_tap():
+    """A band of rows is a tile of the frame's width: affine_window of the
+    band (columns [0, W-1], its rows), and the window _warp_rows gives it,
+    hold every valid tap of every pixel of the band, under rotations,
+    scales 0.1-4, shears, flips and offsets past the frame; a band with a
+    valid tap has a window that is not empty.  300 seeded draws of frame
+    size, matrix and band."""
+    rng = np.random.default_rng(20261018)
+    for draw in range(300):
+        w, h = int(rng.integers(1, 97)), int(rng.integers(1, 65))
+        angle, shear = rng.uniform(-360.0, 360.0), rng.uniform(-2.0, 2.0)
+        sx, sy = rng.uniform(0.1, 4.0, size=2)
+        flip_h, flip_v = (bool(f) for f in rng.integers(0, 2, size=2))
+        ox, oy = rng.uniform(-2.0, 2.0, size=2)
+        m = _drawn_matrix(w, h, angle, sx, sy, shear, flip_h, flip_v, ox, oy)
+        r0 = int(rng.integers(0, h))
+        r1 = min(h, r0 + int(rng.integers(1, h + 1)))
+        x_first, x_last, y_first, y_last = (
+            int(v) for v in affine_window(torch.from_numpy(m), 0, w - 1, r0, r1 - 1, w, h))
+        (lo, hi), = _warp_rows([m], [(r0, r1)], w, h, rotated=True)
+        assert 0 <= lo < hi <= h
+        for x, y in _tile_taps(torch.from_numpy(m), w, h, 0, w - 1, r0, r1 - 1):
+            if x.numel():
+                where = f"draw {draw}: {w}x{h}, band rows {r0}-{r1}"
+                assert x_first <= int(x.min()) and int(x.max()) <= x_last, where
+                assert y_first <= int(y.min()) and int(y.max()) <= y_last, where
+                assert (y_first, y_last + 1) == (lo, hi), where
+
+
+@pytest.mark.parametrize("w,h,angle,scale,pair,sp", [
+    (200, 72, 100, 0.9, False, 8), (200, 72, 100, 0.9, True, 3), (201, 73, 45, 0.25, False, 4),
+    (64, 48, 0, 2.0, True, 2), (96, 40, 270, 0.1, False, 8),
+])
+def test_window_counts_of_a_band_equal_the_windows_of_each_tile(w, h, angle, scale, pair, sp):
+    """window_counts with ``rows`` (a band, its sources the rows _warp_rows
+    gives): the tiles start at the band's first row, the last is clipped
+    to its last, each window's rows are clipped to the sources', and the
+    choice equals the one made tile by tile from affine_window and the
+    pitch rule; every band tile is counted once."""
+    from phaneron_tpu_torch.ops import rotate as R
+
+    m = _drawn_matrix(w, h, angle, scale, scale, 0.0, False, False, 0.1, -0.05)
+    th = R.TILE_H[pair]
+    bounds = [(h * k // sp, h * (k + 1) // sp) for k in range(sp)]
+    for (r0, r1), (lo, hi) in zip(bounds, _warp_rows([m], bounds, w, h, rotated=True)):
+        fits = direct = 0
+        for y_lo in range(r0, r1, th):
+            for x_lo in range(0, w, R.TILE_W):
+                x0, x1, y0, y1 = (int(v) for v in affine_window(torch.from_numpy(m), x_lo, min(x_lo + R.TILE_W, w) - 1,
+                                                                y_lo, min(y_lo + th, r1) - 1, w, h))
+                y0, y1 = max(y0, lo), min(y1, hi - 1)
+                if x0 > x1 or y0 > y1:
+                    texels = 0
+                elif w % 2 == 0 and R.COPY_TEXELS == 2:
+                    cols = x1 + 1 - (x0 & ~1)
+                    cols += cols & 1
+                    texels = (y1 - y0 + 1) * (cols if cols % 4 == 2 else cols + 2)
+                else:
+                    texels = (y1 - y0 + 1) * ((x1 - x0 + 1) | 1)
+                fits += texels <= R.WINDOW_TEXELS[pair]
+                direct += texels > R.WINDOW_TEXELS[pair]
+        assert R.window_counts(m, w, h, pair, Rows(r0, r1, h, lo), hi - lo) == [fits, direct]
+        assert fits + direct == -(-w // R.TILE_W) * -(-(r1 - r0) // th)
+
+
+def test_rotate_band_rows_are_checked():
+    """A band outside the frame, or a source window that leaves it, raises
+    before anything runs."""
+    a, _, _ = _band_frames(32, 16, 1)
+    m = _t(tgeom.transform_matrix(32, 16, rotate=0.1))
+    with pytest.raises(ValueError, match="outside"):
+        rotate(a[:, :8], m, rows=Rows(10, 20, 16, 0))
+    with pytest.raises(ValueError, match="leaves"):
+        rotate(a[:, :8], m, rows=Rows(0, 4, 16, 10))
 
 
 # ------------------------------------------------------------------- B4

@@ -6,12 +6,14 @@ JAX package's sp channel on JAX's virtual devices.
 
 Contracts: a banded channel equals its sp=1 twin bit for bit (0 codes)
 through the staged, packed-composite and fused routes and the in-program
-yadif ring; against JAX, the structure tolerances of
+yadif ring, rotated layers (B14's band form) and 4:2:0 outputs whose
+sp bands would hold an odd number of rows (their bands snap to even
+rows); against JAX, the structure tolerances of
 tests/test_torch_runtime.py (1 code, 0 expected).  Also the ROUTE between
-two meshes, the server's placement of sp / chips groups, the refusals
-(an indivisible height, a 4:2:0 output at odd band rows, a rotated
-layer naming ROADMAP A10b), and the multichip, UHD and ch x sp ROUTE dry
-runs at 96x64 against the JAX package's programs on the same inputs."""
+two meshes (out of a snapped 4:2:0 channel too), the server's placement
+of sp / chips groups, the one refusal (a height sp does not divide, as
+in JAX), and the multichip, UHD and ch x sp ROUTE dry runs at 96x64
+against the JAX package's programs on the same inputs."""
 
 from dataclasses import replace
 from pathlib import Path
@@ -33,7 +35,6 @@ from phaneron_tpu.runtime import channel as jchannel
 from phaneron_tpu_torch import config as tconfig
 from phaneron_tpu_torch.config import VideoFormat
 from phaneron_tpu_torch.graph.convert import words_to_numpy
-from phaneron_tpu_torch.graph.pipeline import A10B
 from phaneron_tpu_torch.parallel import dryrun
 from phaneron_tpu_torch.parallel.mesh import make_mesh, make_multi_channel_program, shard_channel_params
 from phaneron_tpu_torch.producer.producer import LoadParams, ProducerRegistry
@@ -49,7 +50,13 @@ ROOT = Path(__file__).resolve().parents[1]
 FMT_ARGS = dict(
     tiny=("tiny", 1, 96, 64, 96, 50, 1, 48000, 2),
     tiny_i=("tiny_i", 2, 256, 64, 256, 50, 1, 48000, 2),
+    f72=("f72", 1, 96, 72, 96, 50, 1, 48000, 2),
 )
+# scenario -> (format, output format, what _load plays)
+SCENARIOS = dict(bars=("tiny", "v210", "bars"), dve=("tiny", "v210", "dve"),
+                 dissolve=("tiny", "v210", "dissolve"), interlaced=("tiny_i", "v210", "interlaced"),
+                 rotated=("tiny", "v210", "rotated"), yuv420p_72=("f72", "yuv420p", "dve"),
+                 nv12_72_rotated=("f72", "nv12", "rotated"))
 CPU = lambda n: ["cpu"] * n
 # configs/uhd_sp_sharded.json's 2160p5000 cut to 256x64 for the server test
 tconfig.VIDEO_FORMATS.setdefault("tiny_sp5000", tconfig.VideoFormat("tiny_sp5000", 1, 256, 64, 256, 50, 1, 48000, 2))
@@ -58,10 +65,17 @@ tconfig.VIDEO_FORMATS.setdefault("tiny_sp5000", tconfig.VideoFormat("tiny_sp5000
 async def _load(ch, scenario: str) -> None:
     """BARS; dve: BARS in a box over RAMP; dissolve: BARS mixing to RAMP
     (the fused v210 route); interlaced: dve on the tiny_i channel, its
-    sources deinterlaced."""
-    assert await ch.load_source(1, LoadParams("BARS") if isinstance(ch, Channel) else jproducer.LoadParams("BARS"))
-    ch.play(1)
+    sources deinterlaced; rotated: RAMP under BARS turned 0.1 (B14)."""
     lp = LoadParams if isinstance(ch, Channel) else jproducer.LoadParams
+    if scenario == "rotated":
+        assert await ch.load_source(1, lp("RAMP"))
+        ch.play(1)
+        assert await ch.load_source(2, lp("BARS"))
+        ch.play(2)
+        assert ch.layer(2).set_rotation(0.1)
+        return
+    assert await ch.load_source(1, lp("BARS"))
+    ch.play(1)
     if scenario in ("dve", "interlaced"):
         assert ch.layer(1).set_fill(0.05, 0.1, 0.8, 0.85)
         assert await ch.load_source(2, lp("RAMP"))
@@ -80,17 +94,18 @@ async def _frames(ch, n: int, words) -> list:
     out = []
     for _ in range(n):
         f = await ch.render_frame()
-        out.append(words(f.packed[0]))
+        out.append(words(f.packed[0]) if ch.out_format == "v210" else [np.asarray(p).copy() for p in f.packed])
     return out
 
 
 def _port(scenario: str, sp_devices, n: int = 6) -> tuple:
-    fmt = VideoFormat(*FMT_ARGS["tiny_i" if scenario == "interlaced" else "tiny"])
+    fmt_name, out_format, load = SCENARIOS[scenario]
+    fmt = VideoFormat(*FMT_ARGS[fmt_name])
 
     async def main():
-        ch = Channel(1, fmt, ProducerRegistry([create_test_pattern_producer]), device="cpu",
-                     sp_devices=sp_devices)
-        await _load(ch, scenario)
+        ch = Channel(1, fmt, ProducerRegistry([create_test_pattern_producer]), out_format=out_format,
+                     device="cpu", sp_devices=sp_devices)
+        await _load(ch, load)
         frames = await _frames(ch, n, words_to_numpy)
         prog = ch._sp_programs[next(reversed(ch._sp_programs))] if ch._sp_mesh is not None else None
         return frames, ch._last_layer_specs, prog
@@ -98,13 +113,14 @@ def _port(scenario: str, sp_devices, n: int = 6) -> tuple:
     return run(main())
 
 
-@pytest.mark.parametrize("scenario", ["bars", "dve", "dissolve", "interlaced"])
+@pytest.mark.parametrize("scenario", ["bars", "dve", "dissolve", "interlaced", "rotated"])
 @pytest.mark.parametrize("sp", [2, 4])
 def test_sp_channel_bit_equal_to_sp1(scenario, sp):
     """sp=2 and sp=4 against sp=1, 0 codes: a BARS channel, a DVE box over
-    a RAMP layer, a dissolve (the fused route), and interlaced sources,
+    a RAMP layer, a dissolve (the fused route), interlaced sources,
     which an sp channel deinterlaces on the in-program yadif ring (its
-    sp=1 twin takes the slot's pair route)."""
+    sp=1 twin takes the slot's pair route), and a rotated BARS layer over
+    RAMP (B14's band form)."""
     want, _, _ = _port(scenario, None)
     got, specs, prog = _port(scenario, CPU(sp))
     assert len(got) == len(want)
@@ -115,24 +131,33 @@ def test_sp_channel_bit_equal_to_sp1(scenario, sp):
         assert all(s.deinterlace for s in specs.values())
 
 
-@pytest.mark.parametrize("scenario", ["dve", "interlaced"])
+@pytest.mark.parametrize("scenario", ["dve", "interlaced", "rotated", "yuv420p_72"])
 def test_sp_channel_matches_jax_sp_channel(scenario):
-    """The port's sp=4 channel against the JAX package's sp=4 channel on
-    JAX's virtual devices (GSPMD), within 1 code (0 expected)."""
-    name = "tiny_i" if scenario == "interlaced" else "tiny"
-    got, _, _ = _port(scenario, CPU(4), n=4)
+    """The port's sp channel against the JAX package's on JAX's virtual
+    devices (GSPMD, its XLA path), within 1 code (0 expected): a DVE box,
+    interlaced sources, a rotated layer (sp=4), and a 72-row yuv420p
+    output at sp=8, whose 9-row bands the port snaps to row pairs."""
+    name, out_format, load = SCENARIOS[scenario]
+    sp = 8 if scenario == "yuv420p_72" else 4
+    got, _, _ = _port(scenario, CPU(sp), n=4)
 
     async def jax_side():
         ch = jchannel.Channel(1, JVideoFormat(*FMT_ARGS[name]),
                               jproducer.ProducerRegistry([jpattern.create_test_pattern_producer]),
-                              sp_devices=jax.devices()[:4], use_pallas=False)
-        await _load(ch, scenario)
+                              out_format=out_format, sp_devices=jax.devices()[:sp], use_pallas=False)
+        await _load(ch, load)
         return await _frames(ch, 4, lambda t: np.asarray(t))
 
     want = run(jax_side())
     w, h = FMT_ARGS[name][2], FMT_ARGS[name][3]
+    assert len(got) == len(want) == 4
     for g, x in zip(got, want):
-        assert max_code_delta(g, x, w, h) <= 1
+        if out_format == "v210":
+            assert max_code_delta(g, x, w, h) <= 1
+            continue
+        assert [p.shape for p in g] == [p.shape for p in x]
+        for gp, xp in zip(g, x):
+            assert np.abs(gp.astype(np.int32) - xp.astype(np.int32)).max() <= 1
 
 
 def test_route_between_sp_meshes():
@@ -161,6 +186,38 @@ def test_route_between_sp_meshes():
 
     a, b = run(main())
     np.testing.assert_array_equal(a, b)
+
+
+def test_route_out_of_a_snapped_420_channel():
+    """A 72-row nv12 channel at sp=8 (bands of 8 and 10 rows, snapped to
+    row pairs) routed into a v210 channel at sp=4 (18-row bands): the
+    frame reaches B as A's uneven bands left it and is resharded band to
+    band; B's words equal those of the same two channels unsharded."""
+    fmt = VideoFormat(*FMT_ARGS["f72"])
+
+    async def main(sp_a, sp_b):
+        channels = {}
+        reg = ProducerRegistry([make_route_factory(lambda n: channels.get(n)), create_test_pattern_producer])
+        ch1 = Channel(1, fmt, reg, out_format="nv12", device="cpu", sp_devices=sp_a)
+        ch2 = Channel(2, fmt, reg, device="cpu", sp_devices=sp_b)
+        channels.update({1: ch1, 2: ch2})
+        assert await ch1.load_source(1, LoadParams("BARS"))
+        ch1.play(1)
+        assert ch1.layer(1).set_rotation(0.05)
+        assert await ch2.load_source(1, LoadParams("route://1"))
+        ch2.play(1)
+        f2 = None
+        for _ in range(4):
+            await ch1.render_frame()
+            f2 = await ch2.render_frame()
+        routed = ch2.layer(1).cur.last.payload
+        return words_to_numpy(f2.packed[0]), routed
+
+    want, _ = run(main(None, None))
+    got, routed = run(main(CPU(8), CPU(4)))
+    np.testing.assert_array_equal(got, want)
+    assert routed.mesh.shape == {"sp": 8}  # as A's bands left it
+    assert [sh.tensor.shape[1] for sh in routed.shards] == [8, 10] * 4
 
 
 @pytest.mark.parametrize("count, want", [(1, [0, 0, 0, 0]), (2, [0, 1, 0, 1])])
@@ -207,31 +264,59 @@ def test_server_sp_groups_under_the_cpu_override(tmp_path):
     assert shape == {"sp": 4} and plane[0] == 64
 
 
-def test_sp_refusals():
-    """ValueError for a height sp does not divide and for a 4:2:0 output
-    whose bands hold an odd number of rows (72 rows at sp=8);
-    NotImplementedError naming ROADMAP A10b for a rotated layer, raised
-    before any band runs."""
+def test_sp_refusals(monkeypatch):
+    """The one refusal: ValueError for a height sp does not divide (JAX
+    raises it too).  The structures the port refused before row-sharding
+    took them now render, equal to sp=1: a 4:2:0 output whose sp bands
+    would hold an odd number of rows (72 rows at sp=8, yuv420p and nv12;
+    the bands snap to row pairs, 8 and 10 rows), and a rotated layer."""
+    _count_rotate_calls(monkeypatch)
     reg = ProducerRegistry([create_test_pattern_producer])
     with pytest.raises(ValueError, match="not divisible"):
         Channel(1, VideoFormat("odd", 1, 96, 62, 96, 50, 1), reg, sp_devices=CPU(4))
-    fmt72 = VideoFormat("f72", 1, 96, 72, 96, 50, 1)
-    for fmt_name in ("yuv420p", "nv12"):
-        with pytest.raises(ValueError, match="row pairs"):
-            Channel(1, fmt72, reg, out_format=fmt_name, sp_devices=CPU(8))
-    Channel(1, fmt72, reg, out_format="yuv420p", sp_devices=CPU(4))  # 18-row bands
-    Channel(1, fmt72, reg, out_format="yuv422p10le", sp_devices=CPU(8))  # 4:2:2 splits any row
+    for scenario, sp in (("yuv420p_72", 8), ("nv12_72_rotated", 8), ("rotated", 2)):
+        want, _, _ = _port(scenario, None, n=2)
+        got, _, prog = _port(scenario, CPU(sp), n=2)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            for gp, wp in zip(g if isinstance(g, list) else [g], w if isinstance(w, list) else [w]):
+                np.testing.assert_array_equal(gp, wp)
+        rows = [b["rows"] for b in prog.last_bands]
+        assert len(rows) == sp and rows[0][0] == 0 and rows[-1][1] == FMT_ARGS[SCENARIOS[scenario][0]][3]
+        if scenario != "rotated":
+            assert [r1 - r0 for r0, r1 in rows] == [8, 10] * 4
+        else:
+            assert all(b["launches"].get("rotate") == 1 for b in prog.last_bands)
 
-    async def rotated():
-        ch = Channel(1, VideoFormat(*FMT_ARGS["tiny"]), reg, sp_devices=CPU(2))
-        await ch.load_source(1, LoadParams("BARS"))
-        ch.play(1)
-        assert ch.layer(1).set_rotation(0.1)
-        await ch.render_frame()
 
-    with pytest.raises(NotImplementedError, match="A10b") as err:
-        run(rotated())
-    assert A10B in str(err.value)
+@pytest.mark.parametrize("height, sp", [(8, 8), (75, 3), (75, 5), (30, 6)])
+def test_sp_420_bands_snap_to_row_pairs(height, sp):
+    """output_bounds for a 4:2:0 output: bands of whole row pairs (an odd
+    height's last band ends on its last row), empty bands where the frame
+    has fewer pairs than sp (8 rows at sp=8: four bands of 2 rows), and
+    the banded yuv420p program equal to the unsharded one plane for
+    plane."""
+    from phaneron_tpu_torch.graph.convert import params_from_numpy
+    from phaneron_tpu_torch.graph.pipeline import ChannelSpec as TSpec, LayerSpec as TLayer, make_channel_program
+    from phaneron_tpu_torch.ops.formats import get_format
+    from phaneron_tpu_torch.ops.geometry import transform_matrix
+    from phaneron_tpu_torch.parallel.bands import make_sp_channel_program, output_bounds
+    from phaneron_tpu_torch.parallel.mesh import band_bounds, make_sp_mesh
+
+    bounds = output_bounds(height, sp, "yuv420p")
+    assert bounds[0][0] == 0 and bounds[-1][1] == height
+    assert all(a == b for (_, a), (b, _) in zip(bounds, bounds[1:]))
+    assert all(r0 % 2 == 0 and (r1 % 2 == 0 or r1 == height) for r0, r1 in bounds)
+    assert output_bounds(height, sp, "v210") == band_bounds(height, sp)
+    spec = TSpec(96, height, "yuv420p", (TLayer("v210", has_transform=True, axis_aligned=False),))
+    params = params_from_numpy({"layers": [{"src": get_format("v210").fill_buf(96, height),
+                                            "matrix": transform_matrix(96, height, rotate=0.05, scale_x=0.8)}]}, "cpu")
+    want = make_channel_program(spec)(params)
+    prog = make_sp_channel_program(spec, make_sp_mesh(CPU(sp)))
+    got = prog(params)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert [b["rows"] for b in prog.last_bands] == [b for b in bounds if b[1] > b[0]]
 
 
 @pytest.mark.parametrize("out_format", ["yuv420p", "yuv422p10le", "rgba8"])
@@ -312,7 +397,13 @@ def _structures():
     under a DVE (K4's wipe pair, its mask the band's rows), a dissolve
     without DVE, an opaque ring dissolve under two matrices into
     yuv422p10le, and a DVE run over rgb3 fields (K5's rgb3 kind with
-    coverage under a staged top) with emit_rgba."""
+    coverage under a staged top) with emit_rgba.  Rotated (B14's band
+    form): one_rotation (a v210 dissolve run under a v210 layer turned 100
+    degrees), a rotated dissolve under two matrices, a rotated wipe, a
+    quarter turn of an rgba_f32 frame, a keyed rgba8 top turned 30 degrees
+    under emit_rgba (its rotated alpha the frame's); and 72-row yuv420p
+    and nv12 outputs (sp=8: 9-row bands, snapped to row pairs), the nv12
+    one under a rotated layer."""
     from phaneron_tpu_torch.graph.pipeline import ChannelSpec as TSpec, LayerSpec as TLayer
     from phaneron_tpu_torch.ops.formats import get_format
     from phaneron_tpu_torch.ops.geometry import transform_matrix
@@ -320,7 +411,11 @@ def _structures():
     w, h = 96, 64
     rng = np.random.default_rng(17)
     planes = lambda fmt, sw=w, sh=h: [np.asarray(p) for p in get_format(fmt).fill_buf(sw, sh)]
-    mat = lambda **kw: transform_matrix(w, h, **kw)
+    mat = lambda sh=h, **kw: transform_matrix(w, sh, **kw)
+    turn = lambda deg, sh=h, **kw: mat(sh, rotate=deg / 360.0, **kw)
+    rolled = lambda k, sh=h: [np.roll(planes("v210", w, sh)[0], 17 * k + 3, axis=1)]
+    run_layer = TLayer("v210", transition="dissolve", has_transform=True, src_b_format="v210")
+    rot = dict(has_transform=True, axis_aligned=False)
     frame = lambda c, sh=h, sw=w: rng.random((c, sh, sw), dtype=np.float32)
     return {
         "src_size": (TSpec(w, h, "v210", (TLayer("v210"), TLayer("yuv420p", src_size=(64, 30)))),
@@ -349,18 +444,71 @@ def _structures():
             {"layers": [{"src": frame(3), "matrix": mat(scale_x=0.5, scale_y=0.5)},
                         {"src": frame(3), "matrix": mat(scale_y=1.3, offset_y=0.05)},
                         {"src": planes("v210"), "matrix": mat(scale_x=0.3, scale_y=0.3, offset_y=0.3)}]}),
+        "one_rotation": (
+            TSpec(w, h, "v210", (run_layer, run_layer, TLayer("v210", **rot))),
+            {"layers": [{"src": rolled(2 * i), "src_b": rolled(2 * i + 1), "mix": np.float32(0.4 + 0.05 * i),
+                         "matrix": mat(scale_x=0.9, scale_y=0.9, offset_x=0.02 + 0.003 * i)} for i in range(2)]
+             + [{"src": rolled(5), "matrix": turn(100, scale_x=0.9, scale_y=0.9)}]}),
+        "rotated dissolve, two matrices": (
+            TSpec(w, h, "v210", (TLayer("v210"), TLayer("v210", transition="dissolve", warp_same_mat=False,
+                                                          src_b_format="v210", **rot))),
+            {"layers": [{"src": rolled(6)}, {"src": rolled(7), "src_b": rolled(8), "mix": np.float32(0.6),
+                                             "matrix": turn(100, scale_x=0.9, scale_y=0.9),
+                                             "matrix_b": turn(95, scale_x=0.85, scale_y=0.85, offset_x=0.05)}]}),
+        "rotated wipe": (
+            TSpec(w, h, "v210", (TLayer("v210", transition="wipe", mask_format="v210", src_b_format="v210",
+                                        **rot),)),
+            {"layers": [{"src": rolled(9), "src_b": rolled(10), "mask": [np.roll(planes("v210")[0], 11, 1)],
+                         "matrix": turn(-30, scale_x=1.2, scale_y=0.8, offset_y=0.1),
+                         "matrix_b": turn(-30, scale_x=1.2, scale_y=0.8, offset_y=0.1)}]}),
+        "quarter turn": (
+            TSpec(w, h, "v210", (TLayer("v210"), TLayer(RGBA, **rot))),
+            {"layers": [{"src": rolled(11)}, {"src": frame(4), "matrix": turn(90, scale_x=0.8, scale_y=0.8)}]}),
+        "rotated keyed rgba8 top, emit_rgba": (
+            TSpec(w, h, "v210", (run_layer, run_layer, TLayer("rgba8", **rot)), emit_rgba=True),
+            {"layers": [{"src": rolled(2 * i + 12), "src_b": rolled(2 * i + 13), "mix": np.float32(0.3),
+                         "matrix": mat(scale_x=0.7, scale_y=0.7, offset_y=0.1 * i)} for i in range(2)]
+             + [{"src": [rng.integers(0, 256, (h, w, 4), dtype=np.uint8)],
+                 "matrix": turn(30, scale_x=0.6, scale_y=0.6, offset_x=0.1)}]}),
+        "yuv420p out, 72 rows": (
+            TSpec(w, 72, "yuv420p", (TLayer("v210"), TLayer("v210", has_transform=True))),
+            {"layers": [{"src": rolled(1, 72)}, {"src": rolled(2, 72), "matrix": mat(72, scale_x=0.7, scale_y=0.6)}]}),
+        "nv12 out, 72 rows, rotated": (
+            TSpec(w, 72, "nv12", (TLayer("v210"), TLayer("v210", **rot))),
+            {"layers": [{"src": rolled(3, 72)}, {"src": rolled(4, 72), "matrix": turn(60, 72, scale_x=0.7,
+                                                                                       scale_y=0.7)}]}),
     }
 
 
 RGBA = "rgba_f32"
 
 
+def _count_rotate_calls(monkeypatch) -> None:
+    """rotate's wrapper adds one to ``rotate.launches`` where it would launch
+    its kernel, also on the CPU, where it runs its plain version."""
+    from phaneron_tpu_torch.ops import kernels
+    from phaneron_tpu_torch.ops import rotate as rotate_mod
+
+    def is_cpu(t, name):
+        if name == "rotate":
+            rotate_mod.rotate.launches += 1
+        return kernels.is_cpu(t, name)
+
+    monkeypatch.setattr(rotate_mod, "is_cpu", is_cpu)
+
+
 @pytest.mark.parametrize("name", ["src_size", "off-size frame, DVE", "wipe under DVE", "dissolve without DVE",
-                                  "ring dissolve, two matrices", "rgb3 run under a staged top, emit_rgba"])
+                                  "ring dissolve, two matrices", "rgb3 run under a staged top, emit_rgba",
+                                  "one_rotation", "rotated dissolve, two matrices", "rotated wipe", "quarter turn",
+                                  "rotated keyed rgba8 top, emit_rgba", "yuv420p out, 72 rows",
+                                  "nv12 out, 72 rows, rotated"])
 @pytest.mark.parametrize("sp", [2, 4, 8])
-def test_sp_program_structures_bit_equal(name, sp):
+def test_sp_program_structures_bit_equal(monkeypatch, name, sp):
     """make_sp_channel_program against make_channel_program on the same
-    params, every plane and the emit_rgba frame equal bit for bit."""
+    params, every plane and the emit_rgba frame equal bit for bit; a
+    rotated layer's band calls rotate once (counted where it would launch
+    on the card), and a 4:2:0 output's bands hold whole row pairs."""
+    _count_rotate_calls(monkeypatch)
     from phaneron_tpu_torch.graph.convert import params_from_numpy
     from phaneron_tpu_torch.graph.pipeline import make_channel_program
     from phaneron_tpu_torch.parallel.bands import make_sp_channel_program
@@ -378,3 +526,7 @@ def test_sp_program_structures_bit_equal(name, sp):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert len(prog.last_bands) == sp
+    if any(not ls.axis_aligned for ls in spec.layers):
+        assert all(b["launches"].get("rotate") == 1 for b in prog.last_bands)
+    if spec.out_format in ("yuv420p", "nv12"):
+        assert all(r0 % 2 == 0 and (r1 - r0) % 2 == 0 for r0, r1 in (b["rows"] for b in prog.last_bands))

@@ -14,8 +14,12 @@ ptxas's report), disassembles each with cuobjdump -sass and prints, for
 each source, the two instruction counts and whether the instruction
 streams are the same (addresses, encodings and the per-file names of
 anonymous namespaces left out), and for a source that differs, the same
-for each of its kernels.  A kernel record that moves between two
-checkouts whose machine code is the same moved by noise.  Cubins go to
+for each of its kernels.  A kernel found in one checkout only (its name
+changed: a template argument or a parameter added, as a band-free
+full-frame template gains them) is paired with a kernel of the other
+checkout whose instruction stream is the same, where there is one.  A
+kernel record that moves between two checkouts whose machine code is
+the same moved by noise.  Cubins go to
 build/sass/.  Exits 1 when a compile or disassembly fails.
 """
 
@@ -99,7 +103,11 @@ def main() -> int:
         for kernel in sorted(set(p) | set(c)):
             kp, kc = p.get(kernel), c.get(kernel)
             if kp is None or kc is None:
-                print(f"  {kernel}: only in the {'change' if kp is None else 'parent'}")
+                side, own, other = ("change", c, p) if kp is None else ("parent", p, c)
+                code = own[kernel]
+                twin = next((k for k, v in other.items() if k not in own and v == code), None)
+                print(f"  {kernel}: only in the {side}, {len(code)} instructions"
+                      + (f", the same machine code as {twin}" if twin is not None else ", no kernel of the same code"))
             else:
                 print(f"  {kernel}: {len(kp)} / {len(kc)} instructions, {'same' if kp == kc else 'differs'}")
     return 0
