@@ -2442,10 +2442,13 @@ def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> 
             arun(ch.shutdown())
 
     # the four 1080i50 kernel channels paced by Channel.run on the event loop
+    from phaneron_tpu_torch.utils.metrics import tracer
+
     k5_before = PW.packed_composite.launches
     starts = {}
+    tracer.reset()
+    tracer.start()  # the channels' render p50 / p99 read their channel.tick spans
     for ch, consumer in kern:
-        ch.frame_times.clear()
         consumer.delivered = 0
         starts[ch.chan_id] = ch.timestamp
 
@@ -2471,6 +2474,7 @@ def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> 
         print(f"runtime paced run on {card}: channel {ch.chan_id} {rendered} ticks in {PACED_SECONDS} s, "
               f"late_frames {s['late_frames']}, render p50 {s['render_p50_ms']:.4f} host ms, "
               f"p99 {s['render_p99_ms']:.4f} host ms, every tick delivered")
+    tracer.stop()
     k5_paced = PW.packed_composite.launches - k5_before
     check(k5_paced == sum(s["frames"] for s in stats),
           f"runtime paced run: {k5_paced} packed_composite launches for {sum(s['frames'] for s in stats)} ticks")
@@ -2589,8 +2593,9 @@ async def server_tick(ch):
     """One tick as Channel.run makes it, unpaced: render, deliver to every
     consumer (errors raise here); returns the frame."""
     frame = await ch.render_frame()
-    for c in ch.consumers:
-        await c.deliver(frame)
+    for r in await ch.deliver(frame):
+        if isinstance(r, Exception):
+            raise r
     return frame
 
 
@@ -2707,6 +2712,7 @@ def phase_server(torch, dev, card: str, run_path, timing: dict, server_device=No
 
     from phaneron_tpu_torch.graph.pipeline import make_interlaced_word_pack_program, make_pack_program
     from phaneron_tpu_torch.server import PhaneronServer
+    from phaneron_tpu_torch.utils.metrics import tracer
 
     try:
         import PIL  # noqa: F401
@@ -2758,8 +2764,7 @@ def phase_server(torch, dev, card: str, run_path, timing: dict, server_device=No
                             bytes=[getattr(c, "bytes_written", 0) for c in ch.consumers]) for n, ch in chans.items()}
 
         before = snapshot()
-        for ch in chans.values():
-            ch.frame_times.clear()
+        tracer.reset()  # the server started it: render p50 / p99 of the window's ticks
         amcp.rtt_ms.clear()
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < SERVER_PACED_SECONDS:

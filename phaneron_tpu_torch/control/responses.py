@@ -10,8 +10,9 @@ built from actual channel state (the reference stubs INFO; SURVEY.md
 §5.5 calls for real responses).
 
 A copy of phaneron_tpu/control/responses.py (the port keeps its own, as it
-imports nothing of the JAX package); DIAG's memory census is
-``utils/metrics.py device_memory_stats`` of each channel's device.
+imports nothing of the JAX package); DIAG prints the port tracer's spans
+and counters (``utils/metrics.py tracer``) and the memory census,
+``device_memory_stats`` of each channel's device.
 """
 
 from __future__ import annotations
@@ -115,15 +116,14 @@ class ResponseTables:
         return "\r\n".join(lines) + "\r\n"
 
     def _diag(self, _cmd: list[str]) -> str:
-        """DIAG prints the per-stage timing tables + device memory census to the
-        server log (the reference's showTimings tables + logBuffers,
-        SURVEY.md §5.1)."""
+        """DIAG prints the tracer's span table and counters + device memory
+        census to the server log (the reference's showTimings tables +
+        logBuffers, SURVEY.md §5.1)."""
         if self.server is not None:
-            from ..utils.metrics import device_memory_stats
+            from ..utils.metrics import device_memory_stats, tracer
 
-            for ch in self.server.channels.values():
-                print(f"--- channel {ch.chan_id} timings ---")
-                print(ch.timings.log_table())
+            print("--- spans (host ms) and counters ---")
+            print(tracer.log_table())
             for device in sorted({str(ch.device) for ch in self.server.channels.values()}):
                 print(device_memory_stats(device))
         return "202 DIAG OK"

@@ -110,6 +110,7 @@ from ..ops.formats import get_format
 from ..ops.geometry import fit_rows, fit_window, resize_frame
 from ..ops.kernels import Rows
 from ..runtime.frame import RGBA_F32
+from ..utils.metrics import tracer
 
 __all__ = [
     "LayerSpec",
@@ -751,38 +752,48 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False,
     # B6 layers (a 'packed' run's among them) read their words raw; an
     # rgb3 run's slots (rgba_f32 fields, yadif rings) are made here
     b6 = frozenset(li for li, ls in enumerate(spec.layers) if _packed_layer_ok(ls))
-    srcs = _sources(spec, params, st, skip=b6, band=band)
+    with tracer.span("program.sources"):
+        srcs = _sources(spec, params, st, skip=b6, band=band)
     height = spec.height if band is None else band.n
     if run is not None and run.alpha == "top":  # the whole stack in one launch
-        out = _dispatch_packed_composite(spec, params, srcs, run, st, band)
+        with tracer.span("program.layers"):
+            out = _dispatch_packed_composite(spec, params, srcs, run, st, band)
         if run.emit == "packed":
             return [out]
         if run.emit == "both":
             return {"packed": [out[0]], "rgba": out[1]}
-        packed = _pack_frame(st, spec.out_format, out, spec.out_col_spec, spec.gamma_mode)
+        with tracer.span("program.pack"):
+            packed = _pack_frame(st, spec.out_format, out, spec.out_col_spec, spec.gamma_mode)
         return {"packed": packed, "rgba": out} if spec.emit_rgba else packed
     layers = []
-    for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
-        if run is not None and run.start <= li < run.end:
-            if li == run.start:  # the run as one layer: RGB and coverage alpha
-                layers.append(_dispatch_packed_composite(spec, params, srcs, run, st, band))
-            continue
-        layers.append(_process_layer(ls, lp, srcs, li, spec, st, band))
+    with tracer.span("program.layers"):
+        for li, (ls, lp) in enumerate(zip(spec.layers, params["layers"])):
+            if run is not None and run.start <= li < run.end:
+                if li == run.start:  # the run as one layer: RGB and coverage alpha
+                    layers.append(_dispatch_packed_composite(spec, params, srcs, run, st, band))
+                continue
+            layers.append(_process_layer(ls, lp, srcs, li, spec, st, band))
     if spec.out_format == _V210 and not spec.emit_rgba:
         if len(layers) <= kernels.MAX_LAYERS:
-            return [st.combine_pack(layers, spec.out_col_spec)]
-        return [st.v210_pack(combine_rgb(layers), spec.out_col_spec)]
-    if spec.emit_rgba:
-        layers = [_rgba_of(f) for f in layers]
-    if any(isinstance(f, tuple) for f in layers):
-        composited = _with_alpha_one(combine_rgb(layers))
-    else:
-        composited = combine([transparent(height, spec.width, device)] + layers)
-        if run is not None and run.end == len(spec.layers):
-            # the run holds the stack top: its coverage alpha drove the
-            # 'over'; the emitted alpha is the top layer's
-            composited = _top_alpha_fixup(composited, spec, params, run.end - 1, band)
-    packed = _pack_frame(st, spec.out_format, composited, spec.out_col_spec, spec.gamma_mode)
+            with tracer.span("program.pack"):  # B5 combines as it packs
+                return [st.combine_pack(layers, spec.out_col_spec)]
+        with tracer.span("program.combine"):
+            rgb = combine_rgb(layers)
+        with tracer.span("program.pack"):
+            return [st.v210_pack(rgb, spec.out_col_spec)]
+    with tracer.span("program.combine"):
+        if spec.emit_rgba:
+            layers = [_rgba_of(f) for f in layers]
+        if any(isinstance(f, tuple) for f in layers):
+            composited = _with_alpha_one(combine_rgb(layers))
+        else:
+            composited = combine([transparent(height, spec.width, device)] + layers)
+            if run is not None and run.end == len(spec.layers):
+                # the run holds the stack top: its coverage alpha drove the
+                # 'over'; the emitted alpha is the top layer's
+                composited = _top_alpha_fixup(composited, spec, params, run.end - 1, band)
+    with tracer.span("program.pack"):
+        packed = _pack_frame(st, spec.out_format, composited, spec.out_col_spec, spec.gamma_mode)
     return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed
 
 
@@ -836,7 +847,9 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     fused v210 kernel's transfer corrections; the l2g corrections that the
     output's pack reads: K2 or B5 into v210, whose use the frame's sources
     decide, B11 or B13 into a planar format), so that no frame hides a
-    launch or a host wait; frames run without it too."""
+    launch or a host wait; frames run without it too.  Each program made
+    (a cache miss) counts one ``program.structures`` on the tracer."""
+    tracer.count("program.structures")
     if _fused_v210_ok(spec):
         return _fused_v210_program(spec, plain)
 

@@ -20,7 +20,9 @@ Importing this module builds nothing, so the package imports cleanly on
 a machine without nvcc.  ``library()`` and ``build_info()`` hold one lock
 while they build or load, so threads that ask at once (channels
 prewarming from worker threads) wait for one build instead of each
-running nvcc.
+running nvcc.  Each load counts on the port's tracer
+(``utils/metrics.py``): ``ops.library_builds.built`` or ``.loaded``, and
+its seconds in ``ops.library_builds.seconds``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
+
+from ..utils.metrics import tracer
 
 __all__ = ["library", "build_dir", "sources", "NVCC_FLAGS", "nvcc_flags", "BuildInfo", "build_info"]
 
@@ -172,7 +176,10 @@ def _load() -> tuple[ctypes.CDLL, BuildInfo]:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib, BuildInfo(out, compiled, time.perf_counter() - t0, log)
+    seconds = time.perf_counter() - t0
+    tracer.count("ops.library_builds.built" if compiled else "ops.library_builds.loaded")
+    tracer.count("ops.library_builds.seconds", seconds)
+    return lib, BuildInfo(out, compiled, seconds, log)
 
 
 def library() -> ctypes.CDLL:

@@ -33,7 +33,6 @@ run inline and never make the host wait for the card.
 from __future__ import annotations
 
 import asyncio
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -54,7 +53,7 @@ from ..runtime.layer import Layer, opaque_format
 from ..runtime.mixer import Mixer
 from ..runtime.stream import END, Stream, from_generator
 from ..runtime.types import TransitionSpec
-from ..utils.metrics import StageTimings
+from ..utils.metrics import tracer
 
 __all__ = ["Channel"]
 
@@ -147,10 +146,7 @@ class Channel:
         # structural specs that have dispatched at least once: warm specs
         # dispatch inline; only first-seen structures hop to a thread
         self._warm_specs: set = set()
-        # per-frame latency stats
-        self.frame_times: list[float] = []
         self._last_layer_specs: dict[int, Any] = {}
-        self.timings = StageTimings()
 
     # ----------------------------------------------------------- layers
 
@@ -413,6 +409,7 @@ class Channel:
         prog = self._sp_programs.get(spec)
         if prog is None:
             prog = self._sp_programs[spec] = make_sp_channel_program(spec, self._sp_mesh, self.plain)
+            tracer.count("program.structures")
         return prog
 
     def _dispatch(self, spec: ChannelSpec, contribs):
@@ -436,15 +433,20 @@ class Channel:
     def _dispatch_cold(self, spec: ChannelSpec, contribs):
         """A structure's first frame, on a worker thread: its one-time
         device work first, so that later frames hold no host wait."""
-        if self._sp_mesh is not None:
-            self._sp_program(spec).prepare()
-        elif spec.layers:
-            make_channel_program(spec, plain=self.plain).prepare(self.device)
-        return self._dispatch(spec, contribs)
+        tracer.count("channel.cold_dispatches")
+        with tracer.span("channel.dispatch_cold", self.chan_id):
+            if self._sp_mesh is not None:
+                self._sp_program(spec).prepare()
+            elif spec.layers:
+                make_channel_program(spec, plain=self.plain).prepare(self.device)
+            return self._dispatch(spec, contribs)
 
     async def render_frame(self) -> ChannelFrame:
         """Assemble and dispatch one channel frame (the per-tick hot path)."""
-        t0 = time.monotonic()
+        with tracer.span("channel.tick", self.chan_id):
+            return await self._render_frame()
+
+    async def _render_frame(self) -> ChannelFrame:
         contribs = []
         contrib_layers = []
         for num in sorted(self.layers):
@@ -462,16 +464,18 @@ class Channel:
         # event loop.  Once a spec has dispatched it is warm: its frames
         # enqueue their kernels and return, so warm ticks run inline.
         if spec in self._warm_specs:
-            packed, rgba = self._dispatch(spec, contribs)
+            with tracer.span("channel.dispatch", self.chan_id):
+                packed, rgba = self._dispatch(spec, contribs)
         else:
             packed, rgba = await asyncio.to_thread(self._dispatch_cold, spec, contribs)
             self._warm_specs.add(spec)
 
-        audio = (
-            amix([c.audio for c in contribs])
-            if contribs
-            else silence(self.fmt.audio_channels, self.fmt.samples_per_frame)
-        )
+        with tracer.span("channel.amix", self.chan_id):
+            audio = (
+                amix([c.audio for c in contribs])
+                if contribs
+                else silence(self.fmt.audio_channels, self.fmt.samples_per_frame)
+            )
 
         self._last_layer_specs = dict(zip(contrib_layers, (c.spec for c in contribs)))
         stamps = [c.loadstamp for c in contribs if c.loadstamp is not None]
@@ -521,10 +525,18 @@ class Channel:
                 tap.push(vf, af)
 
         self.timestamp += 1
-        self.frame_times.append(time.monotonic() - t0)
-        if len(self.frame_times) > 500:
-            del self.frame_times[:250]
         return frame
+
+    async def deliver(self, frame: ChannelFrame) -> list:
+        """Hand ``frame`` to every consumer at once, each under a
+        ``consumer.deliver`` span: their results, with the exception in
+        place of the result of a consumer that raised."""
+
+        async def one(consumer: Consumer) -> None:
+            with tracer.span("consumer.deliver", self.chan_id):
+                await consumer.deliver(frame)
+
+        return await asyncio.gather(*(one(c) for c in self.consumers), return_exceptions=True)
 
     async def run(self) -> None:
         self.running = True
@@ -534,19 +546,9 @@ class Channel:
             await self.clock.wait(frame_num)
             try:
                 frame = await self.render_frame()
-                if self.consumers:
-                    results = await asyncio.gather(
-                        *(c.deliver(frame) for c in self.consumers),
-                        return_exceptions=True,
-                    )
-                    for c, r in zip(self.consumers, results):
-                        if isinstance(r, Exception):
-                            print(f"channel {self.chan_id}: consumer error: {r}")
-                if frame.loadstamp is not None:
-                    # ingest -> delivered wall latency
-                    self.timings.record(
-                        "e2e_latency", time.monotonic() - frame.loadstamp
-                    )
+                for r in await self.deliver(frame):
+                    if isinstance(r, Exception):
+                        print(f"channel {self.chan_id}: consumer error: {r}")
             except asyncio.CancelledError:
                 raise
             except Exception as err:
@@ -578,14 +580,17 @@ class Channel:
     # --------------------------------------------------------- metrics
 
     def stats(self) -> dict[str, Any]:
-        ft = np.asarray(self.frame_times[-200:]) if self.frame_times else np.zeros(1)
-        out = {
+        """The channel's figures for INFO.  Render p50 / p99 are host ms of
+        its recent ``channel.tick`` spans, 0 while the tracer has none
+        (it is off; the server starts it)."""
+        ticks = tracer.durations("channel.tick", self.chan_id) or [0.0]
+        return {
             "channel": self.chan_id,
             "format": self.fmt.name,
             "frames": self.timestamp,
             "late_frames": self.clock.late_frames,
-            "render_p50_ms": float(np.percentile(ft, 50) * 1e3),
-            "render_p99_ms": float(np.percentile(ft, 99) * 1e3),
+            "render_p50_ms": float(np.percentile(ticks, 50) * 1e3),
+            "render_p99_ms": float(np.percentile(ticks, 99) * 1e3),
             "layers": sorted(self.layers),
             "consumers": len(self.consumers),
             # per-consumer real-time drop counters (latest-wins /
@@ -594,7 +599,3 @@ class Channel:
                 int(getattr(c, "dropped", 0)) for c in self.consumers
             ],
         }
-        e2e = self.timings.summary().get("e2e_latency")
-        if e2e:
-            out["e2e_p99_ms"] = e2e["p99_ms"]
-        return out

@@ -45,6 +45,7 @@ from ..ops.formats import get_format
 from ..runtime.frame import RGBA_F32, VideoFrame
 from ..runtime.mixer import Mixer
 from ..runtime.stream import END
+from ..utils.metrics import tracer
 from .types import LayerContribution, TransitionSpec
 
 __all__ = ["Layer", "SourceSlot", "TransitionSpec", "opaque_format"]
@@ -149,6 +150,10 @@ class SourceSlot:
     async def tick(self) -> Optional[dict]:
         """Advance one channel tick; return graph params for this source
         (or None when not yet ready)."""
+        with tracer.span("slot.video"):
+            return await self._tick()
+
+    async def _tick(self) -> Optional[dict]:
         ratio = self._pull_ratio()
         need_pull = (not self.paused) and (self.last is None or self.ticks % ratio == 0)
         if need_pull and not self.ended:
@@ -208,6 +213,11 @@ class SourceSlot:
         }
 
     async def audio_tick(self) -> np.ndarray:
+        """This tick's audio chunk (silence when paused or starved)."""
+        with tracer.span("slot.audio"):
+            return await self._audio_tick()
+
+    async def _audio_tick(self) -> np.ndarray:
         while not self.audio_chunks and not self.audio_ended and not self.paused:
             try:
                 af = await self.audio.next()
@@ -406,6 +416,10 @@ class Layer:
 
     async def poll(self) -> Optional[LayerContribution]:
         """One channel tick: returns this layer's graph contribution."""
+        with tracer.span("layer.poll"):
+            return await self._poll()
+
+    async def _poll(self) -> Optional[LayerContribution]:
         if self.cur is None:
             return None
 

@@ -25,6 +25,10 @@ cannot run on the host — ffmpeg without a binary, decklink without an SDI
 backend — raises RuntimeError; the server prints it and keeps serving, as
 it does for any consumer that fails (the JAX server's fallback from
 ffmpeg to the file consumer is not ported).
+
+``start()`` turns the port's tracer on (``utils/metrics.py``): INFO's
+render p50 / p99 read its ``channel.tick`` spans, and DIAG prints its
+spans and counters.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from .producer.sdi_capture import create_sdi_capture_producer
 from .producer.test_pattern import create_test_pattern_producer
 from .producer.wav_file import create_wav_producer
 from .runtime.channel import Channel
+from .utils.metrics import tracer
 
 __all__ = ["PhaneronServer", "default_consumer_registry", "main"]
 
@@ -138,6 +143,7 @@ class PhaneronServer:
         return wrap(cc.chip or 0), None
 
     async def start(self) -> None:
+        tracer.start()
         # channels, one per configured consumer (index.ts:156-168);
         # a failing consumer must not kill the server
         for i, cc in enumerate(self.config.channels, start=1):

@@ -23,8 +23,10 @@ before and after), the device time per step by kernel (self device time
 of the device-side events in key_averages), the device's busy share of
 the step, the number of device operations per step, and the host time
 of each stage (record_function ranges that chip_smoke.InterlacedLoad
-opens through its ``stage`` hook, and that ``profile_runtime`` opens
-around the runtime's parts of a tick).  Exits 1 without CUDA.
+opens through its ``stage`` hook).  The runtime's steps are read through
+the port's tracer (``phaneron_tpu_torch/utils/metrics.py``) instead:
+each of its spans' host ms per step and the device ms of the operations
+launched inside it (tools/span_trace.py).  Exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ import argparse
 import os
 import sys
 import time
+from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
+import span_trace as st  # noqa: E402
 
 
 def device_us(evt) -> float:
@@ -58,24 +62,69 @@ def host_ms(torch, step, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def profile(torch, name: str, step, steps: int, card: str) -> None:
+def print_spans(prof, anchors: list, spans: list, steps: int) -> None:
+    """Each of the tracer's spans recorded over the profiled steps: host ms
+    and count per step (every thread; ``consumer.deliver`` by channel, as
+    each channel has its own consumers), and the device ms per step of the
+    operations launched with it the innermost span open on the event loop
+    thread."""
+    ops, lag, drift = st.device_ops(st.export_events(prof), anchors)
+    loop = st.loop_thread(spans)
+    dev = st.by_span(ops, spans, loop)
+    host: dict = defaultdict(lambda: [0.0, 0])
+    for s in spans:
+        key = f"{s.name} ch{s.chan}" if s.name == "consumer.deliver" else s.name
+        host[key][0] += (s.end - s.start) * 1e-9
+        host[key][1] += 1
+    ties = ("no launch event of the markers" if lag is None else
+            f"the trace's device clock {lag * 1e6:.1f} us off its host clock, drifting {drift * 1e6:.1f} us; "
+            f"{st.late_launches(ops)} of {len(ops)} device ops with their launch after their start")
+    print(f"   tracer spans (profiled): {ties}")
+    for name in sorted(set(host) | {k for k in dev if k is not None}):
+        h, n = host.get(name, (0.0, 0))
+        d, k = dev.get(name, (0.0, 0))
+        print(f"   span {name:<22} host {1e3 * h / steps:9.4f} ms x{n / steps:5.1f}, device {1e3 * d / steps:9.4f} "
+              f"ms x{k / steps:5.1f} per step")
+    d, k = dev.get(None, (0.0, 0))
+    print(f"   launched outside every span (or with no launch event): device {1e3 * d / steps:9.4f} ms "
+          f"x{k / steps:5.1f} per step")
+
+
+def profile(torch, name: str, step, steps: int, card: str, spans: bool = False) -> None:
+    """``spans``: record the tracer's spans over the profiled steps too,
+    and tie them to the card with a marker before and after each step
+    (``print_spans``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
+
+    from phaneron_tpu_torch.utils.metrics import tracer
 
     for _ in range(3):
         step()
     wall = host_ms(torch, step, max(steps, 5))
     torch.cuda.synchronize()
+    anchors, was_on = [], tracer.on
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+        if spans:
+            tracer.record()
+            anchors.append(st.mark(torch, "cuda"))
+        for i in range(steps):
             step()
+            if spans and i < steps - 1:
+                anchors.append(st.mark(torch, "cuda"))
         torch.cuda.synchronize()
+        if spans:
+            anchors.append(st.mark(torch, "cuda"))  # the card idle, as at the first
+            torch.cuda.synchronize()
+    recorded = tracer.drain() if spans else []
+    if not was_on:
+        tracer.stop()
     events = prof.key_averages()
     on_device = lambda e: e.device_type == DeviceType.CUDA
     # device-side events only: the host-side op that launched a kernel
     # carries the same device time
-    kernels = [e for e in events if on_device(e) and not e.key.startswith("stage:")]
+    kernels = [e for e in events if on_device(e) and not e.key.startswith("stage:") and st.MARKER not in e.key]
     busy = sum(device_us(e) for e in kernels) / steps / 1e3
     launches = sum(e.count for e in kernels) / steps
     print(f"== {name} on {card}: host-clock {wall:.4f} ms per step (no profiler), device busy "
@@ -90,50 +139,28 @@ def profile(torch, name: str, step, steps: int, card: str) -> None:
         if e.key.startswith("stage:") and not on_device(e):
             print(f"   stage {e.key[6:]:<12} host {e.cpu_time_total / steps / 1e3:9.4f} ms "
                   f"per step (profiled)")
+    if spans:
+        print_spans(prof, anchors, recorded, steps)
 
 
-def profile_runtime(torch, dev, periods: int, card: str, record_function) -> None:
+def profile_runtime(torch, dev, periods: int, card: str) -> None:
     """The default load through the port's runtime (chip_smoke.py
     runtime_interlaced_set: four 1080i50 Channels, each four dissolving
     test-pattern layers under MIXER FILL), one frame period (two ticks of
-    each channel, render_frame and deliver) a step, with a stage range
-    around each part of a tick: ``layer_poll`` (Layer.poll, which holds
-    ``slot_tick``, SourceSlot.tick with its unpack and pair deinterlace,
-    and ``slot_audio``, SourceSlot.audio_tick), ``dispatch``
-    (Channel._dispatch, the frame program) and ``deliver``."""
+    each channel, render_frame and deliver) a step, read through the
+    tracer's spans: ``channel.tick``, ``layer.poll`` (which holds
+    ``slot.video``, SourceSlot.tick with its unpack and pair deinterlace,
+    and ``slot.audio``), ``channel.dispatch`` (the frame program, with its
+    ``program.*`` stages), ``channel.amix``."""
     import asyncio
 
-    from phaneron_tpu_torch.runtime.channel import Channel
-    from phaneron_tpu_torch.runtime.layer import Layer, SourceSlot
-
-    def ranged(cls, name: str, stage: str) -> None:
-        orig = getattr(cls, name)
-
-        async def call(self, *args, **kw):
-            with record_function(f"stage:{stage}"):
-                return await orig(self, *args, **kw)
-
-        setattr(cls, name, call)
-
-    ranged(Layer, "poll", "layer_poll")
-    ranged(SourceSlot, "tick", "slot_tick")
-    ranged(SourceSlot, "audio_tick", "slot_audio")
-    dispatch = Channel._dispatch
-
-    def ranged_dispatch(self, spec, contribs):
-        with record_function("stage:dispatch"):
-            return dispatch(self, spec, contribs)
-
-    Channel._dispatch = ranged_dispatch
     loop = asyncio.new_event_loop()
     chans = loop.run_until_complete(cs.runtime_interlaced_set(dev, plain=False))
-    for ch, consumer in chans:
-        ranged(type(consumer), "deliver", "deliver")
     for _ in range(2 * cs.RUNTIME_FILL_PERIODS):
         loop.run_until_complete(cs.runtime_tick(chans))
     period = lambda: [loop.run_until_complete(cs.runtime_tick(chans)) for _ in (0, 1)]
     profile(torch, "runtime: 4 x 1080i50 Channels (render_frame + deliver), one frame period", period,
-            periods, card)
+            periods, card, spans=True)
     for ch, _ in chans:
         loop.run_until_complete(ch.shutdown())
     loop.close()
@@ -163,7 +190,7 @@ def main() -> int:
 
     profile(torch, "interlaced default load, 4 x 1080i50, one frame period", load,
             args.periods, card)
-    profile_runtime(torch, dev, args.periods, card, record_function)
+    profile_runtime(torch, dev, args.periods, card)
 
     spec, params = cs.entry_spec_params(rng, dev)
     program = make_channel_program(spec)

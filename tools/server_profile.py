@@ -24,9 +24,10 @@ thread, the loop's lag probed the same way.  Last, with every consumer
 attached and the paced loops stopped, it profiles server periods (each channel's two ticks,
 render_frame and deliver, with the consumers' drains) under
 torch.profiler (tools/port_profile.py ``profile``): device busy, kernels
-by name, and the host time of each stage — ``layer_poll``,
-``dispatch``, and each consumer's ``deliver_<name>``.  The card's name
-and power limit head the output.
+by name, and the port tracer's spans — host and device ms of
+``layer.poll``, ``channel.dispatch`` and the frame program's stages, and
+of each channel's ``consumer.deliver`` (the consumer each channel has is
+printed first).  The card's name and power limit head the output.
 """
 
 from __future__ import annotations
@@ -140,9 +141,10 @@ async def paced_window(server, seconds: float) -> str:
             lags.append(time.perf_counter() - a - 0.005)
 
     probe_task = asyncio.create_task(probe())
+    from phaneron_tpu_torch.utils.metrics import tracer
+
     before = {n: (ch.timestamp, ch.clock.late_frames) for n, ch in server.channels.items()}
-    for ch in server.channels.values():
-        ch.frame_times.clear()
+    tracer.reset()  # the server started it: render p50 of the window's ticks
     t0 = time.perf_counter()
     await asyncio.sleep(seconds)
     window = time.perf_counter() - t0
@@ -207,35 +209,12 @@ async def run_ingest(decode: str, out_dir: str, seconds: float) -> None:
 
 def profile_period(torch, card: str, out_dir: str, periods: int) -> None:
     """Server periods with every consumer, the paced loops stopped, under
-    torch.profiler with a stage range around each part of a tick."""
-    from torch.profiler import record_function
-
-    from phaneron_tpu_torch.runtime.channel import Channel
-    from phaneron_tpu_torch.runtime.layer import Layer
-
-    def ranged(obj, name: str, stage: str) -> None:
-        orig = getattr(obj, name)
-
-        async def call(*args, **kw):
-            with record_function(f"stage:{stage}"):
-                return await orig(*args, **kw)
-
-        setattr(obj, name, call)
-
+    torch.profiler with the tracer's spans recorded."""
     loop = asyncio.new_event_loop()
     server, reader = loop.run_until_complete(start_set("all", out_dir, []))
     loop.run_until_complete(cs.stop_paced(server))
-    ranged(Layer, "poll", "layer_poll")
-    dispatch = Channel._dispatch
-
-    def ranged_dispatch(self, spec, contribs):
-        with record_function("stage:dispatch"):
-            return dispatch(self, spec, contribs)
-
-    Channel._dispatch = ranged_dispatch
-    for n, ch in server.channels.items():
-        for c in ch.consumers:
-            ranged(c, "deliver", f"deliver_{server.config.channels[n - 1].device['name']}")
+    print("consumers: " + ", ".join(f"channel {n} {server.config.channels[n - 1].device.get('name')}"
+                                    for n in server.channels))
     chans = list(server.channels.values())
 
     def period():
@@ -245,8 +224,7 @@ def profile_period(torch, card: str, out_dir: str, periods: int) -> None:
         loop.run_until_complete(asyncio.sleep(0))  # the preview and MJPEG drains take their step
 
     pp.profile(torch, "server: 4 x 1080i50 channels with file, file, preview and MJPEG consumers, "
-                      "one frame period", period, periods, card)
-    Channel._dispatch = dispatch
+                      "one frame period", period, periods, card, spans=True)
     loop.run_until_complete(stop_set(server, reader))
     pending = asyncio.all_tasks(loop)
     for task in pending:  # the streams' pumps and the last drains end with the server
