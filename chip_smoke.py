@@ -72,7 +72,10 @@ Run from the repository root:  python3 chip_smoke.py
    quads, a width not a multiple of 4, odd heights; C 3 and 4 into the
    packs, random and ramps; each plane, or the RGB frame, one sample off
    its alignment at two sizes), the unpacks max |delta| 0, the packs'
-   max code delta printed (<= 1, expected 0);
+   max code delta printed (<= 1, expected 0); rgb8_unpack (rgba8 and
+   bgra8) at 3840x2160, 1920x1080, 1917x1079, 130x7 and 5x3 on random
+   planes, under the analytic 709 transfer and the sRGB LUT, each plane
+   also 4 bytes off its alignment, max |delta| 0 and one launch a call;
    and the stage programs of every format against their plain versions:
    make_unpack_program at channels 3 and 4 (max |delta| 0),
    make_pack_program, make_interlaced_pack_program("yuv420p") and
@@ -136,8 +139,8 @@ Run from the repository root:  python3 chip_smoke.py
      sRGB) and file (nv12) consumer stage programs; at 1080p the l2g
      corrections are dropped first and the program's prepare(), called
      twice, must build them once.  A frame: 1
-     planar422_unpack (10 bit), 2 planar420_unpack, 1 warp pair, torch
-     ops for the rgba8 decode and the combine, 1 planar422_pack, then 1
+     planar422_unpack (10 bit), 2 planar420_unpack, 1 rgb8_unpack, 1 warp
+     pair, torch ops for the combine, 1 planar422_pack, then 1
      planar420_pack and the rgba8 pack in torch ops; every plane <= 1 code
      from the plain path's, the rgba frame within 2e-4 with the graphic's
      alpha;
@@ -148,8 +151,8 @@ Run from the repository root:  python3 chip_smoke.py
      quadrants (a yuv422p10le clip; a 1280x720 yuv420p clip, src_size,
      dissolving to a 1280x720 nv12 clip; an nv12 clip) under the keyed
      rgba8 graphic at title-safe scale 0.95.  A frame: 1 planar422_unpack
-     (10 bit), 3 planar420_unpack, torch ops for the two resizes and the
-     rgba8 decode, 1 packed_composite (rgba kind, top alpha; emit both
+     (10 bit), 3 planar420_unpack, 1 rgb8_unpack, torch ops for the two
+     resizes, 1 packed_composite (rgba kind, top alpha; emit both
      into v210, rgba then 1 planar422_pack into yuv422p10le); no warp,
      combine_pack, v210_pack or torch combine;
    - progressive_yuv422p10le: the progressive 4-layer frame at 1920x1080
@@ -158,8 +161,8 @@ Run from the repository root:  python3 chip_smoke.py
    - keyed_straggler: the keyed rgba8 graphic over two yuv422p8 -> nv12
      boxes over a rotated v210 clip, 1920x1080 into v210 with emit_rgba,
      the boxes' mixes animating 0 -> 1.  A frame: 1 v210_unpack, 1 rotate,
-     2 planar422_unpack, 2 planar420_unpack, 1 packed_composite over the
-     boxes (rgba kind, emit rgba, coverage alpha), 1 warp for the graphic,
+     2 planar422_unpack, 2 planar420_unpack, 1 rgb8_unpack, 1
+     packed_composite over the boxes (rgba kind, emit rgba, coverage alpha), 1 warp for the graphic,
      which stays staged, the torch combine and 1 v210_pack; the rgba
      frame carries the graphic's own warped alpha;
    - runtime (``phase_runtime``): port Channels (runtime/channel.py) with
@@ -221,8 +224,8 @@ Run from the repository root:  python3 chip_smoke.py
      markers, the captured s32 audio, late_frames 0); the file media
      through the server's AMCP on the default config (a v210 AVI, an MJPG
      AVI, a keyed PNG sequence over BARS, a WAV bed, one a channel; 3
-     v210_unpack, 1 yadif_pair, 2 fused_v210, 4 v210_pack and 2
-     combine_pack a period; every frame 0 codes from the twins, the WAV's
+     v210_unpack, 1 yadif_pair, 2 fused_v210, 4 v210_pack, 2
+     combine_pack and 4 rgb8_unpack (none without Pillow) a period; every frame 0 codes from the twins, the WAV's
      samples equal); the cluster ingest (channel 4's MJPEG stream played
      by channel 2 over HTTP, paced: each checked part equal to the plain
      decode of its JPEG, the event loop's lag); the ffmpeg pair over stub
@@ -246,8 +249,9 @@ Run from the repository root:  python3 chip_smoke.py
    fill_buf ramps (coherent content, beside the random words); K2 at
    3840x2160 (C 3 and 4) and on the one_rotation emit_rgba and keyed
    paths' frames, B5 on the mixed 4-layer stack and the one_rotation and
-   wipe paths' 2-layer stacks at both sizes (v210_pack_inputs); rotate
-   also at 0 degrees; K4 also at the media picture in picture and the UHD
+   wipe paths' 2-layer stacks at both sizes (v210_pack_inputs);
+   rgb8_unpack on the media channel's graphic at 1920x1080 (its record)
+   and 3840x2160; rotate also at 0 degrees; K4 also at the media picture in picture and the UHD
    wipe frame's shape, B6 under two matrices; and packed_composite's,
    rotate's and B6's window/direct counts at every timed shape (for B6
    the entry pair, alone and under two matrices), none of which may leave
@@ -301,6 +305,7 @@ FP32_FLOPS = 67e12
 OPS_G2L = 4  # phn::g2l: scale, rint, max, min (the table gather is a load)
 OPS_L2G = 8  # phn::l2g: scale, rint, max, min, scale, then offset, scale, powf
 OPS_DECODE_PX = 3 * 6 + 3 * OPS_G2L + 3 * 5  # 3x4 matrix, transfers, 3x3 gamut
+OPS_RGB8_DECODE_PX = 3 * 5  # rgb8_unpack: the 3x3 gamut (the transfer is a gather)
 OPS_ENCODE_PX = 3 * OPS_L2G + 9 + 9  # transfers, luma row, two chroma rows every other pixel
 OPS_WARP_PX = 18  # per output pixel and matrix: ix, iy, px, py, floor and fraction
 OPS_WARP_SAMPLE = 12  # sample(): three lerps
@@ -1387,6 +1392,42 @@ def phase_planar_unpack_sweep(torch, dev, rng, rec: dict) -> None:
               f"off its alignment at {PLANAR_UNALIGNED}) max |kernel - plain| = {x:.3e} (<= {TOL_UNPACK})")
         check(x <= TOL_UNPACK, f"{kernel} sweep error {x}")
         rec[kernel]["max_abs_err"] = max(rec[kernel]["max_abs_err"], x)
+    torch.cuda.synchronize()
+
+
+RGB8_SIZES = ((UHD_W, UHD_H), (W, H), (1917, 1079), (130, 7), (5, 3))
+
+
+def phase_rgb8_unpack(torch, dev, rng, rec: dict) -> None:
+    """rgb8_unpack (rgba8, bgra8) against its plain version, max |delta|
+    0, at every size of RGB8_SIZES (a pixel count not a multiple of 4 at
+    1917x1079 and 5x3) on seeded random planes, under the analytic
+    transfer (709 -> 709) and the reference LUT (sRGB -> 709), each plane
+    also 4 bytes off its 16-byte alignment (the kernel's one-load-a-pixel
+    path, chosen in the C entry); one launch a call."""
+    from phaneron_tpu_torch.ops import kernels as K
+
+    e, cases = 0.0, 0
+    for w, h in RGB8_SIZES:
+        plane = torch.from_numpy(rng.integers(0, 256, (h, w, 4), dtype=np.uint8)).to(dev)
+        buf = torch.empty(plane.numel() + 4, dtype=torch.uint8, device=dev)
+        moved = buf[4:].view(plane.shape)
+        moved.copy_(plane)
+        for name in ("rgba8", "bgra8"):
+            for col_spec, gamma_mode in (("709", "analytic"), ("sRGB", "lut")):
+                want = K.rgb8_unpack_plain([plane], w, h, col_spec, "709", name, gamma_mode)
+                for src in (plane, moved):
+                    before = K.rgb8_unpack.launches
+                    got = K.rgb8_unpack([src], w, h, col_spec, "709", name, gamma_mode)
+                    check(K.rgb8_unpack.launches == before + 1, f"rgb8_unpack {name} {w}x{h}: launches "
+                                                                 f"{K.rgb8_unpack.launches - before}")
+                    e = max(e, float((got - want).abs().max()))
+                    cases += 1
+    sizes = ", ".join(f"{w}x{h}" for w, h in RGB8_SIZES)
+    print(f"rgb8_unpack ({cases} cases: rgba8 and bgra8 at {sizes}; random planes, analytic 709 and LUT sRGB; "
+          f"each plane also 4 bytes off its alignment) max |kernel - plain| = {e:.3e} (<= {TOL_UNPACK})")
+    check(e <= TOL_UNPACK, f"rgb8_unpack error {e}")
+    rec["rgb8_unpack"] = dict(max_abs_err=e)
     torch.cuda.synchronize()
 
 
@@ -2978,13 +3019,14 @@ MEDIA_IO_BOX = (0.25, 0.25, 0.5, 0.5)  # MIXER FILL of the ffmpeg channel's yuv4
 # tick
 SDI_PATH_LAUNCHES = {"v210_unpack": 1, "yadif_pair": 1, "combine_pack": 2}
 # the four file channels a period: 1 the v210 AVI cut (fused_v210 a tick);
-# 2 the MJPG AVI (torch rgba8 decode, v210_pack a tick); 3 BARS (K1 and
-# yadif_pair a frame) under the keyed PNG (torch decode), combine_pack a
-# tick; 4 the WAV's black (K1 and v210_pack a tick, emitting the MJPEG
-# stream's rgba).  Without Pillow channel 2 is empty (its transparent
-# frame through v210_pack a tick) and channel 3's BARS alone through
-# combine_pack: the same launches.
-MEDIA_FILES_LAUNCHES = {"v210_unpack": 3, "yadif_pair": 1, "fused_v210": 2, "v210_pack": 4, "combine_pack": 2}
+# 2 the MJPG AVI (rgb8_unpack and v210_pack a tick); 3 BARS (K1 and
+# yadif_pair a frame) under the keyed PNG (rgb8_unpack a tick),
+# combine_pack a tick; 4 the WAV's black (K1 and v210_pack a tick,
+# emitting the MJPEG stream's rgba).  Without Pillow channel 2 is empty
+# (its transparent frame through v210_pack a tick) and channel 3's BARS
+# alone through combine_pack: the same launches but rgb8_unpack's.
+MEDIA_FILES_LAUNCHES = {"v210_unpack": 3, "yadif_pair": 1, "fused_v210": 2, "v210_pack": 4, "combine_pack": 2,
+                        "rgb8_unpack": 4}
 # the ffmpeg channel a tick: K3 10-bit (full frame), B12 (the box's
 # source) and K4 (its DVE), the torch combine and v210_pack (the channel
 # emits rgba for the consumer), the consumer's planar422_pack
@@ -3357,7 +3399,8 @@ def media_io_files(torch, dev, card: str, run_path, arun, out_dir, record: dict,
             for n, ch in chans.items():
                 frames[n].append(arun(server_tick(ch)))
 
-    run_path("media_io_files", MEDIA_FILES_LAUNCHES, MEDIA_IO_PERIODS, files_path)
+    launches = MEDIA_FILES_LAUNCHES if have_pil else dict(MEDIA_FILES_LAUNCHES, rgb8_unpack=0)
+    run_path("media_io_files", launches, MEDIA_IO_PERIODS, files_path)
     for _ in range(MEDIA_IO_WARM_TICKS + 2 * MEDIA_IO_PERIODS):
         for n, twin in twins.items():
             tframes[n].append(arun(twin.render_frame()))
@@ -4153,6 +4196,7 @@ def main() -> int:
     phase_planar_kernels(torch, dev, media_rng, rec)
     phase_planar_unpack_sweep(torch, dev, np.random.default_rng(SEED + 11), rec)
     phase_planar_pack_sweep(torch, dev, np.random.default_rng(SEED + 13), rec)
+    phase_rgb8_unpack(torch, dev, np.random.default_rng(SEED + 19), rec)
     phase_stage_program_checks(torch, dev, media_rng)
     multibox_rng = np.random.default_rng(SEED + 6)
     phase_composite_modes(torch, dev, multibox_rng, rec)
@@ -4164,7 +4208,7 @@ def main() -> int:
         "packed_composite": PW.packed_composite, "fused_v210": K.fused_v210,
         "combine_pack": K.combine_pack, "packed_warp": PW.packed_warp, "rotate": R.rotate,
         "planar422_pack": K.planar422_pack, "planar420_unpack": K.planar420_unpack,
-        "planar420_pack": K.planar420_pack,
+        "planar420_pack": K.planar420_pack, "rgb8_unpack": K.rgb8_unpack,
     }
     launches = {k: {} for k in wrappers}
     mode_launches = {}  # path -> packed_composite launches by (src_kind, emit, alpha)
@@ -4463,8 +4507,8 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.2f} s, max code delta vs plain path {worst}, rgba and "
                   "top-layer alpha checked")
 
-        run_path(path, {"planar422_unpack": 1, "planar420_unpack": 2, "warp": 1, "planar422_pack": 1,
-                        "planar420_pack": 1}, MEDIA_FRAMES, media_path)
+        run_path(path, {"planar422_unpack": 1, "planar420_unpack": 2, "rgb8_unpack": 1, "warp": 1,
+                        "planar422_pack": 1, "planar420_pack": 1}, MEDIA_FRAMES, media_path)
         media_animate(torch, mparams, dev, 0.5)
         timing[path] = time_frame(torch, card, path, media, plain_media, mparams)
         media_args[(w, h)] = (mparams, media.program(mparams)["rgba"])
@@ -4474,7 +4518,7 @@ def main() -> int:
     # with the top layer's alpha
     multibox_args = {}
     no_tail = {"combine": 0, "_top_alpha_fixup": 0}
-    unpacks = {"planar422_unpack": 1, "planar420_unpack": 3}
+    unpacks = {"planar422_unpack": 1, "planar420_unpack": 3, "rgb8_unpack": 1}
     for w, h, fmt, emit_rgba in ((W, H, "v210", True), (UHD_W, UHD_H, "v210", True), (W, H, "yuv422p10le", False)):
         check_quadrants(torch, dev, w, h)
         bspec, bparams = multibox_spec_params(torch, dev, multibox_rng, w, h, fmt, emit_rgba)
@@ -4532,7 +4576,7 @@ def main() -> int:
               f"key on top), max code delta vs plain path {worst}, rgba and the graphic's alpha checked")
 
     run_path(path, {"v210_unpack": 1, "rotate": 1, "planar422_unpack": 2, "planar420_unpack": 2,
-                    "packed_composite": 1, "warp": 1, "v210_pack": 1}, STRAGGLER_FRAMES, keyed_path,
+                    "rgb8_unpack": 1, "packed_composite": 1, "warp": 1, "v210_pack": 1}, STRAGGLER_FRAMES, keyed_path,
              modes={("rgba", "rgba", "coverage"): 1}, tail={"combine": 1, "_top_alpha_fixup": 0})
     kanimate(0.5)
     timing[path] = time_frame(torch, card, path, kprog, kplain, kparams)
@@ -4646,6 +4690,8 @@ def main() -> int:
     p10_args = (m_lps[0]["src"], W, H, "709", "709", "yuv422p10le")
     y420_args = (m_lps[1]["src"], W, H, "709", "709", "yuv420p")
     nv12_args = (m_lps[1]["src_b"], W, H, "709", "709", "nv12")
+    rgb8_args = (m_lps[2]["src"], W, H, "709", "709", "rgba8")
+    uhd_rgb8_args = (media_args[(UHD_W, UHD_H)][0]["layers"][2]["src"], UHD_W, UHD_H, "709", "709", "rgba8")
     planar_px = H * y422_pitch(W)  # samples of a luma plane, pitch included
     top = straggler_args[f"one_rotation_{UHD_W}x{UHD_H}"][1]["layers"][3]
     rot_args = (K.v210_unpack(top["src"], UHD_W, UHD_H)[0], top["matrix"])
@@ -4690,9 +4736,12 @@ def main() -> int:
         "planar420_pack": (call(K.planar420_pack, (m_rgba, "nv12")), call(K.planar420_pack_plain, (m_rgba, "nv12")),
                            rgb + 1.5 * planar_px, OPS_ENCODE_420_PX * px,
                            "nv12 from the media channel's (4, H, W) frame, 1920x1080 (file consumer)"),
+        "rgb8_unpack": (call(K.rgb8_unpack, rgb8_args), call(K.rgb8_unpack_plain, rgb8_args),
+                        4 * px + rgba, OPS_RGB8_DECODE_PX * px,
+                        "rgba8, the keyed lower third, 1920x1080 (media path)"),
     }
     slow_plain = ("yadif_ring", "yadif_pair", "packed_composite", "packed_warp", "rotate")
-    none = "none (no single PyTorch call computes a planar decode or encode)"
+    none = "none (no single PyTorch call computes a planar or RGB decode, or an encode)"
     meta = {
         "v210_unpack": ("phaneron_tpu_torch/csrc/v210_unpack.cu", "phaneron_tpu/ops/pallas_kernels.py:341"),
         "v210_pack": ("phaneron_tpu_torch/csrc/combine_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:546"),
@@ -4710,6 +4759,8 @@ def main() -> int:
         "planar420_unpack": ("phaneron_tpu_torch/csrc/planar420_unpack.cu",
                              "phaneron_tpu/ops/pallas_kernels.py:1206"),
         "planar420_pack": ("phaneron_tpu_torch/csrc/planar420_pack.cu", "phaneron_tpu/ops/pallas_kernels.py:1296"),
+        "rgb8_unpack": ("phaneron_tpu_torch/csrc/rgb8_unpack.cu", "none (XLA in the JAX package: phaneron_tpu/ops/io.py "
+                        "to_rgba)"),
     }
     grid_sample = lambda args: (lambda: torch.nn.functional.grid_sample(
         *args, mode="bilinear", padding_mode="zeros", align_corners=False))
@@ -4759,7 +4810,7 @@ def main() -> int:
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP; "
               f"{bound_ms / kernel_ms:.1%} of it reached)"
               + (f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library_ms else "")
-              + (f", library {none}" if name.startswith("planar") else ""))
+              + (f", library {none}" if name.startswith(("planar", "rgb8")) else ""))
         source, replaces = meta[name]
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4879,6 +4930,9 @@ def main() -> int:
         "planar420_unpack (nv12, 1920x1080, media path)": (
             call(K.planar420_unpack, nv12_args), call(K.planar420_unpack_plain, nv12_args),
             1.5 * planar_px + rgba, OPS_DECODE_PX * px),
+        "rgb8_unpack (rgba8, the keyed lower third, 3840x2160, media path)": (
+            call(K.rgb8_unpack, uhd_rgb8_args), call(K.rgb8_unpack_plain, uhd_rgb8_args),
+            20.0 * UHD_W * UHD_H, OPS_RGB8_DECODE_PX * UHD_W * UHD_H),
     }
     other.update(timed_shapes(torch, dev))
     modes = {}  # kernel name -> its other shapes and modes, for the kernels line
@@ -4887,7 +4941,7 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, ops)
         library_ms = device_ms(torch, grid_sample(library[0])) if library else None
         extra = f", grid_sample {library_ms:.4f} ms (the same sources, no mix)" if library else ""
-        if label.startswith("planar"):
+        if label.startswith(("planar", "rgb8")):
             extra = f", library {none}"
         print(f"{label} on {card}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GOP){extra}")

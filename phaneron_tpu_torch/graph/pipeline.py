@@ -44,7 +44,7 @@ Routes, in the order they are chosen:
    unpacked; every other v210 slot of the frame (wipe masks included)
    unpacks in one K1 launch, planar 4:2:2 slots (8 or 10 bit) through
    K3, 4:2:0 slots (yuv420p, nv12) through B12, RGB slots (rgba8, bgra8)
-   in torch ops, deinterlaced slots through the yadif ring kernel, other
+   through ``rgb8_unpack``, deinterlaced slots through the yadif ring kernel, other
    axis-aligned DVE layers, their dissolves and wipes through K4, rotated ones through
    ``rotate.rotate`` (B14).  Opaque alpha-free (3, H, W) sources take the
    3-channel route of the JAX package (``(rgb, wy, wx)`` tuples whose
@@ -57,7 +57,7 @@ Routes, in the order they are chosen:
 
 The output format's pack (``_pack_frame``): K2 for v210, B11 for planar
 4:2:2 (8 or 10 bit), B13 for yuv420p and nv12, torch ops for rgba8 and
-bgra8.
+bgra8 (whose unpack is ``rgb8_unpack``; their pack has no kernel).
 
 A wrapper given CPU tensors runs its plain version, so on the CPU the
 whole program is plain PyTorch.  The JAX package picks its TPU kernels
@@ -241,20 +241,21 @@ class _Stages(NamedTuple):
     packed_warp: Callable
     combine_pack: Callable
     rotate: Callable
+    rgb8_unpack: Callable
 
 
 _KERNELS = _Stages(
     kernels.v210_unpack, kernels.planar422_unpack, kernels.planar420_unpack, warp_mod.warp,
     kernels.v210_pack, kernels.planar422_pack, kernels.planar420_pack, yadif.yadif_ring,
     yadif.yadif_pair, packed_warp.packed_composite, packed_warp.packed_warp,
-    kernels.combine_pack, rotate_mod.rotate,
+    kernels.combine_pack, rotate_mod.rotate, kernels.rgb8_unpack,
 )
 _PLAIN = _Stages(
     kernels.v210_unpack_plain, kernels.planar422_unpack_plain, kernels.planar420_unpack_plain,
     warp_mod.warp_plain, kernels.v210_pack_plain, kernels.planar422_pack_plain,
     kernels.planar420_pack_plain, yadif.yadif_ring_plain, yadif.yadif_pair_plain,
     packed_warp.packed_composite_plain, packed_warp.packed_warp_plain,
-    kernels.combine_pack_plain, rotate_mod.rotate_plain,
+    kernels.combine_pack_plain, rotate_mod.rotate_plain, kernels.rgb8_unpack_plain,
 )
 
 
@@ -363,14 +364,13 @@ def _unpack_planes(
     out_col_spec: str, gamma_mode: str = "analytic",
 ) -> torch.Tensor:
     """The planes of one non-v210 source -> linear RGBA (4, H, W): K3 for
-    planar 4:2:2 (8 or 10 bit), B12 for 4:2:0, torch ops for the RGB
+    planar 4:2:2 (8 or 10 bit), B12 for 4:2:0, rgb8_unpack for the RGB
     formats (JAX ``_unpack``)."""
     if fmt_name in kernels.PLANAR422:
         return st.planar422_unpack(planes, width, height, col_spec, out_col_spec, fmt_name)
     if fmt_name in kernels.PLANAR420:
         return st.planar420_unpack(planes, width, height, col_spec, out_col_spec, fmt_name)
-    loader = kernels.format_loader(fmt_name, col_spec, out_col_spec, planes[0].device, gamma_mode)
-    return fio.to_rgba(get_format(fmt_name), planes, loader, width, height)
+    return st.rgb8_unpack(planes, width, height, col_spec, out_col_spec, fmt_name, gamma_mode)
 
 
 def _pack_frame(
@@ -846,8 +846,9 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     one-time device work of the structure before its first frame (the
     fused v210 kernel's transfer corrections; the l2g corrections that the
     output's pack reads: K2 or B5 into v210, whose use the frame's sources
-    decide, B11 or B13 into a planar format), so that no frame hides a
-    launch or a host wait; frames run without it too.  Each program made
+    decide, B11 or B13 into a planar format; the gamma'->linear table an
+    RGB source's rgb8_unpack reads), so that no frame hides a launch, an
+    upload or a host wait; frames run without it too.  Each program made
     (a cache miss) counts one ``program.structures`` on the tracer."""
     tracer.count("program.structures")
     if _fused_v210_ok(spec):
@@ -857,11 +858,16 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
         return _channel_frame(spec, params, plain, band)
 
     encoded_out = spec.out_format in (_V210,) + kernels.PLANAR422 + kernels.PLANAR420
+    rgb_formats = {fmt for ls in spec.layers for _, fmt in _slot_formats(ls) if fmt in kernels.RGB8}
 
     def prepare(device) -> None:
         device = torch.device(device)
-        if not plain and encoded_out and device.type == "cuda":
+        if plain or device.type != "cuda":
+            return
+        if encoded_out:
             kernels.l2g_corrections_on(spec.out_col_spec, device)
+        for fmt in rgb_formats:
+            kernels.rgb8_unpack_args(fmt, spec.col_spec, spec.out_col_spec, spec.gamma_mode, device)
 
     program.prepare = prepare
     return program
@@ -891,7 +897,7 @@ def make_unpack_program(
     linear (channels, H, W) float32.  ``channels=3`` emits alpha-free
     frames for opaque wire formats (alpha would be the constant 1), the
     frames of the 3-channel deinterlace ring.  v210 goes through K1; every
-    other format through ``_unpack_planes`` (K3, B12 or torch ops),
+    other format through ``_unpack_planes`` (K3, B12 or rgb8_unpack),
     sliced to 3 channels where asked (as the JAX package's off-route path
     does)."""
     _analytic_only(gamma_mode)

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "phn_planar422_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_unpack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_planar420_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "phn_rgb8_unpack": (_P, _P, _I, _I, _I, _P, _P, _P),
     "phn_warp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "phn_rotate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "phn_yadif_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I, _P),

@@ -22,12 +22,14 @@ Counterpart of phaneron_tpu/ops/pallas_kernels.py.  Each kernel has:
 | planar420_pack     | csrc/planar420_pack.cu       | make_planar420_pack_rgba                                   |
 | fused_v210         | csrc/fused_v210.cu           | make_fused_v210_program (_make_kernel)                     |
 | combine_pack       | csrc/combine_pack.cu         | make_v210_combine_pack                                     |
+| rgb8_unpack        | csrc/rgb8_unpack.cu          | none: the JAX package decodes rgba8 and bgra8 in XLA       |
 
 The planar wrappers take the format by name (yuv422p8 or yuv422p10le for
 4:2:2, yuv420p or nv12 for 4:2:0) and key their coefficients, sample
-type and pad codes on its INFO.  The RGB formats (rgba8, bgra8) have no
-kernel: ops/io.py decodes and encodes them in torch ops, as the JAX
-package does in XLA.
+type and pad codes on its INFO; rgb8_unpack takes rgba8 or bgra8 by name
+and keys the byte order on its CHANNEL_ORDER.  The RGB formats' encode
+has no kernel: ops/io.py packs them in torch ops, as the JAX package
+does in XLA.
 
 Every decode gathers gamma'->linear from ops/gamma.py g2l_table; the
 kernels receive the same table on their device (``g2l_table_on``).  Every
@@ -69,8 +71,12 @@ __all__ = [
     "planar420_unpack_plain",
     "planar420_pack",
     "planar420_pack_plain",
+    "rgb8_unpack",
+    "rgb8_unpack_plain",
+    "rgb8_unpack_args",
     "PLANAR422",
     "PLANAR420",
+    "RGB8",
     "decode_args",
     "format_loader",
     "format_saver",
@@ -89,6 +95,7 @@ MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
 MAX_LAYERS = 8  # layers per combine_pack launch (kMaxLayers in csrc/phn_common.cuh)
 PLANAR422 = ("yuv422p10le", "yuv422p10", "yuv422p", "yuv422p8")  # K3 / B10, B11
 PLANAR420 = ("yuv420p", "nv12")  # B12, B13
+RGB8 = ("rgba8", "rgba", "bgra8", "bgra")  # rgb8_unpack
 
 
 # ------------------------------------------------------------- helpers
@@ -534,6 +541,70 @@ def planar420_unpack(
 
 
 planar420_unpack.launches = 0
+
+
+# ------------------------------------------- rgba8 / bgra8 unpack
+
+
+def rgb8_unpack_plain(
+    planes: Sequence[torch.Tensor], width: int, height: int,
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "rgba8",
+    gamma_mode: str = "analytic",
+) -> torch.Tensor:
+    """Plain version of rgb8_unpack: ops/io.py to_rgba in torch ops."""
+    fmt = _planar_format(fmt_name, RGB8, "rgb8_unpack")
+    loader = format_loader(fmt_name, col_spec, out_col_spec, planes[0].device, gamma_mode)
+    return to_rgba(fmt, list(planes), loader, width, height)
+
+
+@lru_cache(maxsize=None)
+def _gamut_coeffs(col_spec: str, out_col_spec: str) -> ctypes.Array:
+    return _c_floats(cm.rgb2rgb_matrix(col_spec, out_col_spec))
+
+
+@lru_cache(maxsize=None)
+def rgb8_unpack_args(
+    fmt_name: str, col_spec: str, out_col_spec: str, gamma_mode: str, device: torch.device,
+) -> tuple[int, int, int]:
+    """(gamut array address, table pointer, R's byte position) of an RGB
+    format's decode on ``device``: the table the plain version gathers
+    from (g2l_table_on, or the reference LUT under gamma_mode 'lut')."""
+    r_byte = _planar_format(fmt_name, RGB8, "rgb8_unpack").CHANNEL_ORDER[0]
+    loader = format_loader(fmt_name, col_spec, out_col_spec, device, gamma_mode)
+    table = loader.gamma.lut if gamma_mode == "lut" else g2l_table_on(col_spec, device)
+    return ctypes.addressof(_gamut_coeffs(col_spec, out_col_spec)), table.data_ptr(), r_byte
+
+
+def rgb8_unpack(
+    planes: Sequence[torch.Tensor], width: int, height: int,
+    col_spec: str = "709", out_col_spec: str = "709", fmt_name: str = "rgba8",
+    gamma_mode: str = "analytic",
+) -> torch.Tensor:
+    """One (H, W, 4) uint8 plane of 8-bit RGBA in the format's byte order
+    (rgba8 R, G, B, A; bgra8 B, G, R, A) -> linear RGBA (4, H, W) float32:
+    each byte through gamma'->linear at index code * 257, alpha too, then
+    the 3x3 gamut on R, G and B.  ``gamma_mode`` 'lut' gathers from the
+    reference's LUT in place of g2l_table, as the plain version does."""
+    _planar_format(fmt_name, RGB8, "rgb8_unpack")
+    if len(planes) != 1:
+        raise ValueError(f"rgb8_unpack: {fmt_name} has one plane, got {len(planes)}")
+    px = planes[0]
+    if is_cpu(px, "rgb8_unpack"):
+        return rgb8_unpack_plain(planes, width, height, col_spec, out_col_spec, fmt_name, gamma_mode)
+    dev = px.device
+    check_arg(px, "rgb8_unpack plane", dev, torch.uint8, (height, width, 4))
+    gamut, table, r_byte = rgb8_unpack_args(fmt_name, col_spec, out_col_spec, gamma_mode, dev)
+    out = torch.empty((4, height, width), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().phn_rgb8_unpack(
+            px.data_ptr(), out.data_ptr(), width, height, r_byte, gamut, table, stream_handle(dev),
+        )
+    check_launch(rc, "rgb8_unpack")
+    rgb8_unpack.launches += 1
+    return out
+
+
+rgb8_unpack.launches = 0
 
 
 # ---------------------------------------------- B13 planar 4:2:0 pack

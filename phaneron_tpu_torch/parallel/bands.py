@@ -65,7 +65,7 @@ BAND_KERNELS = {
     "planar420_pack": kernels.planar420_pack, "yadif_ring": yadif.yadif_ring,
     "packed_composite": packed_warp.packed_composite, "packed_warp": packed_warp.packed_warp,
     "combine_pack": kernels.combine_pack, "fused_v210": kernels.fused_v210,
-    "rotate": rotate_mod.rotate,
+    "rotate": rotate_mod.rotate, "rgb8_unpack": kernels.rgb8_unpack,
 }
 
 

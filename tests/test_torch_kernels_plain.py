@@ -172,7 +172,7 @@ def test_build_sources_and_flags():
     assert names == [
         "combine_pack.cu", "fused_v210.cu", "l2g_corrections.cu", "packed_composite.cu", "packed_warp.cu",
         "phn_common.cuh", "planar420_pack.cu", "planar420_unpack.cu", "planar422_pack.cu",
-        "planar422_unpack.cu", "rotate.cu", "v210_unpack.cu", "warp.cu", "yadif.cu",
+        "planar422_unpack.cu", "rgb8_unpack.cu", "rotate.cu", "v210_unpack.cu", "warp.cu", "yadif.cu",
     ]
     flags = " ".join(_build.nvcc_flags())
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
