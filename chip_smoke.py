@@ -2172,6 +2172,62 @@ async def runtime_tick(chans) -> list:
     return frames
 
 
+async def runtime_structure_change(torch, dev) -> dict:
+    """A structure's capture runs off the event loop: kernel channel A,
+    warm on entry()'s structure (a replay a tick), ticks on the loop while
+    channel B's first frame of a new structure (entry()'s with a yuv420p
+    top) prepares, runs and captures on B's worker thread.  A must tick on
+    all the while, each frame within TOL_CODES of its plain twin's (ticked
+    after), and B's structure must be captured once."""
+    import asyncio
+
+    from phaneron_tpu_torch.config import get_video_format
+    from phaneron_tpu_torch.graph.replay import graphs
+    from phaneron_tpu_torch.producer.producer import LoadParams
+    from phaneron_tpu_torch.utils.metrics import tracer
+
+    fmt, box = get_video_format("1080p5000"), (0.05, 0.0, 0.9, 1.0)
+    chans = []
+    for cid, plain, top in ((40, False, "BARS@yuv422p8"), (41, True, "BARS@yuv422p8"), (42, False, "BARS@yuv420p")):
+        ch, consumer = await runtime_channel(dev, cid, fmt, plain)
+        await runtime_dissolve(ch, 1, "BARS", "RAMP", box)
+        check(await ch.load_source(2, LoadParams(top)) and ch.play(2), f"runtime: LOAD {top}")
+        await ch.wait_prewarmed()
+        chans.append((ch, consumer))
+    a, a_plain, (b_ch, _) = chans
+    for _ in range(2):  # A's structure's first (prepared, captured) tick, then one warm
+        await runtime_tick([a, a_plain])
+    captures = tracer.counters().get("program.graph_captures", 0)
+
+    async def cold():
+        t0 = time.perf_counter()
+        await runtime_tick(chans[2:])
+        return time.perf_counter() - t0
+
+    task = asyncio.ensure_future(cold())
+    stamps, frames = [time.perf_counter()], []
+    while not task.done():
+        frames += await runtime_tick([a])
+        stamps.append(time.perf_counter())
+    cold_s = await task
+    gaps = [y - x for x, y in zip(stamps, stamps[1:])]
+    b_spec = b_ch._spec(tuple(b_ch._last_layer_specs[n] for n in sorted(b_ch._last_layer_specs)))
+    check(graphs.holds(b_spec, b_ch.device) and graphs.refusals.get(b_spec) is None,
+          f"runtime structure change: B's structure not captured ({graphs.refusals.get(b_spec)})")
+    check(tracer.counters().get("program.graph_captures", 0) == captures + 1,
+          "runtime structure change: B's first frame did not capture once")
+    check(len(gaps) >= 5 and max(gaps) < 0.5 * cold_s,
+          f"runtime structure change: A ticked {len(gaps)} times in B's {1e3 * cold_s:.1f} ms first frame, "
+          f"its longest gap {1e3 * max(gaps, default=0):.1f} ms")
+    worst = 0
+    for t, frame in enumerate(frames):
+        worst = max(worst, runtime_compare(torch, [frame], await runtime_tick([a_plain]), W, H,
+                                           f"runtime structure change tick {t}"))
+    for ch, _ in chans:
+        await ch.shutdown()
+    return dict(cold_ms=1e3 * cold_s, a_ticks=len(gaps), a_max_gap_ms=1e3 * max(gaps), worst_codes=worst)
+
+
 async def runtime_interlaced_set(dev, plain: bool) -> list:
     """The default load through the runtime (configs/quad_1080i_1chip.json):
     per channel four layers, each a dissolve from BARS to RAMP (v210
@@ -2376,6 +2432,185 @@ def phase_composite_modes(torch, dev, rng, rec: dict) -> None:
     torch.cuda.synchronize()
 
 
+GRAPH_TICKS = 8  # ticks each structure is checked over: the capture's, then replays
+GRAPH_HELD = 3  # outputs held across as many later replays
+GRAPH_TRACE_TICKS = 20  # ticks the device trace counts launches over
+GRAPH_HOST_TICKS = 40  # ticks whose host time is read, replay and eager in turns
+
+
+def same_bytes(torch, a, b) -> bool:
+    """Two tensors of one shape and type hold the same bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def cycled(params: dict, k: int) -> dict:
+    """The params of each source's k-th frame: every source plane rolled k
+    along its axis 1, as new tensors (each frame of a clip arrives in its
+    own planes); the rest as they are."""
+    import torch
+
+    def roll(p):  # CUDA has no uint16 roll: the bits, as int16
+        return p.view(torch.int16).roll(k, dims=1).view(p.dtype) if p.dtype == torch.uint16 else p.roll(k, dims=1)
+
+    layers = []
+    for lp in params["layers"]:
+        d = dict(lp)
+        for key in ("src", "src_b", "mask"):
+            if isinstance(d.get(key), list):
+                d[key] = [roll(p) for p in d[key]]
+        layers.append(d)
+    return {"layers": layers}
+
+
+def graph_cases(torch, dev, rng) -> list:
+    """(name, spec, params, animate(params, t), what the runner does with
+    it) for the cell uhd_rec.media's structure and chip_smoke's staged
+    structures: 'replay', 'eager' (a torch op holds a tick's tensor) or
+    'bypass' (not the staged route)."""
+    cases = []
+    for w, h in ((UHD_W, UHD_H), (W, H)):
+        spec, params = media_spec_params(torch, dev, rng, w, h)
+        manimate = lambda p, t: media_animate(torch, p, dev, t)
+        cases.append((f"media_{w}x{h}", spec._replace(emit_rgba=False), params, manimate, "replay"))
+        if (w, h) == (W, H):
+            cases.append((f"media_emit_rgba_{w}x{h}", spec, params, manimate, "eager"))
+    spec, params = entry_spec_params(rng, dev)
+    cases.append((f"entry_{W}x{H}", spec, params, lambda p, t: animate(torch, p, dev, t), "replay"))
+    for variant in ("one_rotation", "wipe", "rotated_pair"):
+        spec, params = straggler_spec_params(torch, dev, W, H, variant)
+        cases.append((f"{variant}_{W}x{H}", spec, params,
+                      lambda p, t, v=variant: straggler_animate(torch, p, dev, W, H, v, t), "replay"))
+    kspec, kparams = keyed_straggler_spec_params(torch, dev, rng, W, H)
+    kanimate = lambda p, t: keyed_straggler_animate(torch, p, dev, t)
+    cases.append((f"keyed_straggler_{W}x{H}", kspec._replace(emit_rgba=False), kparams, kanimate, "replay"))
+    cases.append((f"keyed_straggler_emit_rgba_{W}x{H}", kspec, kparams, kanimate, "eager"))
+    bspec, bparams = multibox_spec_params(torch, dev, rng, W, H, "yuv422p10le", False)
+    cases.append((f"multibox_yuv422p10le_{W}x{H}", bspec, bparams, lambda p, t: media_animate(torch, p, dev, t),
+                  "bypass"))
+    return cases
+
+
+def graph_trace(torch, fn, ticks: int) -> tuple:
+    """(device operations a tick, their names) of ``ticks`` calls of fn
+    under torch.profiler (the card's kernels, copies and fills)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    ops = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return len(ops) / ticks, sorted({e["name"] for e in ops})
+
+
+def phase_graph(torch, dev, card: str, rng, run_path, timing: dict) -> None:
+    """A warm channel-tick as one CUDA graph replay (graph/replay.py), on
+    the cell uhd_rec.media's structure and each staged chip_smoke
+    structure: the first frame eager, then its capture (with the runner's
+    own check of a replay against it), then GRAPH_TICKS ticks with each
+    source's frames cycled and the MIX weight and matrices moving, each
+    replayed tick equal to the eager tick bit for bit; GRAPH_HELD replayed outputs unchanged across as many
+    later replays (each output is its consumer's); the runner's counts;
+    for the cell's structure at UHD, launches a tick from the device trace
+    and host ms a tick, replay against eager."""
+    from phaneron_tpu_torch.graph import replay
+    from phaneron_tpu_torch.graph.pipeline import make_channel_program
+    from phaneron_tpu_torch.utils.metrics import tracer
+
+    runner = replay.GraphRunner()
+    flat = lambda out: replay.flatten_out(out)[0]
+    names = ("program.graph_captures", "program.graph_replays", "program.graph_eager_ticks.structure",
+             "program.graph_eager_ticks.alignment")
+    record = {}
+    cases = graph_cases(torch, dev, rng)
+    for name, spec, params, animate, expected in cases:
+        program = make_channel_program(spec)
+        program.prepare(dev)
+        before = tracer.counters()
+        # the structure's first frame, eager, then its capture, as a channel's cold dispatch
+        runner.capture(spec, program, params, dev, program(params))
+
+        def ticks():
+            for k in range(GRAPH_TICKS):
+                p = cycled(params, k)
+                animate(p, k / (GRAPH_TICKS - 1))
+                got, want = flat(runner.run(spec, program, p, dev)), flat(program(p))
+                differ = [(i, int((g.contiguous().view(torch.uint8) != x.contiguous().view(torch.uint8)).sum()))
+                          for i, (g, x) in enumerate(zip(got, want)) if not same_bytes(torch, g, x)]
+                check(len(got) == len(want) and not differ,
+                      f"graph {name} tick {k}: the replayed frame differs from the eager frame (output, bytes): "
+                      f"{differ}; counts {tracer.counters()}; refusals {runner.refusals}")
+
+        if name == f"media_{UHD_W}x{UHD_H}":  # each tick one replay and one eager frame
+            run_path(f"graph_{name}", {"planar422_unpack": 1, "planar420_unpack": 2, "rgb8_unpack": 1, "warp": 1,
+                                       "planar422_pack": 1}, 2 * GRAPH_TICKS, ticks)
+        else:
+            ticks()
+        after = tracer.counters()
+        counts = {n: after.get(n, 0) - before.get(n, 0) for n in names}
+        status = ("replay" if counts["program.graph_replays"] == GRAPH_TICKS else
+                  "eager" if counts["program.graph_eager_ticks.structure"] == GRAPH_TICKS else
+                  "bypass" if not any(counts.values()) else f"mixed {counts}")
+        check(status == expected, f"graph {name}: {status}, expected {expected} "
+                                  f"({runner.refusals.get(spec, 'no refusal')})")
+        if status == "replay":
+            check(counts["program.graph_captures"] == 1, f"graph {name}: {counts['program.graph_captures']} captures")
+            held = []
+            for k in range(GRAPH_HELD):
+                out = flat(runner.run(spec, program, cycled(params, 20 + k), dev))
+                held.append((out, [t.clone() for t in out]))
+            for k in range(GRAPH_HELD):
+                runner.run(spec, program, cycled(params, 30 + k), dev)
+            torch.cuda.synchronize()
+            check(all(same_bytes(torch, t, c) for out, copy in held for t, c in zip(out, copy)),
+                  f"graph {name}: a later replay wrote into a held output")
+        record[name] = dict(status=status, counts=counts, refusal=runner.refusals.get(spec))
+        print(f"graph {name}: {status}, {GRAPH_TICKS} ticks equal to eager bit for bit"
+              + (f", {GRAPH_HELD} held outputs unchanged across {GRAPH_HELD} replays" if status == "replay" else "")
+              + f"; counts {counts}" + (f"; eager because {runner.refusals[spec]}" if spec in runner.refusals else ""))
+
+    # the cell's structure at UHD: launches and host ms a tick, replay and eager
+    _, spec, params, _, _ = cases[0]
+    program = make_channel_program(spec)
+    p = cycled(params, 1)
+    media_animate(torch, p, dev, 0.25)
+    replayed = graph_trace(torch, lambda: runner.run(spec, program, p, dev), GRAPH_TRACE_TICKS)
+    eager = graph_trace(torch, lambda: program(p), GRAPH_TRACE_TICKS)
+    # the names must match; the counts are printed (the profiler may drop a
+    # few events of a busy slice: one eager trace read 25.95 of 28 a tick)
+    check(replayed[1] == eager[1],
+          f"graph media: replayed kernels {replayed[1]} against eager {eager[1]}")
+    host = {"replay": [], "eager": []}
+    for i in range(GRAPH_HOST_TICKS):
+        for way, fn in (("replay", lambda: runner.run(spec, program, p, dev)), ("eager", lambda: program(p))):
+            t0 = time.perf_counter()
+            fn()
+            host[way].append(1e3 * (time.perf_counter() - t0))
+        if i % 4 == 3:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    record["media_uhd"] = dict(device_ops_per_tick=dict(replay=replayed[0], eager=eager[0]),
+                               kernels=replayed[1], host_ms_median={k: statistics.median(v) for k, v in host.items()})
+    timing["graph"] = record
+    print(f"graph media {UHD_W}x{UHD_H} on {card}: {replayed[0]:g} device ops a tick replayed, {eager[0]:g} eager; "
+          f"host ms a tick (median of {GRAPH_HOST_TICKS}) replay {statistics.median(host['replay']):.4f}, eager "
+          f"{statistics.median(host['eager']):.4f}; kernels in the trace {replayed[1]}")
+    print(json.dumps({"graph": record}, default=str))
+
+
 def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> None:
     """The runtime on the card: port Channels (runtime/channel.py) with
     test-pattern sources, on one event loop.  (a) The default load's four
@@ -2481,6 +2716,12 @@ def phase_runtime(torch, dev, card: str, run_path, stage_load, timing: dict) -> 
         print(f"{path}: a warm tick ran under torch.cuda.set_sync_debug_mode('error')")
         for ch, _ in pair:
             arun(ch.shutdown())
+
+    change = timing["runtime_structure_change"] = arun(runtime_structure_change(torch, dev))
+    print(f"runtime structure change: channel A ticked {change['a_ticks']} times (longest gap "
+          f"{change['a_max_gap_ms']:.2f} ms, max code delta vs its plain twin {change['worst_codes']}) while "
+          f"channel B's first frame of a new structure prepared and captured on its worker thread in "
+          f"{change['cold_ms']:.1f} ms")
 
     # the four 1080i50 kernel channels paced by Channel.run on the event loop
     from phaneron_tpu_torch.utils.metrics import tracer
@@ -4580,6 +4821,9 @@ def main() -> int:
              modes={("rgba", "rgba", "coverage"): 1}, tail={"combine": 1, "_top_alpha_fixup": 0})
     kanimate(0.5)
     timing[path] = time_frame(torch, card, path, kprog, kplain, kparams)
+
+    # -------- phase 7e2: a warm channel-tick as one CUDA graph replay
+    phase_graph(torch, dev, card, np.random.default_rng(SEED + 21), run_path, timing)
 
     # -------- phase 7f: the runtime (port Channels through render_frame and Channel.run)
     phase_runtime(torch, dev, card, run_path, load, timing)

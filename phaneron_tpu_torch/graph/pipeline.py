@@ -755,7 +755,7 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False,
     with tracer.span("program.sources"):
         srcs = _sources(spec, params, st, skip=b6, band=band)
     height = spec.height if band is None else band.n
-    if run is not None and run.alpha == "top":  # the whole stack in one launch
+    if _whole_stack(run):  # the whole stack in one launch
         with tracer.span("program.layers"):
             out = _dispatch_packed_composite(spec, params, srcs, run, st, band)
         if run.emit == "packed":
@@ -797,6 +797,11 @@ def _channel_frame(spec: ChannelSpec, params: dict, plain: bool = False,
     return {"packed": packed, "rgba": composited} if spec.emit_rgba else packed
 
 
+def _whole_stack(run: Optional[_Run]) -> bool:
+    """The packed composite run is the whole stack: one launch (route 2)."""
+    return run is not None and run.alpha == "top"
+
+
 def _fused_v210_ok(spec: ChannelSpec) -> bool:
     """The fused v210 program covers the structure (JAX
     ``supported_spec``): a v210 output and a top layer that is a v210
@@ -828,6 +833,7 @@ def _fused_v210_program(spec: ChannelSpec, plain: bool):
             kernels.fused_v210_corrections_on(spec.col_spec, spec.out_col_spec, device)
 
     program.prepare = prepare
+    program.staged = lambda params: False
     return program
 
 
@@ -848,7 +854,9 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
     output's pack reads: K2 or B5 into v210, whose use the frame's sources
     decide, B11 or B13 into a planar format; the gamma'->linear table an
     RGB source's rgb8_unpack reads), so that no frame hides a launch, an
-    upload or a host wait; frames run without it too.  Each program made
+    upload or a host wait; frames run without it too.
+    ``program.staged(params)`` is True where these params take the staged
+    route (route 3, graph/replay.py captures only it).  Each program made
     (a cache miss) counts one ``program.structures`` on the tracer."""
     tracer.count("program.structures")
     if _fused_v210_ok(spec):
@@ -870,6 +878,7 @@ def make_channel_program(spec: ChannelSpec, plain: bool = False):
             kernels.rgb8_unpack_args(fmt, spec.col_spec, spec.out_col_spec, spec.gamma_mode, device)
 
     program.prepare = prepare
+    program.staged = lambda params: not _whole_stack(_packed_composite_run(spec, params))
     return program
 
 

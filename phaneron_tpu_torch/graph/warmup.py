@@ -29,6 +29,7 @@ from ..ops import _build
 from ..ops.formats import get_format
 from ..runtime.frame import RGBA_F32
 from .pipeline import ChannelSpec, LayerSpec, make_channel_program
+from .replay import capture_lock
 
 __all__ = ["TensorSpec", "dummy_params", "prewarm"]
 
@@ -91,7 +92,8 @@ def dummy_params(spec: ChannelSpec) -> dict:
 def _prepare(spec: ChannelSpec, device: torch.device, plain: bool) -> None:
     if device.type == "cuda" and not plain:
         _build.library()
-    make_channel_program(spec, plain=plain).prepare(device)
+    with capture_lock:  # no CUDA graph capture while it launches
+        make_channel_program(spec, plain=plain).prepare(device)
 
 
 async def prewarm(spec: ChannelSpec, device: torch.device | str = "cuda", plain: bool = False) -> None:

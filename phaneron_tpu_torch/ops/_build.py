@@ -12,7 +12,9 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: nvcc would
 otherwise contract ``a*b + c`` into one fused multiply-add, which rounds
 differently from the plain PyTorch versions and the JAX reference.
 Division and ``powf`` stay IEEE / full precision (no fast-math).
-``nvcc_flags()`` adds the -D defines of the constants a kernel shares
+The link adds the CUDA driver library (``-lcuda``, from the toolkit's
+stubs; the CUDA driver's own at run time) for csrc/graph_rebind.cu's graph
+calls.  ``nvcc_flags()`` adds the -D defines of the constants a kernel shares
 with its plain version (``nvcc_defines`` of ops/rotate.py and
 ops/packed_warp.py).
 
@@ -53,10 +55,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
 # argtypes of every exported function: pointers and the stream as
 # c_void_p (a plain int would be cut to 32 bits), sizes as c_int, plane
-# strides as c_longlong
+# strides as c_longlong, byte counts as c_size_t
 _SIGNATURES = {
     "phn_v210_unpack": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "phn_v210_pack": (_P, _P, _I, _I, _I, _P, _P, _P),
@@ -76,6 +78,9 @@ _SIGNATURES = {
     "phn_l2g_corrections": (_P, _P, _P, _P),
     "phn_combine_pack": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
     "phn_packed_warp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "phn_graph_nodes": (_P, _P, _P),
+    "phn_graph_node": (_P, _P, _P, _P, _S, _P, _P, _S, _P, _P),
+    "phn_graph_rebind": (_P, _P, _P, _P, _P, _I, _P),
 }
 
 
@@ -117,8 +122,13 @@ def _nvcc() -> str:
     return found
 
 
+def _link_flags(nvcc: str) -> list[str]:
+    """The CUDA driver library, linked against the toolkit's stub."""
+    return [f"-L{Path(nvcc).resolve().parent.parent / 'lib64' / 'stubs'}", "-lcuda"]
+
+
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags() + ("-lcuda",)).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -148,7 +158,7 @@ def _compile(out: Path, srcs: list[Path]) -> str:
                 zip(cus, objs),
             ))
         tmp = str(Path(tmp_dir) / out.name)
-        logs.append(_run([nvcc, "-shared", "-o", tmp, *objs], "link"))
+        logs.append(_run([nvcc, "-shared", "-o", tmp, *objs, *_link_flags(nvcc)], "link"))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     log = "".join(logs)
     out.with_suffix(".log").write_text(log)

@@ -42,6 +42,8 @@ phn_common.cuh ``v210_segments``): K2 launches it over one layer.
 from __future__ import annotations
 
 import ctypes
+import threading
+from contextlib import contextmanager
 from functools import lru_cache
 from typing import NamedTuple, Sequence
 
@@ -89,6 +91,8 @@ __all__ = [
     "MAX_LAYERS",
     "Rows",
     "check_window",
+    "launched",
+    "recording",
 ]
 
 MAX_SRCS = 8  # sources per v210_unpack launch (kMaxSrcs in csrc/v210_unpack.cu)
@@ -180,6 +184,33 @@ def check_arg(
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+_recorder = threading.local()
+
+
+def launched(wrapper) -> None:
+    """Count one launch of a kernel wrapper: its ``launches``, or on a
+    thread inside ``recording()`` (a CUDA graph capture: nothing runs) the
+    recording's count."""
+    counts = getattr(_recorder, "counts", None)
+    if counts is None:
+        wrapper.launches += 1
+    else:
+        counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+@contextmanager
+def recording():
+    """{wrapper: launches} of this thread's launches while inside, which
+    leave the wrappers' ``launches`` as they were (graph/replay.py adds
+    them to those counters at each replay)."""
+    counts: dict = {}
+    _recorder.counts = counts
+    try:
+        yield counts
+    finally:
+        _recorder.counts = None
 
 
 def stream_handle(device: torch.device) -> int:
@@ -321,7 +352,7 @@ def v210_unpack(
                 width, height, groups, channels, coeffs, g2l, stream,
             )
             check_launch(rc, "v210_unpack")
-            v210_unpack.launches += 1
+            launched(v210_unpack)
     return outs
 
 
@@ -358,7 +389,7 @@ def v210_pack(rgb: torch.Tensor, out_col_spec: str = "709") -> torch.Tensor:
             ctypes.addressof(_encode_coeffs(out_col_spec)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "v210_pack")
-    v210_pack.launches += 1
+    launched(v210_pack)
     return out
 
 
@@ -404,7 +435,7 @@ def planar422_unpack(
             width, height, p, p // 2, info.num_bits, coeffs, g2l, stream_handle(y.device),
         )
     check_launch(rc, "planar422_unpack")
-    planar422_unpack.launches += 1
+    launched(planar422_unpack)
     return out
 
 
@@ -436,7 +467,7 @@ def l2g_corrections_on(out_col_spec: str, device: torch.device) -> torch.Tensor:
             stream_handle(device),
         )
         check_launch(rc, "l2g corrections")
-        l2g_corrections_on.launches += 1
+        launched(l2g_corrections_on)
         if int(bad.item()):
             raise RuntimeError(f"l2g corrections: {int(bad.item())} of {out_col_spec} do not fit a byte")
     return corr
@@ -483,7 +514,7 @@ def planar422_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
             ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "planar422_pack")
-    planar422_pack.launches += 1
+    launched(planar422_pack)
     return [y, u, v]
 
 
@@ -536,7 +567,7 @@ def planar420_unpack(
             width, height, p, cp, interleaved, coeffs, g2l, stream_handle(dev),
         )
     check_launch(rc, "planar420_unpack")
-    planar420_unpack.launches += 1
+    launched(planar420_unpack)
     return out
 
 
@@ -600,7 +631,7 @@ def rgb8_unpack(
             px.data_ptr(), out.data_ptr(), width, height, r_byte, gamut, table, stream_handle(dev),
         )
     check_launch(rc, "rgb8_unpack")
-    rgb8_unpack.launches += 1
+    launched(rgb8_unpack)
     return out
 
 
@@ -647,7 +678,7 @@ def planar420_pack(rgb: torch.Tensor, fmt_name: str, out_col_spec: str = "709") 
             ctypes.addressof(_encode_coeffs(out_col_spec, fmt_name)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "planar420_pack")
-    planar420_pack.launches += 1
+    launched(planar420_pack)
     return planes
 
 
@@ -695,7 +726,7 @@ def fused_v210_corrections_on(col_spec: str, out_col_spec: str, device: torch.de
             ctypes.addressof(_g2l_consts(col_spec)), stream_handle(device),
         )
         check_launch(rc, "fused_v210 corrections")
-        fused_v210_corrections_on.launches += 1
+        launched(fused_v210_corrections_on)
         if int(bad.item()):
             raise RuntimeError(f"fused_v210: {int(bad.item())} gamma'->linear corrections of {col_spec} "
                                "do not fit a byte")
@@ -760,7 +791,7 @@ def fused_v210(
             fused_v210_corrections_on(col_spec, out_col_spec, dev).data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "fused_v210")
-    fused_v210.launches += 1
+    launched(fused_v210)
     return out
 
 
@@ -836,7 +867,7 @@ def combine_pack(layers: Sequence, out_col_spec: str = "709") -> torch.Tensor:
             ctypes.addressof(_encode_coeffs(out_col_spec)), corr.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "combine_pack")
-    combine_pack.launches += 1
+    launched(combine_pack)
     return out
 
 

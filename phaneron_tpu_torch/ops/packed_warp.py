@@ -75,6 +75,7 @@ from .kernels import (
     check_launch,
     check_window,
     is_cpu,
+    launched,
     stream_handle,
     v210_decode_args,
     v210_pack_plain,
@@ -253,7 +254,7 @@ def packed_warp(
             None if branches is None else branches.data_ptr(), stream_handle(dev),
         )
     check_launch(rc, "packed_warp")
-    packed_warp.launches += 1
+    launched(packed_warp)
     return out
 
 
@@ -446,7 +447,7 @@ def packed_composite(
             int(alpha == "top"), ptr(branches), stream_handle(dev),
         )
     check_launch(rc, "packed_composite")
-    packed_composite.launches += 1
+    launched(packed_composite)
     if emit == "packed":
         return words
     return rgba if emit == "rgba" else (words, rgba)

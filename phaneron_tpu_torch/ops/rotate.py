@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from .geometry import warp_affine
-from .kernels import Rows, check_arg, is_cpu
+from .kernels import Rows, check_arg, is_cpu, launched
 from .warp import launch_pair, mix_pair, pair_args
 
 __all__ = ["rotate", "rotate_plain", "affine_window", "window_counts", "nvcc_defines"]
@@ -179,7 +179,7 @@ def rotate(
     out = launch_pair("rotate", "phn_rotate", src, mat, src_b, mix, mat_b, mask,
                       Rows.full(src.shape[1]) if rows is None else rows,
                       extra=(None if branches is None else branches.data_ptr(),))
-    rotate.launches += 1
+    launched(rotate)
     return out
 
 

@@ -26,7 +26,7 @@ import torch
 from ._build import library
 from .composite import mix_frames, wipe_mask
 from .geometry import _bilinear_setup, _out_coords, warp_axis_aligned
-from .kernels import Rows, _check_mix, check_arg, check_launch, check_window, is_cpu, stream_handle
+from .kernels import Rows, _check_mix, check_arg, check_launch, check_window, is_cpu, launched, stream_handle
 
 __all__ = ["warp", "warp_plain", "warp_alpha_vectors", "pair_args", "mix_pair", "launch_pair"]
 
@@ -118,7 +118,7 @@ def warp(
         return warp_plain(src, mat, src_b, mix, mat_b, mask, rows)
     out = launch_pair("warp", "phn_warp", src, mat, src_b, mix, mat_b, mask,
                       Rows.full(src.shape[1]) if rows is None else rows)
-    warp.launches += 1
+    launched(warp)
     return out
 
 

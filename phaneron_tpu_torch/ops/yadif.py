@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from ._build import library
-from .kernels import Rows, check_arg, check_launch, check_window, is_cpu, stream_handle
+from .kernels import Rows, check_arg, check_launch, check_window, is_cpu, launched, stream_handle
 
 __all__ = [
     "yadif_frame",
@@ -251,7 +251,7 @@ def yadif_ring(prev, cur, next_, parity, tff: bool, skip_spatial: bool = False,
             next_.stride(0), int(tff), int(skip_spatial), int(opaque), stream_handle(dev),
         )
     check_launch(rc, "yadif_ring")
-    yadif_ring.launches += 1
+    launched(yadif_ring)
     return out
 
 
@@ -274,7 +274,7 @@ def yadif_pair(prev, cur, next_, tff: bool, skip_spatial: bool = False,
             c, h, w, int(tff), int(skip_spatial), int(opaque), stream_handle(dev),
         )
     check_launch(rc, "yadif_pair")
-    yadif_pair.launches += 1
+    launched(yadif_pair)
     return out0, out1
 
 

@@ -101,8 +101,8 @@ class TestPatternProducer(Producer):
             for i in range(self.n_phases):
                 phase = float(np.float32(i / max(self.n_phases * 8, 1)))
                 self._frames.append(pack(_pattern_rgba(self.kind, w, h, phase, self.device)))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":  # this thread's stream: no device-wide wait during a graph capture
+                torch.cuda.current_stream(self.device).synchronize()
 
         await asyncio.to_thread(build)
 

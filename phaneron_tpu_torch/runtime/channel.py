@@ -27,7 +27,10 @@ the group's first device, where its producers upload and its consumers
 read.  A ROUTE tap of it gets its frame as the bands left it, which a
 row-sharded channel reshards band to band and any other gathers.  The first frame of a structure is prepared
 (``program.prepare``) and run on a worker thread; later frames of it
-run inline and never make the host wait for the card.
+run inline and never make the host wait for the card.  On the card a
+single-device kernel channel's first frame of a structure also captures
+it, on that worker thread, and its later frames replay the structure's
+CUDA graph where the structure allows (graph/replay.py).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ..audio.engine import amix, silence
 from ..config import VideoFormat
 from ..consumer.consumer import ChannelFrame, Consumer
 from ..graph.pipeline import ChannelSpec, LayerSpec, make_channel_program, make_pack_program
+from ..graph.replay import capture_lock, graphs
 from ..graph.warmup import prewarm
 from ..ops.composite import transparent
 from ..parallel.bands import check_sp, make_sp_channel_program
@@ -134,6 +138,9 @@ class Channel:
         self.gamma_mode = gamma_mode
         self.device = _channel_device(device)
         self.plain = plain
+        # warm ticks go through graph/replay.py: kernel channels on one card
+        self._replays = self.device.type == "cuda" and not plain and self._sp_mesh is None
+        self._cold = False  # inside _dispatch_cold: the frame runs eager, then captures
         self.layers: dict[int, Layer] = {}
         self.consumers: list[Consumer] = []
         self.clock = FrameClock(fmt.timescale, fmt.duration)
@@ -415,7 +422,13 @@ class Channel:
     def _dispatch(self, spec: ChannelSpec, contribs):
         """Run the frame program: (packed planes, rgba frame or None).  An
         empty channel packs a transparent frame (the frame program of no
-        layers: black, alpha 0).  A row-sharded channel runs its bands."""
+        layers: black, alpha 0).  A row-sharded channel runs its bands.  A
+        kernel channel on the card goes through ``graph/replay.py``
+        ``graphs``: the structure's first frame (``_dispatch_cold``) runs
+        eager and then captures the structure; a warm one runs its CUDA
+        graph, rebound to the tick's planes, where the structure allows.
+        A warm structure whose capture was dropped (``MAX_GRAPHS``) runs
+        eager once and goes cold again, to be captured anew."""
         if self._sp_mesh is not None:
             out = self._sp_program(spec)({"layers": [c.params for c in self._pin(contribs)]})
             return (out["packed"], out["rgba"]) if isinstance(out, dict) else (out, None)
@@ -424,22 +437,37 @@ class Channel:
             pack = make_pack_program(self.out_format, self.fmt.width, self.fmt.height,
                                      self.col_spec, self.gamma_mode, self.plain)
             return pack(rgba), (rgba if spec.emit_rgba else None)
-        contribs = self._pin(contribs)
-        out = make_channel_program(spec, plain=self.plain)({"layers": [c.params for c in contribs]})
+        params = {"layers": [c.params for c in self._pin(contribs)]}
+        program = make_channel_program(spec, plain=self.plain)
+        if not self._replays:
+            out = program(params)
+        elif self._cold:
+            out = program(params)
+            graphs.capture(spec, program, params, self.device, out)
+        else:
+            if not graphs.holds(spec, self.device):
+                self._warm_specs.discard(spec)
+            out = graphs.run(spec, program, params, self.device)
         if isinstance(out, dict):
             return out["packed"], out["rgba"]
         return out, None
 
     def _dispatch_cold(self, spec: ChannelSpec, contribs):
         """A structure's first frame, on a worker thread: its one-time
-        device work first, so that later frames hold no host wait."""
+        device work first, so that later frames hold no host wait, and the
+        structure's CUDA graph capture after it.  It holds ``capture_lock``
+        while it launches: no other thread's capture runs meanwhile."""
         tracer.count("channel.cold_dispatches")
-        with tracer.span("channel.dispatch_cold", self.chan_id):
+        with tracer.span("channel.dispatch_cold", self.chan_id), capture_lock:
             if self._sp_mesh is not None:
                 self._sp_program(spec).prepare()
             elif spec.layers:
                 make_channel_program(spec, plain=self.plain).prepare(self.device)
-            return self._dispatch(spec, contribs)
+            self._cold = True
+            try:
+                return self._dispatch(spec, contribs)
+            finally:
+                self._cold = False
 
     async def render_frame(self) -> ChannelFrame:
         """Assemble and dispatch one channel frame (the per-tick hot path)."""
@@ -460,9 +488,10 @@ class Channel:
 
         spec = self._spec(tuple(c.spec for c in contribs))
         # A structure's first frame prepares its tables (a host wait each)
-        # on a worker thread, so it stalls only this channel, never the
-        # event loop.  Once a spec has dispatched it is warm: its frames
-        # enqueue their kernels and return, so warm ticks run inline.
+        # and captures its CUDA graph on a worker thread, so it stalls only
+        # this channel, never the event loop.  Once a spec has dispatched it
+        # is warm: its frames enqueue their kernels (or one replay) and
+        # return, so warm ticks run inline.
         if spec in self._warm_specs:
             with tracer.span("channel.dispatch", self.chan_id):
                 packed, rgba = self._dispatch(spec, contribs)

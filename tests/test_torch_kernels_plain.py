@@ -170,7 +170,8 @@ def test_build_sources_and_flags():
     the wrappers on a machine that may have no nvcc)."""
     names = sorted(p.name for p in _build.sources())
     assert names == [
-        "combine_pack.cu", "fused_v210.cu", "l2g_corrections.cu", "packed_composite.cu", "packed_warp.cu",
+        "combine_pack.cu", "fused_v210.cu", "graph_rebind.cu", "l2g_corrections.cu", "packed_composite.cu",
+        "packed_warp.cu",
         "phn_common.cuh", "planar420_pack.cu", "planar420_unpack.cu", "planar422_pack.cu",
         "planar422_unpack.cu", "rgb8_unpack.cu", "rotate.cu", "v210_unpack.cu", "warp.cu", "yadif.cu",
     ]
